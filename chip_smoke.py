@@ -16,7 +16,10 @@ Phases, each of which raises on failure:
 5. the core FFT lengths of the reference benchmark against numpy float64;
 6. CUDA-event timings of the kernel, its plain version, the stage pipeline
    and ``torch.fft`` at the kernel-eligible shapes, and the filter's device
-   time (torch.profiler) against its back-to-back wall time.
+   time (torch.profiler) against its back-to-back wall time;
+7. the kernel against its yardstick, ``torch.fft.fft`` (cuFFT), at six
+   shapes: device time of 20 back-to-back launches replayed from a CUDA
+   graph and timed with CUDA events, beside the bytes bound.
 
 The last lines are one JSON line about the kernels (error and times on the
 main path's batch-1024 planes), the card, then
@@ -26,6 +29,8 @@ main path's batch-1024 planes), the card, then
 from __future__ import annotations
 
 import json
+import math
+import re
 import statistics
 import subprocess
 import sys
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 
 import mixed_radix_fast_fourier_transform_tpu_torch as tp
+from kernel_bench import SHAPES as YARDSTICK_SHAPES, graph_us, wrapper_us
 from mixed_radix_fast_fourier_transform_tpu_torch.ops import _build, cuda_fft
 from mixed_radix_fast_fourier_transform_tpu_torch.ops.stockham import exec_complex
 
@@ -43,7 +49,11 @@ KERNEL_TOL = 2e-5   # kernel vs plain version, as the JAX kernel's tests hold it
 ORACLE_TOL = 1e-5   # vs numpy float64: the library's error budget
 FILTER_N = 4096
 FILTER_BATCHES = (8, 1024)
-KERNEL_LENGTHS = (8, 64, 360, 1024, 2048, 4096, 5040, 8192, 12288)
+# 90: n % 4 != 0, rows not 16-byte aligned; 16384: the longest length
+KERNEL_LENGTHS = (8, 64, 90, 360, 1024, 2048, 4096, 5040, 8192, 12005, 12288, 16384)
+# NVIDIA H100 SXM peaks (data sheet): HBM bytes/s and fp32 FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 KERNEL_SOURCE = "mixed_radix_fast_fourier_transform_tpu_torch/csrc/stockham_fft.cu"
 KERNEL_REPLACES = "mixed_radix_fast_fourier_transform_tpu/ops/pallas_fft.py:193"
 PIPELINE = tp.SpectralConfig(use_kernel=False)
@@ -114,6 +124,20 @@ def device_and_wall_us(fn, calls: int = 20):
     return (dev / calls if dev > 0 else None), wall_us
 
 
+def graph_ms(fn) -> float:
+    """Device time of one call (kernel_bench.graph_us), in ms."""
+    return graph_us(torch, fn) / 1e3
+
+
+def fft_bound_ms(n: int, rows: int):
+    """Least time for ``rows`` length-n complex FFTs on fp32 planes: each
+    plane read once and written once (16·n bytes a row) at the HBM rate,
+    against 5·n·log2(n) flops a row at the fp32 rate; the larger, and which."""
+    by_bytes = 16.0 * n * rows / HBM_BYTES_PER_S * 1e3
+    by_ops = 5.0 * n * math.log2(n) * rows / FP32_FLOP_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
 def setup() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU")
@@ -135,6 +159,14 @@ def build() -> float:
     _build.library()
     secs = time.perf_counter() - t0
     log(f"build: {_build.LIB_PATH.name} in {secs:.2f} s (nvcc {_build.BUILD_SECONDS:.2f} s)")
+    # ptxas -v: registers, stack and spills of every kernel instantiation
+    name = None
+    for line in _build.PTXAS_LOG.read_text().splitlines():
+        m = re.search(r"stockham_fft_kernelILi(n?)1ELi(\d+)ELi(\d+)E", line)
+        if "Compiling entry function" in line and m:
+            name = f"stockham_fft_kernel<sign={'-' if m.group(1) else '+'}1, elems={m.group(2)}, bound={m.group(3)}>"
+        elif name and ("spill" in line or "registers" in line):
+            log(f"ptxas {name}: {line.split(':', 1)[-1].strip()}")
     return secs
 
 
@@ -283,6 +315,12 @@ def timings(rng, card: str):
             "pipeline_ms": time_ms(lambda: exec_complex(plan, xr, xi)),
             "torch_fft_ms": time_ms(lambda: torch.fft.fft(xc)),
         }
+        if (n, b) == (2048, 8):
+            # the wrapper's host path (kernel_bench.wrapper_us)
+            row["kernel_back_to_back_us"] = wrapper_us(
+                torch, lambda: cuda_fft.exec_kernel(xr, xi, n, -1))
+            log(f"kernel wrapper n={n} b={b}: {row['kernel_back_to_back_us']:.2f} us "
+                f"per call back to back")
         rows.append(row)
         log(f"timing n={n} b={b}: " + ", ".join(
             f"{k} {v:.4f}" for k, v in row.items() if k.endswith("_ms")))
@@ -317,6 +355,28 @@ def timings(rng, card: str):
     log(json.dumps({"timing": {"card": card, "fft": rows, "spectral_filter": filt}}))
 
 
+def yardstick(rng, card: str) -> None:
+    """The kernel against torch.fft.fft (cuFFT) at YARDSTICK_SHAPES, device
+    times from graph_ms, with the bytes bound and the kernel's share of it."""
+    rows = []
+    for n, b in YARDSTICK_SHAPES:
+        x = rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))
+        xr, xi = planes(x)
+        xc = torch.complex(xr, xi)
+        kernel_ms = graph_ms(lambda: cuda_fft.exec_kernel(xr, xi, n, -1))
+        cufft_ms = graph_ms(lambda: torch.fft.fft(xc))
+        bound, bound_by = fft_bound_ms(n, b)
+        row = {"n": n, "batch": b, "kernel_us": kernel_ms * 1e3, "cufft_us": cufft_ms * 1e3,
+               "bound_us": bound * 1e3, "bound_by": bound_by,
+               "share_of_bound": bound / kernel_ms, "kernel_over_cufft": kernel_ms / cufft_ms}
+        rows.append(row)
+        log(f"yardstick n={n} b={b}: kernel {row['kernel_us']:.2f} us, cuFFT "
+            f"{row['cufft_us']:.2f} us, bound {row['bound_us']:.2f} us ({bound_by}), "
+            f"share {row['share_of_bound']:.3f}, kernel/cuFFT {row['kernel_over_cufft']:.2f}")
+    log(json.dumps({"k1_vs_cufft": {"card": card, "method": "CUDA graph of 20 "
+                    "back-to-back launches, 10 replays, CUDA events", "shapes": rows}}))
+
+
 def main() -> int:
     card = setup()
     build()
@@ -325,15 +385,27 @@ def main() -> int:
     launches, max_abs, (xr, xi) = main_path(rng)
     core_lengths(rng)
     timings(rng, card)
+    yardstick(rng, card)
     # the kernel line's times are on the same planes as its error: the
-    # forward transform of the batch-1024 filter call
+    # forward transform of the batch-1024 filter call.  ms, plain_ms and
+    # library_ms are medians of single timed calls, dispatch included
+    # (time_ms); device_ms and library_device_ms are device times (graph_ms).
     h = FILTER_N // 2
+    xc = torch.complex(xr, xi)
+    bound, bound_by = fft_bound_ms(h, xr.shape[0])
+
+    def kernel():
+        return cuda_fft.exec_kernel(xr, xi, h, -1)
+
     main_row = {
-        "kernel_ms": time_ms(lambda: cuda_fft.exec_kernel(xr, xi, h, -1)),
+        "kernel_ms": time_ms(kernel),
         "plain_ms": time_ms(lambda: cuda_fft.exec_kernel_reference(xr, xi, h, -1)),
+        "library_ms": time_ms(lambda: torch.fft.fft(xc)),
+        "device_ms": graph_ms(kernel),
+        "library_device_ms": graph_ms(lambda: torch.fft.fft(xc)),
     }
-    log(f"kernel on the main path's planes ({h} x {xr.shape[0]}): "
-        f"kernel {main_row['kernel_ms']:.4f} ms, plain {main_row['plain_ms']:.4f} ms")
+    log(f"kernel on the main path's planes ({h} x {xr.shape[0]}): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in main_row.items()) + f", bound {bound:.4f} ms ({bound_by})")
     log(json.dumps({"kernels": [{
         "name": "stockham_fft",
         "route": "cuda",
@@ -343,6 +415,11 @@ def main() -> int:
         "max_abs_err": max_abs,
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": main_row["library_ms"],
+        "device_ms": main_row["device_ms"],
+        "library_device_ms": main_row["library_device_ms"],
     }]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -8,6 +8,7 @@ Counterpart of the forward path of
 over the last axis of a (..., n) real signal.  This port covers the forward
 pass; on a CUDA tensor the fused kernel has no backward yet, so run the
 forward under ``torch.no_grad()`` or ``torch.inference_mode()`` there.
+Parameters live on the card unless the caller asks for another device.
 """
 
 from __future__ import annotations
@@ -25,17 +26,23 @@ Tensor = torch.Tensor
 Params = Dict[str, Tensor]
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device; None means the card ("cuda").  There is
+    no fallback to the CPU: without a card, using the result raises."""
+    return torch.device("cuda" if device is None else device)
+
+
 def init_params(
     n: int,
     generator: Optional[torch.Generator] = None,
     device=None,
 ) -> Params:
     """Per-bin complex gain (identity plus 0.01·N(0, 1) noise) and a zero
-    bias, drawn from ``generator`` on its own device, then placed on
-    ``device`` (default: the generator's device)."""
+    bias, drawn from ``generator`` on its own device (the CPU when None),
+    then placed on ``device`` (default: the card, see resolve_device)."""
     n_bins = n // 2 + 1
     gen_device = generator.device if generator is not None else torch.device("cpu")
-    device = torch.device(device) if device is not None else gen_device
+    device = resolve_device(device)
 
     def noise():
         return torch.randn(n_bins, generator=generator, dtype=DTYPE,
@@ -50,7 +57,9 @@ def init_params(
 
 def params_from_jax(params: Mapping[str, np.ndarray], device=None) -> Params:
     """The JAX package's parameters (numpy arrays) as fp32 tensors on
-    ``device``, so that both packages compute the same function."""
+    ``device`` (default: the card, see resolve_device), so that both
+    packages compute the same function."""
+    device = resolve_device(device)
     return {
         k: torch.tensor(np.asarray(v), dtype=DTYPE, device=device)
         for k, v in params.items()
@@ -69,7 +78,7 @@ def apply(params: Params, x: Tensor, *, config: SpectralConfig = DEFAULT_CONFIG)
 class SpectralFilter(nn.Module):
     """The spectral filter for length-``n`` signals as a module holding
     ``gain_re``, ``gain_im`` and ``bias`` (set them from other parameters
-    with ``load_state_dict``)."""
+    with ``load_state_dict``), on ``device`` (default: the card)."""
 
     def __init__(
         self,

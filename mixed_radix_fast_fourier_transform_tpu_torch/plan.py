@@ -348,6 +348,10 @@ def get_plan(n: int, sign: int, kind: str = "complex",
 
 
 def clear_plan_cache() -> None:
-    """Drop every cached plan (and with them their device copies)."""
+    """Drop every cached plan (and with them their device copies and the
+    kernel's ready launch arguments)."""
+    from .ops import cuda_fft  # ops import this module
+
     with _CACHE_LOCK:
         _CACHE.clear()
+        cuda_fft._READY.clear()

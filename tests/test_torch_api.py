@@ -10,6 +10,7 @@ from mixed_radix_fast_fourier_transform_tpu import models as jmodels
 
 import mixed_radix_fast_fourier_transform_tpu_torch as tp
 from mixed_radix_fast_fourier_transform_tpu_torch import models as tmodels
+from mixed_radix_fast_fourier_transform_tpu_torch.models import spectral_filter
 
 torch.set_num_threads(1)
 
@@ -120,12 +121,12 @@ def test_spectral_filter_matches_jax():
     jparams = jmodels.init_params(jax.random.PRNGKey(0), n)
     x = np.asarray(jax.random.normal(jax.random.PRNGKey(1), (batch, n)))
     want = np.asarray(jmodels.apply(jparams, x))
-    params = tmodels.params_from_jax({k: np.asarray(v) for k, v in jparams.items()})
+    params = tmodels.params_from_jax({k: np.asarray(v) for k, v in jparams.items()}, "cpu")
     xt = torch.from_numpy(x)
     got = tmodels.apply(params, xt)
     assert got.shape == (batch, n) and got.dtype == torch.float32
     assert _rel(got.numpy(), want) <= TOL
-    module = tmodels.SpectralFilter(n)
+    module = tmodels.SpectralFilter(n, device="cpu")
     module.load_state_dict(params)
     with torch.no_grad():
         assert torch.equal(module(xt), got)
@@ -135,9 +136,23 @@ def test_spectral_filter_matches_jax():
 
 def test_spectral_filter_init_params():
     g = torch.Generator().manual_seed(0)
-    p = tmodels.init_params(64, g)
+    p = tmodels.init_params(64, g, device="cpu")
     assert p["gain_re"].shape == p["gain_im"].shape == (33,)
     assert p["bias"].shape == () and float(p["bias"]) == 0.0
     assert torch.allclose(p["gain_re"], torch.ones(33), atol=0.1)
-    q = tmodels.init_params(64, torch.Generator().manual_seed(0))
+    q = tmodels.init_params(64, torch.Generator().manual_seed(0), device="cpu")
     assert all(torch.equal(p[k], q[k]) for k in p)
+
+
+def test_spectral_filter_defaults_to_the_card():
+    # the device is resolved before any tensor is made, so this needs no card
+    assert spectral_filter.resolve_device(None) == torch.device("cuda")
+    assert spectral_filter.resolve_device("cpu") == torch.device("cpu")
+    if not torch.cuda.is_available():
+        # no fallback to the CPU: asking for the card without one raises
+        with pytest.raises((RuntimeError, AssertionError)):
+            tmodels.init_params(64)
+        with pytest.raises((RuntimeError, AssertionError)):
+            tmodels.params_from_jax({"bias": np.zeros(())})
+        with pytest.raises((RuntimeError, AssertionError)):
+            tmodels.SpectralFilter(64)

@@ -67,12 +67,99 @@ def test_reference_matches_numpy(n):
 
 
 @pytest.mark.parametrize("n,ok", [(44, False), (8192, True), (12288, True),
-                                  (14528, False), (24576, False), (65536, False)])
+                                  (14400, True), (14528, False), (16384, True),
+                                  (16800, False), (24576, False), (65536, False)])
 def test_supports(n, ok):
-    # 14528 = 2^6·227 has a prime above 7; the largest supported lengths
-    # are the 7-smooth ones with 16·n <= 232,448 bytes of shared memory
+    # 14528 = 2^6·227 has a prime above 7; the supported lengths are the
+    # 7-smooth ones up to 16,384 (1024 threads of 16 complex registers)
     assert cuda_fft.supports(n, 1) is ok
     assert cuda_fft.supports(n, 10 ** 6) is ok
+
+
+def _smooth(n):
+    for p in (2, 3, 5, 7):
+        while n % p == 0:
+            n //= p
+    return n == 1
+
+
+SMOOTH = [n for n in range(2, cuda_fft.MAX_N + 1) if _smooth(n)]
+
+
+def _distinct_per_instruction(banks, valid):
+    """banks, valid: (..., 32) per warp instruction; distinct over valid lanes."""
+    lanes = np.broadcast_to(np.arange(32), banks.shape)
+    banks = np.where(valid, banks, -1 - lanes)  # idle lanes never collide
+    banks = np.sort(banks, axis=-1)
+    return not np.any(banks[..., 1:] == banks[..., :-1])
+
+
+@pytest.mark.parametrize("n", SMOOTH)
+def test_geometry_covers_every_butterfly_without_bank_conflicts(n):
+    # the launch geometry the kernel is given, through the Python mirror of
+    # its lane map and shared-memory index: every stage's butterflies run
+    # once, the layout is a bijection, and the 32 lanes of each warp's reads
+    # and writes hit 32 distinct banks
+    g = cuda_fft.kernel_geometry(n)
+    assert g is not None
+    assert g.smem_bytes <= cuda_fft.SMEM_BYTES == 232_448
+    assert g.threads % 32 == 0 and g.threads * g.rows <= g.bound <= 1024
+    assert g.bound in cuda_fft.BOUNDS[g.elems]
+    assert g.elems * g.threads >= n and g.npad >= n
+    assert tuple(st.f for st in g.stages) == cuda_fft.kernel_factors(n)
+    words = np.arange(g.npad)
+    prev = (0, 0)
+    for st in g.stages:
+        assert st.slots * st.f <= g.elems
+        warp, slot, lane = np.meshgrid(np.arange(g.warps), np.arange(st.slots),
+                                       np.arange(32), indexing="ij")
+        q, j, valid = cuda_fft.tile_butterflies(st.l, st.mp, st.tile,
+                                                slot * g.warps + warp, lane)
+        t = (q * st.l + j)[valid]
+        np.testing.assert_array_equal(np.sort(t), np.arange(st.mp * st.l))
+        assert np.array_equal(np.sort(cuda_fft.smem_index(words, st.swizzle)), words)
+        reads, writes = cuda_fft.stage_addresses(st.f, st.l, st.mp, q.ravel(), j.ravel())
+        for addrs, swz in ((reads, prev), (writes, st.swizzle)):
+            banks = (cuda_fft.smem_index(addrs, swz) % 32).reshape(st.f, *q.shape)
+            assert _distinct_per_instruction(banks, valid[None])
+        prev = st.swizzle
+    assert prev == (0, 0)  # the row leaves unswizzled for the linear store
+
+
+def _run_schedule(n, sign, x):
+    """The kernel's schedule in numpy: each stage reads its butterflies'
+    inputs through the lane map and the swizzled index, combines them and
+    writes them back in place, as the CUDA kernel does."""
+    st = tplan.get_plan(n, sign, "kernel")
+    g = st.geometry
+    tw = st.tw.astype(np.float64)
+    mem = np.zeros(g.npad, complex)
+    mem[:n] = x
+    prev = (0, 0)
+    for sg, off in zip(g.stages, st.offsets):
+        f, l, mp = sg.f, sg.l, sg.mp
+        warp, slot, lane = np.meshgrid(np.arange(g.warps), np.arange(sg.slots),
+                                       np.arange(32), indexing="ij")
+        q, j, valid = cuda_fft.tile_butterflies(l, mp, sg.tile, slot * g.warps + warp, lane)
+        q, j = q[valid], j[valid]
+        reads, writes = cuda_fft.stage_addresses(f, l, mp, q, j)
+        z = mem[cuda_fft.smem_index(reads, prev)]
+        if off >= 0:
+            z = z * (tw[off:off + f * l].reshape(f, l)
+                     + 1j * tw[off + f * l:off + 2 * f * l].reshape(f, l))[:, j]
+        k = np.arange(f)
+        mem[cuda_fft.smem_index(writes, sg.swizzle)] = np.exp(
+            sign * 2j * np.pi * np.outer(k, k) / f) @ z
+        prev = sg.swizzle
+    return mem[:n]
+
+
+@pytest.mark.parametrize("n", [2, 8, 90, 360, 1024, 1575, 2048, 5040, 12005, 16384])
+def test_kernel_schedule_computes_the_fft(n):
+    x, _, _ = _inputs(n, 1, n)
+    for sign in (-1, 1):
+        want = np.fft.fft(x[0]) if sign < 0 else np.fft.ifft(x[0]) * n
+        assert _rel(_run_schedule(n, sign, x[0]), want) <= KERNEL_TOL
 
 
 def test_factors_and_twiddle_layout(jax_pallas):
@@ -88,7 +175,6 @@ def test_factors_and_twiddle_layout(jax_pallas):
     assert tw.dtype == torch.float32
     np.testing.assert_array_equal(tw[:64].numpy(), tr.ravel())
     np.testing.assert_array_equal(tw[64:].numpy(), ti.ravel())
-    assert list(st.radix_c)[:2] == [8, 8]
     with pytest.raises(ValueError):
         tplan.get_plan(44, -1, "kernel")
 
@@ -143,10 +229,11 @@ def test_wrapper_refuses_other_devices():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,batch", [(8, 3), (360, 3), (2048, 8), (2048, 1024),
-                                     (5040, 3), (12288, 3)])
+@pytest.mark.parametrize("n,batch", [(8, 3), (90, 3), (360, 3), (2048, 8), (2048, 1024),
+                                     (5040, 3), (12005, 3), (12288, 3), (16384, 3)])
 def test_cuda_kernel_matches_plain_version(n, batch, launches):
-    # (2048, 8) and (2048, 1024) are the spectral filter's inner transforms
+    # (2048, 8) and (2048, 1024) are the spectral filter's inner transforms;
+    # n = 90 (n % 4 != 0): rows that are not 16-byte aligned
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     _, xr, xi = _inputs(n, batch, n)
