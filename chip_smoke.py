@@ -19,15 +19,34 @@ Phases, each of which raises on failure:
    time (torch.profiler) against its back-to-back wall time;
 7. the kernel against its yardstick, ``torch.fft.fft`` (cuFFT), at six
    shapes: device time of 20 back-to-back launches replayed from a CUDA
-   graph and timed with CUDA events, beside the bytes bound.
+   graph and timed with CUDA events, beside the bytes bound;
+8. training: five ``train_step``s of the spectral filter at n = 4096, batch
+   8 and 1024, with the kernel on: 3 launches a step (4 when the input
+   needs a gradient), the first step's gradients against a float64
+   ``torch.fft`` oracle on the CPU and against the stage pipeline on the
+   card, the losses against the oracle's, and the kernel against its plain
+   version on the planes each launch was handed, the backward's cotangent
+   planes among them;
+9. the 1-D Fourier neural operator at the Burgers configuration of Li et
+   al. (width 64, 16 modes, 4 layers, batch 20) on the full grid n = 8192:
+   forward and one ``train_step`` against the stage pipeline, launches
+   counted; a small 2-D case (64 × 64) for transforms over a non-last axis;
+10. the rest of the API from numpy input without a device, which must land
+    on the card: the ``compat`` round trips, overlap-add and direct
+    convolution (cuDNN in full fp32), ``hfft`` and ``dht``;
+11. device and back-to-back wall time of one ``train_step``.
 
-The last lines are one JSON line about the kernels (error and times on the
-main path's batch-1024 planes), the card, then
-``{"ok": true, "device": {...}}``.
+The last lines are one JSON line about the kernels (launches of phases 4, 8
+and 9; error over the plane pairs those launches were handed: every pair of
+phases 4 and 9, and in phase 8 the first step's three, every later
+backward's and the four of the step with an input gradient; times on the
+main path's batch-1024 planes), the card, then ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -41,22 +60,37 @@ import torch
 
 import mixed_radix_fast_fourier_transform_tpu_torch as tp
 from kernel_bench import SHAPES as YARDSTICK_SHAPES, graph_us, wrapper_us
+from mixed_radix_fast_fourier_transform_tpu_torch import compat
+from mixed_radix_fast_fourier_transform_tpu_torch.models import fno
 from mixed_radix_fast_fourier_transform_tpu_torch.ops import _build, cuda_fft
 from mixed_radix_fast_fourier_transform_tpu_torch.ops.stockham import exec_complex
+from mixed_radix_fast_fourier_transform_tpu_torch.utils.tree import tree_leaves, tree_map
 
 SEED = 0
 KERNEL_TOL = 2e-5   # kernel vs plain version, as the JAX kernel's tests hold it
 ORACLE_TOL = 1e-5   # vs numpy float64: the library's error budget
+# two fp32 routes (kernel, stage pipeline), each within ORACLE_TOL of the truth
+ROUTES_TOL = 2 * ORACLE_TOL
 FILTER_N = 4096
 FILTER_BATCHES = (8, 1024)
 # 90: n % 4 != 0, rows not 16-byte aligned; 16384: the longest length
-KERNEL_LENGTHS = (8, 64, 90, 360, 1024, 2048, 4096, 5040, 8192, 12005, 12288, 16384)
+KERNEL_LENGTHS = (8, 32, 64, 90, 360, 1024, 2048, 4096, 5040, 8192, 12005, 12288, 16384)
 # NVIDIA H100 SXM peaks (data sheet): HBM bytes/s and fp32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 KERNEL_SOURCE = "mixed_radix_fast_fourier_transform_tpu_torch/csrc/stockham_fft.cu"
 KERNEL_REPLACES = "mixed_radix_fast_fourier_transform_tpu/ops/pallas_fft.py:193"
 PIPELINE = tp.SpectralConfig(use_kernel=False)
+TRAIN_STEPS = 5
+# the loss's curvature is 2 in the bias and ~4/n in a gain: the step that
+# settles the bias at once moves each gain by ~1e-3 of its error
+TRAIN_LR = 0.5
+# 1-D FNO for Burgers' equation, Li et al. (arXiv 2010.08895): width 64, 16
+# modes, 4 Fourier layers, batch 20, inputs (a(x), x) on the 8192-point grid
+FNO = dict(in_channels=2, hidden=64, out_channels=1, n_layers=4, modes=16)
+FNO_BATCH, FNO_GRID = 20, 8192
+FNO2D = dict(in_channels=1, hidden=32, out_channels=1, n_layers=2, modes=12)
+FNO2D_BATCH, FNO2D_GRID = 4, (64, 64)
 
 
 def log(msg: str) -> None:
@@ -99,11 +133,14 @@ def time_ms(fn, warmup: int = 10, runs: int = 50) -> float:
     return statistics.median(times)
 
 
-def device_and_wall_us(fn, calls: int = 20):
-    """Per call, in one process on the same inputs: the summed device-kernel
-    time of ``calls`` calls under torch.profiler, and the wall time of
-    ``calls`` back-to-back calls without it (CUDA events).  The device time
-    is None where the profiler saw no device activity."""
+def device_and_wall_us(fn, calls: int = 20) -> dict:
+    """Per call, in one process on the same inputs: ``device_us``, the summed
+    device-kernel time of ``calls`` calls under torch.profiler (None where
+    the profiler saw no device activity); ``wall_us``, the wall time of
+    ``calls`` back-to-back calls without it (CUDA events); ``idle_share``,
+    1 - device_us / wall_us; ``kernels``, the device kernels (and copies) per
+    call; ``k1_us``, the fused kernel's part of the device time; and
+    ``by_name``, the device µs per call by kernel name, largest first."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -119,14 +156,17 @@ def device_and_wall_us(fn, calls: int = 20):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    dev = sum(e.device_time_total for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA)
-    return (dev / calls if dev > 0 else None), wall_us
-
-
-def graph_ms(fn) -> float:
-    """Device time of one call (kernel_bench.graph_us), in ms."""
-    return graph_us(torch, fn) / 1e3
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = sum(e.device_time_total for e in on_card)
+    k1 = sum(e.device_time_total for e in on_card if "stockham_fft_kernel" in e.name)
+    by_name = {}
+    for e in on_card:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / calls
+    by_name = dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
+    device_us = dev / calls if dev > 0 else None
+    return {"device_us": device_us, "wall_us": wall_us,
+            "idle_share": None if device_us is None else 1.0 - device_us / wall_us,
+            "kernels": len(on_card) / calls, "k1_us": k1 / calls, "by_name": by_name}
 
 
 def fft_bound_ms(n: int, rows: int):
@@ -179,7 +219,8 @@ def kernel_error(xr, xi, n: int, sign: int, what: str) -> float:
     got = torch.complex(kr, ki).cpu().numpy()
     want = torch.complex(rr, ri).cpu().numpy()
     err = rel_err(got, want)
-    log(f"kernel vs plain {what} n={n} rows={got.shape[0]} sign={sign:+d}: rel err {err:.3e}")
+    log(f"kernel vs plain {what} n={n} planes {tuple(got.shape)} sign={sign:+d}: "
+        f"rel err {err:.3e}")
     require(err <= KERNEL_TOL, f"kernel disagrees with its plain version at n={n} ({what})")
     return float(np.max(np.abs(got - want)))
 
@@ -202,6 +243,25 @@ def filter_params(rng, n: int):
     }
 
 
+@contextlib.contextmanager
+def recorded_launches():
+    """Inside the block, every call of the kernel's wrapper (forward or
+    backward: both look ``cuda_fft.exec_kernel`` up at call time) is noted
+    as (xr, xi, n, sign) with copies of the planes it was handed."""
+    seen = []
+    launch = cuda_fft.exec_kernel
+
+    def recording(xr, xi, n, sign):
+        seen.append((xr.detach().clone(), xi.detach().clone(), n, sign))
+        return launch(xr, xi, n, sign)
+
+    cuda_fft.exec_kernel = recording
+    try:
+        yield seen
+    finally:
+        cuda_fft.exec_kernel = launch
+
+
 def main_path(rng):
     """Spectral filter forward on the card against the float64 oracle, then
     the kernel against its plain version on the very planes the forward
@@ -213,18 +273,9 @@ def main_path(rng):
     model.load_state_dict(tp.models.params_from_jax(params, "cuda"))
     gain = params["gain_re"] + 1j * params["gain_im"]
     inputs = [rng.standard_normal((b, FILTER_N)) for b in FILTER_BATCHES]
-    seen = []
-    launch = cuda_fft.exec_kernel
-
-    def recording(xr, xi, n, sign):
-        seen.append((xr.clone(), xi.clone(), n, sign))
-        return launch(xr, xi, n, sign)
-
-    # maybe_exec_kernel looks the wrapper up at call time
-    cuda_fft.exec_kernel = recording
-    cuda_fft.LAUNCHES = 0
     outs = []
-    with torch.inference_mode():
+    cuda_fft.LAUNCHES = 0
+    with recorded_launches() as seen, torch.inference_mode():
         for x in inputs:
             before = cuda_fft.LAUNCHES
             y = model(torch.tensor(x, dtype=torch.float32, device="cuda"))
@@ -233,7 +284,6 @@ def main_path(rng):
             require(cuda_fft.LAUNCHES - before == 2,
                     f"expected 2 kernel launches per forward, got {cuda_fft.LAUNCHES - before}")
     launches = cuda_fft.LAUNCHES
-    cuda_fft.exec_kernel = launch
     for x, y in zip(inputs, outs):
         want = np.fft.irfft(np.fft.rfft(x) * gain, n=FILTER_N) + params["bias"]
         require(tuple(y.shape) == x.shape, f"filter output shape {tuple(y.shape)}")
@@ -298,6 +348,324 @@ def core_lengths(rng) -> None:
     require(err <= ORACLE_TOL, f"conv4000x129_same_b64 error {err:.3e}")
 
 
+def cuda32(x: np.ndarray) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device="cuda")
+
+
+def oracle_filter(p64, x64):
+    """The spectral filter in float64 on the CPU through torch.fft."""
+    gain = torch.complex(p64["gain_re"], p64["gain_im"])
+    return torch.fft.irfft(torch.fft.rfft(x64) * gain, n=x64.shape[-1]) + p64["bias"]
+
+
+def training(rng):
+    """Five train steps of the spectral filter on the card, kernel on, per
+    batch size.  Returns the launches of the counted steps and the largest
+    abs error of the kernel against its plain version on their planes."""
+    total, worst_abs = 0, 0.0
+    for b in FILTER_BATCHES:
+        params = filter_params(rng, FILTER_N)
+        x = rng.standard_normal((b, FILTER_N))
+        true_gain = 1.0 + 0.3 * rng.standard_normal(FILTER_N // 2 + 1)
+        target = np.fft.irfft(np.fft.rfft(x) * true_gain, n=FILTER_N) + 0.3
+        xt, tt = cuda32(x), cuda32(target)
+        x64, t64 = torch.tensor(x), torch.tensor(target)
+
+        # (b) the first step's gradients: float64 oracle, and the stage pipeline
+        p64 = {k: torch.tensor(v, dtype=torch.float64, requires_grad=True)
+               for k, v in params.items()}
+        want = torch.autograd.grad(torch.mean((oracle_filter(p64, x64) - t64) ** 2),
+                                   list(p64.values()))
+        grads = {}
+        for name, config in (("kernel", tp.DEFAULT_CONFIG), ("pipeline", PIPELINE)):
+            leaves = {k: v.requires_grad_(True)
+                      for k, v in tp.models.params_from_jax(params, "cuda").items()}
+            loss = tp.models.loss_fn(leaves, xt, tt, config=config)
+            grads[name] = torch.autograd.grad(loss, list(leaves.values()))
+        for k, g, gp, w in zip(params, grads["kernel"], grads["pipeline"], want):
+            err = rel_err(g.cpu().numpy(), w.numpy())
+            err_pipe = rel_err(g.cpu().numpy(), gp.cpu().numpy())
+            log(f"train b={b} d loss/d {k}: rel err {err:.3e} vs float64 oracle, "
+                f"{err_pipe:.3e} vs stage pipeline")
+            require(err <= ORACLE_TOL, f"gradient of {k} at batch {b}: {err:.3e}")
+            require(err_pipe <= ROUTES_TOL, f"gradient of {k} vs pipeline at batch {b}")
+
+        # (a), (d) the counted steps, beside the same steps in float64
+        tparams = tp.models.params_from_jax(params, "cuda")
+        p64 = {k: torch.tensor(v, dtype=torch.float64) for k, v in params.items()}
+        losses, losses64 = [], []
+        cuda_fft.LAUNCHES = 0
+        with recorded_launches() as seen:
+            for _ in range(TRAIN_STEPS):
+                before = cuda_fft.LAUNCHES
+                tparams, loss = tp.models.train_step(tparams, xt, tt, lr=TRAIN_LR)
+                torch.cuda.synchronize()
+                require(cuda_fft.LAUNCHES - before == 3,
+                        f"expected 3 kernel launches per train step, got "
+                        f"{cuda_fft.LAUNCHES - before}")
+                losses.append(float(loss))
+        total += cuda_fft.LAUNCHES
+        for _ in range(TRAIN_STEPS):
+            leaves = {k: v.requires_grad_(True) for k, v in p64.items()}
+            loss = torch.mean((oracle_filter(leaves, x64) - t64) ** 2)
+            g64 = torch.autograd.grad(loss, list(leaves.values()))
+            p64 = {k: (v - TRAIN_LR * g).detach() for (k, v), g in zip(leaves.items(), g64)}
+            losses64.append(float(loss.detach()))
+        err = rel_err(np.array(losses), np.array(losses64))
+        log(f"train b={b}: losses {[f'{v:.6f}' for v in losses]}, rel err {err:.3e} "
+            f"vs float64 oracle; 3 launches a step")
+        require(all(b_ < a for a, b_ in zip(losses, losses[1:])), f"loss did not fall: {losses}")
+        require(err <= ORACLE_TOL, f"train losses at batch {b}: {err:.3e}")
+        for k, v in tparams.items():
+            err = rel_err(v.cpu().numpy(), p64[k].numpy())
+            require(err <= ORACLE_TOL, f"{k} after {TRAIN_STEPS} steps at batch {b}: {err:.3e}")
+        h = FILTER_N // 2
+        require([(r[0].shape, r[2], r[3]) for r in seen]
+                == [((b, h), h, sign) for sign in (-1, 1, -1)] * TRAIN_STEPS,
+                f"train step kernel calls {[(tuple(r[0].shape), r[3]) for r in seen]}")
+
+        # the module with an optimizer, input gradient wanted: 4 launches
+        model = tp.models.SpectralFilter(FILTER_N, device="cuda")
+        model.load_state_dict(tp.models.params_from_jax(params, "cuda"))
+        opt = torch.optim.SGD(model.parameters(), lr=TRAIN_LR)
+        xg = xt.clone().requires_grad_(True)
+        cuda_fft.LAUNCHES = 0
+        with recorded_launches() as seen4:
+            torch.mean((model(xg) - tt) ** 2).backward()
+            opt.step()
+            torch.cuda.synchronize()
+        require(cuda_fft.LAUNCHES == 4, f"expected 4 launches with an input gradient, "
+                                        f"got {cuda_fft.LAUNCHES}")
+        total += cuda_fft.LAUNCHES
+        x64g = x64.clone().requires_grad_(True)
+        p0 = {k: torch.tensor(v, dtype=torch.float64) for k, v in params.items()}
+        (want_x,) = torch.autograd.grad(
+            torch.mean((oracle_filter(p0, x64g) - t64) ** 2), [x64g])
+        err = rel_err(xg.grad.cpu().numpy(), want_x.numpy())
+        log(f"train b={b} module + SGD, d loss/d x: rel err {err:.3e} vs float64 oracle; "
+            f"4 launches")
+        require(err <= ORACLE_TOL, f"input gradient at batch {b}: {err:.3e}")
+        first, _ = tp.models.train_step(tp.models.params_from_jax(params, "cuda"), xt, tt,
+                                        lr=TRAIN_LR)
+        for k, v in model.state_dict().items():
+            require(torch.allclose(v, first[k], rtol=1e-6, atol=1e-7),
+                    f"SGD on the module and train_step disagree on {k}")
+
+        # (c) the kernel against its plain version on the planes it was handed:
+        # the first step's three (the third is the backward's cotangent pair),
+        # every later backward, and the four of the step with an input gradient
+        checked = seen[:3] + seen[5::3] + seen4
+        worst_abs = max([worst_abs] + [
+            kernel_error(xr, xi, n, sign, f"train-step planes b={b}")
+            for xr, xi, n, sign in checked])
+    log(f"training kernel launches: {total}")
+    return total, worst_abs
+
+
+def gradients(loss_fn, params, x, target, config):
+    """The leaves of d loss / d params, in tree_leaves' order."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    return torch.autograd.grad(loss_fn(leaves, x, target, config=config), tree_leaves(leaves))
+
+
+def route_error(loss_fn, step, params, x, target, what: str) -> None:
+    """One train step on the kernel route against the stage pipeline's:
+    the losses within ORACLE_TOL, the stepped parameters and, since a
+    step of a small learning rate hides the gradients in the parameters'
+    rounding, the gradients themselves leaf by leaf within ROUTES_TOL."""
+    new, loss = step(params, x, target)
+    new_pipe, loss_pipe = step(params, x, target, config=PIPELINE)
+    loss, loss_pipe = float(loss), float(loss_pipe)
+    require(math.isfinite(loss), f"{what} loss is not finite")
+    require(abs(loss - loss_pipe) <= ORACLE_TOL * abs(loss_pipe),
+            f"{what} loss {loss} disagrees with the stage pipeline's {loss_pipe}")
+    err = max(rel_err(a.cpu().numpy(), b.cpu().numpy())
+              for a, b in zip(tree_leaves(new), tree_leaves(new_pipe)))
+    require(err <= ROUTES_TOL, f"{what} stepped parameters: {err:.3e}")
+    grad_err = max(rel_err(g.cpu().numpy(), gp.cpu().numpy()) for g, gp in zip(
+        gradients(loss_fn, params, x, target, tp.DEFAULT_CONFIG),
+        gradients(loss_fn, params, x, target, PIPELINE)))
+    log(f"{what} train step: loss {loss:.6f} (pipeline {loss_pipe:.6f}), stepped parameters "
+        f"rel err {err:.3e}, gradients rel err {grad_err:.3e} (worst leaf) vs stage pipeline")
+    require(grad_err <= ROUTES_TOL, f"{what} gradients: {grad_err:.3e}")
+
+
+def fno_path(rng):
+    """The 1-D FNO at the Burgers configuration and a small 2-D FNO: forward
+    and one train step, kernel route against the stage pipeline on the card.
+    Returns the launches and the largest abs error of the kernel against its
+    plain version on every plane pair the two train steps handed it: rows
+    of 4096 in the 1-D step, and in the 2-D step rows of 32 and 64 made
+    contiguous from moveaxis views, forward and as backward cotangents."""
+    gen = torch.Generator().manual_seed(SEED)
+    params = fno.init_fno(**FNO, generator=gen, device="cuda")
+    x = cuda32(rng.standard_normal((FNO_BATCH, FNO["in_channels"], FNO_GRID)))
+    target = cuda32(rng.standard_normal((FNO_BATCH, FNO["out_channels"], FNO_GRID)))
+    layers = FNO["n_layers"]
+    cuda_fft.LAUNCHES = 0
+    with torch.no_grad():
+        y = fno.apply(params, x)
+        torch.cuda.synchronize()
+        forward = cuda_fft.LAUNCHES
+        y_pipe = fno.apply(params, x, config=PIPELINE)
+    require(tuple(y.shape) == tuple(target.shape), f"FNO output shape {tuple(y.shape)}")
+    err = rel_err(y.cpu().numpy(), y_pipe.cpu().numpy())
+    log(f"fno 1-d width {FNO['hidden']} modes {FNO['modes']} layers {layers} batch "
+        f"{FNO_BATCH} n={FNO_GRID}: forward rel err {err:.3e} vs stage pipeline, "
+        f"{forward} launches")
+    require(err <= ORACLE_TOL, f"FNO forward error {err:.3e}")
+    require(forward == 2 * layers, f"FNO forward launches {forward}")
+    with recorded_launches() as seen:
+        fno.train_step(params, x, target)
+        torch.cuda.synchronize()
+    step = cuda_fft.LAUNCHES - forward
+    total = cuda_fft.LAUNCHES
+    # per layer: rfft and irfft forward, and both backward
+    log(f"fno 1-d train step: {step} launches")
+    require(step == 4 * layers, f"FNO train step launches {step}")
+    route_error(fno.loss_fn, fno.train_step, params, x, target, "fno 1-d")
+    # per layer the forward pair, then the backward's cotangent pairs
+    require(len(seen) == step, f"recorded {len(seen)} of the FNO step's {step} launches")
+    worst_abs = max(kernel_error(xr, xi, n, sign, f"fno 1-d train-step planes, launch {i}")
+                    for i, (xr, xi, n, sign) in enumerate(seen))
+    del seen
+
+    params = fno.init_fno2d(**FNO2D, generator=gen, device="cuda")
+    x = cuda32(rng.standard_normal((FNO2D_BATCH, FNO2D["in_channels"], *FNO2D_GRID)))
+    target = torch.zeros_like(x)
+    cuda_fft.LAUNCHES = 0
+    with recorded_launches() as seen:
+        fno.train_step2d(params, x, target)
+        torch.cuda.synchronize()
+    step = cuda_fft.LAUNCHES
+    # per layer: rfft over W, fft over H, ifft over H, irfft, each forward and backward
+    log(f"fno 2-d {FNO2D_GRID} width {FNO2D['hidden']} modes {FNO2D['modes']}: {step} launches")
+    require(step == 8 * FNO2D["n_layers"], f"2-D FNO train step launches {step}")
+    route_error(fno.loss_fn2d, fno.train_step2d, params, x, target, "fno 2-d")
+    require(len(seen) == step, f"recorded {len(seen)} of the 2-D step's {step} launches")
+    half = FNO2D_GRID[1] // 2
+    require({(r[2], r[3]) for r in seen} == {(n, s) for n in (half, FNO2D_GRID[0])
+                                             for s in (-1, 1)},
+            f"2-D FNO step kernel calls {sorted({(r[2], r[3]) for r in seen})}")
+    worst_abs = max([worst_abs] + [
+        kernel_error(xr, xi, n, sign, f"fno 2-d train-step planes, launch {i}")
+        for i, (xr, xi, n, sign) in enumerate(seen)])
+    log(f"fno kernel launches: {total + step}")
+    return total + step, worst_abs
+
+
+def api_remainder(rng) -> None:
+    """The C-reference surface and the rest of the fft/convolve API, from
+    numpy input without a device: every result must lie on the card."""
+    def check(name, got, want, tol=ORACLE_TOL):
+        require(got.device.type == "cuda", f"{name}: result on {got.device}, not the card")
+        torch.cuda.synchronize()
+        require(tuple(got.shape) == want.shape, f"{name} shape {tuple(got.shape)}")
+        err = rel_err(got.cpu().numpy(), want)
+        log(f"{name}: rel err {err:.3e}")
+        require(err <= tol, f"{name} error {err:.3e}")
+
+    n = 4096
+    x = rng.standard_normal((4, n)) + 1j * rng.standard_normal((4, n))
+    spec = compat.fft_exec(compat.fft_init(n, 1), x)
+    check("compat fft_exec n=4096 sgn=+1", spec, np.fft.fft(x))
+    check("compat fft_exec round trip = N·x", compat.fft_exec(compat.fft_init(n, -1), spec),
+          n * x)
+    r = rng.standard_normal((4, n))
+    full = compat.fft_r2c_exec(compat.fft_real_init(n, 1), r)
+    check("compat fft_r2c_exec (mirrored length N)", full, np.fft.fft(r))
+    check("compat fft_c2r_exec(r2c(x)) = N·x",
+          compat.fft_c2r_exec(compat.fft_real_init(n, -1), full), n * r)
+    out, length = compat.fft_convolve("same", "linear", r[0], r[1, :129])
+    require(length == n, f"compat fft_convolve length {length}")
+    check("compat fft_convolve same", out, np.convolve(r[0], r[1, :129], mode="same"))
+
+    sig = rng.standard_normal((16, 65408))
+    taps = rng.standard_normal(129)
+    want = np.stack([np.convolve(row, taps, mode="same") for row in sig])
+    check("fft_oaconvolve 65408x129 same b16", tp.fft_oaconvolve(sig, taps, mode="same"), want)
+    # direct method: the convolution op, which cuDNN may run in TF32 by
+    # default.  The default is put back here, and the op is wrapped to note
+    # the flag at the moment it is called: the function's own guard, not this
+    # script's setup, must have switched TF32 off by then.  (The error bound
+    # alone cannot tell: cuDNN need not pick a TF32 kernel for these shapes.)
+    flag_at_call = []
+
+    def noting(conv):
+        def call(*args, **kwargs):
+            flag_at_call.append(torch.backends.cudnn.allow_tf32)
+            return conv(*args, **kwargs)
+        return call
+
+    functional = torch.nn.functional
+    conv1d, conv2d = functional.conv1d, functional.conv2d
+    torch.backends.cudnn.allow_tf32 = True
+    functional.conv1d, functional.conv2d = noting(conv1d), noting(conv2d)
+    sig = rng.standard_normal((64, 4000))
+    taps = rng.standard_normal((1, 15))
+    want = np.stack([np.convolve(row, taps[0], mode="same") for row in sig])
+    check("convolve direct 4000x15 same b64", tp.convolve(sig, taps, "same", "direct"), want)
+    img = rng.standard_normal((256, 256))
+    ker = rng.standard_normal((5, 5))
+    want = np.fft.irfft2(np.fft.rfft2(img, (260, 260)) * np.fft.rfft2(ker, (260, 260)),
+                         (260, 260))
+    check("convolve direct 256x256 * 5x5 full", tp.convolve(img, ker, "full", "direct"), want)
+    functional.conv1d, functional.conv2d = conv1d, conv2d
+    log(f"cudnn.allow_tf32 at the direct method's {len(flag_at_call)} convolution calls: "
+        f"{flag_at_call}; after them: {torch.backends.cudnn.allow_tf32}")
+    require(len(flag_at_call) == 2 and not any(flag_at_call),
+            "the direct method called the convolution op with cuDNN's TF32 allowed")
+    require(torch.backends.cudnn.allow_tf32 is True,
+            "the direct method did not put cuDNN's TF32 flag back")
+    torch.backends.cudnn.allow_tf32 = False
+
+    n = 5040
+    half = rng.standard_normal((8, n // 2 + 1)) + 1j * rng.standard_normal((8, n // 2 + 1))
+    check("hfft n=5040", tp.hfft(half, n=n), np.fft.hfft(half, n=n))
+    x = rng.standard_normal((8, n))
+    f = np.fft.fft(x)
+    check("dht n=5040", tp.dht(x), f.real - f.imag)
+    check("fftfreq n=5040", tp.fftfreq(n, 0.5), np.fft.fftfreq(n, 0.5))
+
+
+def train_timings(rng, card: str) -> None:
+    """One train step of the spectral filter at n = 4096 and of the 1-D FNO
+    at the Burgers shape: device time by CUDA-graph replay and by
+    torch.profiler sums, back-to-back wall time, idle share, device kernels
+    per step and the fused kernel's share of the device time."""
+    cases = []
+    for b in FILTER_BATCHES:
+        tparams = tp.models.params_from_jax(filter_params(rng, FILTER_N), "cuda")
+        xt = cuda32(rng.standard_normal((b, FILTER_N)))
+        tt = cuda32(rng.standard_normal((b, FILTER_N)))
+        cases.append((f"spectral filter n={FILTER_N} b={b}", 20, 5,
+                      lambda p=tparams, x=xt, t=tt: tp.models.train_step(p, x, t)))
+    params = fno.init_fno(**FNO, generator=torch.Generator().manual_seed(SEED), device="cuda")
+    x = cuda32(rng.standard_normal((FNO_BATCH, FNO["in_channels"], FNO_GRID)))
+    target = cuda32(rng.standard_normal((FNO_BATCH, FNO["out_channels"], FNO_GRID)))
+    cases.append((f"fno 1-d n={FNO_GRID} b={FNO_BATCH}", 5, 2,
+                  lambda: fno.train_step(params, x, target)))
+    rows = []
+    for name, calls, captured, step in cases:
+        t = device_and_wall_us(step, calls=calls)
+        graph = graph_us(torch, step, launches=captured)
+        row = {"train_step": name, "device_us_profiler": t["device_us"],
+               "device_us_graph_replay": graph, "back_to_back_us": t["wall_us"],
+               "idle_share": t["idle_share"],
+               "device_kernels_per_step": t["kernels"], "k1_device_us": t["k1_us"],
+               "k1_share": None if t["device_us"] is None else t["k1_us"] / t["device_us"]}
+        rows.append(row)
+        log(f"train step {name}: device {t['device_us']} us (torch.profiler sum), "
+            f"{graph:.2f} us (graph replay of {captured} steps), back to back "
+            f"{t['wall_us']:.2f} us, idle share {t['idle_share']}, {t['kernels']} device "
+            f"kernels a step, K1 {t['k1_us']:.2f} us")
+        for kernel, us in list(t["by_name"].items())[:8]:
+            short = re.sub(r"void |at::native::|\(anonymous namespace\)::|binary_internal::", "",
+                           kernel)
+            log(f"  {us:9.2f} us  {short[:110]}")
+    log(json.dumps({"train_step_timing": {"card": card, "steps": rows}}))
+
+
 def timings(rng, card: str):
     """Per-call medians (ms) at the kernel-eligible shapes, and the spectral
     filter's device time against its back-to-back wall time."""
@@ -343,28 +711,28 @@ def timings(rng, card: str):
                     lambda: torch.fft.irfft(torch.fft.rfft(xt) * gain, n=FILTER_N)
                     + model.bias),
             }
-            dev_us, wall_us = device_and_wall_us(lambda: model(xt))
-            row["kernel_path_device_us"] = dev_us
-            row["kernel_path_back_to_back_us"] = wall_us
-            row["idle_share"] = None if dev_us is None else 1.0 - dev_us / wall_us
+            t = device_and_wall_us(lambda: model(xt))
+            row["kernel_path_device_us"] = t["device_us"]
+            row["kernel_path_back_to_back_us"] = t["wall_us"]
+            row["idle_share"] = t["idle_share"]
             filt.append(row)
             log(f"timing spectral filter b={b}: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in row.items() if k.endswith("_ms")))
-            log(f"spectral filter b={b} kernel path: device {dev_us} us, "
-                f"back to back {wall_us:.2f} us per call, idle share {row['idle_share']}")
+            log(f"spectral filter b={b} kernel path: device {t['device_us']} us, back to "
+                f"back {t['wall_us']:.2f} us per call, idle share {t['idle_share']}")
     log(json.dumps({"timing": {"card": card, "fft": rows, "spectral_filter": filt}}))
 
 
 def yardstick(rng, card: str) -> None:
     """The kernel against torch.fft.fft (cuFFT) at YARDSTICK_SHAPES, device
-    times from graph_ms, with the bytes bound and the kernel's share of it."""
+    times from kernel_bench.graph_us, with the bytes bound and the kernel's share of it."""
     rows = []
     for n, b in YARDSTICK_SHAPES:
         x = rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))
         xr, xi = planes(x)
         xc = torch.complex(xr, xi)
-        kernel_ms = graph_ms(lambda: cuda_fft.exec_kernel(xr, xi, n, -1))
-        cufft_ms = graph_ms(lambda: torch.fft.fft(xc))
+        kernel_ms = graph_us(torch, lambda: cuda_fft.exec_kernel(xr, xi, n, -1)) / 1e3
+        cufft_ms = graph_us(torch, lambda: torch.fft.fft(xc)) / 1e3
         bound, bound_by = fft_bound_ms(n, b)
         row = {"n": n, "batch": b, "kernel_us": kernel_ms * 1e3, "cufft_us": cufft_ms * 1e3,
                "bound_us": bound * 1e3, "bound_by": bound_by,
@@ -386,10 +754,18 @@ def main() -> int:
     core_lengths(rng)
     timings(rng, card)
     yardstick(rng, card)
+    train_launches, train_abs = training(rng)
+    fno_launches, fno_abs = fno_path(rng)
+    api_remainder(rng)
+    train_timings(rng, card)
+    log(f"kernel launches by path: filter forward {launches}, training {train_launches}, "
+        f"fno {fno_launches}")
+    launches += train_launches + fno_launches
+    max_abs = max(max_abs, train_abs, fno_abs)
     # the kernel line's times are on the same planes as its error: the
     # forward transform of the batch-1024 filter call.  ms, plain_ms and
     # library_ms are medians of single timed calls, dispatch included
-    # (time_ms); device_ms and library_device_ms are device times (graph_ms).
+    # (time_ms); device_ms and library_device_ms are device times (graph_us).
     h = FILTER_N // 2
     xc = torch.complex(xr, xi)
     bound, bound_by = fft_bound_ms(h, xr.shape[0])
@@ -401,8 +777,8 @@ def main() -> int:
         "kernel_ms": time_ms(kernel),
         "plain_ms": time_ms(lambda: cuda_fft.exec_kernel_reference(xr, xi, h, -1)),
         "library_ms": time_ms(lambda: torch.fft.fft(xc)),
-        "device_ms": graph_ms(kernel),
-        "library_device_ms": graph_ms(lambda: torch.fft.fft(xc)),
+        "device_ms": graph_us(torch, kernel) / 1e3,
+        "library_device_ms": graph_us(torch, lambda: torch.fft.fft(xc)) / 1e3,
     }
     log(f"kernel on the main path's planes ({h} x {xr.shape[0]}): " + ", ".join(
         f"{k} {v:.4f}" for k, v in main_row.items()) + f", bound {bound:.4f} ms ({bound_by})")

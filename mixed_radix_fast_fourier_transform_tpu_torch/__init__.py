@@ -3,21 +3,47 @@
 A port of ``mixed_radix_fast_fourier_transform_tpu`` (JAX) that imports
 ``torch`` and numpy and never ``jax``.  Module paths and public names mirror
 the JAX package.  Functions take tensors and compute on the tensor's own
-device; on an NVIDIA GPU the fused Stockham FFT kernel (``csrc/``, built
-with ``nvcc`` at first use) carries every length it supports, and the
+device; data that is no tensor yet (numpy arrays, lists) and data the
+library creates go to the card unless a ``device`` is given.  On an NVIDIA
+GPU the fused Stockham FFT kernel (``csrc/``, built with ``nvcc`` at first
+use) carries every length it supports, forward and backward, and the
 plan-based stage pipeline carries the rest.
 
 Public API (numpy.fft-flavoured):
-    fft, ifft, fft2, ifft2, fftn, ifftn
-    rfft, irfft, rfftn, irfftn
-    fft_convolve
+    fft, ifft, fft2, ifft2, fftn, ifftn, dht, idht
+    rfft, irfft, rfftn, irfftn, rfft2, irfft2, hfft, ihfft, hfftn, ihfftn,
+    hfft2, ihfft2
+    fftfreq, rfftfreq, fftshift, ifftshift
+    fft_convolve, fft_correlate, fft_oaconvolve, fft_convolve2, fft_convolven,
+    convolve, correlate, fftconvolve, oaconvolve, convolve2d, correlate2d,
+    choose_conv_method
     plan-level: get_plan, build_complex_plan, build_real_plan, clear_plan_cache
-    models: init_params, apply, params_from_jax, SpectralFilter
+    models: init_params, apply, loss_fn, train_step, params_from_jax,
+    SpectralFilter, models.fno
+
+Reference-compatible API (plan objects, unnormalized inverse, C-style names):
+    from mixed_radix_fast_fourier_transform_tpu_torch import compat
 """
 
-from .ops.fft import fft, ifft, fft2, ifft2, fftn, ifftn
-from .ops.rfft import rfft, irfft, rfftn, irfftn
-from .ops.convolve import fft_convolve
+from .ops.fft import (
+    fft,
+    ifft,
+    fft2,
+    ifft2,
+    fftn,
+    ifftn,
+    fftfreq,
+    rfftfreq,
+    fftshift,
+    ifftshift,
+    dht,
+    idht,
+)
+from .ops.rfft import rfft, irfft, rfftn, irfftn, rfft2, irfft2, hfft, ihfft
+from .ops.rfft import hfft2, ihfft2, hfftn, ihfftn
+from .ops.convolve import fft_convolve, fft_convolve2, fft_convolven, fft_correlate, fft_oaconvolve
+from .ops.convolve import convolve, correlate, fftconvolve, oaconvolve, convolve2d, correlate2d
+from .ops.convolve import choose_conv_method
 from .plan import (
     BluesteinPlan,
     MixedRadixPlan,
@@ -32,15 +58,28 @@ from .plan import (
     get_plan,
 )
 from .utils.config import DEFAULT_CONFIG, SpectralConfig
-from . import models, ops, utils
+from .utils.factorize import (
+    dividebyN,
+    next_fast_len,
+    next_pow2,
+    plan_stages,
+    prev_fast_len,
+    prime_factors,
+)
+from . import compat, models, ops, utils
 
 __all__ = [
     "fft", "ifft", "fft2", "ifft2", "fftn", "ifftn",
-    "rfft", "irfft", "rfftn", "irfftn",
-    "fft_convolve",
+    "rfft", "rfft2", "irfft2", "hfft", "ihfft", "irfft", "rfftn", "irfftn",
+    "hfft2", "ihfft2", "hfftn", "ihfftn",
+    "fft_convolve", "fft_convolve2", "fft_convolven", "fft_correlate", "fft_oaconvolve",
+    "convolve", "correlate", "fftconvolve", "oaconvolve", "convolve2d", "correlate2d",
+    "choose_conv_method",
+    "fftfreq", "rfftfreq", "fftshift", "ifftshift", "prev_fast_len", "dht", "idht",
     "BluesteinPlan", "MixedRadixPlan", "RaderPlan", "RealPlan",
     "build_bluestein_plan", "build_complex_plan", "build_mixed_radix_plan",
     "build_rader_plan", "build_real_plan", "clear_plan_cache", "get_plan",
     "DEFAULT_CONFIG", "SpectralConfig",
-    "models", "ops", "utils",
+    "prime_factors", "plan_stages", "dividebyN", "next_pow2", "next_fast_len",
+    "compat", "models", "ops", "utils",
 ]

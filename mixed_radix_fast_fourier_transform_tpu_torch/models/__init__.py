@@ -1,5 +1,17 @@
-"""Models built on the engine: the spectral filter (forward)."""
+"""Models built on the engine: the trainable spectral filter and the
+Fourier neural operators."""
 
-from .spectral_filter import SpectralFilter, apply, init_params, params_from_jax
+from . import fno
+from .spectral_filter import (
+    SpectralFilter,
+    apply,
+    init_params,
+    loss_fn,
+    params_from_jax,
+    train_step,
+)
 
-__all__ = ["SpectralFilter", "apply", "init_params", "params_from_jax"]
+__all__ = [
+    "SpectralFilter", "apply", "init_params", "loss_fn", "params_from_jax",
+    "train_step", "fno",
+]

@@ -1,19 +1,21 @@
-"""Flagship model: a learned spectral filter.
+"""Flagship model: a trainable spectral filter.
 
-Counterpart of the forward path of
+Counterpart of the single-device part of
 ``mixed_radix_fast_fourier_transform_tpu/models/spectral_filter.py``:
 
     y = irfft( rfft(x) ⊙ (gain_re + i·gain_im) ) + bias
 
-over the last axis of a (..., n) real signal.  This port covers the forward
-pass; on a CUDA tensor the fused kernel has no backward yet, so run the
-forward under ``torch.no_grad()`` or ``torch.inference_mode()`` there.
-Parameters live on the card unless the caller asks for another device.
+over the last axis of a (..., n) real signal, with its MSE loss and one SGD
+step.  Gradients flow through the whole engine: through the fused kernel
+(its backward is the kernel at the opposite sign) on the card as on the
+CPU, or through the stage pipeline.  Parameters live on the card unless the
+caller asks for another device.  The distributed variant of the JAX module
+comes with ``parallel/``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,15 +23,11 @@ from torch import nn
 
 from ..ops.rfft import irfft, rfft
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
+from ..utils.numerics import as_tensor, resolve_device
+from ..utils.tree import sgd_step, tree_from_numpy
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as a torch.device; None means the card ("cuda").  There is
-    no fallback to the CPU: without a card, using the result raises."""
-    return torch.device("cuda" if device is None else device)
 
 
 def init_params(
@@ -59,20 +57,39 @@ def params_from_jax(params: Mapping[str, np.ndarray], device=None) -> Params:
     """The JAX package's parameters (numpy arrays) as fp32 tensors on
     ``device`` (default: the card, see resolve_device), so that both
     packages compute the same function."""
-    device = resolve_device(device)
-    return {
-        k: torch.tensor(np.asarray(v), dtype=DTYPE, device=device)
-        for k, v in params.items()
-    }
+    return tree_from_numpy(dict(params), device)
 
 
 def apply(params: Params, x: Tensor, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     """Forward pass: (..., n) real -> (..., n) real."""
-    x = torch.as_tensor(x)
+    x = as_tensor(x)
     n = x.shape[-1]
     spec = rfft(x, config=config)
     gain = torch.complex(params["gain_re"], params["gain_im"])
     return irfft(spec * gain, n=n, config=config) + params["bias"]
+
+
+def loss_fn(
+    params: Params, x: Tensor, target: Tensor, *, config: SpectralConfig = DEFAULT_CONFIG
+) -> Tensor:
+    """MSE between the filtered signal and the target."""
+    y = apply(params, x, config=config)
+    return torch.mean((y - as_tensor(target, y.device)) ** 2)
+
+
+def train_step(
+    params: Params,
+    x: Tensor,
+    target: Tensor,
+    lr: float = 1e-2,
+    *,
+    config: SpectralConfig = DEFAULT_CONFIG,
+) -> Tuple[Params, Tensor]:
+    """One SGD step, differentiating through the whole FFT engine: returns
+    (new parameters, loss).  The parameters given are not changed.  With
+    the fused kernel it launches three times: rfft, irfft, and irfft's
+    backward (the input needs no gradient, so rfft's is never computed)."""
+    return sgd_step(loss_fn, params, x, target, lr=lr, config=config)
 
 
 class SpectralFilter(nn.Module):

@@ -1,7 +1,19 @@
 """Transform ops: complex/real FFT, convolution, the stage pipeline and the
 fused Stockham kernel."""
 
-from .fft import fft, ifft, fft2, ifft2, fftn, ifftn
-from .rfft import rfft, irfft, rfftn, irfftn
-from .convolve import fft_convolve
+from .fft import (
+    fft, ifft, fft2, ifft2, fftn, ifftn,
+    fftfreq, rfftfreq, fftshift, ifftshift, dht, idht,
+)
+from .rfft import (
+    rfft, irfft, rfftn, irfftn, rfft2, irfft2,
+    hfft, ihfft, hfftn, ihfftn, hfft2, ihfft2,
+)
+from .convolve import (
+    fft_convolve, fft_convolve2, fft_convolven, fft_correlate, fft_oaconvolve,
+    correlate, fftconvolve, oaconvolve, convolve2d, correlate2d,
+    choose_conv_method,
+)
+# ``convolve`` the function stays out of this namespace, where it would hide
+# the module of the same name; it is exported by the package itself.
 from .stockham import exec_bluestein, exec_complex, exec_mixed_radix

@@ -12,9 +12,11 @@ sees one read and one write per plane; the stage pipeline
   in each stage, the shared-memory swizzle of each stage's output, and the
   shared memory a block needs.  It is plain Python, so the CPU tests check
   it: every butterfly covered once, every exchange free of bank conflicts.
-* :func:`exec_kernel` is the wrapper.  On a CUDA tensor it launches the
-  kernel (building it at first use) or raises; on a CPU tensor it runs
-  :func:`exec_kernel_reference`.  It counts its launches in ``LAUNCHES``.
+* :func:`exec_kernel` is the wrapper, a ``torch.autograd.Function``.  On a
+  CUDA tensor it launches the kernel (building it at first use) or raises;
+  on a CPU tensor it runs :func:`exec_kernel_reference`.  Its backward is
+  itself at the opposite sign on the cotangent planes.  Launches are
+  counted in ``LAUNCHES``.
 * :func:`exec_kernel_reference` is the plain PyTorch version: the same
   factor schedule, twiddle layout and index algebra, stage by stage.
 * :func:`maybe_exec_kernel` is the dispatch that ``exec_len`` calls.
@@ -479,25 +481,13 @@ def _check_cuda_planes(xr: Tensor, xi: Tensor, n: int) -> None:
         )
     if not (xr.is_contiguous() and xi.is_contiguous()):
         raise ValueError("the kernel takes contiguous planes")
-    if torch.is_grad_enabled() and (xr.requires_grad or xi.requires_grad):
-        raise NotImplementedError(
-            "the fused kernel has no backward yet; run it under "
-            "torch.no_grad() or set SpectralConfig(use_kernel=False)"
-        )
 
 
-def exec_kernel(xr: Tensor, xi: Tensor, n: int, sign: int) -> Tuple[Tensor, Tensor]:
-    """Batched unnormalized FFT over the last axis through the fused kernel.
-
-    xr/xi: (..., n) fp32 planes.  A CUDA tensor launches the CUDA kernel on
-    the current stream; a CPU tensor runs :func:`exec_kernel_reference`.
-    Anything else raises."""
+def _launch(xr: Tensor, xi: Tensor, n: int, sign: int) -> Tuple[Tensor, Tensor]:
+    """One launch of the CUDA kernel on the current stream, on checked CUDA
+    planes.  The one place that counts into ``LAUNCHES``."""
     global LAUNCHES
-    if xr.device.type == "cpu" and xi.device.type == "cpu":
-        return exec_kernel_reference(xr, xi, n, sign)
     _check_cuda_planes(xr, xi, n)
-    if sign not in (-1, 1):
-        raise ValueError(f"sign must be -1 or +1, got {sign}")
     from . import _build
 
     lib = _build.library()
@@ -519,6 +509,51 @@ def exec_kernel(xr: Tensor, xi: Tensor, n: int, sign: int) -> Tuple[Tensor, Tens
         _build.check(lib, code, f"stockham_fft launch (n={n}, rows={rows})")
     LAUNCHES += 1
     return yr, yi
+
+
+class _StockhamFFT(torch.autograd.Function):
+    """The fused transform with its gradient.  The unnormalized sign-s DFT
+    is linear and its matrix symmetric, so its vector-Jacobian product is
+    the sign −s transform of the cotangent planes: the same kernel, and
+    nothing to save but ``n`` and ``sign``."""
+
+    @staticmethod
+    def forward(ctx, xr: Tensor, xi: Tensor, n: int, sign: int):
+        ctx.n, ctx.sign = n, sign
+        ctx.set_materialize_grads(False)
+        if xr.device.type == "cpu" and xi.device.type == "cpu":
+            return exec_kernel_reference(xr, xi, n, sign)
+        return _launch(xr, xi, n, sign)
+
+    @staticmethod
+    def backward(ctx, gr: Optional[Tensor], gi: Optional[Tensor]):
+        need_r, need_i = ctx.needs_input_grad[:2]
+        if not (need_r or need_i) or (gr is None and gi is None):
+            return None, None, None, None
+        # a cotangent may be missing (a plane nobody used), expanded from a
+        # scalar (sum, mean) or a strided view (flip, slices): the kernel
+        # takes dense planes only
+        gr = None if gr is None else gr.contiguous()
+        gi = torch.zeros_like(gr) if gi is None else gi.contiguous()
+        if gr is None:
+            gr = torch.zeros_like(gi)
+        # through exec_kernel, not _launch: a second derivative then works
+        # the same way, and the launch is counted
+        yr, yi = exec_kernel(gr, gi, ctx.n, -ctx.sign)
+        return (yr if need_r else None), (yi if need_i else None), None, None
+
+
+def exec_kernel(xr: Tensor, xi: Tensor, n: int, sign: int) -> Tuple[Tensor, Tensor]:
+    """Batched unnormalized FFT over the last axis through the fused kernel,
+    differentiable in both planes.
+
+    xr/xi: (..., n) fp32 planes.  A CUDA tensor launches the CUDA kernel on
+    the current stream; a CPU tensor runs :func:`exec_kernel_reference`.
+    Anything else raises.  The backward pass is this function at ``-sign``
+    on the cotangent planes, on either device."""
+    if sign not in (-1, 1):
+        raise ValueError(f"sign must be -1 or +1, got {sign}")
+    return _StockhamFFT.apply(xr, xi, n, sign)
 
 
 def maybe_exec_kernel(config, n: int, sign: int, xr: Tensor, xi: Tensor):

@@ -1,10 +1,13 @@
-"""Public complex FFT API: fft / ifft / fft2 / ifft2 / fftn / ifftn.
+"""Public complex FFT API: fft / ifft / fft2 / ifft2 / fftn / ifftn, the
+frequency and shift helpers, and the Hartley transform.
 
 Counterpart of ``mixed_radix_fast_fourier_transform_tpu/ops/fft.py``: a
 numpy.fft-style surface over the plan-based engine, for every length
-n >= 1 and any batch shape.  Functions take a tensor (or array-like, which
-becomes a CPU tensor) and compute on the tensor's own device; results are
-complex64.
+n >= 1 and any batch shape.  Functions take a tensor and compute on the
+tensor's own device; an array-like (numpy array, list, scalar) goes to the
+card, as do the arrays that ``fftfreq``/``rfftfreq`` create unless given a
+``device``.  Results are complex64 (real fp32 for the Hartley transform of
+real input).
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.config import DEFAULT_CONFIG, SpectralConfig
-from ..utils.numerics import from_planes, to_planes
+from ..utils.numerics import as_tensor, from_planes, resolve_device, to_planes
 from .stockham import exec_len
 
 Tensor = torch.Tensor
@@ -58,7 +61,7 @@ def _fft_1d(
     norm: Optional[str],
     config: SpectralConfig,
 ) -> Tensor:
-    x = torch.as_tensor(x)
+    x = as_tensor(x)
     if x.ndim == 0:
         raise ValueError("fft requires at least a 1-D input")
     axis = axis % x.ndim
@@ -123,7 +126,7 @@ def fftn(
     config: SpectralConfig = DEFAULT_CONFIG,
 ) -> Tensor:
     """N-D FFT as separable 1-D transforms."""
-    x = torch.as_tensor(x)
+    x = as_tensor(x)
     s, axes = _axes_shape(x, s, axes)
     for n_i, a in zip(s, axes):
         x = fft(x, n=n_i, axis=a, norm=norm, config=config)
@@ -139,7 +142,7 @@ def ifftn(
     config: SpectralConfig = DEFAULT_CONFIG,
 ) -> Tensor:
     """Inverse N-D FFT (numpy.fft.ifftn semantics)."""
-    x = torch.as_tensor(x)
+    x = as_tensor(x)
     s, axes = _axes_shape(x, s, axes)
     for n_i, a in zip(s, axes):
         x = ifft(x, n=n_i, axis=a, norm=norm, config=config)
@@ -154,3 +157,71 @@ def fft2(x, s=None, axes=(-2, -1), norm="backward", *, config=DEFAULT_CONFIG):
 def ifft2(x, s=None, axes=(-2, -1), norm="backward", *, config=DEFAULT_CONFIG):
     """Inverse 2-D FFT over ``axes`` (numpy.fft.ifft2 semantics)."""
     return ifftn(x, s=s, axes=axes, norm=norm, config=config)
+
+
+# ---------------------------------------------------------------------------
+# Frequency-axis helpers (numpy.fft parity)
+# ---------------------------------------------------------------------------
+
+def fftfreq(n: int, d: float = 1.0, *, dtype=torch.float32, device=None) -> Tensor:
+    """DFT sample frequencies for length ``n``, spacing ``d``
+    (numpy.fft.fftfreq), on ``device`` (default: the card)."""
+    k = torch.arange(n, device=resolve_device(device))
+    k = torch.where(k < (n + 1) // 2, k, k - n)
+    return (k / (n * d)).to(dtype)
+
+
+def rfftfreq(n: int, d: float = 1.0, *, dtype=torch.float32, device=None) -> Tensor:
+    """Non-negative DFT frequencies for a length-``n`` real transform
+    (numpy.fft.rfftfreq), on ``device`` (default: the card)."""
+    k = torch.arange(n // 2 + 1, device=resolve_device(device))
+    return (k / (n * d)).to(dtype)
+
+
+def _shift_axes(x: Tensor, axes) -> Tuple[int, ...]:
+    if axes is None:
+        return tuple(range(x.ndim))
+    return (axes,) if isinstance(axes, int) else tuple(axes)
+
+
+def fftshift(x, axes=None) -> Tensor:
+    """Roll the zero-frequency bin to the center (numpy.fft.fftshift)."""
+    x = as_tensor(x)
+    axes = _shift_axes(x, axes)
+    return torch.roll(x, [x.shape[a] // 2 for a in axes], axes)
+
+
+def ifftshift(x, axes=None) -> Tensor:
+    """Undo :func:`fftshift` (numpy.fft.ifftshift)."""
+    x = as_tensor(x)
+    axes = _shift_axes(x, axes)
+    return torch.roll(x, [-(x.shape[a] // 2) for a in axes], axes)
+
+
+def dht(x, n: Optional[int] = None, axis: int = -1, *, config=DEFAULT_CONFIG) -> Tensor:
+    """Discrete Hartley transform H[k] = Σ x[m]·cas(2πmk/N), cas = cos + sin:
+    Re(F) − Im(F) of the forward FFT, so ``dht(dht(x)) == N·x``.  Complex
+    input transforms each plane independently."""
+    x = as_tensor(x)
+    if x.is_complex():
+        # with F the forward DFT and F~[k] = F[(−k) mod N]: Σ z·cos = (F + F~)/2
+        # and Σ z·sin = i(F − F~)/2, so one FFT plus a bin reversal
+        f = torch.movedim(fft(x, n=n, axis=axis, config=config), axis, -1)
+        ft = torch.cat([f[..., :1], torch.flip(f[..., 1:], (-1,))], dim=-1)
+        return torch.movedim((f + ft) / 2 + 1j * (f - ft) / 2, -1, axis)
+    from .rfft import rfft  # rfft imports this module
+
+    # real input: the half spectrum suffices (H[k] = Re − Im, H[N−k] = Re + Im)
+    spec = torch.movedim(rfft(x, n=n, axis=axis, config=config), axis, -1)
+    nn = n if n is not None else x.shape[axis]
+    head = spec.real - spec.imag                     # bins 0..nn//2
+    mid = spec[..., 1 : (nn - 1) // 2 + 1]
+    tail = torch.flip(mid.real + mid.imag, (-1,))    # bins nn//2+1..nn-1
+    return torch.movedim(torch.cat([head, tail], dim=-1), -1, axis)
+
+
+def idht(x, n: Optional[int] = None, axis: int = -1, *, config=DEFAULT_CONFIG) -> Tensor:
+    """Inverse DHT: the DHT is self-inverse up to 1/N."""
+    x = as_tensor(x)
+    nn = int(n) if n is not None else x.shape[axis]
+    return dht(x, n=n, axis=axis, config=config) / nn

@@ -1,4 +1,5 @@
-"""Packed real FFT: rfft / irfft / rfftn / irfftn.
+"""Packed real FFT: rfft / irfft / rfftn / irfftn / rfft2 / irfft2 and the
+Hermitian family hfft / ihfft / hfftn / ihfftn / hfft2 / ihfft2.
 
 Counterpart of ``mixed_radix_fast_fourier_transform_tpu/ops/rfft.py``.  An
 even length-n real transform is one length-n/2 complex transform plus a
@@ -17,7 +18,7 @@ import torch.nn.functional as F
 
 from ..plan import device_constants, get_plan
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
-from ..utils.numerics import from_planes, to_planes
+from ..utils.numerics import as_tensor, from_planes, to_planes
 from .fft import _axes_shape, _norm_scale, _resize_last, fft, ifft
 from .stockham import exec_complex, exec_len
 
@@ -86,7 +87,7 @@ def rfft(
     config: SpectralConfig = DEFAULT_CONFIG,
 ) -> Tensor:
     """Real-input FFT along ``axis`` → n//2 + 1 complex bins."""
-    x = torch.as_tensor(x)
+    x = as_tensor(x)
     if x.is_complex():
         raise ValueError("rfft requires real input; use fft for complex data")
     axis = axis % x.ndim
@@ -135,7 +136,7 @@ def irfft(
     config: SpectralConfig = DEFAULT_CONFIG,
 ) -> Tensor:
     """Inverse of :func:`rfft`: half spectrum (length n//2+1) → real length n."""
-    x = torch.as_tensor(x)
+    x = as_tensor(x)
     axis = axis % x.ndim
     x = torch.movedim(x, axis, -1)
     n = int(n) if n is not None else 2 * (x.shape[-1] - 1)
@@ -188,7 +189,7 @@ def irfft(
 
 def rfftn(x, s=None, axes=None, norm="backward", *, config=DEFAULT_CONFIG):
     """N-D real FFT: rfft over the last requested axis, complex fft over the rest."""
-    x = torch.as_tensor(x)
+    x = as_tensor(x)
     s, axes = _axes_shape(x, s, axes)
     out = rfft(x, n=s[-1], axis=axes[-1], norm=norm, config=config)
     for n_i, a in zip(s[:-1], axes[:-1]):
@@ -199,7 +200,7 @@ def rfftn(x, s=None, axes=None, norm="backward", *, config=DEFAULT_CONFIG):
 def irfftn(x, s=None, axes=None, norm="backward", *, config=DEFAULT_CONFIG):
     """Inverse N-D real FFT (numpy.fft.irfftn): complex ifft over the leading
     requested axes, irfft over the last."""
-    x = torch.as_tensor(x)
+    x = as_tensor(x)
     if axes is None:
         axes = tuple(range(x.ndim))
     axes = tuple(a % x.ndim for a in axes)
@@ -210,3 +211,76 @@ def irfftn(x, s=None, axes=None, norm="backward", *, config=DEFAULT_CONFIG):
     for n_i, a in zip(s[:-1], axes[:-1]):
         x = ifft(x, n=n_i, axis=a, norm=norm, config=config)
     return irfft(x, n=s[-1], axis=axes[-1], norm=norm, config=config)
+
+
+def rfft2(x, s=None, axes=(-2, -1), norm="backward", *, config=DEFAULT_CONFIG):
+    """2-D real FFT (numpy.fft.rfft2): rfftn over the given two axes."""
+    return rfftn(x, s=s, axes=axes, norm=norm, config=config)
+
+
+def irfft2(x, s=None, axes=(-2, -1), norm="backward", *, config=DEFAULT_CONFIG):
+    """Inverse 2-D real FFT (numpy.fft.irfft2)."""
+    return irfftn(x, s=s, axes=axes, norm=norm, config=config)
+
+
+_SWAPPED_NORM = {"backward": "forward", "forward": "backward", "ortho": "ortho"}
+
+
+def _swapped_norm(norm: Optional[str]) -> str:
+    """The norm of the real transform that carries a Hermitian one (numpy's
+    hfft 'backward' applies no scale, so the two are swapped)."""
+    norm = norm or "backward"
+    if norm not in _SWAPPED_NORM:
+        raise ValueError(f"unknown norm {norm!r}")
+    return _SWAPPED_NORM[norm]
+
+
+def hfft(x, n: Optional[int] = None, axis: int = -1, norm="backward",
+         *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
+    """FFT of a signal with Hermitian symmetry (real spectrum): half-spectrum
+    input (length m) → real output of length n (default 2·(m−1)).
+    hfft(a, n) = irfft(conj(a), n)·n (numpy.fft.hfft)."""
+    x = as_tensor(x)
+    axis = axis % x.ndim
+    n = int(n) if n is not None else 2 * (x.shape[axis] - 1)
+    return irfft(torch.conj(x), n=n, axis=axis, norm=_swapped_norm(norm), config=config)
+
+
+def ihfft(x, n: Optional[int] = None, axis: int = -1, norm="backward",
+          *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
+    """Inverse of :func:`hfft`: real input length n → half spectrum
+    (n//2 + 1) with conjugate-inverted phase (numpy.fft.ihfft)."""
+    spec = rfft(x, n=n, axis=axis, norm=_swapped_norm(norm), config=config)
+    return torch.conj(spec).resolve_conj()
+
+
+def hfftn(x, s=None, axes=None, norm="backward", *, config=DEFAULT_CONFIG):
+    """N-D FFT of an array with Hermitian symmetry in the last transform
+    axis → real output (scipy.fft.hfftn): irfftn(conj(a), s) scaled by
+    prod(s)."""
+    x = as_tensor(x)
+    if axes is None:
+        axes = tuple(range(x.ndim))
+    axes = tuple(a % x.ndim for a in axes)
+    if s is None:
+        s = tuple(
+            x.shape[a] if a != axes[-1] else 2 * (x.shape[a] - 1) for a in axes
+        )
+    return irfftn(torch.conj(x), s=s, axes=axes, norm=_swapped_norm(norm), config=config)
+
+
+def ihfftn(x, s=None, axes=None, norm="backward", *, config=DEFAULT_CONFIG):
+    """Inverse of :func:`hfftn` (scipy.fft.ihfftn): real input → conjugated
+    half-spectrum over the last transform axis."""
+    spec = rfftn(x, s=s, axes=axes, norm=_swapped_norm(norm), config=config)
+    return torch.conj(spec).resolve_conj()
+
+
+def hfft2(x, s=None, axes=(-2, -1), norm="backward", *, config=DEFAULT_CONFIG):
+    """2-D Hermitian FFT (scipy.fft.hfft2)."""
+    return hfftn(x, s=s, axes=axes, norm=norm, config=config)
+
+
+def ihfft2(x, s=None, axes=(-2, -1), norm="backward", *, config=DEFAULT_CONFIG):
+    """Inverse 2-D Hermitian FFT (scipy.fft.ihfft2)."""
+    return ihfftn(x, s=s, axes=axes, norm=norm, config=config)

@@ -119,7 +119,11 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     # index arrays become int64 for torch.index_select
     if np.issubdtype(a.dtype, np.integer):
         a = a.astype(np.int64)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    # the constants outlive the call that first needs them: made under
+    # torch.inference_mode() they would be inference tensors, which a later
+    # call under autograd could not use
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 def device_constants(plan, device) -> Dict[str, object]:

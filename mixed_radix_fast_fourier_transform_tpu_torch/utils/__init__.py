@@ -9,5 +9,13 @@ from .factorize import (
     plan_stages,
     prime_factors,
 )
-from .numerics import cmul, conj_planes, from_planes, to_planes
+from .numerics import (
+    as_tensor,
+    as_tensors,
+    cmul,
+    conj_planes,
+    from_planes,
+    resolve_device,
+    to_planes,
+)
 from .metrics import get_metrics, reset_metrics

@@ -40,6 +40,25 @@ def largest_prime_factor(n: int) -> int:
     return prime_factors(n)[-1]
 
 
+# Radix primes of the C reference's planner (its compat predicate's set).
+REFERENCE_PRIME_SET: Tuple[int, ...] = (
+    2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47, 53,
+)
+
+
+def _smooth_over(m: int, primes: Sequence[int]) -> bool:
+    for p in primes:
+        while m % p == 0:
+            m //= p
+    return m == 1
+
+
+def dividebyN(n: int, primes: Tuple[int, ...] = REFERENCE_PRIME_SET) -> bool:
+    """Compat predicate: is ``n`` smooth over ``primes``?  The C reference's
+    ``dividebyN`` with a complete prime set and no table cap."""
+    return n >= 1 and _smooth_over(n, primes)
+
+
 def next_pow2(n: int) -> int:
     """Smallest power of two >= n."""
     if n <= 1:
@@ -52,19 +71,23 @@ def next_fast_len(n: int, primes: Sequence[int] = (2, 3, 5, 7)) -> int:
     if n <= 1:
         return 1
     best = next_pow2(n)
-
-    def smooth(m: int) -> bool:
-        for p in primes:
-            while m % p == 0:
-                m //= p
-        return m == 1
-
     m = n
     while m < best:
-        if smooth(m):
+        if _smooth_over(m, primes):
             return m
         m += 1
     return best
+
+
+def prev_fast_len(n: int, primes: Sequence[int] = (2, 3, 5, 7)) -> int:
+    """Largest ``m <= n`` whose prime factors are all in ``primes``
+    (scipy.fft.prev_fast_len)."""
+    if n < 1:
+        raise ValueError(f"length must be >= 1, got {n}")
+    m = n
+    while not _smooth_over(m, primes):
+        m -= 1
+    return m
 
 
 def plan_stages(

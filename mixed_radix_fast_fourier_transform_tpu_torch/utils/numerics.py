@@ -16,11 +16,34 @@ from .config import DTYPE
 Tensor = torch.Tensor
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device; None means the card ("cuda").  There is
+    no fallback to the CPU: without a card, using the result raises."""
+    return torch.device("cuda" if device is None else device)
+
+
+def as_tensor(x, device=None) -> Tensor:
+    """The one place where the package turns a caller's data into a tensor.
+    A ``torch.Tensor`` stays as it is, on its own device; a numpy array, a
+    list or a scalar becomes a tensor on ``device`` (default: the card, see
+    :func:`resolve_device`).  To compute on the CPU, pass a CPU tensor."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(x, device=resolve_device(device))
+
+
+def as_tensors(*xs) -> Tuple[Tensor, ...]:
+    """:func:`as_tensor` for the operands of one call: data that is no
+    tensor yet joins the device of the first operand that is one."""
+    device = next((x.device for x in xs if isinstance(x, torch.Tensor)), None)
+    return tuple(as_tensor(x, device) for x in xs)
+
+
 def to_planes(x) -> Tuple[Tensor, Tensor]:
     """Split a complex (or real) tensor into contiguous fp32 (re, im) planes
-    on its own device.  numpy input becomes a CPU tensor; float64 and
-    complex128 are cast down to the working precision here."""
-    x = torch.as_tensor(x)
+    on its own device (array-likes go through :func:`as_tensor`); float64
+    and complex128 are cast down to the working precision here."""
+    x = as_tensor(x)
     if x.is_complex():
         return (
             x.real.to(DTYPE).contiguous(),

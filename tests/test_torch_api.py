@@ -48,8 +48,8 @@ def test_fft_axis_n_and_2d():
     assert _rel(tp.fft(xt, n=4, axis=0).numpy(), jsp.fft(x, n=4, axis=0)) <= TOL
     assert _rel(tp.fft2(xt).numpy(), jsp.fft2(x)) <= TOL
     assert _rel(tp.ifft2(xt, s=(8, 8)).numpy(), jsp.ifft2(x, s=(8, 8))) <= TOL
-    # float64 numpy input is cast to fp32 at the boundary
-    assert tp.fft(np.ones(8)).dtype == torch.complex64
+    # float64 input is cast to fp32 at the boundary
+    assert tp.fft(torch.ones(8, dtype=torch.float64)).dtype == torch.complex64
     with pytest.raises(ValueError):
         tp.fft(xt, norm="bad")
     with pytest.raises(ValueError):

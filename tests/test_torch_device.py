@@ -1,0 +1,93 @@
+"""PyTorch port: where data that is no tensor yet goes.
+
+A tensor stays on its own device.  A numpy array, a list or a scalar goes
+to the card, as the JAX package puts such input on its default device; so
+do the arrays the library creates, unless given a device.  There is no
+fallback to the CPU: without a card the call raises.
+"""
+
+import pathlib
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import mixed_radix_fast_fourier_transform_tpu_torch as tp
+from mixed_radix_fast_fourier_transform_tpu_torch import compat
+from mixed_radix_fast_fourier_transform_tpu_torch.models import spectral_filter
+from mixed_radix_fast_fourier_transform_tpu_torch.utils import numerics
+
+torch.set_num_threads(1)
+
+PACKAGE = pathlib.Path(tp.__file__).parent
+NO_CARD = (RuntimeError, AssertionError)  # torch's own "no CUDA" errors
+
+
+def test_resolve_device_is_shared():
+    assert numerics.resolve_device(None) == torch.device("cuda")
+    assert numerics.resolve_device("cpu") == torch.device("cpu")
+    assert spectral_filter.resolve_device is numerics.resolve_device
+    assert tp.utils.resolve_device is numerics.resolve_device
+
+
+def test_as_tensor_keeps_tensors_and_places_arrays():
+    t = torch.arange(4.0)
+    assert numerics.as_tensor(t) is t
+    for data in (np.arange(4.0), [0.0, 1.0, 2.0, 3.0]):
+        got = numerics.as_tensor(data, device="cpu")
+        assert got.device.type == "cpu" and torch.equal(got.to(t.dtype), t)
+    assert numerics.as_tensor(2.5, "cpu").shape == ()
+    a, b = numerics.as_tensors(np.ones(3), t)  # joins the tensor's device
+    assert a.device == t.device and b is t
+
+
+@pytest.mark.parametrize("call", [
+    lambda x: tp.fft(x),
+    lambda x: tp.ifftn(x),
+    lambda x: tp.rfft(x),
+    lambda x: tp.irfft(x),
+    lambda x: tp.rfftn(x),
+    lambda x: tp.fftshift(x),
+    lambda x: tp.dht(x),
+    lambda x: tp.hfft(x),
+    lambda x: tp.fft_convolve(x, x),
+    lambda x: tp.convolve(x, x, method="direct"),
+    lambda x: tp.fft_oaconvolve(x, x[:3]),
+    lambda x: tp.models.apply({}, x),
+    lambda x: compat.fft_exec(compat.fft_init(8, 1), x),
+    lambda x: compat.fft_r2c_exec(compat.fft_real_init(8, 1), x),
+    lambda x: compat.fft_convolve("full", "linear", x, x),
+    lambda x: tp.fftfreq(8),
+    lambda x: tp.rfftfreq(8),
+    lambda x: compat.generate_signal(8),
+    lambda x: compat.generate_real_signal(8),
+    lambda x: tp.models.fno.init_fno(1, 4, 1),
+], ids=lambda f: None)
+def test_numpy_input_without_a_device_needs_the_card(call):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(NO_CARD):
+        call(np.ones(8, dtype=np.float32))
+
+
+def test_cpu_tensor_and_cpu_device_work():
+    x = np.arange(8, dtype=np.float32)
+    xt = torch.from_numpy(x)
+    assert tp.fft(xt).device.type == "cpu"
+    # numpy beside a CPU tensor computes on the CPU
+    assert tp.fft_convolve(xt, x).device.type == "cpu"
+    assert tp.fftfreq(8, device="cpu").device.type == "cpu"
+    assert compat.generate_signal(8, device="cpu").device.type == "cpu"
+    assert compat.fft_exec(compat.fft_init(8, 1), xt).device.type == "cpu"
+
+
+def test_only_the_helper_calls_torch_as_tensor():
+    """No module of the port turns caller data into a tensor on its own:
+    ``torch.as_tensor`` appears in ``utils/numerics.py::as_tensor`` only."""
+    hits = []
+    for path in sorted(PACKAGE.rglob("*.py")):
+        for i, line in enumerate(path.read_text().splitlines(), 1):
+            if re.search(r"torch\.as_tensor\(", line):
+                hits.append(f"{path.relative_to(PACKAGE)}:{i}")
+    assert len(hits) == 1 and hits[0].startswith("utils/numerics.py:"), hits
