@@ -18,7 +18,7 @@ Phases, each of which raises on failure:
    and ``torch.fft`` at the kernel-eligible shapes, and the filter's device
    time (torch.profiler) against its back-to-back wall time;
 7. the kernel against its yardstick, ``torch.fft.fft`` (cuFFT), at six
-   shapes: device time of 20 back-to-back launches replayed from a CUDA
+   shapes and the four of phase 12's model families: device time of 20 back-to-back launches replayed from a CUDA
    graph and timed with CUDA events, beside the bytes bound;
 8. training: five ``train_step``s of the spectral filter at n = 4096, batch
    8 and 1024, with the kernel on: 3 launches a step (4 when the input
@@ -34,19 +34,38 @@ Phases, each of which raises on failure:
 10. the rest of the API from numpy input without a device, which must land
     on the card: the ``compat`` round trips, overlap-add and direct
     convolution (cuDNN in full fp32), ``hfft`` and ``dht``;
-11. device and back-to-back wall time of one ``train_step``.
+11. device and back-to-back wall time of one ``train_step``;
+12. the three FFT-bearing model families at a published width, random
+    weights and input from the seed: S4D as in the authors' sequential
+    CIFAR-10 example (d_model 128, 4 layers, state 64, L = 1024, batch 64),
+    FNet-Base (hidden 768, ff 3072, 12 layers, sequence 512, batch 8) and
+    the AFNO of FourCastNet (720 × 1440 grid, 20 channels, patch 8, dim
+    768, 12 layers, 8 blocks, batch 1).  Each: forward from numpy input on
+    the kernel route against the stage pipeline, one layer's mixing op
+    against a float64 oracle, one ``train_step`` with the kernel held
+    against its plain version on every plane pair it was handed, and losses
+    and gradients leaf by leaf against the stage pipeline.  Then S4D's
+    recurrence against its convolution, and the Koopman autoencoder (no
+    transform) on the card against the CPU;
+13. the short-time, cosine, Chebyshev, Hankel, chirp-z and fractional
+    transforms from numpy input without a device, which must land on the
+    card, against numpy/scipy float64, with the kernel's launches of each
+    logged, and ``dct`` at 1024 × 256 timed beside its inner transform on
+    the stage pipeline (its route) and through the kernel;
+14. device and back-to-back wall time of phase 12's forwards and train steps.
 
-The last lines are one JSON line about the kernels (launches of phases 4, 8
-and 9; error over the plane pairs those launches were handed: every pair of
-phases 4 and 9, and in phase 8 the first step's three, every later
-backward's and the four of the step with an input gradient; times on the
-main path's batch-1024 planes), the card, then ``{"ok": true, "device":
+The last lines are one JSON line about the kernels (launches of phases 4, 8,
+9, 12 and 13; error over the plane pairs those launches were handed: every
+pair of phases 4, 9 and 12, and in phase 8 the first step's three, every
+later backward's and the four of the step with an input gradient; times on
+the main path's batch-1024 planes), the card, then ``{"ok": true, "device":
 {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import re
@@ -56,14 +75,17 @@ import sys
 import time
 
 import numpy as np
+import scipy.fft
+import scipy.linalg
+import scipy.signal
 import torch
 
 import mixed_radix_fast_fourier_transform_tpu_torch as tp
 from kernel_bench import SHAPES as YARDSTICK_SHAPES, graph_us, wrapper_us
 from mixed_radix_fast_fourier_transform_tpu_torch import compat
-from mixed_radix_fast_fourier_transform_tpu_torch.models import fno
+from mixed_radix_fast_fourier_transform_tpu_torch.models import afno, fnet, fno, koopman, s4d
 from mixed_radix_fast_fourier_transform_tpu_torch.ops import _build, cuda_fft
-from mixed_radix_fast_fourier_transform_tpu_torch.ops.stockham import exec_complex
+from mixed_radix_fast_fourier_transform_tpu_torch.ops.stockham import exec_complex, exec_len
 from mixed_radix_fast_fourier_transform_tpu_torch.utils.tree import tree_leaves, tree_map
 
 SEED = 0
@@ -74,7 +96,13 @@ ROUTES_TOL = 2 * ORACLE_TOL
 FILTER_N = 4096
 FILTER_BATCHES = (8, 1024)
 # 90: n % 4 != 0, rows not 16-byte aligned; 16384: the longest length
-KERNEL_LENGTHS = (8, 32, 64, 90, 360, 1024, 2048, 4096, 5040, 8192, 12005, 12288, 16384)
+KERNEL_LENGTHS = (8, 32, 64, 90, 180, 360, 768, 1024, 2048, 4096, 5040, 8192, 12005, 12288,
+                  16384)
+# (n, rows) of the model families' transforms: FNet-Base's two axes, and the
+# FourCastNet token grid's 69,120 rows of 90 (rows not 16-byte aligned; two
+# rows a block, so 34,560 blocks along x, the one grid dimension the launch
+# uses and the one without a 65,535 limit)
+KERNEL_MANY_ROWS = ((768, 4096), (512, 6144), (90, 69120))
 # NVIDIA H100 SXM peaks (data sheet): HBM bytes/s and fp32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -91,6 +119,32 @@ FNO = dict(in_channels=2, hidden=64, out_channels=1, n_layers=4, modes=16)
 FNO_BATCH, FNO_GRID = 20, 8192
 FNO2D = dict(in_channels=1, hidden=32, out_channels=1, n_layers=2, modes=12)
 FNO2D_BATCH, FNO2D_GRID = 4, (64, 64)
+# S4D, the authors' standalone example on sequential CIFAR-10 (Gu et al.,
+# arXiv 2206.11893; state-spaces/s4 example.py defaults)
+S4D = dict(hidden=128, n_layers=4, state=64, in_dim=3, out_dim=10)
+S4D_BATCH, S4D_LENGTH = 64, 1024
+# FNet-Base (Lee-Thorp et al., arXiv 2105.03824), continuous input
+FNET = dict(hidden=768, ff_dim=3072, n_layers=12)
+FNET_BATCH, FNET_SEQ = 8, 512
+# AFNO as in FourCastNet (Guibas et al., arXiv 2111.13587; Pathak et al.,
+# arXiv 2202.11214): 720 x 1440 grid, 20 variables, 90 x 180 tokens
+AFNO = dict(in_channels=20, dim=768, out_channels=20, patch=8, n_layers=12, n_blocks=8,
+            mlp_ratio=4.0)
+AFNO_RUN = dict(patch=8, n_blocks=8, sparsity=0.01)
+AFNO_GRID = (720, 1440)
+# The AFNO's spectral MLP has a ReLU and a soft shrinkage on every spectral
+# element, and a weight gradient is a sum over the ~4095 kept frequencies of
+# random sign: one element whose mask differs between two fp32 routes moves
+# an entry by 1/sqrt(4095) = 1.6% of its size, and every gradient upstream
+# with it.  So the whole model's gradients are held leaf by leaf in the
+# 2-norm (l2_err), where a few such entries weigh little, to this; and the
+# transforms' own gradients at its shapes to ROUTES_TOL on a linear filter.
+AFNO_GRAD_TOL = 5e-2
+# fp32 evaluates S4D's phases l·Δ·Im(A) (hundreds of radians where the mode
+# still has weight) to ~1e-5 rad: the kernel table's own budget
+S4D_TABLE_TOL = 1e-4
+# the recurrence against the convolution, as the JAX package's test holds it
+S4D_STEP_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -103,6 +157,16 @@ def rel_err(got, want) -> float:
     if not np.all(np.isfinite(got)):
         return float("inf")
     return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+def l2_err(got, want) -> float:
+    """‖got − want‖₂ / ‖want‖₂: unlike :func:`rel_err`, a few entries far off
+    weigh little in it."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if not np.all(np.isfinite(got)):
+        return float("inf")
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
 
 def require(cond: bool, what: str) -> None:
@@ -210,7 +274,7 @@ def build() -> float:
     return secs
 
 
-def kernel_error(xr, xi, n: int, sign: int, what: str) -> float:
+def kernel_error(xr, xi, n: int, sign: int, what: str, verbose: bool = True) -> float:
     """Checks the kernel against its plain version on (xr, xi): raises past
     KERNEL_TOL relative to max |plain|; returns the max abs error."""
     kr, ki = cuda_fft.exec_kernel(xr, xi, n, sign)
@@ -219,19 +283,26 @@ def kernel_error(xr, xi, n: int, sign: int, what: str) -> float:
     got = torch.complex(kr, ki).cpu().numpy()
     want = torch.complex(rr, ri).cpu().numpy()
     err = rel_err(got, want)
-    log(f"kernel vs plain {what} n={n} planes {tuple(got.shape)} sign={sign:+d}: "
-        f"rel err {err:.3e}")
+    if verbose:
+        log(f"kernel vs plain {what} n={n} planes {tuple(got.shape)} sign={sign:+d}: "
+            f"rel err {err:.3e}")
     require(err <= KERNEL_TOL, f"kernel disagrees with its plain version at n={n} ({what})")
     return float(np.max(np.abs(got - want)))
 
 
 def kernel_vs_plain(rng) -> None:
     """The kernel against its plain version on random rows of every length
-    class it takes: powers of two, 7-smooth mixes, up to n = 12288."""
+    class it takes (powers of two, 7-smooth mixes, up to n = 16384), three
+    rows each, and at the model families' shapes of thousands of rows."""
     for n in KERNEL_LENGTHS:
         for sign in (-1, 1):
             x = rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n))
             kernel_error(*planes(x), n, sign, "random")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for n, rows in KERNEL_MANY_ROWS:
+        xr, xi = (torch.randn(rows, n, device="cuda", generator=gen) for _ in range(2))
+        for sign in (-1, 1):
+            kernel_error(xr, xi, n, sign, "random, many rows")
 
 
 def filter_params(rng, n: int):
@@ -468,26 +539,32 @@ def gradients(loss_fn, params, x, target, config):
     return torch.autograd.grad(loss_fn(leaves, x, target, config=config), tree_leaves(leaves))
 
 
-def route_error(loss_fn, step, params, x, target, what: str) -> None:
+def route_error(loss_fn, step, params, x, target, what: str, err_of=rel_err,
+                tol: float = ROUTES_TOL) -> None:
     """One train step on the kernel route against the stage pipeline's:
     the losses within ORACLE_TOL, the stepped parameters and, since a
     step of a small learning rate hides the gradients in the parameters'
-    rounding, the gradients themselves leaf by leaf within ROUTES_TOL."""
+    rounding, the gradients themselves leaf by leaf within ``tol`` by
+    ``err_of`` (the largest entry's error over the leaf's maximum unless
+    told otherwise)."""
     new, loss = step(params, x, target)
     new_pipe, loss_pipe = step(params, x, target, config=PIPELINE)
     loss, loss_pipe = float(loss), float(loss_pipe)
     require(math.isfinite(loss), f"{what} loss is not finite")
     require(abs(loss - loss_pipe) <= ORACLE_TOL * abs(loss_pipe),
             f"{what} loss {loss} disagrees with the stage pipeline's {loss_pipe}")
-    err = max(rel_err(a.cpu().numpy(), b.cpu().numpy())
+    err = max(err_of(a.cpu().numpy(), b.cpu().numpy())
               for a, b in zip(tree_leaves(new), tree_leaves(new_pipe)))
-    require(err <= ROUTES_TOL, f"{what} stepped parameters: {err:.3e}")
-    grad_err = max(rel_err(g.cpu().numpy(), gp.cpu().numpy()) for g, gp in zip(
+    require(err <= tol, f"{what} stepped parameters: {err:.3e}")
+    pairs = [(g.cpu().numpy(), gp.cpu().numpy()) for g, gp in zip(
         gradients(loss_fn, params, x, target, tp.DEFAULT_CONFIG),
-        gradients(loss_fn, params, x, target, PIPELINE)))
+        gradients(loss_fn, params, x, target, PIPELINE))]
+    grad_errs = sorted(err_of(g, gp) for g, gp in pairs)
     log(f"{what} train step: loss {loss:.6f} (pipeline {loss_pipe:.6f}), stepped parameters "
-        f"rel err {err:.3e}, gradients rel err {grad_err:.3e} (worst leaf) vs stage pipeline")
-    require(grad_err <= ROUTES_TOL, f"{what} gradients: {grad_err:.3e}")
+        f"{err_of.__name__} {err:.3e}, gradients {err_of.__name__} {grad_errs[-1]:.3e} (worst "
+        f"leaf), {grad_errs[len(grad_errs) // 2]:.3e} (median leaf), largest entry's error "
+        f"{max(rel_err(g, gp) for g, gp in pairs):.3e} (worst leaf) vs stage pipeline")
+    require(grad_errs[-1] <= tol, f"{what} gradients: {grad_errs[-1]:.3e}")
 
 
 def fno_path(rng):
@@ -628,6 +705,403 @@ def api_remainder(rng) -> None:
     check("fftfreq n=5040", tp.fftfreq(n, 0.5), np.fft.fftfreq(n, 0.5))
 
 
+def kernel_errors(seen, what: str) -> float:
+    """The kernel against its plain version on every recorded plane pair;
+    logs the worst error per (n, rows, sign) and returns the worst abs error."""
+    worst_abs, by_shape = 0.0, {}
+    for xr, xi, n, sign in seen:
+        err = kernel_error(xr, xi, n, sign, what, verbose=False)
+        key = (n, xr.numel() // n, sign)
+        by_shape[key] = max(by_shape.get(key, 0.0), err)
+        worst_abs = max(worst_abs, err)
+    for (n, rows, sign), err in sorted(by_shape.items()):
+        calls = sum(1 for r in seen if (r[2], r[0].numel() // r[2], r[3]) == (n, rows, sign))
+        log(f"kernel vs plain {what}: n={n} x {rows} rows sign={sign:+d}, {calls} plane "
+            f"pairs, worst abs err {err:.3e}")
+    return worst_abs
+
+
+def model_family(name, apply, loss_fn, step, params, x, target, forward_launches,
+                 step_launches, err_of=rel_err, grad_tol: float = ROUTES_TOL):
+    """One model family on the card: the forward from numpy input on the
+    kernel route against the stage pipeline, then one train step with the
+    kernel held against its plain version on every plane pair it was handed
+    (forward planes and backward cotangents), then the step's loss, stepped
+    parameters and gradients against the stage pipeline's.  Returns the
+    launches of the forward and the recorded step, and the worst abs error."""
+    torch.cuda.reset_peak_memory_stats()
+    cuda_fft.LAUNCHES = 0
+    with torch.no_grad():
+        y = apply(params, x)
+        torch.cuda.synchronize()
+        forward = cuda_fft.LAUNCHES
+        y_pipe = apply(params, x, config=PIPELINE)
+    require(y.device.type == "cuda", f"{name}: result on {y.device}, not the card")
+    err = rel_err(y.cpu().numpy(), y_pipe.cpu().numpy())
+    log(f"{name}: forward {tuple(y.shape)} rel err {err:.3e} vs stage pipeline, "
+        f"{forward} launches")
+    require(err <= ROUTES_TOL, f"{name} forward error {err:.3e}")
+    require(forward == forward_launches, f"{name} forward launches {forward}")
+    xt, tt = cuda32(x), cuda32(target)
+    with recorded_launches() as seen:
+        step(params, xt, tt)
+        torch.cuda.synchronize()
+    n_step = cuda_fft.LAUNCHES - forward
+    total = cuda_fft.LAUNCHES
+    log(f"{name} train step: {n_step} launches")
+    require(n_step == step_launches, f"{name} train step launches {n_step}")
+    require(len(seen) == n_step, f"recorded {len(seen)} of {name}'s {n_step} launches")
+    worst_abs = kernel_errors(seen, f"{name} train-step planes")
+    del seen
+    route_error(loss_fn, step, params, xt, tt, name, err_of, grad_tol)
+    log(f"{name}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.empty_cache()
+    return total, worst_abs
+
+
+def s4d_kernel_oracle(p, length: int) -> np.ndarray:
+    """S4D's convolution kernel in float64 from a layer's numpy parameters."""
+    a = -np.exp(p["log_neg_a_re"]) + 1j * p["a_im"]             # (N/2,)
+    dta = np.exp(p["log_dt"])[:, None] * a[None, :]              # (H, N/2)
+    bc = (p["c_re"] + 1j * p["c_im"]) * (np.exp(dta) - 1.0) / a
+    table = np.exp(dta[..., None] * np.arange(length))           # (H, N/2, L)
+    return 2.0 * np.einsum("hn,hnl->hl", bc, table).real
+
+
+def afno_filter_oracle(p, x, n_blocks: int, sparsity: float) -> np.ndarray:
+    """AFNO's spectral filter in float64 on the CPU through torch.fft, from
+    a block's numpy parameters: (b, h, w, d) -> (b, h, w, d)."""
+    p = {k: torch.tensor(v, dtype=torch.float64) for k, v in p.items()}
+    x = torch.tensor(x, dtype=torch.float64)
+    b, h, w, d = x.shape
+    spec = torch.fft.rfft2(x, dim=(1, 2)).reshape(b, h, w // 2 + 1, n_blocks, d // n_blocks)
+    w1 = torch.complex(p["w1_re"], p["w1_im"])
+    w2 = torch.complex(p["w2_re"], p["w2_im"])
+    o1 = torch.einsum("bhwnc,nco->bhwno", spec, w1) + torch.complex(p["b1_re"], p["b1_im"])
+    o1 = torch.complex(torch.relu(o1.real), torch.relu(o1.imag))
+    o2 = torch.einsum("bhwnc,nco->bhwno", o1, w2) + torch.complex(p["b2_re"], p["b2_im"])
+    shrink = torch.nn.functional.softshrink
+    o2 = torch.complex(shrink(o2.real, sparsity), shrink(o2.imag, sparsity))
+    return torch.fft.irfft2(o2.reshape(b, h, w // 2 + 1, d), s=(h, w), dim=(1, 2)).numpy()
+
+
+def afno_transform_gradients(block, tokens, gen) -> None:
+    """What the AFNO's transforms contribute to a gradient, without its
+    masks: d/dx of Σ w ⊙ irfft2(rfft2(x) ⊙ M) for a fixed complex M, on the
+    token grid's moved-axis views, kernel route against stage pipeline
+    within ROUTES_TOL.  Then the elements of the first spectral layer whose
+    ReLU mask differs between the two routes, counted."""
+    b, h, w, d = tokens.shape
+    m = torch.complex(*(torch.randn(b, d, h, w // 2 + 1, generator=gen).cuda() for _ in range(2)))
+    weight = torch.randn(tokens.shape, generator=gen).cuda()
+    grads, specs = [], []
+    for config in (tp.DEFAULT_CONFIG, PIPELINE):
+        xg = tokens.clone().requires_grad_(True)
+        spec = tp.rfft2(torch.movedim(xg, -1, 1), config=config)
+        y = tp.irfft2(spec * m, s=(h, w), config=config)
+        (torch.movedim(y, 1, -1) * weight).sum().backward()
+        grads.append(xg.grad)
+        specs.append(spec.detach())
+    err = rel_err(grads[0].cpu().numpy(), grads[1].cpu().numpy())
+    log(f"afno transforms, linear filter on {tuple(tokens.shape)}: input gradient rel err "
+        f"{err:.3e} vs stage pipeline")
+    require(err <= ROUTES_TOL, f"afno transforms' gradient: {err:.3e}")
+    nb = block["w1_re"].shape[0]
+    hidden = []
+    for spec in specs:
+        a = spec.reshape(b, nb, d // nb, h, w // 2 + 1)
+        hidden.append(torch.einsum("bnchw,nco->bnohw", a.real, block["w1_re"])
+                      - torch.einsum("bnchw,nco->bnohw", a.imag, block["w1_im"]))
+    flips = int(((hidden[0] > 0) != (hidden[1] > 0)).sum())
+    log(f"afno first spectral layer, real plane: {flips} of {hidden[0].numel()} elements "
+        f"change their ReLU mask between the routes (each moves a weight-gradient entry by "
+        f"~{1 / math.sqrt(h * (w // 2 + 1) / 2):.3f} of its size)")
+
+
+def to_numpy(tree):
+    return tree_map(lambda t: t.cpu().numpy().astype(np.float64), tree)
+
+
+def model_families(rng):
+    """S4D, FNet-Base and the FourCastNet AFNO at their published widths,
+    then S4D's recurrence and the Koopman autoencoder.  Returns the launches
+    of the three forwards and recorded train steps and the kernel's worst
+    abs error on their plane pairs."""
+    gen = torch.Generator().manual_seed(SEED)
+    total, worst_abs = 0, 0.0
+
+    # S4D: per layer rfft(u), rfft(k), irfft forward, and each one's backward
+    params = s4d.init_s4d_model(**S4D, generator=gen, device="cuda")
+    x = rng.standard_normal((S4D_BATCH, S4D_LENGTH, S4D["in_dim"]))
+    target = rng.standard_normal((S4D_BATCH, S4D["out_dim"]))
+    layers = S4D["n_layers"]
+    launches, err = model_family(
+        "s4d", s4d.apply_s4d, s4d.loss_fn, s4d.train_step, params, x, target,
+        3 * layers, 6 * layers)
+    total, worst_abs = total + launches, max(worst_abs, err)
+    layer = params["layers"][0]
+    p64 = to_numpy(layer)
+    k = s4d.s4d_kernel(layer, S4D_LENGTH)
+    err = rel_err(k.cpu().numpy(), s4d_kernel_oracle(p64, S4D_LENGTH))
+    log(f"s4d kernel table {tuple(k.shape)}: rel err {err:.3e} vs float64")
+    require(err <= S4D_TABLE_TOL, f"s4d kernel table error {err:.3e}")
+    u = rng.standard_normal((S4D_BATCH, S4D_LENGTH, S4D["hidden"]))
+    ut = cuda32(u)
+    with torch.no_grad():
+        y = s4d.s4d_conv(layer, ut)
+    m = 2 * S4D_LENGTH
+    k64 = k.cpu().numpy().astype(np.float64)
+    want = np.fft.irfft(np.fft.rfft(np.moveaxis(u, -1, -2), n=m) * np.fft.rfft(k64, n=m),
+                        n=m)[..., :S4D_LENGTH]
+    want = np.moveaxis(want, -2, -1) + u * p64["d"]
+    err = rel_err(y.cpu().numpy(), want)
+    log(f"s4d_conv {tuple(y.shape)}: rel err {err:.3e} vs float64 oracle")
+    require(err <= ORACLE_TOL, f"s4d_conv error {err:.3e}")
+    # the recurrence fed 64 steps gives the convolution's first 64 outputs
+    state = tuple(ut.new_zeros(S4D_BATCH, S4D["hidden"], S4D["state"] // 2) for _ in range(2))
+    ys = []
+    with torch.no_grad():
+        for t in range(64):
+            state, yt = s4d.s4d_step(layer, *state, ut[:, t])
+            ys.append(yt)
+    y_rec = torch.stack(ys, dim=1).cpu().numpy()
+    err = float(np.max(np.abs(y[:, :64].cpu().numpy() - y_rec)) / max(1.0, np.max(np.abs(y_rec))))
+    log(f"s4d_step x 64 vs s4d_conv: err {err:.3e}")
+    require(err <= S4D_STEP_TOL, f"s4d recurrence disagrees with the convolution: {err:.3e}")
+    del params, layer, ut, y, state, ys
+
+    # FNet: per layer an FFT over hidden and one over the sequence; the first
+    # layer's input needs no gradient, so its two have no backward
+    params = fnet.init_fnet(**FNET, generator=gen, device="cuda")
+    x = rng.standard_normal((FNET_BATCH, FNET_SEQ, FNET["hidden"]))
+    target = rng.standard_normal(x.shape)
+    layers = FNET["n_layers"]
+    launches, err = model_family(
+        "fnet", fnet.apply, fnet.loss_fn, fnet.train_step, params, x, target,
+        2 * layers, 2 * layers + 2 * (layers - 1))
+    total, worst_abs = total + launches, max(worst_abs, err)
+    mix = fnet.fourier_mix(x)
+    err = rel_err(mix.cpu().numpy(), np.fft.fft2(x).real)
+    log(f"fnet fourier_mix {tuple(mix.shape)}: rel err {err:.3e} vs float64 oracle")
+    require(err <= ORACLE_TOL, f"fourier_mix error {err:.3e}")
+    del params, mix
+
+    # AFNO: per block rfft over W, fft over H, ifft over H, irfft over W
+    params = afno.init_afno(**AFNO, generator=gen, device="cuda")
+    x = rng.standard_normal((1, *AFNO_GRID, AFNO["in_channels"]))
+    target = rng.standard_normal((1, *AFNO_GRID, AFNO["out_channels"]))
+    layers = AFNO["n_layers"]
+    launches, err = model_family(
+        "afno", functools.partial(afno.apply, **AFNO_RUN),
+        functools.partial(afno.loss_fn, **AFNO_RUN),
+        functools.partial(afno.train_step, **AFNO_RUN), params, x, target,
+        4 * layers, 8 * layers, l2_err, AFNO_GRAD_TOL)
+    total, worst_abs = total + launches, max(worst_abs, err)
+    block = params["blocks"][0]
+    tokens = rng.standard_normal((1, AFNO_GRID[0] // 8, AFNO_GRID[1] // 8, AFNO["dim"]))
+    afno_transform_gradients(block, cuda32(tokens), gen)
+    with torch.no_grad():
+        got = afno.afno_filter(block, cuda32(tokens), AFNO["n_blocks"], sparsity=0.01)
+    want = afno_filter_oracle(to_numpy(block), tokens, AFNO["n_blocks"], 0.01)
+    err = rel_err(got.cpu().numpy(), want)
+    log(f"afno_filter {tuple(got.shape)}: rel err {err:.3e} vs float64 oracle")
+    require(err <= ORACLE_TOL, f"afno_filter error {err:.3e}")
+    del params, block, got
+
+    # Koopman: no transform; from numpy input the entry points land on the card
+    kp = koopman.init_koopman(8, latent_dim=16, hidden=64, depth=2, generator=gen,
+                              device="cuda")
+    kp["K"] = kp["K"] + 0.05 * torch.randn(16, 16, generator=gen).cuda()
+    kp_cpu = tree_map(lambda t: t.cpu(), kp)
+    trajs = rng.standard_normal((256, 64, 8)).astype(np.float32)
+    with torch.no_grad():
+        loss = koopman.koopman_loss(kp, trajs)
+        roll = koopman.koopman_rollout(kp, trajs[:, 0], 16)
+        loss_cpu = koopman.koopman_loss(kp_cpu, torch.from_numpy(trajs))
+        roll_cpu = koopman.koopman_rollout(kp_cpu, torch.from_numpy(trajs[:, 0]), 16)
+    require(loss.device.type == "cuda" and roll.device.type == "cuda",
+            "koopman: results not on the card")
+    err = max(abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu)),
+              rel_err(roll.cpu().numpy(), roll_cpu.numpy()))
+    log(f"koopman loss {float(loss):.6f} and 16-step rollout {tuple(roll.shape)}: rel err "
+        f"{err:.3e} vs the CPU")
+    require(err <= ORACLE_TOL, f"koopman on the card disagrees with the CPU: {err:.3e}")
+    log(f"model family kernel launches: {total}")
+    return total, worst_abs
+
+
+def ops_tail(rng, card: str):
+    """The ops tail from numpy input without a device: every result must lie
+    on the card and agree with numpy/scipy float64 within ORACLE_TOL of the
+    output's maximum.  Logs the kernel's launches per op.  Returns the
+    launches and the kernel's worst abs error on the plane pairs it was
+    handed."""
+    used = {}
+    seen_all = []
+
+    def run(name, fn, *args, **kw):
+        before = cuda_fft.LAUNCHES
+        with recorded_launches() as seen:
+            got = fn(*args, **kw)
+            torch.cuda.synchronize()
+        used[name] = used.get(name, 0) + cuda_fft.LAUNCHES - before
+        seen_all.extend(seen)
+        require(got.device.type == "cuda", f"{name}: result on {got.device}, not the card")
+        return got
+
+    def check(name, got, want, tol=ORACLE_TOL):
+        want = np.asarray(want)
+        require(tuple(got.shape) == want.shape, f"{name} shape {tuple(got.shape)}")
+        err = rel_err(got.cpu().numpy(), want)
+        log(f"{name}: rel err {err:.3e}")
+        require(err <= tol, f"{name} error {err:.3e}")
+
+    cuda_fft.LAUNCHES = 0
+    # short-time transforms at nperseg 1024, hop 256 on 16 x 2^18 samples
+    nperseg, hop, t = 1024, 256, 2 ** 18
+    x = rng.standard_normal((16, t))
+    spec = run("stft", tp.stft, x, nperseg, nperseg - hop)
+    win = scipy.signal.get_window("hann", nperseg)
+    _, _, want = scipy.signal.stft(x, window=win, nperseg=nperseg, noverlap=nperseg - hop,
+                                   boundary="even", padded=True)
+    want = np.swapaxes(want, -1, -2) * win.sum()   # scipy scales by the window's sum
+    frames = want.shape[1]
+    check("stft 16 x 2^18, nperseg 1024, hop 256 vs scipy.signal.stft", spec[:, :frames], want)
+    check("spectrogram", run("spectrogram", tp.spectrogram, x, nperseg, nperseg - hop)[:, :frames],
+          np.abs(want) ** 2)
+    check("istft(stft(x))", run("istft", tp.istft, spec, nperseg, nperseg - hop, length=t), x)
+    del spec, want
+
+    # Griffin-Lim: the spectral convergence falls with the iterations
+    tone = np.arange(2 ** 16) / 16384.0
+    sig = np.sin(2 * np.pi * 440 * tone) + 0.5 * np.sin(2 * np.pi * 1250 * tone)
+    mag = torch.abs(run("stft", tp.stft, sig, nperseg, nperseg - hop))
+    conv = []
+    for n_iter in (1, 8):
+        y = run("griffinlim", tp.griffinlim, mag, n_iter, nperseg, nperseg - hop, seed=SEED)
+        est = torch.abs(run("stft", tp.stft, y, nperseg, nperseg - hop))[: mag.shape[0]]
+        conv.append(float(torch.linalg.norm(est - mag) / torch.linalg.norm(mag)))
+    log(f"griffinlim spectral convergence after 1 and 8 iterations: {conv[0]:.4f}, {conv[1]:.4f}")
+    require(math.isfinite(conv[1]) and conv[1] < conv[0], f"griffinlim did not converge: {conv}")
+    # time stretch keeps the pitch: the 440 Hz tone stays at 440 Hz
+    y = run("time_stretch", tp.time_stretch, sig, 1.25, 2048)
+    require(y.shape[-1] == int(round(len(sig) / 1.25)), f"time_stretch length {y.shape[-1]}")
+    yn = y.cpu().numpy().astype(np.float64)
+    peak = np.argmax(np.abs(np.fft.rfft(yn * np.hanning(len(yn))))) * 16384.0 / len(yn)
+    log(f"time_stretch 2^16 samples by 1.25: {y.shape[-1]} samples, peak at {peak:.2f} Hz")
+    require(np.all(np.isfinite(yn)) and abs(peak - 440.0) < 2.0, f"time_stretch peak {peak}")
+
+    # cosine and sine transforms at n = 1024 x 256 rows
+    x = rng.standard_normal((256, 1024))
+    for kind in ("dct", "idct", "dst"):
+        for type_ in (1, 2, 3, 4):
+            check(f"{kind} type {type_} 1024 x 256",
+                  run(kind, getattr(tp, kind), x, type_),
+                  getattr(scipy.fft, kind)(x, type_))
+    check("dct type 2 ortho", run("dct", tp.dct, x, norm="ortho"), scipy.fft.dct(x, norm="ortho"))
+    sig = rng.standard_normal((8, 48000))
+    coeff = run("mdct", tp.mdct, sig, 2048)
+    check("imdct(mdct(x)) frame 2048", run("imdct", tp.imdct, coeff, length=48000), sig)
+    grid = tp.cheb_points(129, np.float64)
+    poly = np.polynomial.Polynomial([0.5, -1.0, 0.0, 2.0, 0.0, 1.0, -0.75])
+    check("cheb_diff of a degree-6 polynomial, 129 points",
+          run("cheb_diff", tp.cheb_diff, poly(grid)), poly.deriv()(grid), 2e-4)
+    a = np.abs(rng.standard_normal((64, 4096)))
+    check("fht n=4096 mu=1 bias=0.3", run("fht", tp.fht, a, 0.01, 1.0, offset=0.1, bias=0.3),
+          scipy.fft.fht(a, 0.01, 1.0, offset=0.1, bias=0.3))
+    x = rng.standard_normal((64, 1024))
+    check("fwht n=1024", run("fwht", tp.fwht, x), x @ scipy.linalg.hadamard(1024))
+    z = rng.standard_normal((16, 1000)) + 1j * rng.standard_normal((16, 1000))
+    w, a0 = np.exp(-2j * np.pi / 4000), np.exp(0.3j)
+    check("czt n=1000 m=600", run("czt", tp.czt, z, 600, w, a0), scipy.signal.czt(z, 600, w, a0))
+    check("zoom_fft n=1000 [0.1, 0.4] m=512", run("zoom_fft", tp.zoom_fft, z, [0.1, 0.4], 512),
+          scipy.signal.zoom_fft(z, [0.1, 0.4], 512, endpoint=False))
+    # fractional orders add: 0.3 then 0.7 is the centered unitary DFT, and
+    # ifrft inverts (the sampled kernel's own accuracy in fp32 sets the tolerance)
+    tt = np.linspace(-4, 4, 1024)
+    g = np.exp(-tt ** 2) * np.cos(3 * tt)
+    f03 = run("frft", tp.frft, g, 0.3)
+    want = np.roll(np.fft.fft(np.roll(g, -512)), 512) / 32.0
+    check("frft(frft(x, 0.3), 0.7) = centered unitary DFT", run("frft", tp.frft, f03, 0.7),
+          want, 2e-4)
+    check("ifrft(frft(x, 0.3), 0.3) = x", run("frft", tp.ifrft, f03, 0.3), g.astype(complex), 2e-4)
+    launches = cuda_fft.LAUNCHES
+    log("ops tail kernel launches: " + ", ".join(f"{k} {v}" for k, v in used.items()))
+    require(all(used[k] > 0 for k in ("stft", "istft", "spectrogram", "griffinlim",
+                                      "time_stretch", "fht", "frft")),
+            f"an op that goes through the fft layer never launched the kernel: {used}")
+    require(all(used[k] == 0 for k in ("dct", "idct", "dst", "mdct", "imdct", "cheb_diff",
+                                       "czt", "zoom_fft", "fwht")),
+            f"an op of the stage pipeline launched the kernel: {used}")
+    worst_abs = kernel_errors(seen_all, "ops-tail planes")
+    del seen_all
+
+    # dct 1024 x 256 on its route (the stage pipeline) beside the kernel's
+    xt = cuda32(rng.standard_normal((256, 1024)))
+    zero = torch.zeros_like(xt)
+    plan = tp.get_plan(1024, -1, "complex", tp.DEFAULT_CONFIG)
+    # the call uploads its twiddle tables from the host every time, which a
+    # CUDA graph cannot capture: its device time is the profiler's sum
+    row = {
+        "dct2_us": device_and_wall_us(lambda: tp.dct(xt))["device_us"],
+        "inner_stage_pipeline_us": graph_us(torch, lambda: exec_complex(plan, xt, zero)),
+        "inner_kernel_us": graph_us(torch, lambda: exec_len(tp.DEFAULT_CONFIG, 1024, -1, xt, zero)),
+    }
+    log("dct type 2, 1024 x 256, device time: " + ", ".join(f"{k} {v:.2f}" for k, v in row.items()))
+    log(json.dumps({"dct_routes": {"card": card, "n": 1024, "rows": 256, **row}}))
+    return launches, worst_abs
+
+
+def family_timings(rng, card: str) -> None:
+    """Forward and train step of the three model families of phase 12:
+    device time by torch.profiler sums and by CUDA-graph replay, back-to-back
+    wall time, idle share, device kernels per call and the fused kernel's
+    share of the device time."""
+    gen = torch.Generator().manual_seed(SEED)
+    f32 = lambda *shape: cuda32(rng.standard_normal(shape))
+    cases = [
+        ("s4d 128 x 4, L=1024, b=64", s4d.init_s4d_model(**S4D, generator=gen, device="cuda"),
+         f32(S4D_BATCH, S4D_LENGTH, S4D["in_dim"]), f32(S4D_BATCH, S4D["out_dim"]),
+         s4d.apply_s4d, s4d.train_step),
+        ("fnet-base 768 x 12, seq 512, b=8", fnet.init_fnet(**FNET, generator=gen, device="cuda"),
+         f32(FNET_BATCH, FNET_SEQ, FNET["hidden"]), f32(FNET_BATCH, FNET_SEQ, FNET["hidden"]),
+         fnet.apply, fnet.train_step),
+        ("afno 768 x 12, 90 x 180 tokens, b=1", afno.init_afno(**AFNO, generator=gen, device="cuda"),
+         f32(1, *AFNO_GRID, AFNO["in_channels"]), f32(1, *AFNO_GRID, AFNO["out_channels"]),
+         functools.partial(afno.apply, **AFNO_RUN),
+         functools.partial(afno.train_step, **AFNO_RUN)),
+    ]
+    rows = []
+    for name, params, x, target, apply, step in cases:
+        def forward():
+            with torch.no_grad():
+                return apply(params, x)
+
+        for what, fn in (("forward", forward), ("train_step", lambda: step(params, x, target))):
+            before = cuda_fft.LAUNCHES
+            fn()
+            k1_launches = cuda_fft.LAUNCHES - before
+            t = device_and_wall_us(fn, calls=5)
+            graph = graph_us(torch, fn, launches=1, replays=5)
+            row = {"model": name, "call": what, "device_us_profiler": t["device_us"],
+                   "device_us_graph_replay": graph, "back_to_back_us": t["wall_us"],
+                   "idle_share": t["idle_share"], "device_kernels_per_call": t["kernels"],
+                   "k1_launches": k1_launches, "k1_device_us": t["k1_us"],
+                   "k1_share": None if t["device_us"] is None else t["k1_us"] / t["device_us"]}
+            rows.append(row)
+            log(f"{name} {what}: device {t['device_us']} us (torch.profiler sum), {graph:.2f} us "
+                f"(graph replay), back to back {t['wall_us']:.2f} us, idle share "
+                f"{t['idle_share']}, {t['kernels']} device kernels, K1 {t['k1_us']:.2f} us in "
+                f"{k1_launches} launches")
+            for kernel, us in list(t["by_name"].items())[:6]:
+                short = re.sub(r"void |at::native::|\(anonymous namespace\)::|binary_internal::",
+                               "", kernel)
+                log(f"  {us:9.2f} us  {short[:110]}")
+        del params
+        torch.cuda.empty_cache()
+    log(json.dumps({"family_timing": {"card": card, "calls": rows}}))
+
+
 def train_timings(rng, card: str) -> None:
     """One train step of the spectral filter at n = 4096 and of the 1-D FNO
     at the Burgers shape: device time by CUDA-graph replay and by
@@ -724,11 +1198,15 @@ def timings(rng, card: str):
 
 
 def yardstick(rng, card: str) -> None:
-    """The kernel against torch.fft.fft (cuFFT) at YARDSTICK_SHAPES, device
-    times from kernel_bench.graph_us, with the bytes bound and the kernel's share of it."""
+    """The kernel against torch.fft.fft (cuFFT) at YARDSTICK_SHAPES and at the
+    model families' shapes (S4D's 1024 x 8192 rows among them), device times
+    from kernel_bench.graph_us, with the bytes bound and the kernel's share of it."""
     rows = []
-    for n, b in YARDSTICK_SHAPES:
-        x = rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))
+    family_shapes = KERNEL_MANY_ROWS + ((1024, S4D_BATCH * S4D["hidden"]),)
+    own = np.random.default_rng(SEED)   # the added shapes leave ``rng``'s stream as it was
+    for n, b in YARDSTICK_SHAPES + family_shapes:
+        draw = own if (n, b) in family_shapes else rng
+        x = draw.standard_normal((b, n)) + 1j * draw.standard_normal((b, n))
         xr, xi = planes(x)
         xc = torch.complex(xr, xi)
         kernel_ms = graph_us(torch, lambda: cuda_fft.exec_kernel(xr, xi, n, -1)) / 1e3
@@ -758,10 +1236,13 @@ def main() -> int:
     fno_launches, fno_abs = fno_path(rng)
     api_remainder(rng)
     train_timings(rng, card)
+    family_launches, family_abs = model_families(rng)
+    ops_launches, ops_abs = ops_tail(rng, card)
+    family_timings(rng, card)
     log(f"kernel launches by path: filter forward {launches}, training {train_launches}, "
-        f"fno {fno_launches}")
-    launches += train_launches + fno_launches
-    max_abs = max(max_abs, train_abs, fno_abs)
+        f"fno {fno_launches}, s4d + fnet + afno {family_launches}, ops tail {ops_launches}")
+    launches += train_launches + fno_launches + family_launches + ops_launches
+    max_abs = max(max_abs, train_abs, fno_abs, family_abs, ops_abs)
     # the kernel line's times are on the same planes as its error: the
     # forward transform of the batch-1024 filter call.  ms, plain_ms and
     # library_ms are medians of single timed calls, dispatch included

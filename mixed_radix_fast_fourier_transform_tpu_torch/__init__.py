@@ -17,9 +17,17 @@ Public API (numpy.fft-flavoured):
     fft_convolve, fft_correlate, fft_oaconvolve, fft_convolve2, fft_convolven,
     convolve, correlate, fftconvolve, oaconvolve, convolve2d, correlate2d,
     choose_conv_method
+    stft, istft, spectrogram, griffinlim, phase_vocoder, time_stretch,
+    get_window, dpss, windows
+    dct, idct, dctn, idctn, dst, idst, dstn, idstn, mdct, imdct, mdct_window
+    cheb_points, cheb_transform, icheb_transform, cheb_diff_coef, cheb_diff,
+    cheb_eval
+    fht, ifht, fhtoffset, fwht, ifwht, czt, zoom_fft, czt_points, CZT, ZoomFFT,
+    frft, ifrft, frft2
     plan-level: get_plan, build_complex_plan, build_real_plan, clear_plan_cache
     models: init_params, apply, loss_fn, train_step, params_from_jax,
-    SpectralFilter, models.fno
+    SpectralFilter, models.fno, models.s4d, models.fnet, models.afno,
+    models.koopman, models.save_checkpoint, models.load_checkpoint
 
 Reference-compatible API (plan objects, unnormalized inverse, C-style names):
     from mixed_radix_fast_fourier_transform_tpu_torch import compat
@@ -44,6 +52,23 @@ from .ops.rfft import hfft2, ihfft2, hfftn, ihfftn
 from .ops.convolve import fft_convolve, fft_convolve2, fft_convolven, fft_correlate, fft_oaconvolve
 from .ops.convolve import convolve, correlate, fftconvolve, oaconvolve, convolve2d, correlate2d
 from .ops.convolve import choose_conv_method
+from .ops.stft import (
+    stft, istft, spectrogram, get_window, dpss, griffinlim, phase_vocoder, time_stretch,
+)
+from .ops.dct import dct, idct, dst, idst, dctn, idctn, dstn, idstn
+from .ops.mdct import mdct, imdct, mdct_window
+from .ops.chebyshev import (
+    cheb_diff,
+    cheb_diff_coef,
+    cheb_eval,
+    cheb_points,
+    cheb_transform,
+    icheb_transform,
+)
+from .ops.fht import fht, ifht, fhtoffset, fwht, ifwht
+from .ops.czt import czt, zoom_fft, czt_points, CZT, ZoomFFT
+from .ops.frft import frft, frft2, ifrft
+from .ops import windows
 from .plan import (
     BluesteinPlan,
     MixedRadixPlan,
@@ -75,6 +100,14 @@ __all__ = [
     "fft_convolve", "fft_convolve2", "fft_convolven", "fft_correlate", "fft_oaconvolve",
     "convolve", "correlate", "fftconvolve", "oaconvolve", "convolve2d", "correlate2d",
     "choose_conv_method",
+    "stft", "istft", "spectrogram", "get_window", "dpss", "griffinlim", "phase_vocoder",
+    "time_stretch", "windows",
+    "dct", "idct", "dst", "idst", "dctn", "idctn", "dstn", "idstn",
+    "mdct", "imdct", "mdct_window",
+    "cheb_points", "cheb_transform", "icheb_transform", "cheb_diff_coef", "cheb_diff",
+    "cheb_eval",
+    "fht", "ifht", "fhtoffset", "fwht", "ifwht",
+    "czt", "zoom_fft", "czt_points", "CZT", "ZoomFFT", "frft", "ifrft", "frft2",
     "fftfreq", "rfftfreq", "fftshift", "ifftshift", "prev_fast_len", "dht", "idht",
     "BluesteinPlan", "MixedRadixPlan", "RaderPlan", "RealPlan",
     "build_bluestein_plan", "build_complex_plan", "build_mixed_radix_plan",

@@ -1,7 +1,17 @@
-"""Models built on the engine: the trainable spectral filter and the
-Fourier neural operators."""
+"""Models built on the engine: the trainable spectral filter, the Fourier
+neural operators, S4D, FNet, AFNO and the Koopman autoencoder, with
+checkpoints."""
 
-from . import fno
+from . import afno, fnet, fno, koopman, s4d
+from .checkpoint import load_checkpoint, save_checkpoint
+from .koopman import (
+    init_koopman,
+    koopman_decode,
+    koopman_encode,
+    koopman_loss,
+    koopman_rollout,
+    koopman_spectrum,
+)
 from .spectral_filter import (
     SpectralFilter,
     apply,
@@ -13,5 +23,8 @@ from .spectral_filter import (
 
 __all__ = [
     "SpectralFilter", "apply", "init_params", "loss_fn", "params_from_jax",
-    "train_step", "fno",
+    "train_step", "afno", "fnet", "fno", "koopman", "s4d",
+    "save_checkpoint", "load_checkpoint",
+    "init_koopman", "koopman_encode", "koopman_decode", "koopman_rollout",
+    "koopman_loss", "koopman_spectrum",
 ]

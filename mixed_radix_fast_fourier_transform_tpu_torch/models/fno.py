@@ -23,7 +23,7 @@ of GELU, the JAX default.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -31,9 +31,10 @@ from torch import nn
 
 from ..ops.fft import fft, ifft
 from ..ops.rfft import irfft, rfft
-from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
-from ..utils.numerics import as_tensor, resolve_device
-from ..utils.tree import sgd_step, tree_from_numpy, tree_map
+from ..utils.config import DEFAULT_CONFIG, SpectralConfig
+from ..utils.numerics import as_tensor
+from ..utils.tree import sgd_step, tree_map
+from ._common import Draws, params_from_jax
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
@@ -42,30 +43,7 @@ Params = Dict[str, Tensor]
 _SPACE = {1: "n", 2: "hw", 3: "dhw"}
 
 
-def params_from_jax(params, device=None):
-    """The JAX package's FNO parameter tree (numpy leaves) as fp32 tensors
-    on ``device`` (default: the card), structure unchanged."""
-    return tree_from_numpy(params, device)
-
-
-class _Normal:
-    """N(0, 1) draws from ``generator`` on its own device (the CPU when
-    None), placed on ``device`` (default: the card)."""
-
-    def __init__(self, generator: Optional[torch.Generator], device):
-        self.generator = generator
-        self.source = generator.device if generator is not None else torch.device("cpu")
-        self.device = resolve_device(device)
-
-    def __call__(self, *shape: int) -> Tensor:
-        return torch.randn(*shape, generator=self.generator, dtype=DTYPE,
-                           device=self.source).to(self.device)
-
-    def zeros(self, *shape: int) -> Tensor:
-        return torch.zeros(*shape, dtype=DTYPE, device=self.device)
-
-
-def _init_layer(normal: _Normal, channels: int, modes, corners) -> Params:
+def _init_layer(normal: Draws, channels: int, modes, corners) -> Params:
     scale = 1.0 / channels
     out: Params = {}
     for name in corners:
@@ -76,7 +54,7 @@ def _init_layer(normal: _Normal, channels: int, modes, corners) -> Params:
     return out
 
 
-def _init(normal: _Normal, in_channels, hidden, out_channels, n_layers, modes, corners):
+def _init(normal: Draws, in_channels, hidden, out_channels, n_layers, modes, corners):
     return {
         "lift": {
             "w": normal(in_channels, hidden) / max(in_channels, 1),
@@ -91,14 +69,14 @@ def _init(normal: _Normal, in_channels, hidden, out_channels, n_layers, modes, c
 
 
 def init_layer(channels: int, modes: int, generator=None, device=None) -> Params:
-    return _init_layer(_Normal(generator, device), channels, (modes,), ("r",))
+    return _init_layer(Draws(generator, device), channels, (modes,), ("r",))
 
 
 def init_fno(in_channels: int, hidden: int, out_channels: int, n_layers: int = 2,
              modes: int = 16, generator=None, device=None):
     """1-D FNO parameters: a pointwise lift, ``n_layers`` Fourier layers on
     ``hidden`` channels and a pointwise projection."""
-    return _init(_Normal(generator, device), in_channels, hidden, out_channels,
+    return _init(Draws(generator, device), in_channels, hidden, out_channels,
                  n_layers, (modes,), ("r",))
 
 
@@ -106,13 +84,13 @@ def init_layer2d(channels: int, modes_h: int, modes_w: int, generator=None,
                  device=None) -> Params:
     """Two learned tensors, one per low-frequency corner of the half-plane
     spectrum (non-negative H modes ``r``, negative H modes ``r2``)."""
-    return _init_layer(_Normal(generator, device), channels, (modes_h, modes_w),
+    return _init_layer(Draws(generator, device), channels, (modes_h, modes_w),
                        ("r", "r2"))
 
 
 def init_fno2d(in_channels: int, hidden: int, out_channels: int, n_layers: int = 2,
                modes: int = 8, generator=None, device=None):
-    return _init(_Normal(generator, device), in_channels, hidden, out_channels,
+    return _init(Draws(generator, device), in_channels, hidden, out_channels,
                  n_layers, (modes, modes), ("r", "r2"))
 
 
@@ -120,13 +98,13 @@ def init_layer3d(channels: int, modes_d: int, modes_h: int, modes_w: int,
                  generator=None, device=None) -> Params:
     """Four learned tensors ``r0``..``r3``, one per signed-frequency corner
     of the (D, H) plane (W is the non-negative rfft half)."""
-    return _init_layer(_Normal(generator, device), channels,
+    return _init_layer(Draws(generator, device), channels,
                        (modes_d, modes_h, modes_w), ("r0", "r1", "r2", "r3"))
 
 
 def init_fno3d(in_channels: int, hidden: int, out_channels: int, n_layers: int = 2,
                modes: int = 4, generator=None, device=None):
-    return _init(_Normal(generator, device), in_channels, hidden, out_channels,
+    return _init(Draws(generator, device), in_channels, hidden, out_channels,
                  n_layers, (modes, modes, modes), ("r0", "r1", "r2", "r3"))
 
 

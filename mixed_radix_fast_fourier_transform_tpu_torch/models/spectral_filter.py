@@ -15,16 +15,16 @@ comes with ``parallel/``.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
 from ..ops.rfft import irfft, rfft
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.numerics import as_tensor, resolve_device
-from ..utils.tree import sgd_step, tree_from_numpy
+from ..utils.tree import sgd_step
+from ._common import params_from_jax
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
@@ -51,13 +51,6 @@ def init_params(
         "gain_im": 0.01 * noise(),
         "bias": torch.zeros((), dtype=DTYPE, device=device),
     }
-
-
-def params_from_jax(params: Mapping[str, np.ndarray], device=None) -> Params:
-    """The JAX package's parameters (numpy arrays) as fp32 tensors on
-    ``device`` (default: the card, see resolve_device), so that both
-    packages compute the same function."""
-    return tree_from_numpy(dict(params), device)
 
 
 def apply(params: Params, x: Tensor, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:

@@ -1,5 +1,6 @@
-"""Transform ops: complex/real FFT, convolution, the stage pipeline and the
-fused Stockham kernel."""
+"""Transform ops: complex/real FFT, convolution, the short-time, cosine,
+Chebyshev, Hankel, chirp-z and fractional transforms, the stage pipeline and
+the fused Stockham kernel."""
 
 from .fft import (
     fft, ifft, fft2, ifft2, fftn, ifftn,
@@ -17,3 +18,7 @@ from .convolve import (
 # ``convolve`` the function stays out of this namespace, where it would hide
 # the module of the same name; it is exported by the package itself.
 from .stockham import exec_bluestein, exec_complex, exec_mixed_radix
+# The modules added after these (stft, dct, mdct, chebyshev, fht, czt, frft,
+# windows) share their names with their main functions, which the package
+# itself exports; here they stay modules.
+from . import chebyshev, czt, dct, fht, frft, mdct, stft, windows

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from .config import DTYPE
@@ -30,6 +31,12 @@ def as_tensor(x, device=None) -> Tensor:
     if isinstance(x, torch.Tensor):
         return x
     return torch.as_tensor(x, device=resolve_device(device))
+
+
+def constant(values, like: Tensor, dtype=DTYPE) -> Tensor:
+    """A table computed on the host (a numpy array, float64 as a rule) as a
+    ``dtype`` tensor on the device of ``like``."""
+    return torch.from_numpy(np.ascontiguousarray(values)).to(device=like.device, dtype=dtype)
 
 
 def as_tensors(*xs) -> Tuple[Tensor, ...]:

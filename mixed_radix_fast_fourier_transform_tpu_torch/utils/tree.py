@@ -29,6 +29,18 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree, prefix: str = ""):
+    """``fn(path, leaf)`` over the leaves of ``tree``, keeping the structure;
+    a leaf's path joins its dict keys and list indices with '/'
+    (``layers/0/w``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(
+            tree_map_with_path(fn, v, f"{prefix}{i}/") for i, v in enumerate(tree))
+    return fn(prefix.rstrip("/"), tree)
+
+
 def tree_leaves(tree) -> List:
     """The leaves of ``tree`` in :func:`tree_map`'s order."""
     out: List = []

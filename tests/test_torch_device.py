@@ -8,6 +8,8 @@ fallback to the CPU: without a card the call raises.
 
 import pathlib
 import re
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -63,6 +65,40 @@ def test_as_tensor_keeps_tensors_and_places_arrays():
     lambda x: compat.generate_signal(8),
     lambda x: compat.generate_real_signal(8),
     lambda x: tp.models.fno.init_fno(1, 4, 1),
+    lambda x: tp.stft(x, 4),
+    lambda x: tp.istft(np.ones((3, 3), np.complex64), 4),
+    lambda x: tp.spectrogram(x, 4),
+    lambda x: tp.griffinlim(np.ones((5, 3), np.float32), 2, 4),
+    lambda x: tp.phase_vocoder(np.ones((5, 3), np.complex64), 1.5),
+    lambda x: tp.time_stretch(np.ones(64, np.float32), 1.5, 8),
+    lambda x: tp.dct(x),
+    lambda x: tp.idct(x, 4),
+    lambda x: tp.dctn(x),
+    lambda x: tp.dst(x, 1),
+    lambda x: tp.idstn(x),
+    lambda x: tp.mdct(x, 4),
+    lambda x: tp.imdct(np.ones((3, 2), np.float32)),
+    lambda x: tp.cheb_transform(x),
+    lambda x: tp.icheb_transform(x),
+    lambda x: tp.cheb_diff_coef(x),
+    lambda x: tp.cheb_diff(x),
+    lambda x: tp.cheb_eval(x, 0.5),
+    lambda x: tp.fht(x, 0.1, 0.0),
+    lambda x: tp.ifht(x, 0.1, 0.0),
+    lambda x: tp.fwht(x),
+    lambda x: tp.ifwht(x),
+    lambda x: tp.czt(x),
+    lambda x: tp.zoom_fft(x, 0.5),
+    lambda x: tp.CZT(8)(x),
+    lambda x: tp.frft(x, 0.5),
+    lambda x: tp.ifrft(x, 1.0),
+    lambda x: tp.frft2(np.ones((4, 4), np.float32), 2.0),
+    lambda x: tp.models.s4d.init_s4d_model(4),
+    lambda x: tp.models.fnet.init_fnet(4),
+    lambda x: tp.models.fnet.fourier_mix(np.ones((2, 4, 4), np.float32)),
+    lambda x: tp.models.afno.init_afno(1, 4, 1),
+    lambda x: tp.models.init_koopman(3),
+    lambda x: tp.models.koopman_encode({"enc": []}, x),
 ], ids=lambda f: None)
 def test_numpy_input_without_a_device_needs_the_card(call):
     if torch.cuda.is_available():
@@ -91,3 +127,42 @@ def test_only_the_helper_calls_torch_as_tensor():
             if re.search(r"torch\.as_tensor\(", line):
                 hits.append(f"{path.relative_to(PACKAGE)}:{i}")
     assert len(hits) == 1 and hits[0].startswith("utils/numerics.py:"), hits
+
+
+def test_every_module_imports_with_jax_blocked():
+    """Every module of the port imports with ``jax`` and the JAX package
+    made unimportable: the port keeps its own copy of what it needs."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mixed_radix_fast_fourier_transform_tpu'] = None\n"
+        "import mixed_radix_fast_fourier_transform_tpu_torch as tp\n"
+        "names = [m.name for m in pkgutil.walk_packages(tp.__path__, tp.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "wanted = ['models.s4d', 'models.fnet', 'models.afno', 'models.koopman',\n"
+        "          'models.checkpoint', 'ops.stft', 'ops.windows', 'ops.dct', 'ops.mdct',\n"
+        "          'ops.chebyshev', 'ops.fht', 'ops.czt', 'ops.frft']\n"
+        "assert all(tp.__name__ + '.' + w in names for w in wanted), names\n"
+        "print('OK', len(names))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=str(PACKAGE.parent))
+    assert out.returncode == 0 and "OK" in out.stdout, out.stderr
+
+
+def test_no_library_fft_in_the_port():
+    """No result of the port comes from a library FFT: ``torch.fft``,
+    ``torch.stft`` and ``torch.istft`` appear in no module of the package,
+    and numpy's float64 FFT only where host design constants are made
+    (Bluestein and chirp-z kernel spectra, the Chebyshev window, DPSS ratios)."""
+    torch_hits, numpy_files = [], set()
+    for path in sorted(PACKAGE.rglob("*.py")):
+        rel = str(path.relative_to(PACKAGE))
+        for i, line in enumerate(path.read_text().splitlines(), 1):
+            if re.search(r"torch\.(fft\b|stft\(|istft\()", line):
+                torch_hits.append(f"{rel}:{i}")
+            if re.search(r"\bnp\.fft\.\w+\(", line):
+                numpy_files.add(rel)
+    assert not torch_hits, torch_hits
+    assert numpy_files == {"plan.py", "ops/czt.py", "ops/stft.py"}, numpy_files
