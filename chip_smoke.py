@@ -18,7 +18,8 @@ Phases, each of which raises on failure:
    and ``torch.fft`` at the kernel-eligible shapes, and the filter's device
    time (torch.profiler) against its back-to-back wall time;
 7. the kernel against its yardstick, ``torch.fft.fft`` (cuFFT), at six
-   shapes and the four of phase 12's model families: device time of 20 back-to-back launches replayed from a CUDA
+   shapes, the four of phase 12's model families and the two of the audio
+   front ends (256 x 32,256 and 200 x 48,016 rows): device time of 20 back-to-back launches replayed from a CUDA
    graph and timed with CUDA events, beside the bytes bound;
 8. training: five ``train_step``s of the spectral filter at n = 4096, batch
    8 and 1024, with the kernel on: 3 launches a step (4 when the input
@@ -51,12 +52,37 @@ Phases, each of which raises on failure:
     transforms from numpy input without a device, which must land on the
     card, against numpy/scipy float64, with the kernel's launches of each
     logged, and ``dct`` at 1024 × 256 timed beside its inner transform on
-    the stage pipeline (its route) and through the kernel;
-14. device and back-to-back wall time of phase 12's forwards and train steps.
+    the stage pipeline (its route) and through the kernel, ``dct`` and an
+    ``stft`` captured in CUDA graphs (their host tables stay on the card);
+14. device and back-to-back wall time of phase 12's forwards and train steps;
+15. the trainable PCEN audio front end of Wang et al. as
+    ``models/audio_frontend.py`` configures it, nothing cut: 16 kHz, n_fft
+    512, hop 128, 40 mel bands, 35 classes, 256 clips of 1 s.  Forward from
+    numpy input on the kernel route against the stage pipeline, mel power and
+    PCEN features against float64 numpy, one ``train_step`` with loss and
+    every gradient leaf against the stage pipeline and a float64 ``torch``
+    oracle on the CPU, the kernel against its plain version on every plane
+    pair (n = 256 x 32,256 rows), and the launches counted: 1 a forward, 1 a
+    train step (the waveform needs no gradient), 2 with an input gradient;
+16. the audio path's ops from numpy input without a device, which must land
+    on the card, against scipy/numpy float64: ``melspectrogram`` as Whisper
+    configures it (16 x 30 s, 3001 frames), ``pcen`` and ``mfcc`` on it,
+    ``ShortTimeFFT``, ``resample_poly`` 48 -> 16 kHz with its peak memory,
+    ``resample``, ``decimate``, ``upfirdn``, ``welch``/``csd``/``coherence``,
+    ``hilbert``, ``envelope``, ``periodogram``, ``lombscargle``,
+    ``savgol_filter``, ``freqz``, ``minimum_phase``, ``cwt``,
+    ``gammatonegram``, ``bispectrum``, ``pitch_shift``, ``yin``/``pyin``,
+    ``hpss``, with the kernel's launches of each logged;
+17. device and back-to-back wall time of the front end's forward and train
+    step, Whisper's ``melspectrogram``, ``pcen`` at 3001 frames forward and
+    with its backward, and ``resample_poly``.
+
+``python3 chip_smoke.py audio`` runs phases 1, 2 and 15-17 alone (for
+development; it prints no result line).
 
 The last lines are one JSON line about the kernels (launches of phases 4, 8,
-9, 12 and 13; error over the plane pairs those launches were handed: every
-pair of phases 4, 9 and 12, and in phase 8 the first step's three, every
+9, 12, 13, 15 and 16; error over the plane pairs those launches were handed:
+every pair of phases 4, 9, 12, 13, 15 and 16, and in phase 8 the first step's three, every
 later backward's and the four of the step with an input gradient; times on
 the main path's batch-1024 planes), the card, then ``{"ok": true, "device":
 {...}}``.
@@ -83,7 +109,9 @@ import torch
 import mixed_radix_fast_fourier_transform_tpu_torch as tp
 from kernel_bench import SHAPES as YARDSTICK_SHAPES, graph_us, wrapper_us
 from mixed_radix_fast_fourier_transform_tpu_torch import compat
-from mixed_radix_fast_fourier_transform_tpu_torch.models import afno, fnet, fno, koopman, s4d
+from mixed_radix_fast_fourier_transform_tpu_torch.models import (
+    afno, audio_frontend, fnet, fno, koopman, s4d,
+)
 from mixed_radix_fast_fourier_transform_tpu_torch.ops import _build, cuda_fft
 from mixed_radix_fast_fourier_transform_tpu_torch.ops.stockham import exec_complex, exec_len
 from mixed_radix_fast_fourier_transform_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -145,6 +173,32 @@ AFNO_GRAD_TOL = 5e-2
 S4D_TABLE_TOL = 1e-4
 # the recurrence against the convolution, as the JAX package's test holds it
 S4D_STEP_TOL = 1e-4
+# The trainable PCEN front end of Wang et al. (arXiv 1607.05666) as
+# models/audio_frontend.py configures it: 16 kHz, n_fft 512, hop 128 (what
+# loss_fn fixes), 40 mel bands, PCEN at the published initialisation, a linear
+# head over the 35 classes of Speech Commands v2 (Warden, arXiv 1804.03209),
+# 256 clips of 1 s.  Its transform: 126 frames x 256 clips = 32,256 rows of 256
+AUDIO = dict(sr=16000.0, n_fft=512, hop=128, n_mels=40, n_classes=35)
+AUDIO_BATCH, AUDIO_SAMPLES = 256, 16000
+# Whisper's log-mel front end (Radford et al., arXiv 2212.04356): 30 s at
+# 16 kHz, n_fft 400, hop 160, 80 mel bands, 3001 frames; 16 clips
+WHISPER = dict(sr=16000.0, n_fft=400, hop=160, n_mels=80)
+WHISPER_BATCH, WHISPER_SAMPLES = 16, 480000
+# (n, rows) the two front ends hand the kernel: many short rows
+AUDIO_KERNEL_SHAPES = ((256, 32256), (200, 48016))
+# PCEN is exp(-gain·log(eps + M)) and a power of fp32 values within
+# ORACLE_TOL of the truth: a few ulps more
+PCEN_TOL = 5e-5
+# 10·log10 of band energies within 1e-5, a DCT over 80 of them, relative to
+# coefficients of ~100 dB
+MFCC_TOL = 1e-4
+# gradients of the front end against float64: sums over 256 x 126 x 40 fp32
+# terms, back through 126 steps of the smoother and the transform
+AUDIO_GRAD_TOL = 2e-4
+# Lomb-Scargle evaluates cos/sin of up to 100 rad in fp32 (an ulp of 8e-6 rad)
+LOMB_TOL = 1e-4
+# the homomorphic method takes the log of a stopband's near-zeros in fp32
+MINPHASE_TOL = 2e-3
 
 
 def log(msg: str) -> None:
@@ -936,25 +990,8 @@ def ops_tail(rng, card: str):
     output's maximum.  Logs the kernel's launches per op.  Returns the
     launches and the kernel's worst abs error on the plane pairs it was
     handed."""
-    used = {}
-    seen_all = []
-
-    def run(name, fn, *args, **kw):
-        before = cuda_fft.LAUNCHES
-        with recorded_launches() as seen:
-            got = fn(*args, **kw)
-            torch.cuda.synchronize()
-        used[name] = used.get(name, 0) + cuda_fft.LAUNCHES - before
-        seen_all.extend(seen)
-        require(got.device.type == "cuda", f"{name}: result on {got.device}, not the card")
-        return got
-
-    def check(name, got, want, tol=ORACLE_TOL):
-        want = np.asarray(want)
-        require(tuple(got.shape) == want.shape, f"{name} shape {tuple(got.shape)}")
-        err = rel_err(got.cpu().numpy(), want)
-        log(f"{name}: rel err {err:.3e}")
-        require(err <= tol, f"{name} error {err:.3e}")
+    ops = Ops()
+    run, check, used, seen_all = ops.run, ops.check, ops.used, ops.seen
 
     cuda_fft.LAUNCHES = 0
     # short-time transforms at nperseg 1024, hop 256 on 16 x 2^18 samples
@@ -1034,22 +1071,534 @@ def ops_tail(rng, card: str):
                                        "czt", "zoom_fft", "fwht")),
             f"an op of the stage pipeline launched the kernel: {used}")
     worst_abs = kernel_errors(seen_all, "ops-tail planes")
-    del seen_all
+    del seen_all, ops
 
     # dct 1024 x 256 on its route (the stage pipeline) beside the kernel's
     xt = cuda32(rng.standard_normal((256, 1024)))
     zero = torch.zeros_like(xt)
     plan = tp.get_plan(1024, -1, "complex", tp.DEFAULT_CONFIG)
-    # the call uploads its twiddle tables from the host every time, which a
-    # CUDA graph cannot capture: its device time is the profiler's sum
+    # the calls' host tables stay on the card after the first call, so a CUDA
+    # graph captures dct and stft: device time by replay beside the profiler's sum
+    xs = cuda32(rng.standard_normal((16, 2 ** 18)))
+    before = tp.utils.get_metrics().get("constant_uploads", 0)
     row = {
         "dct2_us": device_and_wall_us(lambda: tp.dct(xt))["device_us"],
+        "dct2_graph_replay_us": graph_us(torch, lambda: tp.dct(xt)),
+        "stft_16x2^18_nperseg1024_graph_replay_us": graph_us(
+            torch, lambda: tp.stft(xs, 1024, 768)),
         "inner_stage_pipeline_us": graph_us(torch, lambda: exec_complex(plan, xt, zero)),
         "inner_kernel_us": graph_us(torch, lambda: exec_len(tp.DEFAULT_CONFIG, 1024, -1, xt, zero)),
     }
+    uploads = tp.utils.get_metrics().get("constant_uploads", 0) - before
+    log(f"dct and stft captured in CUDA graphs; host tables uploaded meanwhile: {uploads}")
+    require(uploads <= 2, f"dct at a shape seen before uploaded {uploads} tables")
     log("dct type 2, 1024 x 256, device time: " + ", ".join(f"{k} {v:.2f}" for k, v in row.items()))
     log(json.dumps({"dct_routes": {"card": card, "n": 1024, "rows": 256, **row}}))
     return launches, worst_abs
+
+
+# ---------------------------------------------------------------------------
+# The audio path: phases 15-17
+# ---------------------------------------------------------------------------
+
+
+def slaney_filterbank(sr: float, n_fft: int, n_mels: int) -> np.ndarray:
+    """The Slaney-scale, area-normalized triangular mel filterbank
+    (librosa.filters.mel defaults) in float64, written out here so that the
+    oracle shares no table with the library: (n_mels, n_fft//2 + 1)."""
+    f_sp, min_log_hz, logstep = 200.0 / 3.0, 1000.0, np.log(6.4) / 27.0
+
+    def to_mel(f):
+        f = np.asarray(f, np.float64)
+        return np.where(f >= min_log_hz,
+                        min_log_hz / f_sp + np.log(np.maximum(f, 1e-10) / min_log_hz) / logstep,
+                        f / f_sp)
+
+    def to_hz(m):
+        return np.where(m >= min_log_hz / f_sp,
+                        min_log_hz * np.exp(logstep * (m - min_log_hz / f_sp)), f_sp * m)
+
+    edges = to_hz(np.linspace(to_mel(0.0), to_mel(sr / 2.0), n_mels + 2))
+    freqs = np.arange(n_fft // 2 + 1) * sr / n_fft
+    up = (freqs[None, :] - edges[:-2, None]) / (edges[1:-1] - edges[:-2])[:, None]
+    down = (edges[2:, None] - freqs[None, :]) / (edges[2:] - edges[1:-1])[:, None]
+    return np.maximum(0.0, np.minimum(up, down)) * (2.0 / (edges[2:] - edges[:-2]))[:, None]
+
+
+def frames_oracle(x: np.ndarray, n_fft: int, hop: int) -> np.ndarray:
+    """Centered frames of (batch, T) float64: reflect-padded by n_fft//2,
+    the tail zero-padded to a whole frame; (batch, frames, n_fft)."""
+    xp = np.pad(x, ((0, 0), (n_fft // 2, n_fft // 2)), mode="reflect")
+    n_frames = 1 + -(-(xp.shape[-1] - n_fft) // hop)
+    xp = np.pad(xp, ((0, 0), (0, n_fft + (n_frames - 1) * hop - xp.shape[-1])))
+    return xp[:, np.arange(n_frames)[:, None] * hop + np.arange(n_fft)[None, :]]
+
+
+def mel_oracle(x: np.ndarray, sr: float, n_fft: int, hop: int, n_mels: int) -> np.ndarray:
+    """Mel power spectrogram in float64 numpy: (batch, frames, n_mels)."""
+    win = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n_fft) / n_fft)
+    spec = np.fft.rfft(frames_oracle(x, n_fft, hop) * win)
+    return (spec.real ** 2 + spec.imag ** 2) @ slaney_filterbank(sr, n_fft, n_mels).T
+
+
+def pcen_oracle(S: np.ndarray, gain, bias, power, b, eps: float = 1e-6) -> np.ndarray:
+    """PCEN in float64 numpy on (batch, frames, bands): the one-pole
+    smoother starts from the first frame and consumes it too."""
+    m = S[:, 0]
+    M = np.empty_like(S)
+    for t in range(S.shape[1]):
+        m = (1.0 - b) * m + b * S[:, t]
+        M[:, t] = m
+    return (S / (eps + M) ** gain + bias) ** power - bias ** power
+
+
+def pcen_b(sr: float, hop: int, time_constant: float = 0.4) -> float:
+    t_frames = time_constant * sr / hop
+    return (np.sqrt(1.0 + 4.0 * t_frames ** 2) - 1.0) / (2.0 * t_frames ** 2)
+
+
+def frontend_oracle_loss(p64, x64: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The audio front end's loss in float64 on the CPU through torch.fft,
+    with autograd: mel power, PCEN with the per-band learned coefficients,
+    mean over frames, linear head, mean softmax cross-entropy."""
+    n_fft, hop = AUDIO["n_fft"], AUDIO["hop"]
+    xp = torch.nn.functional.pad(x64[:, None], (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
+    n_frames = 1 + -(-(xp.shape[-1] - n_fft) // hop)
+    xp = torch.nn.functional.pad(xp, (0, n_fft + (n_frames - 1) * hop - xp.shape[-1]))
+    win = torch.tensor(0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n_fft) / n_fft))
+    spec = torch.fft.rfft(xp.unfold(-1, n_fft, hop) * win)
+    fb = torch.tensor(slaney_filterbank(AUDIO["sr"], n_fft, AUDIO["n_mels"]))
+    S = (spec.real ** 2 + spec.imag ** 2) @ fb.T
+    f = p64["frontend"]
+    gain, bias, power = (torch.exp(f[k]) for k in ("log_gain", "log_bias", "log_power"))
+    b = torch.sigmoid(f["smooth_logit"])
+    m, smoothed = S[:, 0], []
+    for t in range(S.shape[1]):
+        m = (1.0 - b) * m + b * S[:, t]
+        smoothed.append(m)
+    M = torch.stack(smoothed, dim=1)
+    feats = (S / (1e-6 + M) ** gain + bias) ** power - bias ** power
+    logits = feats.mean(dim=1) @ p64["head"]["w"] + p64["head"]["b"]
+    return torch.nn.functional.cross_entropy(logits, labels)
+
+
+def audio_frontend_path(rng):
+    """Phase 15: the trainable PCEN front end at its full size.  Forward from
+    numpy input on the kernel route against the stage pipeline; mel power
+    and PCEN features against float64 numpy; one train step with loss and
+    every gradient leaf against the stage pipeline and a float64 torch oracle
+    on the CPU; the kernel against its plain version on every plane pair it
+    was handed; launches as the code predicts them.  Returns the launches and
+    the kernel's worst abs error."""
+    sr, n_fft, hop, n_mels = (AUDIO[k] for k in ("sr", "n_fft", "hop", "n_mels"))
+    params = audio_frontend.init_params(
+        n_mels, AUDIO["n_classes"], generator=torch.Generator().manual_seed(SEED), device="cuda")
+    t = np.arange(AUDIO_SAMPLES) / sr
+    tones = np.sin(2 * np.pi * rng.uniform(100.0, 4000.0, (AUDIO_BATCH, 1)) * t)
+    x = 0.1 * rng.standard_normal((AUDIO_BATCH, AUDIO_SAMPLES)) + 0.3 * tones
+    labels = rng.integers(0, AUDIO["n_classes"], AUDIO_BATCH)
+    rows = AUDIO_BATCH * (1 + -(-AUDIO_SAMPLES // hop))
+    torch.cuda.reset_peak_memory_stats()
+
+    cuda_fft.LAUNCHES = 0
+    with recorded_launches() as seen, torch.no_grad():
+        logits = audio_frontend.apply(params, x, sr, n_fft)
+        torch.cuda.synchronize()
+        forward = cuda_fft.LAUNCHES
+        logits_pipe = audio_frontend.apply(params, x, sr, n_fft, config=PIPELINE)
+        feats = audio_frontend.apply_frontend(params["frontend"], x, sr, n_fft)
+        mel = tp.melspectrogram(x, sr, n_fft, hop, n_mels=n_mels)
+        torch.cuda.synchronize()
+    require(logits.device.type == "cuda" and mel.device.type == "cuda",
+            "audio front end: result not on the card")
+    require(tuple(logits.shape) == (AUDIO_BATCH, AUDIO["n_classes"]),
+            f"audio front end logits {tuple(logits.shape)}")
+    require(forward == 1, f"audio front end forward launches {forward}, expected 1")
+    err = rel_err(logits.cpu().numpy(), logits_pipe.cpu().numpy())
+    log(f"audio front end: logits {tuple(logits.shape)} rel err {err:.3e} vs stage pipeline, "
+        f"{forward} launch a forward ({n_fft // 2} x {rows} rows)")
+    require(err <= ROUTES_TOL, f"audio front end forward error {err:.3e}")
+    want_mel = mel_oracle(x, sr, n_fft, hop, n_mels)
+    err = rel_err(mel.cpu().numpy(), want_mel)
+    log(f"melspectrogram {tuple(mel.shape)}: rel err {err:.3e} vs float64 numpy")
+    require(err <= ORACLE_TOL, f"melspectrogram error {err:.3e}")
+    want_feats = pcen_oracle(want_mel, 0.98, 2.0, 0.5, 0.025)
+    err = rel_err(feats.cpu().numpy(), want_feats)
+    log(f"PCEN features {tuple(feats.shape)}: rel err {err:.3e} vs float64 numpy")
+    require(err <= PCEN_TOL, f"PCEN features error {err:.3e}")
+
+    xt, lt = cuda32(x), torch.tensor(labels, device="cuda")
+    before = cuda_fft.LAUNCHES
+    with recorded_launches() as seen_step:
+        audio_frontend.train_step(params, xt, lt, sr=sr, n_fft=n_fft)
+        torch.cuda.synchronize()
+    n_step = cuda_fft.LAUNCHES - before
+    # the waveform needs no gradient, so the backward launches nothing
+    require(n_step == 1, f"audio front end train step launches {n_step}, expected 1")
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    xg = xt.clone().requires_grad_(True)
+    before = cuda_fft.LAUNCHES
+    with recorded_launches() as seen_input:
+        loss = audio_frontend.loss_fn(leaves, xg, lt, sr, n_fft)
+        grads = torch.autograd.grad(loss, tree_leaves(leaves) + [xg])
+        torch.cuda.synchronize()
+    n_input = cuda_fft.LAUNCHES - before
+    require(n_input == 2, f"audio front end with an input gradient: {n_input} launches, expected 2")
+    total = cuda_fft.LAUNCHES
+    log(f"audio front end: {n_step} launch a train step, {n_input} with an input gradient")
+    recorded = seen + seen_step + seen_input
+    require(all((r[2], r[0].numel() // r[2]) == (n_fft // 2, rows) for r in recorded),
+            f"audio front end kernel calls {[(r[2], tuple(r[0].shape), r[3]) for r in recorded]}")
+    worst_abs = kernel_errors(recorded, "audio front-end planes")
+    del seen, seen_step, seen_input, recorded
+
+    route_error(audio_frontend.loss_fn, audio_frontend.train_step, params, xt, lt,
+                "audio front end")
+    p64 = tree_map(lambda p: p.detach().cpu().double().requires_grad_(True), params)
+    x64 = torch.tensor(x, requires_grad=True)
+    loss64 = frontend_oracle_loss(p64, x64, torch.tensor(labels))
+    want = torch.autograd.grad(loss64, tree_leaves(p64) + [x64])
+    loss, loss64 = float(loss.detach()), float(loss64.detach())
+    err = abs(loss - loss64) / abs(loss64)
+    names = [f"{g}/{k}" for g in params for k in params[g]] + ["x"]
+    errs = {k: rel_err(g.cpu().numpy(), w.numpy()) for k, g, w in zip(names, grads, want)}
+    log(f"audio front end: loss {loss:.6f} rel err {err:.3e} vs float64 oracle; gradients "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    require(err <= ORACLE_TOL, f"audio front end loss vs float64: {err:.3e}")
+    require(max(errs.values()) <= AUDIO_GRAD_TOL,
+            f"audio front end gradients vs float64: {errs}")
+    log(f"audio front end: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"kernel launches {total}")
+    return total, worst_abs
+
+
+def shorttime_oracle(x: np.ndarray, win: np.ndarray, hop: int, p0: int, p1: int) -> np.ndarray:
+    """One-sided STFT with zero padding in float64 numpy, slice p over
+    samples [p·hop − m//2, p·hop − m//2 + m): (batch, bins, slices)."""
+    m = len(win)
+    k = np.arange(p0, p1)[:, None] * hop - m // 2 + np.arange(m)[None, :]
+    xp = np.pad(x, ((0, 0), (m, 2 * m + hop)))
+    return np.swapaxes(np.fft.rfft(xp[:, k + m] * win), -1, -2)
+
+
+def bispectrum_oracle(x: np.ndarray, nperseg: int) -> np.ndarray:
+    """Direct bispectrum in float64 numpy: hann frames at half overlap, the
+    mean removed, the triple product averaged, the principal domain kept."""
+    hop = nperseg // 2
+    n_frames = 1 + (x.shape[-1] - nperseg) // hop
+    frames = x[..., np.arange(n_frames)[:, None] * hop + np.arange(nperseg)[None, :]]
+    frames = frames - frames.mean(-1, keepdims=True)
+    X = np.fft.rfft(frames * scipy.signal.get_window("hann", nperseg))
+    f = np.arange(X.shape[-1])
+    valid = (f[None, :] <= f[:, None]) & (f[:, None] + f[None, :] <= X.shape[-1] - 1)
+    Xs = X[..., np.where(valid, f[:, None] + f[None, :], 0)]
+    return (X[..., :, None] * X[..., None, :] * np.conj(Xs)).mean(-3) * valid
+
+
+def gammatonegram_oracle(x: np.ndarray, fs: float, n_filters: int) -> np.ndarray:
+    """Cochleagram in float64: 4th-order FIR gammatones on the ERB-rate
+    ladder from 50 Hz to 0.45·fs, 'same' convolution, energy per 10 ms."""
+    c = 9.26449 * 24.7
+    freqs = np.exp(np.linspace(np.log(50.0 + c), np.log(0.45 * fs + c), n_filters)) - c
+    tt = np.arange(max(int(fs * 0.015), 15)) / fs
+    hop = int(0.010 * fs)
+    out = []
+    for f in freqs:
+        bw = 1.019 * (f / 9.26449 + 24.7)
+        h = tt ** 3 * np.exp(-2 * np.pi * bw * tt) * np.cos(2 * np.pi * f * tt)
+        h *= 2 * (2 * np.pi * bw) ** 4 / 6.0 / fs
+        y = scipy.signal.fftconvolve(x, h[None, :], mode="same", axes=-1) ** 2
+        out.append(y[:, : (y.shape[-1] // hop) * hop].reshape(x.shape[0], -1, hop).mean(-1))
+    return np.stack(out, axis=1)
+
+
+class Ops:
+    """Runs library calls from numpy input without a device: every tensor
+    that comes back must lie on the card; the kernel's launches are counted
+    per op name and the planes it was handed are kept."""
+
+    def __init__(self):
+        self.used, self.seen = {}, []
+
+    def run(self, name, fn, *args, **kw):
+        before = cuda_fft.LAUNCHES
+        with recorded_launches() as seen:
+            got = fn(*args, **kw)
+            torch.cuda.synchronize()
+        self.used[name] = self.used.get(name, 0) + cuda_fft.LAUNCHES - before
+        self.seen.extend(seen)
+        for t in (got if isinstance(got, tuple) else (got,)):
+            if isinstance(t, torch.Tensor):
+                require(t.device.type == "cuda", f"{name}: result on {t.device}, not the card")
+        return got
+
+    @staticmethod
+    def check(name, got, want, tol=ORACLE_TOL):
+        want = np.asarray(want)
+        require(tuple(got.shape) == want.shape, f"{name} shape {tuple(got.shape)} != {want.shape}")
+        err = rel_err(got.cpu().numpy(), want)
+        log(f"{name}: rel err {err:.3e}")
+        require(err <= tol, f"{name} error {err:.3e}")
+
+
+def audio_ops(rng, card: str):
+    """Phase 16: the audio path's ops from numpy input without a device,
+    against scipy/numpy float64.  Returns the launches and the kernel's worst
+    abs error on the plane pairs it was handed."""
+    ops = Ops()
+    run, check = ops.run, ops.check
+    cuda_fft.LAUNCHES = 0
+
+    # Whisper's front end: 30 s at 16 kHz, n_fft 400, hop 160, 80 mel bands
+    sr = WHISPER["sr"]
+    t = np.arange(WHISPER_SAMPLES) / sr
+    x = (0.1 * rng.standard_normal((WHISPER_BATCH, WHISPER_SAMPLES))
+         + 0.3 * np.sin(2 * np.pi * rng.uniform(100.0, 4000.0, (WHISPER_BATCH, 1)) * t))
+    mel = run("melspectrogram", tp.melspectrogram, x, sr, WHISPER["n_fft"], WHISPER["hop"],
+              n_mels=WHISPER["n_mels"])
+    want_mel = mel_oracle(x, **WHISPER)
+    require(want_mel.shape[1] == 3001, f"{want_mel.shape[1]} frames")
+    check(f"melspectrogram 16 x 480,000, n_fft 400, hop 160, 80 bands -> {tuple(mel.shape)}",
+          mel, want_mel)
+    inner = sorted({(r[2], r[0].numel() // r[2]) for r in ops.seen})
+    log(f"melspectrogram n_fft 400 hands the kernel (n, rows) = {inner}")
+    pc = run("pcen", tp.pcen, want_mel, sr, WHISPER["hop"])
+    check("pcen, 3001 frames x 80 bands x 16", pc,
+          pcen_oracle(want_mel, 0.98, 2.0, 0.5, pcen_b(sr, WHISPER["hop"])), PCEN_TOL)
+    coeffs = run("mfcc", tp.mfcc, x, sr, 20, WHISPER["n_fft"], WHISPER["hop"], n_mels=80)
+    db = 10.0 * np.log10(np.maximum(want_mel, 1e-10))
+    db = np.maximum(db, db.max(axis=(-2, -1), keepdims=True) - 80.0)
+    check("mfcc, 20 coefficients", coeffs, scipy.fft.dct(db, norm="ortho")[..., :20], MFCC_TOL)
+    del mel, pc, coeffs, db
+
+    # ShortTimeFFT at the same window and hop
+    m, hop = WHISPER["n_fft"], WHISPER["hop"]
+    win = scipy.signal.get_window("hann", m)
+    st = tp.ShortTimeFFT(win, hop, sr)
+    S = run("ShortTimeFFT.stft", st.stft, x)
+    if hasattr(scipy.signal, "ShortTimeFFT"):
+        ref, against = scipy.signal.ShortTimeFFT(win, hop, sr), "scipy.signal.ShortTimeFFT"
+        want = ref.stft(x)
+        require((st.p_min, st.p_max(x.shape[-1])) == (ref.p_min, ref.p_max(x.shape[-1])),
+                "ShortTimeFFT slice range")
+    else:
+        want, against = shorttime_oracle(x, win, hop, st.p_min, st.p_max(x.shape[-1])), "numpy"
+    check(f"ShortTimeFFT.stft 16 x 480,000, hann 400, hop 160 -> {tuple(S.shape)} vs {against}",
+          S, want)
+    check("ShortTimeFFT.spectrogram", run("ShortTimeFFT.spectrogram", st.spectrogram, x),
+          np.abs(want) ** 2)
+    check("ShortTimeFFT.istft(stft(x))",
+          run("ShortTimeFFT.istft", st.istft, S, k1=x.shape[-1]), x)
+    for args in (("hann", 400, 240), ("hann", 400, 200), ("boxcar", 400, 0)):
+        require(tp.check_COLA(*args) == scipy.signal.check_COLA(*args), f"check_COLA{args}")
+        require(tp.check_NOLA(*args) == scipy.signal.check_NOLA(*args), f"check_NOLA{args}")
+    del S, want, x
+
+    # resampling: 48 kHz -> 16 kHz on 30 s of 16 channels
+    x48 = rng.standard_normal((16, 1_440_000))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    y = run("resample_poly", tp.resample_poly, x48, 1, 3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(f"resample_poly 16 x 1,440,000 by 1/3 (peak device memory {peak:.2f} GiB)", y,
+          scipy.signal.resample_poly(x48, 1, 3, axis=-1))
+    log(json.dumps({"resample_poly_memory": {"card": card, "shape": [16, 1_440_000], "up": 1,
+                                             "down": 3, "peak_gib": peak}}))
+    del y
+    check("resample_poly 16 x 48,000 by 160/147",
+          run("resample_poly", tp.resample_poly, x48[:, :48000], 160, 147),
+          scipy.signal.resample_poly(x48[:, :48000], 160, 147, axis=-1))
+    check("resample 16 x 30,000 -> 10,000", run("resample", tp.resample, x48[:, :30000], 10000),
+          scipy.signal.resample(x48[:, :30000], 10000, axis=-1))
+    check("decimate 16 x 2^18 by 4 (fir)", run("decimate", tp.decimate, x48[:, :2 ** 18], 4),
+          scipy.signal.decimate(x48[:, :2 ** 18], 4, ftype="fir", axis=-1))
+    taps = scipy.signal.firwin(64, 0.3)
+    check("upfirdn 16 x 100,000, 64 taps, up 3, down 2",
+          run("upfirdn", tp.upfirdn, taps, x48[:, :100000], 3, 2),
+          scipy.signal.upfirdn(taps, x48[:, :100000], 3, 2, axis=-1))
+    del x48
+
+    # spectral estimates at nperseg 1024 on 16 x 2^20 samples
+    x = rng.standard_normal((16, 2 ** 20))
+    y = scipy.signal.lfilter(scipy.signal.firwin(31, 0.25), 1.0, x) + 0.5 * rng.standard_normal(x.shape)
+    for name, fn, ref, args in (("welch", tp.welch, scipy.signal.welch, (x,)),
+                                ("csd", tp.csd, scipy.signal.csd, (x, y)),
+                                ("coherence", tp.coherence, scipy.signal.coherence, (x, y))):
+        f, p = run(name, fn, *args, 16000.0, "hann", 1024)
+        f_want, p_want = ref(*args, 16000.0, "hann", 1024, axis=-1)
+        check(f"{name} 16 x 2^20, nperseg 1024", p, p_want)
+        require(rel_err(f.cpu().numpy(), f_want) <= 1e-6, f"{name} frequencies")
+    f, p = run("welch", tp.welch, x[:, :2 ** 16], 16000.0, "hann", 1024, average="median")
+    check("welch, median average", p,
+          scipy.signal.welch(x[:, :2 ** 16], 16000.0, "hann", 1024, average="median", axis=-1)[1])
+    xs = x[:, :16384]
+    check("hilbert 16 x 16,384", run("hilbert", tp.hilbert, xs), scipy.signal.hilbert(xs, axis=-1))
+    X = np.fft.fft(xs)
+    band = np.zeros_like(X)
+    band[:, 1:8192] = 2.0 * X[:, 1:8192]
+    env = run("envelope", tp.envelope, xs)
+    check("envelope 16 x 16,384, band (1, None): envelope", env[0], np.abs(np.fft.ifft(band)))
+    # outside the band (1, 8192) lie the mean and the Nyquist bin: ~1e-2 each
+    # beside samples of ~4, so fp32 rounding of the transform shows at 1e-4
+    alt = (-1.0) ** np.arange(16384)
+    check("envelope: low-pass residual", env[1],
+          (X[:, :1].real + X[:, 8192:8193].real * alt) / 16384.0, 1e-3)
+    f, p = run("periodogram", tp.periodogram, xs, 16000.0, "hann")
+    check("periodogram 16 x 16,384, hann", p, scipy.signal.periodogram(xs, 16000.0, "hann", axis=-1)[1])
+    times = np.sort(rng.uniform(0.0, 10.0, 2000))
+    obs = np.sin(3.7 * times) + 0.5 * rng.standard_normal((4, 2000))
+    omegas = np.linspace(0.5, 10.0, 500)
+    check("lombscargle 4 x 2000 samples, 500 frequencies",
+          run("lombscargle", tp.lombscargle, times, obs, omegas),
+          np.stack([scipy.signal.lombscargle(times, o, omegas) for o in obs]), LOMB_TOL)
+    check("savgol_filter 16 x 16,384, window 11, order 3",
+          run("savgol_filter", tp.savgol_filter, xs, 11, 3), scipy.signal.savgol_filter(xs, 11, 3, axis=-1))
+    taps = scipy.signal.firwin(101, 0.3)
+    w, h = run("freqz", tp.freqz, taps, 1.0, 512)
+    check("freqz, 101 taps, 512 points", h, scipy.signal.freqz(taps, 1.0, 512)[1])
+    proto = scipy.signal.remez(31, [0, 0.2, 0.3, 0.5], [1, 0])
+    check("minimum_phase, 31 taps (homomorphic)", run("minimum_phase", tp.minimum_phase, proto),
+          scipy.signal.minimum_phase(proto, method="homomorphic"), MINPHASE_TOL)
+    del x, y, xs
+
+    # wavelets, cochleagram, bispectrum
+    data = rng.standard_normal((4, 4096))
+    widths = [4.0, 8.0, 16.0, 32.0]
+    want = np.stack([[np.convolve(row, np.conj(tp.morlet2(min(10 * wd, 4096), wd))[::-1], "same")
+                      for row in data] for wd in widths])
+    check("cwt morlet2, 4 widths on 4 x 4096", run("cwt", tp.cwt, data, tp.morlet2, widths), want)
+    sig = rng.standard_normal((4, 16000))
+    check("gammatonegram, 64 filters on 4 x 16,000 at 16 kHz",
+          run("gammatonegram", tp.gammatonegram, sig, 16000.0, 64),
+          gammatonegram_oracle(sig, 16000.0, 64))
+    sig = rng.standard_normal((4, 65536))
+    check("bispectrum nperseg 128 on 4 x 65,536", run("bispectrum", tp.bispectrum, sig, 128),
+          bispectrum_oracle(sig, 128))
+
+    # pitch: an octave up; a chirp tracked; a tone and clicks separated
+    sr = 22050.0
+    t = np.arange(32768) / sr
+    y = run("pitch_shift", tp.pitch_shift, np.sin(2 * np.pi * 440.0 * t), sr, 12.0, nperseg=1024)
+    yn = y.cpu().numpy().astype(np.float64)
+    core = yn[4096:-4096] * np.hanning(len(yn) - 8192)
+    peak_hz = np.argmax(np.abs(np.fft.rfft(core))) * sr / len(core)
+    log(f"pitch_shift of 440 Hz by +12 steps: peak at {peak_hz:.2f} Hz")
+    require(yn.shape == t.shape and abs(peak_hz - 880.0) < 10.0, f"pitch_shift peak {peak_hz}")
+    sr, hop = 16000.0, 256
+    t = np.arange(32000) / sr
+    f_true = 200.0 + 100.0 * t
+    chirp = np.sin(2 * np.pi * np.cumsum(f_true) / sr)
+    f0 = run("yin", tp.yin, chirp, 100.0, 800.0, sr, 1024).cpu().numpy()
+    centers = np.minimum(np.arange(len(f0)) * hop, len(t) - 1)
+    inner = slice(3, -3)
+    err = np.max(np.abs(f0[inner] - f_true[centers][inner]) / f_true[centers][inner])
+    log(f"yin on a 200 -> 400 Hz chirp: worst relative pitch error {err:.4f} over {len(f0)} frames")
+    require(err < 0.02, f"yin pitch error {err}")
+    f0, voiced, prob = (v.cpu().numpy() for v in run("pyin", tp.pyin, chirp, 100.0, 800.0, sr, 1024))
+    ok = voiced[inner]
+    err = np.max(np.abs(f0[inner][ok] - f_true[centers][inner][ok]) / f_true[centers][inner][ok])
+    log(f"pyin on the chirp: {ok.mean():.3f} of the frames voiced, worst relative pitch error "
+        f"{err:.4f}")
+    require(ok.mean() > 0.9 and err < 0.02, f"pyin: voiced {ok.mean()}, error {err}")
+    sr = 22050.0
+    t = np.arange(16384) / sr
+    tone = 0.8 * np.sin(2 * np.pi * 880.0 * t)
+    clicks = np.zeros_like(tone)
+    clicks[2000::3000] = 3.0
+    S = run("stft", tp.stft, tone + clicks, 512, 384)
+    H, P = run("hpss", tp.hpss, S)
+    xh = run("istft", tp.istft, H, 512, 384, length=len(t)).cpu().numpy()
+    xp = run("istft", tp.istft, P, 512, 384, length=len(t)).cpu().numpy()
+    corr = np.corrcoef(xh[1024:-1024], tone[1024:-1024])[0, 1]
+    at = np.flatnonzero(clicks)
+    at = at[(at > 1024) & (at < len(t) - 1024)]
+    ratio = np.mean(np.abs(xp[at])) / np.mean(np.abs(xh[at]))
+    log(f"hpss of a tone plus clicks: harmonic part correlates {corr:.4f} with the tone; the "
+        f"clicks are {ratio:.1f}x larger in the percussive part")
+    require(corr > 0.95 and ratio > 3.0, f"hpss: {corr}, {ratio}")
+
+    launches = cuda_fft.LAUNCHES
+    log("audio ops kernel launches: " + ", ".join(f"{k} {v}" for k, v in ops.used.items()))
+    through = ("melspectrogram", "mfcc", "ShortTimeFFT.stft", "ShortTimeFFT.spectrogram",
+               "ShortTimeFFT.istft", "resample", "welch", "csd", "coherence", "hilbert", "envelope",
+               "periodogram", "freqz", "minimum_phase", "cwt", "gammatonegram", "bispectrum",
+               "pitch_shift", "yin", "pyin", "stft", "istft")
+    require(all(ops.used[k] > 0 for k in through),
+            f"an op that goes through the fft layer never launched the kernel: {ops.used}")
+    require(all(ops.used[k] == 0 for k in ("pcen", "upfirdn", "lombscargle", "savgol_filter", "hpss")),
+            f"an op without a transform launched the kernel: {ops.used}")
+    worst_abs = kernel_errors(ops.seen, "audio-ops planes")
+    return launches, worst_abs
+
+
+def timing_row(name: str, fn, calls: int, capture: bool = True) -> dict:
+    """Device and wall times of ``fn`` as phases 11 and 14 read them, and the
+    fused kernel's launches and share."""
+    before = cuda_fft.LAUNCHES
+    fn()
+    k1_launches = cuda_fft.LAUNCHES - before
+    t = device_and_wall_us(fn, calls=calls)
+    graph = graph_us(torch, fn, launches=1, replays=calls) if capture else None
+    row = {"call": name, "device_us_profiler": t["device_us"], "device_us_graph_replay": graph,
+           "back_to_back_us": t["wall_us"], "idle_share": t["idle_share"],
+           "device_kernels_per_call": t["kernels"], "k1_launches": k1_launches,
+           "k1_device_us": t["k1_us"],
+           "k1_share": None if t["device_us"] is None else t["k1_us"] / t["device_us"]}
+    log(f"{name}: device {t['device_us']} us (torch.profiler sum), {graph} us (graph replay), "
+        f"back to back {t['wall_us']:.2f} us, idle share {t['idle_share']}, {t['kernels']} device "
+        f"kernels, K1 {t['k1_us']:.2f} us in {k1_launches} launches")
+    for kernel, us in list(t["by_name"].items())[:6]:
+        short = re.sub(r"void |at::native::|\(anonymous namespace\)::|binary_internal::", "", kernel)
+        log(f"  {us:9.2f} us  {short[:110]}")
+    return row
+
+
+def audio_timings(rng, card: str) -> None:
+    """Phase 17: device time (profiler sum and graph replay), back-to-back
+    wall time, idle share, device kernels and the fused kernel's share of the
+    audio path's calls at the sizes of phases 15 and 16."""
+    sr, n_fft, hop, n_mels = (AUDIO[k] for k in ("sr", "n_fft", "hop", "n_mels"))
+    params = audio_frontend.init_params(
+        n_mels, AUDIO["n_classes"], generator=torch.Generator().manual_seed(SEED), device="cuda")
+    x = cuda32(0.1 * rng.standard_normal((AUDIO_BATCH, AUDIO_SAMPLES)))
+    labels = torch.tensor(rng.integers(0, AUDIO["n_classes"], AUDIO_BATCH), device="cuda")
+
+    def forward():
+        with torch.no_grad():
+            return audio_frontend.apply(params, x, sr, n_fft)
+
+    rows = [
+        timing_row("audio front end forward, 256 x 16,000", forward, 5),
+        timing_row("audio front end train step, 256 x 16,000",
+                   lambda: audio_frontend.train_step(params, x, labels, sr=sr, n_fft=n_fft), 5),
+    ]
+    del x
+    xw = cuda32(0.1 * rng.standard_normal((WHISPER_BATCH, WHISPER_SAMPLES)))
+    with torch.no_grad():
+        rows.append(timing_row(
+            "melspectrogram 16 x 480,000, n_fft 400, hop 160, 80 bands",
+            lambda: tp.melspectrogram(xw, WHISPER["sr"], WHISPER["n_fft"], WHISPER["hop"], n_mels=80), 5))
+        mel = tp.melspectrogram(xw, WHISPER["sr"], WHISPER["n_fft"], WHISPER["hop"], n_mels=80)
+        rows.append(timing_row("pcen forward, 16 x 3001 x 80",
+                               lambda: tp.pcen(mel, WHISPER["sr"], WHISPER["hop"]), 3))
+    del xw
+    coef = {k: torch.full((80,), v, device="cuda", requires_grad=True)
+            for k, v in dict(gain=0.98, bias=2.0, power=0.5, b=0.025).items()}
+
+    def pcen_step():
+        return torch.autograd.grad(tp.pcen(mel, **coef).sum(), list(coef.values()))
+
+    rows.append(timing_row("pcen forward + backward, per-band coefficients, 16 x 3001 x 80",
+                           pcen_step, 3))
+    del mel
+    x48 = cuda32(rng.standard_normal((16, 1_440_000)))
+    with torch.no_grad():
+        rows.append(timing_row("resample_poly 16 x 1,440,000 by 1/3",
+                               lambda: tp.resample_poly(x48, 1, 3), 5))
+    del x48
+    torch.cuda.empty_cache()
+    log(json.dumps({"audio_timing": {"card": card, "calls": rows}}))
 
 
 def family_timings(rng, card: str) -> None:
@@ -1077,26 +1626,8 @@ def family_timings(rng, card: str) -> None:
             with torch.no_grad():
                 return apply(params, x)
 
-        for what, fn in (("forward", forward), ("train_step", lambda: step(params, x, target))):
-            before = cuda_fft.LAUNCHES
-            fn()
-            k1_launches = cuda_fft.LAUNCHES - before
-            t = device_and_wall_us(fn, calls=5)
-            graph = graph_us(torch, fn, launches=1, replays=5)
-            row = {"model": name, "call": what, "device_us_profiler": t["device_us"],
-                   "device_us_graph_replay": graph, "back_to_back_us": t["wall_us"],
-                   "idle_share": t["idle_share"], "device_kernels_per_call": t["kernels"],
-                   "k1_launches": k1_launches, "k1_device_us": t["k1_us"],
-                   "k1_share": None if t["device_us"] is None else t["k1_us"] / t["device_us"]}
-            rows.append(row)
-            log(f"{name} {what}: device {t['device_us']} us (torch.profiler sum), {graph:.2f} us "
-                f"(graph replay), back to back {t['wall_us']:.2f} us, idle share "
-                f"{t['idle_share']}, {t['kernels']} device kernels, K1 {t['k1_us']:.2f} us in "
-                f"{k1_launches} launches")
-            for kernel, us in list(t["by_name"].items())[:6]:
-                short = re.sub(r"void |at::native::|\(anonymous namespace\)::|binary_internal::",
-                               "", kernel)
-                log(f"  {us:9.2f} us  {short[:110]}")
+        rows.append(timing_row(f"{name} forward", forward, 5))
+        rows.append(timing_row(f"{name} train_step", lambda: step(params, x, target), 5))
         del params
         torch.cuda.empty_cache()
     log(json.dumps({"family_timing": {"card": card, "calls": rows}}))
@@ -1202,7 +1733,7 @@ def yardstick(rng, card: str) -> None:
     model families' shapes (S4D's 1024 x 8192 rows among them), device times
     from kernel_bench.graph_us, with the bytes bound and the kernel's share of it."""
     rows = []
-    family_shapes = KERNEL_MANY_ROWS + ((1024, S4D_BATCH * S4D["hidden"]),)
+    family_shapes = KERNEL_MANY_ROWS + ((1024, S4D_BATCH * S4D["hidden"]),) + AUDIO_KERNEL_SHAPES
     own = np.random.default_rng(SEED)   # the added shapes leave ``rng``'s stream as it was
     for n, b in YARDSTICK_SHAPES + family_shapes:
         draw = own if (n, b) in family_shapes else rng
@@ -1223,10 +1754,15 @@ def yardstick(rng, card: str) -> None:
                     "back-to-back launches, 10 replays, CUDA events", "shapes": rows}}))
 
 
-def main() -> int:
+def main(argv) -> int:
     card = setup()
     build()
     rng = np.random.default_rng(SEED)
+    if argv == ["audio"]:   # development: phases 15-17 alone
+        audio_frontend_path(rng)
+        audio_ops(rng, card)
+        audio_timings(rng, card)
+        return 0
     kernel_vs_plain(rng)
     launches, max_abs, (xr, xi) = main_path(rng)
     core_lengths(rng)
@@ -1239,10 +1775,15 @@ def main() -> int:
     family_launches, family_abs = model_families(rng)
     ops_launches, ops_abs = ops_tail(rng, card)
     family_timings(rng, card)
+    frontend_launches, frontend_abs = audio_frontend_path(rng)
+    audio_launches, audio_abs = audio_ops(rng, card)
+    audio_timings(rng, card)
     log(f"kernel launches by path: filter forward {launches}, training {train_launches}, "
-        f"fno {fno_launches}, s4d + fnet + afno {family_launches}, ops tail {ops_launches}")
-    launches += train_launches + fno_launches + family_launches + ops_launches
-    max_abs = max(max_abs, train_abs, fno_abs, family_abs, ops_abs)
+        f"fno {fno_launches}, s4d + fnet + afno {family_launches}, ops tail {ops_launches}, "
+        f"audio front end {frontend_launches}, audio ops {audio_launches}")
+    launches += (train_launches + fno_launches + family_launches + ops_launches
+                 + frontend_launches + audio_launches)
+    max_abs = max(max_abs, train_abs, fno_abs, family_abs, ops_abs, frontend_abs, audio_abs)
     # the kernel line's times are on the same planes as its error: the
     # forward transform of the batch-1024 filter call.  ms, plain_ms and
     # library_ms are medians of single timed calls, dispatch included
@@ -1288,4 +1829,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

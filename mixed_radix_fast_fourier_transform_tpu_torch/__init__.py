@@ -18,7 +18,19 @@ Public API (numpy.fft-flavoured):
     convolve, correlate, fftconvolve, oaconvolve, convolve2d, correlate2d,
     choose_conv_method
     stft, istft, spectrogram, griffinlim, phase_vocoder, time_stretch,
-    get_window, dpss, windows
+    pitch_shift, get_window, dpss, windows
+    ShortTimeFFT, check_COLA, check_NOLA, closest_STFT_dual_window
+    hilbert, hilbert2, periodogram, welch, csd, coherence, tfestimate, multitaper,
+    lombscargle, goertzel, envelope, rceps, cceps, icceps, minimum_phase, detrend,
+    spectral_diff, poisson_solve, thd, sinad, sfdr, enob, vectorstrength,
+    correlation_lags, firwin, firwin2, firls, remez, kaiser_atten, kaiser_beta,
+    kaiserord, savgol_coeffs, savgol_filter, firwin_2d, gammatone, max_len_seq,
+    freqz, group_delay, deconvolve, upfirdn, resample_poly, resample, decimate
+    bispectrum, bicoherence, cwt, ricker, morlet2, cwt_tc, tc_scales, xwt, wct
+    erb_space, gammatone_filterbank, gammatonegram, modulation_spectrum
+    mel_filterbank, mel_frequencies, hz_to_mel, mel_to_hz, melspectrogram, mfcc,
+    mfcc_to_mel, mfcc_to_audio, mel_to_stft, mel_to_audio, hpss, yin, pyin, pcen,
+    A_weighting
     dct, idct, dctn, idctn, dst, idst, dstn, idstn, mdct, imdct, mdct_window
     cheb_points, cheb_transform, icheb_transform, cheb_diff_coef, cheb_diff,
     cheb_eval
@@ -27,7 +39,7 @@ Public API (numpy.fft-flavoured):
     plan-level: get_plan, build_complex_plan, build_real_plan, clear_plan_cache
     models: init_params, apply, loss_fn, train_step, params_from_jax,
     SpectralFilter, models.fno, models.s4d, models.fnet, models.afno,
-    models.koopman, models.save_checkpoint, models.load_checkpoint
+    models.koopman, models.audio_frontend, models.save_checkpoint, models.load_checkpoint
 
 Reference-compatible API (plan objects, unnormalized inverse, C-style names):
     from mixed_radix_fast_fourier_transform_tpu_torch import compat
@@ -54,6 +66,7 @@ from .ops.convolve import convolve, correlate, fftconvolve, oaconvolve, convolve
 from .ops.convolve import choose_conv_method
 from .ops.stft import (
     stft, istft, spectrogram, get_window, dpss, griffinlim, phase_vocoder, time_stretch,
+    pitch_shift,
 )
 from .ops.dct import dct, idct, dst, idst, dctn, idctn, dstn, idstn
 from .ops.mdct import mdct, imdct, mdct_window
@@ -69,6 +82,22 @@ from .ops.fht import fht, ifht, fhtoffset, fwht, ifwht
 from .ops.czt import czt, zoom_fft, czt_points, CZT, ZoomFFT
 from .ops.frft import frft, frft2, ifrft
 from .ops import windows
+from .ops.mel import (
+    mel_filterbank, mel_frequencies, melspectrogram, mfcc, hz_to_mel, mel_to_hz, mel_to_stft,
+    mel_to_audio, hpss, yin, pyin, pcen, A_weighting, mfcc_to_mel, mfcc_to_audio,
+)
+from .ops.hos import bispectrum, bicoherence
+from .ops.auditory import erb_space, gammatone_filterbank, gammatonegram, modulation_spectrum
+from .ops.cwt import cwt, ricker, morlet2, cwt_tc, tc_scales, xwt, wct
+from .ops.shorttime import ShortTimeFFT, check_COLA, check_NOLA, closest_STFT_dual_window
+from .ops.signal import (
+    hilbert, periodogram, welch, csd, coherence, tfestimate, spectral_diff, poisson_solve,
+    resample, resample_poly, upfirdn, lombscargle, multitaper, rceps, cceps, icceps,
+    minimum_phase, firwin, freqz, kaiser_atten, kaiser_beta, hilbert2, remez, detrend,
+    decimate, savgol_coeffs, savgol_filter, group_delay, deconvolve, goertzel,
+    thd, sinad, sfdr, enob, kaiserord, firwin2, firls, gammatone, max_len_seq,
+    correlation_lags, vectorstrength, envelope, firwin_2d,
+)
 from .plan import (
     BluesteinPlan,
     MixedRadixPlan,
@@ -101,7 +130,20 @@ __all__ = [
     "convolve", "correlate", "fftconvolve", "oaconvolve", "convolve2d", "correlate2d",
     "choose_conv_method",
     "stft", "istft", "spectrogram", "get_window", "dpss", "griffinlim", "phase_vocoder",
-    "time_stretch", "windows",
+    "time_stretch", "pitch_shift", "windows",
+    "mel_filterbank", "mel_frequencies", "melspectrogram", "mfcc", "hz_to_mel", "mel_to_hz",
+    "mel_to_stft", "mel_to_audio", "hpss", "yin", "pyin", "pcen", "A_weighting", "mfcc_to_mel",
+    "mfcc_to_audio", "bispectrum", "bicoherence", "erb_space", "gammatone_filterbank",
+    "gammatonegram", "modulation_spectrum", "cwt", "ricker", "morlet2", "cwt_tc", "tc_scales",
+    "xwt", "wct",
+    "ShortTimeFFT", "check_COLA", "check_NOLA", "closest_STFT_dual_window",
+    "hilbert", "periodogram", "welch", "csd", "coherence", "tfestimate", "spectral_diff",
+    "poisson_solve", "resample", "resample_poly", "upfirdn", "lombscargle", "multitaper",
+    "rceps", "cceps", "icceps", "minimum_phase", "firwin", "freqz", "kaiser_atten",
+    "kaiser_beta", "hilbert2", "remez", "detrend", "decimate", "savgol_coeffs",
+    "savgol_filter", "group_delay", "deconvolve", "goertzel", "thd", "sinad", "sfdr", "enob",
+    "kaiserord", "firwin2", "firls", "gammatone", "max_len_seq", "correlation_lags",
+    "vectorstrength", "envelope", "firwin_2d",
     "dct", "idct", "dst", "idst", "dctn", "idctn", "dstn", "idstn",
     "mdct", "imdct", "mdct_window",
     "cheb_points", "cheb_transform", "icheb_transform", "cheb_diff_coef", "cheb_diff",

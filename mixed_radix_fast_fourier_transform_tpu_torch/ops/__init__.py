@@ -1,6 +1,7 @@
 """Transform ops: complex/real FFT, convolution, the short-time, cosine,
-Chebyshev, Hankel, chirp-z and fractional transforms, the stage pipeline and
-the fused Stockham kernel."""
+Chebyshev, Hankel, chirp-z and fractional transforms, the signal-analysis,
+wavelet, auditory and mel families, the stage pipeline and the fused Stockham
+kernel."""
 
 from .fft import (
     fft, ifft, fft2, ifft2, fftn, ifftn,
@@ -19,6 +20,9 @@ from .convolve import (
 # the module of the same name; it is exported by the package itself.
 from .stockham import exec_bluestein, exec_complex, exec_mixed_radix
 # The modules added after these (stft, dct, mdct, chebyshev, fht, czt, frft,
-# windows) share their names with their main functions, which the package
-# itself exports; here they stay modules.
-from . import chebyshev, czt, dct, fht, frft, mdct, stft, windows
+# windows, cwt, ...) share their names with their main functions, which the
+# package itself exports; here they stay modules.
+from . import (
+    auditory, chebyshev, cwt, czt, dct, fht, frft, hos, mdct, mel, shorttime, signal, stft,
+    windows,
+)

@@ -47,7 +47,7 @@ def cheb_transform(v, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     c = dct(v, type=1, config=config) / (n - 1)
     ends = np.ones(n)
     ends[0] = ends[-1] = 0.5
-    return c * _const(ends, c)
+    return c * _const(ends, c, key=("cheb.ends", n))
 
 
 def icheb_transform(c, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
@@ -59,7 +59,7 @@ def icheb_transform(c, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
         raise ValueError("icheb_transform needs >= 2 coefficients")
     mid = np.full(n, 0.5)
     mid[0] = mid[-1] = 1.0
-    return dct(c * _const(mid, c), type=1, config=config)
+    return dct(c * _const(mid, c, key=("cheb.mid", n)), type=1, config=config)
 
 
 def cheb_diff_coef(c) -> Tensor:
@@ -76,20 +76,20 @@ def cheb_diff_coef(c) -> Tensor:
         raise ValueError("need at least one coefficient")
     if n == 1:
         return torch.zeros_like(c)
-    w = c * _const(2.0 * np.arange(n), c)
+    w = c * _const(lambda: 2.0 * np.arange(n), c, key=("cheb.2p", n))
 
     def tail_sum(a):  # t_q = sum_{p >= q} a_p
         return torch.flip(torch.cumsum(torch.flip(a, (-1,)), dim=-1), (-1,))
 
     even = np.arange(n) % 2 == 0
-    te = tail_sum(w * _const(even, c))   # even-p tails
-    to = tail_sum(w * _const(~even, c))  # odd-p tails
+    te = tail_sum(w * _const(even, c, key=("cheb.even", n)))   # even-p tails
+    to = tail_sum(w * _const(~even, c, key=("cheb.odd", n)))  # odd-p tails
     # opposite parity means the p = q term is masked out of its own tail,
     # so "p >= q" tails already implement "p > q"
-    b = torch.where(_const(even, c, torch.bool), to, te)
+    b = torch.where(_const(even, c, torch.bool, key=("cheb.even", n)), to, te)
     half = np.ones(n)
     half[0] = 0.5
-    return b * _const(half, c)
+    return b * _const(half, c, key=("cheb.half", n))
 
 
 def cheb_diff(v, m: int = 1, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:

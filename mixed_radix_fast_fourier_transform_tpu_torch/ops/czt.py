@@ -77,9 +77,11 @@ def _czt_constants(
 
 
 
-def _planes_on(c: np.ndarray, like: Tensor) -> Tuple[Tensor, Tensor]:
-    """A host complex128 table as fp32 (re, im) planes beside ``like``."""
-    return constant(c.real, like), constant(c.imag, like)
+def _planes_on(c: np.ndarray, like: Tensor, key) -> Tuple[Tensor, Tensor]:
+    """A host complex128 table as fp32 (re, im) planes beside ``like``,
+    kept on the device under ``key``."""
+    return (constant(lambda: c.real, like, key=key + ("re",)),
+            constant(lambda: c.imag, like, key=key + ("im",)))
 
 
 def czt(
@@ -112,15 +114,16 @@ def czt(
         raise ValueError("w and a must be nonzero")
 
     L, pre, spec, post = _czt_constants(n, m, w, a, config.pad_mode)
+    key = ("czt", n, m, w, a, config.pad_mode)
     xr, xi = to_planes(x)
-    ar, ai = cmul(xr, xi, *_planes_on(pre, xr))
+    ar, ai = cmul(xr, xi, *_planes_on(pre, xr, key + ("pre",)))
     ar, ai = F.pad(ar, (0, L - n)), F.pad(ai, (0, L - n))
     plan = get_plan(L, -1, "complex", config)
     fr, fi = exec_mixed_radix(plan, ar, ai)
-    br, bi = cmul(fr, fi, *_planes_on(spec, xr))
+    br, bi = cmul(fr, fi, *_planes_on(spec, xr, key + ("spec",)))
     # ifft_L = conj(fft_L(conj(·))) with the 1/L folded into spec
     gr, gi = exec_mixed_radix(plan, br, -bi)
-    out = cmul(gr[..., :m], -gi[..., :m], *_planes_on(post, xr))
+    out = cmul(gr[..., :m], -gi[..., :m], *_planes_on(post, xr, key + ("post",)))
     return torch.movedim(from_planes(*out), -1, axis)
 
 

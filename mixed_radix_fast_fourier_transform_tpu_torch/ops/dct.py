@@ -34,9 +34,11 @@ from .stockham import exec_complex
 Tensor = torch.Tensor
 
 
-def _phase(ang: np.ndarray, like: Tensor):
-    """(cos, sin) of a host float64 angle table beside ``like``."""
-    return _const(np.cos(ang), like), _const(np.sin(ang), like)
+def _phase(name: str, n: int, ang, like: Tensor):
+    """(cos, sin) of the host float64 angle table ``ang()`` beside ``like``,
+    kept on the device under (name, n)."""
+    return (_const(lambda: np.cos(ang()), like, key=("dct.cos", name, n)),
+            _const(lambda: np.sin(ang()), like, key=("dct.sin", name, n)))
 
 
 def _prepare(x, n: Optional[int], axis: int, what: str):
@@ -66,7 +68,7 @@ def _dct2_core(x: Tensor, n: int, config: SpectralConfig) -> Tensor:
     plan = get_plan(n, -1, "complex", config)
     vr, vi = exec_complex(plan, v, torch.zeros_like(v))
     # y[k] = 2·Re( e^{-iπk/(2n)} · V[k] )
-    cr, ci = _phase(-np.pi * np.arange(n) / (2.0 * n), v)
+    cr, ci = _phase("post2", n, lambda: -np.pi * np.arange(n) / (2.0 * n), v)
     return 2.0 * (vr * cr - vi * ci)
 
 
@@ -86,7 +88,7 @@ def _dct1_core(x: Tensor, n: int, norm, config: SpectralConfig) -> Tensor:
         s = np.full(n, math.sqrt(1.0 / (2.0 * (n - 1))))
         s[0] /= math.sqrt(2.0)
         s[-1] /= math.sqrt(2.0)
-        y = y * _const(s, y)
+        y = y * _const(s, y, key=("dct.ortho1", n))
     return y
 
 
@@ -96,10 +98,10 @@ def _dct4_core(x: Tensor, n: int, norm, config: SpectralConfig) -> Tensor:
     post-twiddle e^(−iπ(2k+1)/(4n)), 2·Re."""
     v = torch.cat([x[..., 0::2], -torch.flip(x[..., 1::2], (-1,))], dim=-1)
     q = np.arange(n)
-    pr, pi_ = _phase(-np.pi * q / n, x)
+    pr, pi_ = _phase("pre4", n, lambda: -np.pi * q / n, x)
     plan = get_plan(n, -1, "complex", config)
     vr, vi = exec_complex(plan, v * pr, v * pi_)
-    cr, ci = _phase(-np.pi * (2 * q + 1) / (4.0 * n), x)
+    cr, ci = _phase("post4", n, lambda: -np.pi * (2 * q + 1) / (4.0 * n), x)
     y = 2.0 * (vr * cr - vi * ci)
     if norm == "ortho":
         y = y * math.sqrt(1.0 / (2.0 * n))
@@ -113,11 +115,11 @@ def _dct3_core(x: Tensor, n: int, norm, config: SpectralConfig) -> Tensor:
         # unnormalized core below produces it
         s = np.full(n, 1.0 / math.sqrt(2.0 * n))
         s[0] = 1.0 / math.sqrt(n)
-        x = x * _const(s, x)
+        x = x * _const(s, x, key=("dct.ortho3", n))
     # Invert Makhoul (scaled): V[k] = e^{+iπk/(2n)}·(x[k] - i·x[n-k])
     # (x[n]≡0), v = unnormalized IFFT_n(V), y[2m] = v[m], y[2m+1] = v[n-1-m];
     # the n and 1/2 factors cancel against the unnormalized definition.
-    cr, ci = _phase(np.pi * np.arange(n) / (2.0 * n), x)
+    cr, ci = _phase("pre3", n, lambda: np.pi * np.arange(n) / (2.0 * n), x)
     tail = torch.cat([torch.zeros_like(x[..., :1]), torch.flip(x[..., 1:], (-1,))], dim=-1)
     ar, ai = x, -tail
     vr = ar * cr - ai * ci
@@ -160,7 +162,7 @@ def dct(
         if norm == "ortho":
             s = np.full(n, math.sqrt(1.0 / (2.0 * n)))
             s[0] /= math.sqrt(2.0)
-            y = y * _const(s, y)
+            y = y * _const(s, y, key=("dct.ortho2", n))
     return torch.movedim(y, -1, axis)
 
 
@@ -209,7 +211,7 @@ def idctn(x, type: int = 2, axes=None, norm: Optional[str] = None, *,
 
 
 def _alt_sign(n: int, like: Tensor) -> Tensor:
-    return _const((-1.0) ** np.arange(n), like)
+    return _const(lambda: (-1.0) ** np.arange(n), like, key=("dct.alt_sign", n))
 
 
 def _dst1_core(x: Tensor, n: int, norm, config: SpectralConfig) -> Tensor:

@@ -142,13 +142,13 @@ def fhtoffset(dln: float, mu: float, initial: float = 0.0, bias: float = 0.0) ->
 
 
 
-def _fhtq(a: Tensor, u: np.ndarray, inverse: bool, config: SpectralConfig) -> Tensor:
+def _fhtq(a: Tensor, u: np.ndarray, inverse: bool, key, config: SpectralConfig) -> Tensor:
     """Biased FFTLog core: rfft → coefficient multiply → irfft → flip."""
     n = a.shape[-1]
     spec = rfft(a, config=config)
     if inverse:
         u = 1.0 / np.conj(u)
-    ud = torch.complex(_on(u.real, a), _on(u.imag, a))
+    ud = torch.complex(_on(u.real, a, key=key + ("re",)), _on(u.imag, a, key=key + ("im",)))
     out = irfft(spec * ud, n=n, config=config)
     return torch.flip(out, (-1,))
 
@@ -173,14 +173,15 @@ def fht(
     (scipy.fft.fht semantics), batched over leading axes."""
     a = _as_real(a, "fht")
     n = a.shape[-1]
+    key = ("fht", n, float(dln), float(mu), float(offset), float(bias))
     if bias != 0:
         j_c = (n - 1) / 2.0
         j = np.arange(n, dtype=np.float64)
-        a = a * _on(np.exp(-bias * (j - j_c) * dln), a)
+        a = a * _on(np.exp(-bias * (j - j_c) * dln), a, key=key + ("pre",))
     u = fhtcoeff(n, dln, mu, offset=offset, bias=bias)
-    out = _fhtq(a, u, inverse=False, config=config)
+    out = _fhtq(a, u, False, key + ("u",), config)
     if bias != 0:
-        out = out * _on(np.exp(-bias * ((j - j_c) * dln + offset)), out)
+        out = out * _on(np.exp(-bias * ((j - j_c) * dln + offset)), out, key=key + ("post",))
     return out
 
 
@@ -196,14 +197,15 @@ def ifht(
     """Inverse fast Hankel transform (scipy.fft.ifht semantics)."""
     A = _as_real(A, "ifht")
     n = A.shape[-1]
+    key = ("ifht", n, float(dln), float(mu), float(offset), float(bias))
     if bias != 0:
         j_c = (n - 1) / 2.0
         j = np.arange(n, dtype=np.float64)
-        A = A * _on(np.exp(bias * ((j - j_c) * dln + offset)), A)
+        A = A * _on(np.exp(bias * ((j - j_c) * dln + offset)), A, key=key + ("pre",))
     u = fhtcoeff(n, dln, mu, offset=offset, bias=bias, inverse=True)
-    out = _fhtq(A, u, inverse=True, config=config)
+    out = _fhtq(A, u, True, key + ("u",), config)
     if bias != 0:
-        out = out / _on(np.exp(-bias * (j - j_c) * dln), out)
+        out = out / _on(np.exp(-bias * (j - j_c) * dln), out, key=key + ("post",))
     return out
 
 
@@ -228,7 +230,7 @@ def fwht(x, axis: int = -1, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tenso
         H = np.array([[1.0]])
         while H.shape[0] < n:
             H = np.block([[H, H], [H, -H]])
-        out = torch.matmul(xm, _on(H, xm, xm.dtype))
+        out = torch.matmul(xm, _on(H, xm, xm.dtype, key=("fwht.H", n)))
         return torch.movedim(out, -1, axis)
     lead = xm.shape[:-1]
     y = xm

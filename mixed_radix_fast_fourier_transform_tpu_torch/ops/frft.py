@@ -111,7 +111,7 @@ def _flip_centered(x: Tensor) -> Tensor:
     """F_2 = F_1²: x[n] -> x[(2c - n) mod N] (centered wrap-reversal)."""
     n = x.shape[-1]
     idx = (2 * (n // 2) - np.arange(n)) % n
-    return x[..., constant(idx, x, torch.long)]
+    return x[..., constant(idx, x, torch.long, key=("frft.flip", n))]
 
 
 def _upsample2(x: Tensor, config: SpectralConfig) -> Tensor:
@@ -126,9 +126,9 @@ def _upsample2(x: Tensor, config: SpectralConfig) -> Tensor:
 def _frft_direct(x: Tensor, a: float, config: SpectralConfig) -> Tensor:
     n = x.shape[-1]
     pre, post, w, a_czt = _frft_constants(n, a)
-    y = _upsample2(_as_complex(x), config) * constant(pre, x, torch.complex64)
+    y = _upsample2(_as_complex(x), config) * constant(pre, x, torch.complex64, key=("frft.pre", n, a))
     y = czt(y, w=w, a=a_czt, config=config)
-    y = y * constant(post, x, torch.complex64)
+    y = y * constant(post, x, torch.complex64, key=("frft.post", n, a))
     off = n - 2 * (n // 2)  # 0 for even N, 1 for odd: (m-N) = 2(t-c)
     return y[..., off::2]
 

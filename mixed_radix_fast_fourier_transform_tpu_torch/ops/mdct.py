@@ -100,7 +100,10 @@ def _unfold(p: Tensor, half: int) -> Tensor:
 
 
 def _window_on(window, frame_length: int, like: Tensor, scale: float = 1.0) -> Tensor:
-    return constant(mdct_window(window, frame_length, dtype=np.float64) * scale, like)
+    key = (("mdct.window", window, frame_length, scale)
+           if isinstance(window, (str, tuple)) else None)
+    return constant(lambda: mdct_window(window, frame_length, dtype=np.float64) * scale,
+                    like, key=key)
 
 
 def mdct(

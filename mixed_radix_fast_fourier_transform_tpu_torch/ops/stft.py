@@ -9,8 +9,7 @@ library's rfft; istft is a windowed overlap-add (``index_add_``, whose
 atomic adds on the card are not bit-reproducible, within rounding though)
 with the standard NOLA normalization.  Every transform goes through the
 engine: no library FFT computes a result here.  Windows and DPSS tapers are
-numpy float64 on the host, as in the JAX module.  ``pitch_shift`` waits for
-the polyphase resampler of ``ops/signal.py``.
+numpy float64 on the host, as in the JAX module.
 """
 
 from __future__ import annotations
@@ -24,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
-from ..utils.numerics import as_tensor, constant
+from ..utils.numerics import as_tensor, constant, pad_last
 from .rfft import irfft, rfft
 
 Tensor = torch.Tensor
@@ -225,21 +224,10 @@ def _as_real(x, what: str) -> Tensor:
 
 
 def _window_on(window, nperseg: int, like: Tensor) -> Tensor:
-    return constant(get_window(window, nperseg, np.float32), like)
-
-
-def _reflect_pad(x: Tensor, pad: int) -> Tensor:
-    """numpy's ``mode="reflect"`` padding of the last axis by ``pad`` on
-    both sides."""
-    t = x.shape[-1]
-    if pad == 0:
-        return x
-    if pad < t:
-        # F.pad reflects the last axis of 2-D and 3-D inputs only
-        return F.pad(x.reshape(1, -1, t), (pad, pad), mode="reflect").reshape(
-            *x.shape[:-1], t + 2 * pad)
-    idx = np.pad(np.arange(t), (pad, pad), mode="reflect")   # reflects repeatedly
-    return x[..., constant(idx, x, torch.long)]
+    """The window beside ``like``: a named window is kept on the device, a
+    caller's array is uploaded on every call."""
+    key = ("stft.window", window, nperseg) if isinstance(window, (str, tuple)) else None
+    return constant(lambda: get_window(window, nperseg, np.float32), like, key=key)
 
 
 def _frame(x: Tensor, nperseg: int, hop: int) -> Tensor:
@@ -268,7 +256,7 @@ def stft(
         raise ValueError(f"need 0 <= noverlap < nperseg, got {noverlap}")
     hop = nperseg - noverlap
     if center:
-        x = _reflect_pad(x, nperseg // 2)
+        x = pad_last(x, nperseg // 2, nperseg // 2, "reflect")
     if x.shape[-1] < nperseg:
         raise ValueError(f"signal length {x.shape[-1]} < nperseg {nperseg}")
     # zero-pad the tail so every sample lands in a whole frame
@@ -299,23 +287,28 @@ def istft(
     frames = irfft(spec, n=nperseg, config=config)  # (..., n_frames, nperseg)
     n_frames = frames.shape[-2]
     t_padded = nperseg + (n_frames - 1) * hop
-    device = frames.device
     frames = frames * _window_on(window, nperseg, frames)
 
     # overlap-add: out[f*hop + i] += frames[f, i]
-    idx = (torch.arange(n_frames, device=device)[:, None] * hop
-           + torch.arange(nperseg, device=device)[None, :]).reshape(-1)
+    idx = constant(
+        lambda: (np.arange(n_frames)[:, None] * hop + np.arange(nperseg)[None, :]).reshape(-1),
+        frames, torch.long, key=("stft.ola_index", n_frames, nperseg, hop))
     batch = frames.shape[:-2]
     out = frames.new_zeros(*batch, t_padded)
     out = out.index_add(-1, idx, frames.reshape(*batch, n_frames * nperseg))
 
     # NOLA normalization: sum of squared windows at each sample, on the host
-    wsq = np.zeros(t_padded, dtype=np.float64)
-    w_np = get_window(window, nperseg, np.float64) ** 2
-    for s in range(0, n_frames * hop, hop):
-        wsq[s : s + nperseg] += w_np
-    safe = np.where(wsq > 1e-10, wsq, 1.0)
-    out = out * constant(np.where(wsq > 1e-10, 1.0 / safe, 0.0), out)
+    def nola() -> np.ndarray:
+        wsq = np.zeros(t_padded, dtype=np.float64)
+        w_np = get_window(window, nperseg, np.float64) ** 2
+        for s in range(0, n_frames * hop, hop):
+            wsq[s : s + nperseg] += w_np
+        safe = np.where(wsq > 1e-10, wsq, 1.0)
+        return np.where(wsq > 1e-10, 1.0 / safe, 0.0)
+
+    named = isinstance(window, (str, tuple))
+    out = out * constant(
+        nola, out, key=("stft.nola", window, nperseg, hop, n_frames) if named else None)
 
     if center:
         out = out[..., nperseg // 2 : t_padded - nperseg // 2]
@@ -544,10 +537,11 @@ def phase_vocoder(
     steps = np.arange(0, n_frames, rate)  # host fp64
     lo = np.minimum(steps.astype(np.int64), n_frames - 1)
     hi = np.minimum(lo + 1, n_frames - 1)
-    frac = constant(steps - lo, S)[:, None]
-    S0 = S[..., constant(lo, S, torch.long), :]
-    S1 = S[..., constant(hi, S, torch.long), :]
-    phi_adv = constant(np.linspace(0, np.pi * hop, nb), S)
+    key = (n_frames, float(rate))
+    frac = constant(steps - lo, S, key=("pv.frac",) + key)[:, None]
+    S0 = S[..., constant(lo, S, torch.long, key=("pv.lo",) + key), :]
+    S1 = S[..., constant(hi, S, torch.long, key=("pv.hi",) + key), :]
+    phi_adv = constant(lambda: np.linspace(0, np.pi * hop, nb), S, key=("pv.adv", hop, nb))
     eps = 1e-30
     mag = (1.0 - frac) * torch.abs(S0) + frac * torch.abs(S1)
     ang0 = torch.angle(S0 + eps)
@@ -580,3 +574,34 @@ def time_stretch(
     n_out = int(round(x.shape[-1] / rate))
     return istft(S2, nperseg, nperseg - hop, "hann", center=True, length=n_out,
                  config=config)
+
+
+def pitch_shift(
+    x,
+    sr: float,
+    n_steps: float,
+    bins_per_octave: int = 12,
+    nperseg: int = 2048,
+    *,
+    config: SpectralConfig = DEFAULT_CONFIG,
+) -> Tensor:
+    """Pitch-shift a real signal by ``n_steps`` (fractional allowed) in
+    ``bins_per_octave``-TET without changing duration
+    (librosa.effects.pitch_shift): time-stretch by 2^{-steps/bpo}, then
+    resample back to the original length with the polyphase resampler."""
+    from fractions import Fraction
+
+    from .signal import resample_poly  # signal imports this module
+
+    x = _as_real(x, "pitch_shift")
+    if bins_per_octave < 1:
+        raise ValueError(f"bins_per_octave must be >= 1, got {bins_per_octave}")
+    rate = 2.0 ** (-float(n_steps) / bins_per_octave)
+    y = time_stretch(x, rate, nperseg, config=config)
+    frac = Fraction(rate).limit_denominator(1000)
+    z = resample_poly(y, frac.numerator, frac.denominator, config=config)
+    n = x.shape[-1]
+    z = z[..., :n]
+    if z.shape[-1] < n:
+        z = F.pad(z, (0, n - z.shape[-1]))
+    return z

@@ -353,9 +353,12 @@ def get_plan(n: int, sign: int, kind: str = "complex",
 
 def clear_plan_cache() -> None:
     """Drop every cached plan (and with them their device copies and the
-    kernel's ready launch arguments)."""
+    kernel's ready launch arguments) and every kept device table of
+    ``utils.numerics.constant``."""
     from .ops import cuda_fft  # ops import this module
+    from .utils.numerics import clear_constants
 
     with _CACHE_LOCK:
         _CACHE.clear()
         cuda_fft._READY.clear()
+    clear_constants()

@@ -99,6 +99,62 @@ def test_as_tensor_keeps_tensors_and_places_arrays():
     lambda x: tp.models.afno.init_afno(1, 4, 1),
     lambda x: tp.models.init_koopman(3),
     lambda x: tp.models.koopman_encode({"enc": []}, x),
+    lambda x: tp.ShortTimeFFT(np.hanning(4), 2, 1.0).stft(x),
+    lambda x: tp.ShortTimeFFT(np.hanning(4), 2, 1.0).spectrogram(x),
+    lambda x: tp.ShortTimeFFT(np.hanning(4) + 0.1, 2, 1.0).istft(np.ones((3, 6), np.complex64)),
+    lambda x: tp.spectral_diff(x),
+    lambda x: tp.hilbert(x),
+    lambda x: tp.hilbert2(np.ones((4, 4), np.float32)),
+    lambda x: tp.periodogram(x),
+    lambda x: tp.welch(x),
+    lambda x: tp.csd(x, x),
+    lambda x: tp.coherence(x, x),
+    lambda x: tp.tfestimate(x, x),
+    lambda x: tp.multitaper(x, nw=2.0),
+    lambda x: tp.lombscargle(x, x, x),
+    lambda x: tp.goertzel(x, 0.25),
+    lambda x: tp.envelope(x),
+    lambda x: tp.rceps(x),
+    lambda x: tp.cceps(x),
+    lambda x: tp.icceps(x),
+    lambda x: tp.minimum_phase(x),
+    lambda x: tp.detrend(x),
+    lambda x: tp.poisson_solve(x),
+    lambda x: tp.thd(np.ones(64, np.float32)),
+    lambda x: tp.sinad(np.ones(64, np.float32)),
+    lambda x: tp.sfdr(np.ones(64, np.float32)),
+    lambda x: tp.enob(np.ones(64, np.float32)),
+    lambda x: tp.freqz(x),
+    lambda x: tp.freqz(x, worN=np.linspace(0, 3, 5)),
+    lambda x: tp.group_delay((x, 1.0), 16),
+    lambda x: tp.savgol_filter(x, 5, 2),
+    lambda x: tp.upfirdn([1.0, 1.0], x, 2, 3),
+    lambda x: tp.resample_poly(x, 2, 3),
+    lambda x: tp.resample(x, 5),
+    lambda x: tp.decimate(x, 2),
+    lambda x: tp.pitch_shift(np.ones(64, np.float32), 8000.0, 2.0, nperseg=8),
+    lambda x: tp.bispectrum(x, 4),
+    lambda x: tp.bicoherence(x, 4),
+    lambda x: tp.cwt(x, tp.ricker, [1.0, 2.0]),
+    lambda x: tp.cwt_tc(x, [2.0, 4.0]),
+    lambda x: tp.xwt(x, x),
+    lambda x: tp.wct(x, x),
+    lambda x: tp.gammatonegram(np.ones(200, np.float32), 8000.0, 4),
+    lambda x: tp.modulation_spectrum(np.ones(200, np.float32), 8000.0, 4),
+    lambda x: tp.melspectrogram(x, 8000.0, 4, n_mels=2),
+    lambda x: tp.mfcc(x, 8000.0, 2, 4, n_mels=2),
+    lambda x: tp.mfcc_to_mel(np.ones((3, 2), np.float32), 4),
+    lambda x: tp.mfcc_to_audio(np.ones((5, 2), np.float32), 8000.0, 4, n_mels=2, n_iter_gl=1),
+    lambda x: tp.mel_to_stft(np.ones((5, 2), np.float32), 8000.0, 4),
+    lambda x: tp.mel_to_audio(np.ones((5, 2), np.float32), 8000.0, 4, n_iter_gl=1),
+    lambda x: tp.hpss(np.ones((4, 4), np.float32), 3),
+    lambda x: tp.yin(np.ones(64, np.float32), 500.0, 2000.0, 8000.0, 32),
+    lambda x: tp.pyin(np.ones(64, np.float32), 500.0, 2000.0, 8000.0, 32),
+    lambda x: tp.pcen(np.ones((4, 2), np.float32)),
+    lambda x: tp.models.audio_frontend.init_params(4, 2),
+    lambda x: tp.models.audio_frontend.init_frontend(4),
+    lambda x: tp.models.audio_frontend.init_classifier(4, 2),
+    lambda x: tp.models.audio_frontend.AudioFrontend(4, 2),
 ], ids=lambda f: None)
 def test_numpy_input_without_a_device_needs_the_card(call):
     if torch.cuda.is_available():
@@ -142,7 +198,9 @@ def test_every_module_imports_with_jax_blocked():
         "    importlib.import_module(name)\n"
         "wanted = ['models.s4d', 'models.fnet', 'models.afno', 'models.koopman',\n"
         "          'models.checkpoint', 'ops.stft', 'ops.windows', 'ops.dct', 'ops.mdct',\n"
-        "          'ops.chebyshev', 'ops.fht', 'ops.czt', 'ops.frft']\n"
+        "          'ops.chebyshev', 'ops.fht', 'ops.czt', 'ops.frft', 'ops.shorttime',\n"
+        "          'ops.signal', 'ops.hos', 'ops.cwt', 'ops.auditory', 'ops.mel',\n"
+        "          'models.audio_frontend']\n"
         "assert all(tp.__name__ + '.' + w in names for w in wanted), names\n"
         "print('OK', len(names))\n"
     )
@@ -153,16 +211,30 @@ def test_every_module_imports_with_jax_blocked():
 
 def test_no_library_fft_in_the_port():
     """No result of the port comes from a library FFT: ``torch.fft``,
-    ``torch.stft`` and ``torch.istft`` appear in no module of the package,
-    and numpy's float64 FFT only where host design constants are made
-    (Bluestein and chirp-z kernel spectra, the Chebyshev window, DPSS ratios)."""
-    torch_hits, numpy_files = [], set()
+    ``torch.stft``, ``torch.istft``, ``torchaudio`` and the framework's
+    convolutions in place of an engine transform appear in no module of the
+    package (``ops/convolve.py`` alone calls ``F.conv*``, for its direct
+    method), and numpy's float64 FFT only where host design constants are made
+    (Bluestein and chirp-z kernel spectra, the Chebyshev window, DPSS ratios,
+    the taps of ``firwin2`` and ``remez``) or a host frequency grid is laid
+    out (``np.fft.fftfreq``/``rfftfreq``/``fftshift``)."""
+    torch_hits, numpy_files, numpy_transforms = [], set(), set()
     for path in sorted(PACKAGE.rglob("*.py")):
         rel = str(path.relative_to(PACKAGE))
         for i, line in enumerate(path.read_text().splitlines(), 1):
-            if re.search(r"torch\.(fft\b|stft\(|istft\()", line):
+            if re.search(r"torch\.(fft\b|stft\(|istft\()|torchaudio", line):
                 torch_hits.append(f"{rel}:{i}")
+            if re.search(r"\bF\.conv\w*\(|functional\.conv", line) and rel != "ops/convolve.py":
+                torch_hits.append(f"{rel}:{i}")
+            if re.search(r"\bnp\.fft\.i?r?fft[2n]?\(", line):
+                numpy_transforms.add(rel)
             if re.search(r"\bnp\.fft\.\w+\(", line):
                 numpy_files.add(rel)
     assert not torch_hits, torch_hits
-    assert numpy_files == {"plan.py", "ops/czt.py", "ops/stft.py"}, numpy_files
+    assert numpy_files == {"plan.py", "ops/czt.py", "ops/stft.py", "ops/shorttime.py",
+                           "ops/signal.py", "ops/cwt.py", "ops/auditory.py", "ops/mel.py"}, numpy_files
+    # a float64 transform on the host: plan and window constants, and the two
+    # filter designs that end in an inverse DFT of their sampled response
+    assert numpy_transforms == {"plan.py", "ops/czt.py", "ops/stft.py", "ops/signal.py"}, numpy_transforms
+    text = (PACKAGE / "ops/signal.py").read_text()
+    assert len(re.findall(r"np\.fft\.i?r?fft[2n]?\(", text)) == 2   # remez, firwin2
