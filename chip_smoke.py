@@ -75,14 +75,37 @@ Phases, each of which raises on failure:
     ``hpss``, with the kernel's launches of each logged;
 17. device and back-to-back wall time of the front end's forward and train
     step, Whisper's ``melspectrogram``, ``pcen`` at 3001 frames forward and
-    with its backward, and ``resample_poly``.
+    with its backward, and ``resample_poly``;
+18. the recurrences from numpy input without a device, which must land on
+    the card, against scipy/numpy float64: ``decimate(ftype="iir")`` on
+    phase 16's 16 x 1,440,000 by 3, ``sosfilt``/``sosfiltfilt`` of
+    ``butter(6)`` and ``lfilter``/``filtfilt`` of ``butter(4)`` at 8 x
+    65,536, ``dlsim`` of a 4-state ``cont2discrete`` system over 65,536
+    steps, ``cspline1d``/``cspline1d_eval`` at 8 x 65,536, ``kalman_filter``
+    and ``kalman_smoother`` on the constant-velocity car tracker of Särkkä &
+    García-Fernández (parallel at T = 10,000, sequential at 1,000), ``pcen``
+    at Whisper's 16 x 3001 x 80 with scalar and per-band coefficients and
+    the per-band gradients against a float64 torch loop on the CPU;
+19. the audio remainder from numpy input, against float64 numpy written out
+    here: ``cqt``, ``icqt``, ``chroma_cqt`` at librosa's defaults on 8 clips
+    of 30 s, the spectral features, ``onset_strength``, ``tempo`` and
+    ``beat_track`` of a click track, ``decompose``, ``scattering1d`` (J 6,
+    Q 8) at 16 x 2^16, ``ssq_stft``/``issq_stft``, ``stockwell``/
+    ``istockwell`` and ``wigner_ville`` at 8 x 4096, with the kernel's
+    launches of each logged and the kernel held against its plain version
+    on every plane pair it was handed;
+20. device and back-to-back wall time of ``pcen`` (forward, and with its
+    backward), the front end's forward and train step, ``decimate(ftype=
+    "iir")``, ``sosfilt``, ``kalman_filter`` parallel and sequential, and
+    ``cqt``.
 
-``python3 chip_smoke.py audio`` runs phases 1, 2 and 15-17 alone (for
-development; it prints no result line).
+``python3 chip_smoke.py audio`` runs phases 1, 2 and 15-17 alone, and
+``python3 chip_smoke.py recurrence`` phases 1, 2 and 18-20 (for
+development; they print no result line).
 
 The last lines are one JSON line about the kernels (launches of phases 4, 8,
-9, 12, 13, 15 and 16; error over the plane pairs those launches were handed:
-every pair of phases 4, 9, 12, 13, 15 and 16, and in phase 8 the first step's three, every
+9, 12, 13, 15, 16, 18 and 19; error over the plane pairs those launches were handed:
+every pair of phases 4, 9, 12, 13, 15, 16 and 19, and in phase 8 the first step's three, every
 later backward's and the four of the step with an input gradient; times on
 the main path's batch-1024 planes), the card, then ``{"ok": true, "device":
 {...}}``.
@@ -113,6 +136,9 @@ from mixed_radix_fast_fourier_transform_tpu_torch.models import (
     afno, audio_frontend, fnet, fno, koopman, s4d,
 )
 from mixed_radix_fast_fourier_transform_tpu_torch.ops import _build, cuda_fft
+from mixed_radix_fast_fourier_transform_tpu_torch.ops import cqt as cqt_ops
+from mixed_radix_fast_fourier_transform_tpu_torch.ops import feature as feature_ops
+from mixed_radix_fast_fourier_transform_tpu_torch.ops import scattering as scattering_ops
 from mixed_radix_fast_fourier_transform_tpu_torch.ops.stockham import exec_complex, exec_len
 from mixed_radix_fast_fourier_transform_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -137,6 +163,7 @@ FP32_FLOP_PER_S = 67e12
 KERNEL_SOURCE = "mixed_radix_fast_fourier_transform_tpu_torch/csrc/stockham_fft.cu"
 KERNEL_REPLACES = "mixed_radix_fast_fourier_transform_tpu/ops/pallas_fft.py:193"
 PIPELINE = tp.SpectralConfig(use_kernel=False)
+CARD = "cuda"   # the device type every result of a phase must have
 TRAIN_STEPS = 5
 # the loss's curvature is 2 in the bias and ~4/n in a gain: the step that
 # settles the bias at once moves each gain by ~1e-3 of its error
@@ -1329,7 +1356,7 @@ class Ops:
         self.seen.extend(seen)
         for t in (got if isinstance(got, tuple) else (got,)):
             if isinstance(t, torch.Tensor):
-                require(t.device.type == "cuda", f"{name}: result on {t.device}, not the card")
+                require(t.device.type == CARD, f"{name}: result on {t.device}, not the card")
         return got
 
     @staticmethod
@@ -1754,36 +1781,577 @@ def yardstick(rng, card: str) -> None:
                     "back-to-back launches, 10 replays, CUDA events", "shapes": rows}}))
 
 
+# ---------------------------------------------------------------------------
+# The recurrences and the audio remainder: phases 18-20
+# ---------------------------------------------------------------------------
+
+# phase 16's 16 channels of 30 s at 48 kHz, decimated to 16 kHz by scipy's
+# default IIR (Chebyshev I, order 8, zero phase)
+DECIMATE_SHAPE, DECIMATE_Q = (16, 1_440_000), 3
+# sosfilt of butter(6) at 8 x 65,536, the case the JAX package measured its
+# scan's precision on (ops/iir.py:999-1002); the other filters, dlsim and
+# the cubic spline at the same length
+RECURRENCE_SHAPE = (8, 65536)
+# the constant-velocity car tracker of Särkkä & García-Fernández, "Temporal
+# parallelization of Bayesian smoothers" (arXiv 1905.13002): state
+# (x, y, vx, vy), position observed; step 0.1 s, white-noise acceleration of
+# spectral density 1, observation noise 0.5
+KALMAN_DT, KALMAN_QC, KALMAN_SIGMA = 0.1, 1.0, 0.5
+KALMAN_PARALLEL_T, KALMAN_SEQUENTIAL_T = 10_000, 1_000
+# against scipy float64: the JAX package's own tests' tolerances for the same
+# functions (tests/test_iir.py, test_ltisys.py, test_splines.py, test_kalman.py)
+SOSFILT_TOL = 1e-5
+LFILTER_TOL = 2e-4
+FILTFILT_TOL = 5e-4
+SOSFILTFILT_TOL = 1e-4
+DECIMATE_IIR_TOL = 1e-3
+DLSIM_TOL = 1e-4
+CSPLINE_TOL = 5e-5
+CSPLINE_EVAL_TOL = 1e-4
+KALMAN_FILTER_TOL = 3e-4
+KALMAN_SMOOTHER_TOL = 5e-4
+# librosa's defaults, which are the JAX package's: 22,050 Hz, hop 512, fmin C1,
+# 84 bins, 12 per octave; 8 clips of 30 s
+CQT = dict(fs=22050.0, fmin=32.703195662574764, n_bins=84, bins_per_octave=12, hop=512)
+CLIP_BATCH, CLIP_SAMPLES = 8, 30 * 22050
+SCATTER_SHAPE = (16, 2 ** 16)        # scattering1d at J = 6, Q = 8
+TFR_SHAPE = (8, 4096)
+# the synchrosqueezed bin-sum inversion at the frame centers, as the JAX
+# package's test holds it (tests/test_tfr.py)
+ISSQ_TOL = 0.05
+# fp32 sums over a CQT band of up to 11,339 taps, and over an 16,384-point
+# frame, relative to the largest coefficient
+CQT_TOL = 1e-5
+# Lee-Seung updates multiply ratios of fp32 products 50 times over
+DECOMPOSE_TOL = 1e-3
+# the geometric mean of the power spectrum takes the log of every bin, and a
+# weak bin's fp32 error is relative to its frame's strongest bin
+FLATNESS_TOL = 2e-4
+# the oracles of phase 19 run on these rows of each batch (float64 numpy on
+# the host is the slow side)
+ORACLE_ROWS = (0, -1)
+
+
+def kalman_model():
+    """(F, Q, H, R, m0, P0) of the constant-velocity car tracker."""
+    dt, qc, s = KALMAN_DT, KALMAN_QC, KALMAN_SIGMA
+    F = np.eye(4)
+    F[0, 2] = F[1, 3] = dt
+    Q = qc * np.kron(np.array([[dt ** 3 / 3, dt ** 2 / 2], [dt ** 2 / 2, dt]]), np.eye(2))
+    H = np.eye(2, 4)
+    return F, Q, H, s * s * np.eye(2), np.zeros(4), np.eye(4)
+
+
+def kalman_track(rng, T: int):
+    """Observations of a simulated track, (T, 2) float64."""
+    F, Q, H, R, m0, P0 = kalman_model()
+    w = rng.standard_normal((T, 4)) @ np.linalg.cholesky(Q).T
+    v = rng.standard_normal((T, 2)) @ np.linalg.cholesky(R).T
+    x, ys = rng.multivariate_normal(m0, P0), np.empty((T, 2))
+    for t in range(T):
+        x = F @ x + w[t]
+        ys[t] = H @ x + v[t]
+    return ys
+
+
+def kalman_oracle(F, Q, H, R, m0, P0, ys):
+    """Kalman filter then Rauch-Tung-Striebel smoother in float64 numpy."""
+    m, P, ms, Ps = m0, P0, [], []
+    for y in ys:
+        m, P = F @ m, F @ P @ F.T + Q
+        K = P @ H.T @ np.linalg.inv(H @ P @ H.T + R)
+        m, P = m + K @ (y - H @ m), (np.eye(len(m)) - K @ H) @ P
+        ms.append(m)
+        Ps.append(P)
+    gs, Ls = [ms[-1]], [Ps[-1]]
+    for k in range(len(ys) - 2, -1, -1):
+        P_pred = F @ Ps[k] @ F.T + Q
+        G = Ps[k] @ F.T @ np.linalg.inv(P_pred)
+        gs.append(ms[k] + G @ (gs[-1] - F @ ms[k]))
+        Ls.append(Ps[k] + G @ (Ls[-1] - P_pred) @ G.T)
+    return np.array(ms), np.array(Ps), np.array(gs[::-1]), np.array(Ls[::-1])
+
+
+def pcen_oracle_torch(S64: torch.Tensor, gain, bias, power, b, eps: float = 1e-6) -> torch.Tensor:
+    """PCEN in float64 torch on the CPU (autograd through a loop over frames)."""
+    m, smoothed = S64[:, 0], []
+    for t in range(S64.shape[1]):
+        m = (1.0 - b) * m + b * S64[:, t]
+        smoothed.append(m)
+    M = torch.stack(smoothed, dim=1)
+    return (S64 / (eps + M) ** gain + bias) ** power - bias ** power
+
+
+def check_kalman(name, got, want_m, want_P, tol):
+    scale = max(1.0, float(np.max(np.abs(want_m))))
+    err_m = float(np.max(np.abs(got[0].cpu().numpy() - want_m))) / scale
+    err_P = float(np.max(np.abs(got[1].cpu().numpy() - want_P)))
+    log(f"{name}: means {err_m:.3e} of max |m| = {scale:.1f}, covariances abs err {err_P:.3e}")
+    require(err_m <= tol and err_P <= tol, f"{name}: {err_m:.3e}, {err_P:.3e}")
+
+
+def recurrences(rng, card: str):
+    """Phase 18: the recurrence group from numpy input without a device, on
+    the card, against scipy/numpy float64 (PCEN's per-band gradients against
+    a float64 torch loop on the CPU).  None of these calls reaches the fft
+    layer.  Returns the kernel's launches."""
+    ops = Ops()
+    run, check = ops.run, ops.check
+    cuda_fft.LAUNCHES = 0
+
+    x48 = rng.standard_normal(DECIMATE_SHAPE)
+    check(f"decimate {DECIMATE_SHAPE[0]} x {DECIMATE_SHAPE[1]:,} by {DECIMATE_Q}, ftype='iir' "
+          "(Chebyshev I order 8, zero phase)",
+          run("decimate(iir)", tp.decimate, x48, DECIMATE_Q, ftype="iir"),
+          scipy.signal.decimate(x48, DECIMATE_Q, ftype="iir", axis=-1), DECIMATE_IIR_TOL)
+    del x48
+
+    rows, n = RECURRENCE_SHAPE
+    x = rng.standard_normal(RECURRENCE_SHAPE)
+    shape = f"{rows} x {n:,}"
+    sos, sos64 = tp.butter(6, 0.2, output="sos"), scipy.signal.butter(6, 0.2, output="sos")
+    check(f"sosfilt butter(6) sos {shape}", run("sosfilt", tp.sosfilt, sos, x),
+          scipy.signal.sosfilt(sos64, x, axis=-1), SOSFILT_TOL)
+    check(f"sosfiltfilt butter(6) sos {shape}", run("sosfiltfilt", tp.sosfiltfilt, sos, x),
+          scipy.signal.sosfiltfilt(sos64, x, axis=-1), SOSFILTFILT_TOL)
+    b, a = tp.butter(4, 0.2)
+    b64, a64 = scipy.signal.butter(4, 0.2)
+    check(f"lfilter butter(4) ba {shape}", run("lfilter", tp.lfilter, b, a, x),
+          scipy.signal.lfilter(b64, a64, x, axis=-1), LFILTER_TOL)
+    check(f"filtfilt butter(4) ba {shape}", run("filtfilt", tp.filtfilt, b, a, x),
+          scipy.signal.filtfilt(b64, a64, x, axis=-1), FILTFILT_TOL)
+
+    # two damped modes, zero-order hold at 10 ms
+    A = np.array([[0.0, 1.0, 0.0, 0.0], [-4.0, -2.0, 1.0, 0.0],
+                  [0.0, 0.0, 0.0, 1.0], [1.0, 0.0, -9.0, -3.0]])
+    B, C, D = np.array([[0.0], [1.0], [0.0], [0.5]]), np.array([[1.0, 0.0, 0.5, 0.0]]), np.zeros((1, 1))
+    sysd = tp.cont2discrete((A, B, C, D), 0.01)
+    sysd64 = scipy.signal.cont2discrete((A, B, C, D), 0.01)
+    require(all(np.allclose(g, w, rtol=0, atol=1e-12) for g, w in zip(sysd[:4], sysd64[:4])),
+            "cont2discrete differs from scipy's")
+    u = rng.standard_normal((n, 1))
+    _, y, xs = run("dlsim", tp.dlsim, sysd, u)
+    _, y64, x64 = scipy.signal.dlsim(sysd64, u)
+    check(f"dlsim 4 states x {n:,} steps: output", y, y64, DLSIM_TOL)
+    check("dlsim: states", xs, x64, DLSIM_TOL)
+
+    sig = np.cumsum(rng.standard_normal(RECURRENCE_SHAPE), axis=-1) / np.sqrt(n)
+    cj = run("cspline1d", tp.cspline1d, sig)
+    check(f"cspline1d {shape}", cj, np.stack([scipy.signal.cspline1d(r) for r in sig]), CSPLINE_TOL)
+    newx = np.sort(rng.uniform(-8.0, n + 8.0, 4096))
+    cj64 = np.stack([scipy.signal.cspline1d(r) for r in sig])
+    check(f"cspline1d_eval {shape} at 4096 points (mirrored past the ends)",
+          run("cspline1d_eval", tp.cspline1d_eval, cj, newx),
+          np.stack([scipy.signal.cspline1d_eval(c, newx) for c in cj64]), CSPLINE_EVAL_TOL)
+    del x, sig, cj, cj64
+
+    model = kalman_model()
+    for T, parallel in ((KALMAN_PARALLEL_T, True), (KALMAN_SEQUENTIAL_T, False)):
+        ys = kalman_track(rng, T)
+        fm, fP, sm, sP = kalman_oracle(*model, ys)
+        form = "parallel" if parallel else "sequential"
+        check_kalman(f"kalman_filter, car tracker, T = {T:,}, {form}",
+                     run("kalman_filter", tp.kalman_filter, *model, ys, parallel=parallel),
+                     fm, fP, KALMAN_FILTER_TOL)
+        check_kalman(f"kalman_smoother, T = {T:,}, {form}",
+                     run("kalman_smoother", tp.kalman_smoother, *model, ys, parallel=parallel),
+                     sm, sP, KALMAN_SMOOTHER_TOL)
+
+    # PCEN on Whisper's mel power: 16 x 3001 frames x 80 bands
+    sr, hop = WHISPER["sr"], WHISPER["hop"]
+    t = np.arange(WHISPER_SAMPLES) / sr
+    xw = (0.1 * rng.standard_normal((WHISPER_BATCH, WHISPER_SAMPLES))
+          + 0.3 * np.sin(2 * np.pi * rng.uniform(100.0, 4000.0, (WHISPER_BATCH, 1)) * t))
+    S = mel_oracle(xw, **WHISPER).astype(np.float32).astype(np.float64)
+    del xw
+    check(f"pcen {tuple(S.shape)}, scalar coefficients",
+          run("pcen", tp.pcen, S.astype(np.float32), sr, hop),
+          pcen_oracle(S, 0.98, 2.0, 0.5, pcen_b(sr, hop)), PCEN_TOL)
+    coef = {"gain": 0.98 + 0.01 * rng.standard_normal(80), "bias": 2.0 + 0.1 * rng.standard_normal(80),
+            "power": 0.5 + 0.01 * rng.standard_normal(80),
+            "b": pcen_b(sr, hop) * (1.0 + 0.1 * rng.standard_normal(80))}
+    w = rng.standard_normal(S.shape)
+    leaves = {k: cuda32(v).requires_grad_(True) for k, v in coef.items()}
+    out = run("pcen", tp.pcen, cuda32(S), **leaves)
+    check("pcen, per-band coefficients", out.detach(), pcen_oracle(S, *coef.values()), PCEN_TOL)
+    grads = torch.autograd.grad((out * cuda32(w)).sum(), list(leaves.values()))
+    leaves64 = {k: torch.tensor(v, requires_grad=True) for k, v in coef.items()}
+    loss64 = (pcen_oracle_torch(torch.tensor(S), **leaves64) * torch.tensor(w)).sum()
+    want = torch.autograd.grad(loss64, list(leaves64.values()))
+    errs = {k: rel_err(g.cpu().numpy(), wt.numpy()) for k, g, wt in zip(coef, grads, want)}
+    log("pcen per-band gradients vs float64: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    require(max(errs.values()) <= AUDIO_GRAD_TOL, f"pcen gradients vs float64: {errs}")
+
+    launches = cuda_fft.LAUNCHES
+    log("recurrence kernel launches: " + ", ".join(f"{k} {v}" for k, v in ops.used.items()))
+    require(launches == 0, f"a recurrence launched the fft kernel: {ops.used}")
+    return launches
+
+
+def cqt_oracle(x: np.ndarray, fs, fmin, n_bins, bins_per_octave, hop) -> np.ndarray:
+    """The constant-Q transform by its definition in float64 numpy: each band
+    k a Hann window of N_k = round(Q·fs/f_k) samples times e^(2πi·f_k·n/fs)
+    over N_k, correlated with the zero-padded signal at frames t·hop (frames
+    of the next power of two above the longest band, each band centered in
+    it): (frames, n_bins)."""
+    freqs = fmin * 2.0 ** (np.arange(n_bins) / bins_per_octave)
+    Q = 1.0 / (2.0 ** (1.0 / bins_per_octave) - 1.0)
+    lengths = [max(int(round(Q * fs / f)), 1) for f in freqs]
+    nf = 1 << int(np.ceil(np.log2(max(lengths))))
+    xp = np.concatenate([np.zeros(nf // 2), x, np.zeros(nf // 2)])
+    frames = np.lib.stride_tricks.sliding_window_view(xp, nf)[::hop]
+    out = np.empty((frames.shape[0], n_bins), np.complex128)
+    for k, (f, n_k) in enumerate(zip(freqs, lengths)):
+        m = np.arange(n_k) - (n_k - 1) / 2.0
+        g = scipy.signal.get_window("hann", n_k, fftbins=False) * np.exp(2j * np.pi * f / fs * m) / n_k
+        s = (nf - n_k) // 2
+        out[:, k] = frames[:, s: s + n_k] @ np.conj(g)
+    return out
+
+
+def icqt_oracle(C: np.ndarray, length: int, fs, fmin, n_bins, bins_per_octave, hop) -> np.ndarray:
+    """The inverse through the dual kernel (the host table of ``ops/cqt.py``)
+    in float64 numpy: 2·Re ifft of each frame's spectrum, overlap-added and
+    divided by the coverage, the centering cut."""
+    P, nf = cqt_ops._icqt_dual_kernel(fs, fmin, n_bins, bins_per_octave, "hann", 1.0, None, 1e-6)
+    frames = 2.0 * np.real(np.fft.ifft(C @ P.T, axis=-1))
+    out, cover = np.zeros(nf + (len(C) - 1) * hop), np.zeros(nf + (len(C) - 1) * hop)
+    for i, fr in enumerate(frames):
+        out[i * hop: i * hop + nf] += fr
+        cover[i * hop: i * hop + nf] += 1.0
+    return (out / np.maximum(cover, 1.0))[nf // 2: len(out) - nf // 2][:length]
+
+
+def scattering_oracle(x: np.ndarray, J: int, Q: int, pairs) -> tuple:
+    """First and second scattering orders in float64 numpy with the host bank
+    of ``ops/scattering.py``, stride 2^(J-1)."""
+    psi1, psi2, phi, _, _ = scattering_ops._scattering_bank(x.shape[-1], J, Q, None)
+    stride = 1 << (J - 1)
+    low = lambda v: np.real(np.fft.ifft(np.fft.fft(v) * phi))[..., ::stride]
+    X = np.fft.fft(x)
+    U1 = np.abs(np.fft.ifft(X[None] * psi1))
+    U2 = np.abs(np.fft.ifft(np.fft.fft(U1[[p[0] for p in pairs]]) * psi2[[p[1] for p in pairs]]))
+    return low(x), low(U1), low(U2)
+
+
+def wigner_ville_oracle(x: np.ndarray, nperseg: int) -> np.ndarray:
+    """The pseudo Wigner-Ville distribution in float64 numpy: lag products of
+    the analytic signal z[t+τ]·conj(z[t−τ]) for |τ| <= nperseg//2, a Hann lag
+    window, the transform over lags."""
+    T, half = x.shape[-1], nperseg // 2
+    z = scipy.signal.hilbert(x, axis=-1)
+    t, tau = np.arange(T)[:, None], np.arange(-half, half + 1)[None, :]
+    valid = (t + tau >= 0) & (t + tau < T) & (t - tau >= 0) & (t - tau < T)
+    prod = z[..., np.clip(t + tau, 0, T - 1)] * np.conj(z[..., np.clip(t - tau, 0, T - 1)]) * valid
+    w = scipy.signal.get_window("hann", nperseg - 1)
+    h = np.fft.ifftshift(np.concatenate([w, w[:1]]))
+    return np.real(np.fft.fft(np.roll(prod, -half, axis=-1) * h, axis=-1))
+
+
+def stockwell_oracle(x: np.ndarray) -> np.ndarray:
+    """The S-transform in float64 numpy: voice k is the inverse transform of
+    the spectrum shifted by k times a Gaussian of width k; voice 0 the mean."""
+    T = x.shape[-1]
+    X = np.fft.fft(x)
+    j = np.fft.fftfreq(T) * T
+    ks = np.arange(T // 2 + 1)
+    G = np.exp(-2.0 * np.pi ** 2 * j[None, :] ** 2 / np.maximum(ks[:, None], 1) ** 2)
+    S = np.fft.ifft(X[..., (np.arange(T)[None, :] + ks[:, None]) % T] * G)
+    S[..., 0, :] = x.mean(-1, keepdims=True)
+    return S
+
+
+def features_oracle(x: np.ndarray, sr: float, nperseg: int, hop: int) -> dict:
+    """Spectral features of one clip in float64 numpy from its magnitude
+    spectrogram (periodic Hann, reflect-centered frames)."""
+    mag = np.abs(np.fft.rfft(frames_oracle(x[None], nperseg, hop)[0]
+                             * scipy.signal.get_window("hann", nperseg)))
+    f = np.fft.rfftfreq(nperseg) * sr
+    norm = np.maximum(mag.sum(-1), 1e-30)
+    cent = (mag * f).sum(-1) / norm
+    p = np.maximum(mag ** 2, 1e-10)
+    csum = np.cumsum(mag, -1)
+    return {
+        "spectral_centroid": cent,
+        "spectral_bandwidth": np.sqrt((mag * (f - cent[:, None]) ** 2).sum(-1) / norm),
+        "spectral_rolloff": f[np.argmax(csum >= 0.85 * csum[:, -1:], axis=-1)],
+        "spectral_flatness": np.exp(np.log(p).mean(-1)) / p.mean(-1),
+    }
+
+
+def beat_oracle(env: np.ndarray, bpm: float, sr: float, hop: int, tightness: float = 100.0,
+                min_bpm: float = 24.0) -> np.ndarray:
+    """Ellis's dynamic programme in float64 numpy: score C[t] = O[t] +
+    max(0, max_Δ C[t−Δ] − tightness·log²(Δ/p)), beats by the backpointers
+    from the best frame."""
+    n = len(env)
+    env = env / max(env.std(), 1e-10)
+    period = 60.0 * sr / (hop * bpm)
+    D = int(min(np.ceil(2.0 * 60.0 * sr / (hop * min_bpm)), n - 1))
+    pen = -tightness * np.log(np.arange(1, D + 1) / period) ** 2
+    C, back = np.zeros(n), np.zeros(n, np.int64)
+    for t in range(n):
+        lo = max(0, t - D)
+        cand = C[lo:t][::-1] + pen[: t - lo]
+        best = cand.max() if t > 0 else -np.inf
+        C[t] = env[t] + max(best, 0.0)
+        back[t] = np.argmax(cand) + 1 if best > 0.0 else 0
+    beats, cur = np.zeros(n, bool), int(np.argmax(C))
+    while cur >= 0:
+        beats[cur] = True
+        cur = cur - back[cur] if back[cur] > 0 else -1
+    return beats
+
+
+def audio_remainder(rng, card: str):
+    """Phase 19: the CQT, time-frequency, scattering and feature ops from
+    numpy input without a device, on the card, against float64 numpy (the
+    definitions written out here; a few rows of each batch).  Returns the
+    launches and the kernel's worst abs error on the plane pairs it was
+    handed."""
+    ops = Ops()
+    run, check = ops.run, ops.check
+    cuda_fft.LAUNCHES = 0
+    worst = []
+
+    def kernel_check(what):
+        worst.append(kernel_errors(ops.seen, what))
+        ops.seen.clear()
+        log(f"audio remainder: {what} checked at {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+
+    fs, hop = CQT["fs"], CQT["hop"]
+    t = np.arange(CLIP_SAMPLES) / fs
+    notes = 110.0 * 2.0 ** (rng.integers(0, 36, (CLIP_BATCH, 3)) / 12.0)
+    clips = (0.1 * rng.standard_normal((CLIP_BATCH, CLIP_SAMPLES))
+             + np.sin(2 * np.pi * notes[:, :1] * t) + 0.5 * np.sin(2 * np.pi * notes[:, 1:2] * t)
+             + 0.3 * np.sin(2 * np.pi * notes[:, 2:] * t))
+    C = run("cqt", tp.cqt, clips)
+    sub = np.asarray(ORACLE_ROWS)
+    want = np.stack([cqt_oracle(clips[i], **CQT) for i in sub])
+    check(f"cqt {CLIP_BATCH} x 30 s at 22,050 Hz, 84 bins from C1, hop 512 -> {tuple(C.shape)} "
+          f"(rows {ORACLE_ROWS} vs the definition)", C[sub], want, CQT_TOL)
+    kernel_check("cqt planes")
+    y = run("icqt", tp.icqt, C, length=CLIP_SAMPLES)
+    check("icqt(cqt(x)) vs the float64 inverse of the same coefficients", y[sub],
+          np.stack([icqt_oracle(C[i].cpu().numpy().astype(np.complex128), CLIP_SAMPLES, **CQT)
+                    for i in sub]), CQT_TOL)
+    # the inverse covers the frames' span: the last (T − 1) mod hop samples fall out
+    yn = y[0].cpu().numpy()
+    inner = slice(int(fs), len(yn) - int(fs))
+    corr = np.corrcoef(yn[inner], clips[0][inner])[0, 1]
+    # the inverse is band-limited and approximate (a minimum-norm frame a CQT
+    # row): how close it comes depends on the notes, so this is a reading
+    log(f"icqt(cqt(x)) correlates {corr:.4f} with the clip (a band-limited inverse)")
+    kernel_check("icqt planes")
+    # librosa's chroma_cqt: 6 octaves of 36 bins from C1, folded onto 12 classes
+    chroma = run("chroma_cqt", tp.chroma_cqt, clips)
+    C36 = np.abs(cqt_oracle(clips[0], fs, CQT["fmin"], 216, 36, hop))   # one clip: 216 bands
+    fold = C36.reshape(*C36.shape[:-1], 6, 12, 3).sum((-3, -1))
+    check(f"chroma_cqt (216 bins, 36 an octave) -> {tuple(chroma.shape)}, clip 0", chroma[0],
+          fold / np.maximum(fold.max(-1, keepdims=True), 1e-30), CQT_TOL)
+    kernel_check("chroma_cqt planes")
+    del C, y, chroma, want
+
+    # spectral features, onsets, tempo and beats on the same clips
+    nperseg, fhop = 2048, 512
+    got = {name: run(name, getattr(tp, name), clips, fs, nperseg, fhop)
+           for name in ("spectral_centroid", "spectral_bandwidth", "spectral_rolloff")}
+    got["spectral_flatness"] = run("spectral_flatness", tp.spectral_flatness, clips, nperseg, fhop)
+    for i in sub:
+        want = features_oracle(clips[i], fs, nperseg, fhop)
+        for name, value in want.items():
+            if name == "spectral_rolloff":   # the first bin past 85%: one bin apart at most
+                err = float(np.max(np.abs(got[name][i].cpu().numpy() - value)))
+                log(f"spectral_rolloff clip {i}: worst {err:.3f} Hz apart (bins of {fs / nperseg:.3f} Hz)")
+                require(err <= fs / nperseg + 1e-3, f"spectral_rolloff {err}")
+            else:
+                check(f"{name} clip {i}", got[name][i], value,
+                      FLATNESS_TOL if name == "spectral_flatness" else ORACLE_TOL)
+    kernel_check("feature planes")
+    bpm_true = 120.0
+    click_t = np.arange(0.25, 30.0, 60.0 / bpm_true)
+    clicks = np.zeros(CLIP_SAMPLES)
+    clicks[(click_t * fs).astype(int)] = 1.0
+    clicks = np.convolve(clicks, np.hanning(64), "same") + 0.05 * rng.standard_normal(CLIP_SAMPLES)
+    env = run("onset_strength", tp.onset_strength, clicks, fs, nperseg, fhop)
+    S = mel_oracle(clicks[None], fs, nperseg, fhop, 128)[0]
+    db = 10.0 * np.log10(np.maximum(S, 1e-10))
+    check("onset_strength of a 120 BPM click track, 30 s",
+          env, np.concatenate([[0.0], np.maximum(np.diff(db, axis=0), 0.0).mean(-1)]))
+    bpm = float(run("tempo", tp.tempo, onset_env=env, sr=fs, hop=fhop))
+    bpm_beats, beats = run("beat_track", tp.beat_track, onset_env=env, sr=fs, hop=fhop)
+    want_beats = beat_oracle(env.cpu().numpy().astype(np.float64), float(bpm_beats), fs, fhop)
+    log(f"tempo {bpm:.2f} BPM (clicks at {bpm_true}); beat_track {int(beats.sum())} beats, "
+        f"{int((beats.cpu().numpy() != want_beats).sum())} frames differ from the float64 programme")
+    require(abs(bpm - bpm_true) / bpm_true < 0.08, f"tempo {bpm}")
+    require(np.array_equal(beats.cpu().numpy(), want_beats), "beat_track differs from float64")
+    kernel_check("onset and tempo planes")
+
+    # non-negative decomposition of one clip's magnitude spectrogram
+    mag = np.abs(np.fft.rfft(frames_oracle(clips[:1], nperseg, fhop)[0]
+                             * scipy.signal.get_window("hann", nperseg))).T   # (bins, frames)
+    A, Cs = run("decompose", tp.decompose, mag, 8, 50)
+    require(tuple(A.shape) == (mag.shape[0], 8) and tuple(Cs.shape) == (8, mag.shape[1]),
+            f"decompose shapes {tuple(A.shape)}, {tuple(Cs.shape)}")
+    scale = np.sqrt(mag.mean() / 8 + 1e-10)
+    A0 = scale * rng.uniform(0.1, 1.0, (mag.shape[0], 8))
+    C0 = scale * rng.uniform(0.1, 1.0, (8, mag.shape[1]))
+    A1, C1 = run("decompose", feature_ops._decompose_from, cuda32(mag), cuda32(A0), cuda32(C0), 50, 1e-10)
+    a64, c64 = A0, C0
+    for _ in range(50):
+        a64 = a64 * (mag @ c64.T) / (a64 @ (c64 @ c64.T) + 1e-10)
+        c64 = c64 * (a64.T @ mag) / ((a64.T @ a64) @ c64 + 1e-10)
+    check("decompose, 8 components, 50 updates: A·C", A1 @ C1, a64 @ c64, DECOMPOSE_TOL)
+    del clips, mag
+
+    # scattering at the JAX defaults J = 6, Q = 8
+    xs = rng.standard_normal(SCATTER_SHAPE)
+    s0, s1, s2, (xi1, xi2, pairs) = run("scattering1d", tp.scattering1d, xs)
+    for i in sub:
+        w0, w1, w2 = scattering_oracle(xs[i], 6, 8, pairs)
+        for order, got_o, want_o in (("0", s0, w0), ("1", s1, w1), ("2", s2, w2)):
+            check(f"scattering1d {SCATTER_SHAPE[0]} x 2^16, J 6, Q 8, order {order} row {i} "
+                  f"{tuple(got_o.shape)}", got_o[i], want_o)
+    kernel_check("scattering planes")
+    del xs, s0, s1, s2
+
+    # time-frequency representations at 8 x 4096
+    rows, T = TFR_SHAPE
+    tt = np.arange(T)
+    x = (np.cos(2 * np.pi * rng.uniform(0.02, 0.2, (rows, 1)) * tt)
+         + 0.7 * np.cos(2 * np.pi * (0.05 * tt + 0.15 * tt ** 2 / (2 * T))))
+    S, freqs = run("ssq_stft", tp.ssq_stft, x)
+    xr = run("issq_stft", tp.issq_stft, S).cpu().numpy()
+    centers = np.arange(xr.shape[-1]) * 32
+    keep = (centers > 256) & (centers < T - 256)
+    err = np.linalg.norm(xr[:, keep] - x[:, centers[keep]]) / np.linalg.norm(x[:, centers[keep]])
+    log(f"issq_stft(ssq_stft(x)) at the frame centers, {TFR_SHAPE}: rel err {err:.3e}")
+    require(err < ISSQ_TOL, f"issq_stft round trip {err}")
+    St, _ = run("stockwell", tp.stockwell, x)
+    check(f"stockwell {TFR_SHAPE} -> {tuple(St.shape)}", St[sub], stockwell_oracle(x[sub]))
+    check("istockwell(stockwell(x))", run("istockwell", tp.istockwell, St), x)
+    del S, St
+    W = run("wigner_ville", tp.wigner_ville, x)
+    check(f"wigner_ville {TFR_SHAPE} -> {tuple(W.shape)}", W[sub], wigner_ville_oracle(x[sub], 257))
+    kernel_check("time-frequency planes")
+    del W
+
+    launches = cuda_fft.LAUNCHES
+    log("audio remainder kernel launches: " + ", ".join(f"{k} {v}" for k, v in ops.used.items()))
+    # chroma_cqt's frames (36 bins an octave) are 65,536 long and scattering1d's
+    # rows 2^16: longer than the kernel takes, so the stage pipeline runs them
+    through = ("cqt", "icqt", "spectral_centroid", "onset_strength", "tempo", "beat_track",
+               "ssq_stft", "stockwell", "istockwell", "wigner_ville")
+    require(all(ops.used[k] > 0 for k in through),
+            f"an op that goes through the fft layer never launched the kernel: {ops.used}")
+    return launches, max(worst)
+
+
+def recurrence_timings(rng, card: str) -> None:
+    """Phase 20: device time (profiler sum and graph replay), back-to-back
+    wall time, idle share and device kernels of the recurrences at the sizes
+    of phases 15, 18 and 19."""
+    sr, n_fft, hop = WHISPER["sr"], WHISPER["n_fft"], WHISPER["hop"]
+    rows = []
+    xw = cuda32(0.1 * rng.standard_normal((WHISPER_BATCH, WHISPER_SAMPLES)))
+    with torch.no_grad():
+        mel = tp.melspectrogram(xw, sr, n_fft, hop, n_mels=WHISPER["n_mels"])
+        rows.append(timing_row("pcen forward, 16 x 3001 x 80", lambda: tp.pcen(mel, sr, hop), 5))
+    del xw
+    coef = {k: torch.full((80,), v, device="cuda", requires_grad=True)
+            for k, v in dict(gain=0.98, bias=2.0, power=0.5, b=0.025).items()}
+    rows.append(timing_row("pcen forward + backward, per-band coefficients, 16 x 3001 x 80",
+                           lambda: torch.autograd.grad(tp.pcen(mel, **coef).sum(), list(coef.values())), 5))
+    del mel
+    params = audio_frontend.init_params(
+        AUDIO["n_mels"], AUDIO["n_classes"], generator=torch.Generator().manual_seed(SEED), device="cuda")
+    x = cuda32(0.1 * rng.standard_normal((AUDIO_BATCH, AUDIO_SAMPLES)))
+    labels = torch.tensor(rng.integers(0, AUDIO["n_classes"], AUDIO_BATCH), device="cuda")
+
+    def forward():
+        with torch.no_grad():
+            return audio_frontend.apply(params, x, AUDIO["sr"], AUDIO["n_fft"])
+
+    rows.append(timing_row("audio front end forward, 256 x 16,000", forward, 5))
+    rows.append(timing_row("audio front end train step, 256 x 16,000",
+                           lambda: audio_frontend.train_step(params, x, labels, sr=AUDIO["sr"],
+                                                             n_fft=AUDIO["n_fft"]), 5))
+    del x
+    x48 = cuda32(rng.standard_normal(DECIMATE_SHAPE))
+    with torch.no_grad():
+        rows.append(timing_row("decimate 16 x 1,440,000 by 3, ftype='iir'",
+                               lambda: tp.decimate(x48, DECIMATE_Q, ftype="iir"), 5))
+    del x48
+    xs = cuda32(rng.standard_normal(RECURRENCE_SHAPE))
+    sos = tp.butter(6, 0.2, output="sos")
+    rows.append(timing_row("sosfilt butter(6) 8 x 65,536", lambda: tp.sosfilt(sos, xs), 5))
+    del xs
+    model = [cuda32(m) for m in kalman_model()]
+    for T in (KALMAN_SEQUENTIAL_T, KALMAN_PARALLEL_T):
+        ys = cuda32(kalman_track(rng, T))
+        for parallel in ((True, False) if T == KALMAN_SEQUENTIAL_T else (True,)):
+            form = "parallel" if parallel else "sequential"
+            # batched solves may take a library path that a graph cannot capture
+            rows.append(timing_row(f"kalman_filter car tracker T = {T:,}, {form}",
+                                   lambda: tp.kalman_filter(*model, ys, parallel=parallel), 3,
+                                   capture=False))
+    clips = cuda32(rng.standard_normal((CLIP_BATCH, CLIP_SAMPLES)))
+    with torch.no_grad():
+        rows.append(timing_row("cqt 8 x 30 s at 22,050 Hz, 84 bins", lambda: tp.cqt(clips), 3))
+    del clips
+    torch.cuda.empty_cache()
+    log(json.dumps({"recurrence_timing": {"card": card, "calls": rows}}))
+
+
+def timed(phase, *args):
+    """Runs one phase and logs its wall time (the whole run has a time limit)."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(argv) -> int:
     card = setup()
     build()
     rng = np.random.default_rng(SEED)
     if argv == ["audio"]:   # development: phases 15-17 alone
-        audio_frontend_path(rng)
-        audio_ops(rng, card)
-        audio_timings(rng, card)
+        timed(audio_frontend_path, rng)
+        timed(audio_ops, rng, card)
+        timed(audio_timings, rng, card)
         return 0
-    kernel_vs_plain(rng)
-    launches, max_abs, (xr, xi) = main_path(rng)
-    core_lengths(rng)
-    timings(rng, card)
-    yardstick(rng, card)
-    train_launches, train_abs = training(rng)
-    fno_launches, fno_abs = fno_path(rng)
-    api_remainder(rng)
-    train_timings(rng, card)
-    family_launches, family_abs = model_families(rng)
-    ops_launches, ops_abs = ops_tail(rng, card)
-    family_timings(rng, card)
-    frontend_launches, frontend_abs = audio_frontend_path(rng)
-    audio_launches, audio_abs = audio_ops(rng, card)
-    audio_timings(rng, card)
+    if argv == ["recurrence"]:   # development: phases 18-20 alone
+        for phase in (recurrences, audio_remainder, recurrence_timings):
+            timed(phase, rng, card)
+        return 0
+    timed(kernel_vs_plain, rng)
+    launches, max_abs, (xr, xi) = timed(main_path, rng)
+    timed(core_lengths, rng)
+    timed(timings, rng, card)
+    timed(yardstick, rng, card)
+    train_launches, train_abs = timed(training, rng)
+    fno_launches, fno_abs = timed(fno_path, rng)
+    timed(api_remainder, rng)
+    timed(train_timings, rng, card)
+    family_launches, family_abs = timed(model_families, rng)
+    ops_launches, ops_abs = timed(ops_tail, rng, card)
+    timed(family_timings, rng, card)
+    frontend_launches, frontend_abs = timed(audio_frontend_path, rng)
+    audio_launches, audio_abs = timed(audio_ops, rng, card)
+    timed(audio_timings, rng, card)
+    recurrence_launches = timed(recurrences, rng, card)
+    remainder_launches, remainder_abs = timed(audio_remainder, rng, card)
+    timed(recurrence_timings, rng, card)
     log(f"kernel launches by path: filter forward {launches}, training {train_launches}, "
         f"fno {fno_launches}, s4d + fnet + afno {family_launches}, ops tail {ops_launches}, "
-        f"audio front end {frontend_launches}, audio ops {audio_launches}")
+        f"audio front end {frontend_launches}, audio ops {audio_launches}, "
+        f"recurrences {recurrence_launches}, audio remainder {remainder_launches}")
     launches += (train_launches + fno_launches + family_launches + ops_launches
-                 + frontend_launches + audio_launches)
-    max_abs = max(max_abs, train_abs, fno_abs, family_abs, ops_abs, frontend_abs, audio_abs)
+                 + frontend_launches + audio_launches + recurrence_launches + remainder_launches)
+    max_abs = max(max_abs, train_abs, fno_abs, family_abs, ops_abs, frontend_abs, audio_abs,
+                  remainder_abs)
     # the kernel line's times are on the same planes as its error: the
     # forward transform of the batch-1024 filter call.  ms, plain_ms and
     # library_ms are medians of single timed calls, dispatch included

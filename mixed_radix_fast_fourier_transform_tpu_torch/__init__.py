@@ -36,6 +36,12 @@ Public API (numpy.fft-flavoured):
     cheb_eval
     fht, ifht, fhtoffset, fwht, ifwht, czt, zoom_fft, czt_points, CZT, ZoomFFT,
     frft, ifrft, frft2
+    cqt, icqt, chroma_cqt, wigner_ville, ssq_cwt, ssq_stft, stockwell,
+    reassigned_spectrogram, scattering1d, scattering2d, spectral and rhythm
+    features (onset_strength, tempo, beat_track, decompose, ...)
+    IIR design and filtering (butter, ..., lfilter, sosfilt, filtfilt,
+    sosfiltfilt), LTI systems (lti, dlti, dlsim, lsim, ...), B-splines
+    (cspline1d, ...), kalman_filter, kalman_smoother
     plan-level: get_plan, build_complex_plan, build_real_plan, clear_plan_cache
     models: init_params, apply, loss_fn, train_step, params_from_jax,
     SpectralFilter, models.fno, models.s4d, models.fnet, models.afno,
@@ -98,8 +104,51 @@ from .ops.signal import (
     thd, sinad, sfdr, enob, kaiserord, firwin2, firls, gammatone, max_len_seq,
     correlation_lags, vectorstrength, envelope, firwin_2d,
 )
+from .ops.cqt import cqt, cqt_frequencies, icqt
+from .ops.tfr import (
+    wigner_ville, ssq_cwt, ssq_stft, issq_cwt, issq_stft,
+    reassigned_spectrogram, stockwell, istockwell, ambiguity,
+    cohen_class, choi_williams, xwigner_ville,
+)
+from .ops.scattering import scattering1d, scattering2d
+from .ops.feature import (
+    spectral_centroid, spectral_bandwidth, spectral_rolloff,
+    spectral_flatness, spectral_contrast, zero_crossing_rate, rms,
+    specaugment, chroma_filterbank, chroma_stft, onset_strength, tempo,
+    delta, beat_track, decompose, trim, split, mu_law_encode, mu_law_decode,
+    power_to_db, db_to_power, amplitude_to_db, db_to_amplitude,
+    chroma_cqt, tonnetz, gcc_phat, lpc,
+)
+from .ops.iir import (
+    butter, cheby1, cheby2, ellip, bessel, iirfilter,
+    buttap, cheb1ap, cheb2ap, ellipap, besselap,
+    buttord, cheb1ord, cheb2ord, ellipord,
+    iirnotch, iirpeak, iircomb,
+    bilinear_zpk, lp2lp_zpk, lp2hp_zpk, lp2bp_zpk, lp2bs_zpk,
+    zpk2tf, tf2zpk, zpk2sos, sos2zpk, tf2sos, sos2tf,
+    lfilter, sosfilt, filtfilt, sosfiltfilt, lfilter_zi, sosfilt_zi,
+    freqs, freqs_zpk, sosfreqz,
+    normalize, bilinear, lp2lp, lp2hp, lp2bp, lp2bs,
+    freqz_zpk, freqz_sos, iirdesign, lfiltic, findfreqs,
+    unique_roots, residue, residuez, invres, invresz, BadCoefficients,
+    band_stop_obj,
+)
+from .ops.lticlasses import (
+    lti, dlti, TransferFunction, ZerosPolesGain, StateSpace, place_poles,
+)
+from .ops.kalman import kalman_filter, kalman_smoother
+from .ops.splines import (
+    gauss_spline, cspline1d, qspline1d, cspline1d_eval, qspline1d_eval,
+    cspline2d, qspline2d, symiirorder1, symiirorder2, sepfir2d, spline_filter,
+)
+from .ops.ltisys import (
+    tf2ss, ss2tf, zpk2ss, ss2zpk, abcd_normalize, cont2discrete,
+    dlsim, dstep, dimpulse, dfreqresp, dbode,
+    lsim, step, impulse, freqresp, bode,
+)
 from .plan import (
     BluesteinPlan,
+    ComplexPlan,
     MixedRadixPlan,
     RaderPlan,
     RealPlan,
@@ -151,7 +200,32 @@ __all__ = [
     "fht", "ifht", "fhtoffset", "fwht", "ifwht",
     "czt", "zoom_fft", "czt_points", "CZT", "ZoomFFT", "frft", "ifrft", "frft2",
     "fftfreq", "rfftfreq", "fftshift", "ifftshift", "prev_fast_len", "dht", "idht",
-    "BluesteinPlan", "MixedRadixPlan", "RaderPlan", "RealPlan",
+    "cqt", "cqt_frequencies", "icqt",
+    "wigner_ville", "ssq_cwt", "ssq_stft", "issq_cwt", "issq_stft", "reassigned_spectrogram",
+    "stockwell", "istockwell", "ambiguity", "cohen_class", "choi_williams", "xwigner_ville",
+    "scattering1d", "scattering2d",
+    "spectral_centroid", "spectral_bandwidth", "spectral_rolloff", "spectral_flatness",
+    "spectral_contrast", "zero_crossing_rate", "rms", "specaugment", "chroma_filterbank",
+    "chroma_stft", "onset_strength", "tempo", "delta", "beat_track", "decompose", "trim",
+    "split", "mu_law_encode", "mu_law_decode", "power_to_db", "db_to_power",
+    "amplitude_to_db", "db_to_amplitude", "chroma_cqt", "tonnetz", "gcc_phat", "lpc",
+    "butter", "cheby1", "cheby2", "ellip", "bessel", "iirfilter",
+    "buttap", "cheb1ap", "cheb2ap", "ellipap", "besselap",
+    "buttord", "cheb1ord", "cheb2ord", "ellipord", "iirnotch", "iirpeak", "iircomb",
+    "bilinear_zpk", "lp2lp_zpk", "lp2hp_zpk", "lp2bp_zpk", "lp2bs_zpk",
+    "zpk2tf", "tf2zpk", "zpk2sos", "sos2zpk", "tf2sos", "sos2tf",
+    "lfilter", "sosfilt", "filtfilt", "sosfiltfilt", "lfilter_zi", "sosfilt_zi",
+    "freqs", "freqs_zpk", "sosfreqz", "normalize", "bilinear", "lp2lp", "lp2hp", "lp2bp",
+    "lp2bs", "freqz_zpk", "freqz_sos", "iirdesign", "lfiltic", "findfreqs", "unique_roots",
+    "residue", "residuez", "invres", "invresz", "BadCoefficients", "band_stop_obj",
+    "lti", "dlti", "TransferFunction", "ZerosPolesGain", "StateSpace", "place_poles",
+    "kalman_filter", "kalman_smoother",
+    "gauss_spline", "cspline1d", "qspline1d", "cspline1d_eval", "qspline1d_eval",
+    "cspline2d", "qspline2d", "symiirorder1", "symiirorder2", "sepfir2d", "spline_filter",
+    "tf2ss", "ss2tf", "zpk2ss", "ss2zpk", "abcd_normalize", "cont2discrete",
+    "dlsim", "dstep", "dimpulse", "dfreqresp", "dbode", "lsim", "step", "impulse",
+    "freqresp", "bode",
+    "BluesteinPlan", "ComplexPlan", "MixedRadixPlan", "RaderPlan", "RealPlan",
     "build_bluestein_plan", "build_complex_plan", "build_mixed_radix_plan",
     "build_rader_plan", "build_real_plan", "clear_plan_cache", "get_plan",
     "DEFAULT_CONFIG", "SpectralConfig",

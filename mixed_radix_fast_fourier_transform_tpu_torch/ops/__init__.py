@@ -1,6 +1,8 @@
 """Transform ops: complex/real FFT, convolution, the short-time, cosine,
 Chebyshev, Hankel, chirp-z and fractional transforms, the signal-analysis,
-wavelet, auditory and mel families, the stage pipeline and the fused Stockham
+wavelet, auditory and mel families, IIR filters, LTI systems, splines, the
+Kalman filter, time-frequency representations, scattering, the constant-Q
+transform and audio features, the stage pipeline and the fused Stockham
 kernel."""
 
 from .fft import (
@@ -23,6 +25,6 @@ from .stockham import exec_bluestein, exec_complex, exec_mixed_radix
 # windows, cwt, ...) share their names with their main functions, which the
 # package itself exports; here they stay modules.
 from . import (
-    auditory, chebyshev, cwt, czt, dct, fht, frft, hos, mdct, mel, shorttime, signal, stft,
-    windows,
+    auditory, chebyshev, cqt, cwt, czt, dct, feature, fht, frft, hos, iir, kalman, lticlasses,
+    ltisys, mdct, mel, scattering, shorttime, signal, splines, stft, tfr, windows,
 )

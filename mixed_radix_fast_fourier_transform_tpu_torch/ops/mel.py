@@ -12,10 +12,11 @@ feature pipelines port directly; the filterbank is an lru-cached host
 constant, the JAX module's line for line, and is kept on the device once
 uploaded.
 
-The two recurrences over frames (``pcen``'s one-pole smoother and
-``pyin``'s Viterbi decoder) are loops in the order of the JAX module's
-scans, one small device operation or a few per frame: their time is the
-host's launch rate, not the card's.
+``pcen``'s one-pole smoother is a linear recurrence over frames and runs as
+the blocked scan of ``utils/scan.py`` (a few device kernels whatever the
+number of frames).  ``pyin``'s Viterbi decoder is a max-plus recursion, not
+a linear one: a loop in the order of the JAX module's scan, a few small
+device operations per frame.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch.nn.functional as F
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.numerics import as_tensor, constant, fp32_matmul, median, pad_last, working
+from ..utils.scan import linear_recurrence
 from .dct import dct as _dct, idct as _idct
 from .rfft import irfft as _irfft, rfft as _rfft
 from .stft import _frame, griffinlim as _griffinlim, stft as _stft
@@ -699,9 +701,8 @@ def pcen(
     with M the per-band IIR-smoothed energy (one-pole, coefficient ``b``
     from ``time_constant`` seconds at the given frame rate, or passed
     directly), the learnable-frontend alternative to log-mel.  The
-    smoother is a loop over frames in the order of the recurrence, one
-    fused multiply-add on (…, bands) per frame: M[0] starts from S[0] and
-    also consumes it.  ``gain``/``bias``/``power``/``b`` accept scalars OR
+    smoother is ``utils.scan.linear_recurrence``, a blocked scan over
+    frames: M[0] starts from S[0] and also consumes it.  ``gain``/``bias``/``power``/``b`` accept scalars OR
     per-band tensors that may need gradients, so the trainable frontend
     (models/audio_frontend) calls this same function with learned
     coefficients."""
@@ -717,17 +718,13 @@ def pcen(
         t_frames = time_constant * sr / float(hop)
         # librosa: b from the equivalent-width of the one-pole smoother
         b = (np.sqrt(1.0 + 4.0 * t_frames**2) - 1.0) / (2.0 * t_frames**2)
-    bd = _coef(b, S)
+    per_band = isinstance(b, torch.Tensor) or np.ndim(b) > 0
+    bd = as_tensor(b, S.device).to(S.dtype) if per_band else float(b)
     steps = torch.movedim(S, -2, 0)
-    fed = bd * steps          # b·S for every frame at once
-    keep = 1.0 - bd
-    m = steps[0]
-    smoothed = []
-    for s in fed:             # m <- (1 − b)·m + b·s, frame after frame
-        m = (torch.addcmul(s, m, keep) if isinstance(keep, torch.Tensor)
-             else torch.add(s, m, alpha=keep))
-        smoothed.append(m)
-    M = torch.movedim(torch.stack(smoothed), 0, -2)
+    # m <- (1 − b)·m + b·s over frames: a blocked scan, a few kernels per
+    # level instead of one per frame; the carry starts at S[0]
+    M = linear_recurrence(1.0 - bd, (bd * steps)[..., None], steps[0][..., None])
+    M = torch.movedim(M[..., 0], 0, -2)
     gain, bias, power = _coef(gain, S), _coef(bias, S), _coef(power, S)
     smooth_gain = torch.exp(-gain * torch.log(eps + M))
     return (S * smooth_gain + bias) ** power - bias**power

@@ -1310,16 +1310,23 @@ def decimate(x, q: int, n: Optional[int] = None, ftype: str = "fir",
     """Downsample by an integer factor after anti-aliasing
     (scipy.signal.decimate).  ftype='fir' (default): Hamming-windowed sinc
     of order 20·q, zero-phase via the centered polyphase application.
-    ftype='iir' (scipy's Chebyshev-I order-8 sos through
-    ``sosfilt``/``sosfiltfilt``) waits for ``ops/iir.py`` and raises
-    ``NotImplementedError`` until that module is ported."""
+    ftype='iir': scipy's Chebyshev-I order-8 sos (0.05 dB, 0.8/q cutoff)
+    applied with ``sosfilt``/``sosfiltfilt`` of ``ops/iir.py``, whose
+    recursion is a blocked scan on the device."""
     q = int(q)
     if q < 1:
         raise ValueError(f"q must be >= 1, got {q}")
     if ftype == "iir":
-        raise NotImplementedError(
-            "decimate(ftype='iir') needs cheby1/sosfilt/sosfiltfilt of ops/iir.py, "
-            "which is not ported yet; use ftype='fir'")
+        from .iir import cheby1, sosfilt, sosfiltfilt
+
+        if n is None:
+            n = 8
+        sos = cheby1(n, 0.05, 0.8 / q, output="sos")
+        y = (sosfiltfilt(sos, x, axis=axis, config=config) if zero_phase
+             else sosfilt(sos, x, axis=axis, config=config))
+        sl = [slice(None)] * y.ndim
+        sl[axis] = slice(None, None, q)
+        return y[tuple(sl)]
     if ftype != "fir":
         raise ValueError(f"ftype must be 'fir' or 'iir', got {ftype!r}")
     if not zero_phase:

@@ -112,6 +112,8 @@ class RealPlan:
     _device: Dict = _device_cache()
 
 
+ComplexPlan = (MixedRadixPlan, BluesteinPlan, RaderPlan)
+
 _DEVICE_LOCK = threading.Lock()
 
 

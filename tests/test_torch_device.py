@@ -6,6 +6,7 @@ do the arrays the library creates, unless given a device.  There is no
 fallback to the CPU: without a card the call raises.
 """
 
+import ast
 import pathlib
 import re
 import subprocess
@@ -155,6 +156,25 @@ def test_as_tensor_keeps_tensors_and_places_arrays():
     lambda x: tp.models.audio_frontend.init_frontend(4),
     lambda x: tp.models.audio_frontend.init_classifier(4, 2),
     lambda x: tp.models.audio_frontend.AudioFrontend(4, 2),
+    lambda x: tp.sosfilt(tp.butter(2, 0.3, output="sos"), x),
+    lambda x: tp.lfilter([1.0, 0.5], [1.0], x),
+    lambda x: tp.filtfilt(*tp.butter(2, 0.3), np.ones(32, np.float32)),
+    lambda x: tp.decimate(np.ones(64, np.float32), 2, ftype="iir"),
+    lambda x: tp.dlsim(([[0.5]], [[1.0]], [[1.0]], [[0.0]], 1.0), x),
+    lambda x: tp.lsim(([[-1.0]], [[1.0]], [[1.0]], [[0.0]]), x, np.arange(8.0)),
+    lambda x: tp.dlti([1.0], [1.0, -0.5], dt=1.0).output(x, None),
+    lambda x: tp.cspline1d(x),
+    lambda x: tp.symiirorder2(np.ones(64, np.float32), 0.5, 0.3),
+    lambda x: tp.kalman_filter(np.eye(1), np.eye(1), np.eye(1), np.eye(1), np.zeros(1), np.eye(1), x[:, None]),
+    lambda x: tp.wigner_ville(x),
+    lambda x: tp.stockwell(x),
+    lambda x: tp.ssq_stft(np.ones(512, np.float32), nperseg=64),
+    lambda x: tp.scattering1d(np.ones(64, np.float32), J=2),
+    lambda x: tp.cqt(np.ones(4096, np.float32), fs=8000.0, fmin=100.0, n_bins=12),
+    lambda x: tp.spectral_centroid(np.ones(1024, np.float32), nperseg=256),
+    lambda x: tp.specaugment(np.ones((4, 4), np.float32)),
+    lambda x: tp.decompose(np.ones((4, 4), np.float32), 2, 2),
+    lambda x: tp.beat_track(np.ones(8192, np.float32)),
 ], ids=lambda f: None)
 def test_numpy_input_without_a_device_needs_the_card(call):
     if torch.cuda.is_available():
@@ -200,13 +220,34 @@ def test_every_module_imports_with_jax_blocked():
         "          'models.checkpoint', 'ops.stft', 'ops.windows', 'ops.dct', 'ops.mdct',\n"
         "          'ops.chebyshev', 'ops.fht', 'ops.czt', 'ops.frft', 'ops.shorttime',\n"
         "          'ops.signal', 'ops.hos', 'ops.cwt', 'ops.auditory', 'ops.mel',\n"
-        "          'models.audio_frontend']\n"
+        "          'models.audio_frontend', 'utils.scan', 'ops.iir', 'ops.ltisys',\n"
+        "          'ops.lticlasses', 'ops.splines', 'ops.kalman', 'ops.tfr', 'ops.scattering',\n"
+        "          'ops.cqt', 'ops.feature']\n"
         "assert all(tp.__name__ + '.' + w in names for w in wanted), names\n"
         "print('OK', len(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=str(PACKAGE.parent))
     assert out.returncode == 0 and "OK" in out.stdout, out.stderr
+
+
+@pytest.mark.parametrize("module", ["iir", "ltisys", "lticlasses", "splines", "kalman", "tfr",
+                                    "scattering", "cqt", "feature"])
+def test_every_public_name_of_the_jax_module_is_ported(module):
+    """Every public function and class of the JAX module (read from its
+    source, without importing it) is defined in the port's module of the
+    same path and exported by the package where the JAX package exports it."""
+    def public(path):
+        tree = ast.parse(path.read_text())
+        return {n.name for n in tree.body if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                and not n.name.startswith("_")}
+
+    jax_ops = PACKAGE.parent / "mixed_radix_fast_fourier_transform_tpu" / "ops"
+    want = public(jax_ops / f"{module}.py")
+    assert want and want <= public(PACKAGE / "ops" / f"{module}.py"), want - public(PACKAGE / "ops" / f"{module}.py")
+    exported = re.findall(r"\b(\w+)\b", (jax_ops.parent / "__init__.py").read_text())
+    missing = sorted(n for n in want if n in exported and not hasattr(tp, n))
+    assert not missing, missing
 
 
 def test_no_library_fft_in_the_port():
@@ -216,7 +257,8 @@ def test_no_library_fft_in_the_port():
     package (``ops/convolve.py`` alone calls ``F.conv*``, for its direct
     method), and numpy's float64 FFT only where host design constants are made
     (Bluestein and chirp-z kernel spectra, the Chebyshev window, DPSS ratios,
-    the taps of ``firwin2`` and ``remez``) or a host frequency grid is laid
+    the taps of ``firwin2`` and ``remez``, the reassignment's derivative
+    window, the CQT's spectral kernel) or a host frequency grid is laid
     out (``np.fft.fftfreq``/``rfftfreq``/``fftshift``)."""
     torch_hits, numpy_files, numpy_transforms = [], set(), set()
     for path in sorted(PACKAGE.rglob("*.py")):
@@ -232,9 +274,13 @@ def test_no_library_fft_in_the_port():
                 numpy_files.add(rel)
     assert not torch_hits, torch_hits
     assert numpy_files == {"plan.py", "ops/czt.py", "ops/stft.py", "ops/shorttime.py",
-                           "ops/signal.py", "ops/cwt.py", "ops/auditory.py", "ops/mel.py"}, numpy_files
-    # a float64 transform on the host: plan and window constants, and the two
-    # filter designs that end in an inverse DFT of their sampled response
-    assert numpy_transforms == {"plan.py", "ops/czt.py", "ops/stft.py", "ops/signal.py"}, numpy_transforms
+                           "ops/signal.py", "ops/cwt.py", "ops/auditory.py", "ops/mel.py",
+                           "ops/tfr.py", "ops/scattering.py", "ops/feature.py",
+                           "ops/cqt.py"}, numpy_files
+    # a float64 transform on the host: plan and window constants, the two
+    # filter designs that end in an inverse DFT of their sampled response, the
+    # derivative window of the reassignment, and the CQT's spectral kernel
+    assert numpy_transforms == {"plan.py", "ops/czt.py", "ops/stft.py", "ops/signal.py",
+                                "ops/tfr.py", "ops/cqt.py"}, numpy_transforms
     text = (PACKAGE / "ops/signal.py").read_text()
     assert len(re.findall(r"np\.fft\.i?r?fft[2n]?\(", text)) == 2   # remez, firwin2

@@ -11,6 +11,7 @@ phase drawn by each package's own generator, so they are compared by shape,
 finiteness and the spectrum they reconstruct, as the JAX package's own tests
 do."""
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -210,6 +211,56 @@ def test_pcen_per_band_coefficients_first_step_and_gradients(rng):
     assert _rel(St.grad, grads[0]) <= 1e-4          # 50 steps of a recurrence, backwards
     for k in per:
         assert _rel(tens[k].grad, grads[1][k]) <= 1e-4, k
+
+
+@pytest.mark.parametrize("frames", [1, 129, 700])
+def test_pcen_smoother_on_the_shared_scan_per_band_gradients(rng, frames, monkeypatch):
+    """The smoother is one call of ``utils.scan.linear_recurrence`` whatever
+    the number of frames (a frame count past one block of 128 runs two
+    levels), with a per-band learned coefficient on the device; the output
+    against the JAX ``pcen`` (1e-5) and the gradients of every per-band
+    coefficient against a float64 loop (2e-4, the front end's bound)."""
+    calls, scan = [], tmel.linear_recurrence
+    monkeypatch.setattr(tmel, "linear_recurrence", lambda *a: calls.append(a[0]) or scan(*a))
+    S = (np.abs(rng.standard_normal((2, frames, 6))) + 0.1).astype(np.float32)
+    per = {k: rng.uniform(lo, hi, 6) for k, (lo, hi) in
+           dict(gain=(0.5, 1.0), bias=(1.0, 3.0), power=(0.3, 0.7), b=(0.01, 0.2)).items()}
+    leaves = {k: torch.tensor(v, dtype=torch.float32, requires_grad=True) for k, v in per.items()}
+    got = tp.pcen(_t(S), **leaves)
+    assert len(calls) == 1 and isinstance(calls[0], torch.Tensor)
+    per32 = {k: v.astype(np.float32) for k, v in per.items()}
+    assert _rel(got, jax.jit(lambda s: sp.pcen(s, **per32))(S)) <= TOL
+    w = rng.standard_normal(S.shape)
+    (got * _t(w).float()).sum().backward()
+    l64 = {k: torch.tensor(v, requires_grad=True) for k, v in per.items()}
+    S64 = _t(S).double()
+    m, out = S64[:, 0], []
+    for t in range(frames):
+        m = (1.0 - l64["b"]) * m + l64["b"] * S64[:, t]
+        out.append(m)
+    M = torch.stack(out, dim=1)
+    want = (S64 / (1e-6 + M) ** l64["gain"] + l64["bias"]) ** l64["power"] - l64["bias"] ** l64["power"]
+    (want * _t(w)).sum().backward()
+    for k in per:
+        assert _rel(leaves[k].grad, l64[k].grad) <= 2e-4, k
+
+
+def test_pcen_autograd_graph_does_not_grow_with_frames(rng):
+    """No loop over frames: the backward graph of ``pcen`` with a learned
+    coefficient grows with the scan's levels (log of the frames), not with
+    the frames: ten times the frames adds a few nodes."""
+    def nodes(frames):
+        b = torch.full((4,), 0.05, requires_grad=True)
+        out = tp.pcen(_t(np.abs(rng.standard_normal((1, frames, 4))).astype(np.float32)), b=b)
+        seen, todo = set(), [out.grad_fn]
+        while todo:
+            fn = todo.pop()
+            if fn is not None and fn not in seen:
+                seen.add(fn)
+                todo.extend(f for f, _ in fn.next_functions)
+        return len(seen)
+
+    assert nodes(300) <= nodes(3000) <= nodes(300) + 20
 
 
 def test_pcen_errors():

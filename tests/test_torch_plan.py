@@ -179,3 +179,19 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=root)
     assert out.returncode == 0 and "OK" in out.stdout, out.stderr
+
+
+@pytest.mark.parametrize("n", [360, 1009, 10007])
+def test_complex_plan_is_the_tuple_of_complex_plan_classes(n):
+    """``plan.ComplexPlan`` names the three complex plan classes, as the
+    JAX package's does, so ``isinstance(p, ComplexPlan)`` tells a complex
+    plan from a real one in both packages alike."""
+    assert tuple(c.__name__ for c in tplan.ComplexPlan) == tuple(
+        c.__name__ for c in jplan.ComplexPlan)
+    assert tp.ComplexPlan is tplan.ComplexPlan
+    config = tp.SpectralConfig(rader="auto")
+    got = tplan.build_complex_plan(n, -1, config)
+    want = jplan.build_complex_plan(n, -1, jsp.SpectralConfig(rader="auto"))
+    assert isinstance(got, tplan.ComplexPlan) and isinstance(want, jplan.ComplexPlan)
+    assert type(got).__name__ == type(want).__name__
+    assert not isinstance(tplan.build_real_plan(2 * n, -1), tplan.ComplexPlan)

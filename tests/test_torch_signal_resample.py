@@ -6,6 +6,7 @@ Tolerance: 1e-5 of the output's maximum against the JAX package (the
 polyphase products are fp32 sums of a few dozen taps in either package);
 5e-5 against scipy's float64."""
 
+import jax
 import numpy as np
 import pytest
 import scipy.signal as ss
@@ -160,12 +161,26 @@ def test_decimate_fir(rng, q, n):
 
 
 def test_decimate_iir_waits_for_the_iir_module_and_errors():
+    """``ftype='iir'`` waited for ``ops/iir.py``; now it runs scipy's
+    Chebyshev-I order-8 sos zero phase, as the JAX package does (1e-3
+    against scipy is the JAX package's own test tolerance for it)."""
     x = torch.zeros(100)
-    with pytest.raises(NotImplementedError, match="ops/iir.py"):
-        tp.decimate(x, 4, ftype="iir")
+    assert torch.equal(tp.decimate(x, 4, ftype="iir"), torch.zeros(25))
     with pytest.raises(ValueError):
         tp.decimate(x, 0)
     with pytest.raises(ValueError):
         tp.decimate(x, 2, ftype="bogus")
     with pytest.raises(ValueError):
         tp.decimate(x, 2, zero_phase=False)
+
+
+@pytest.mark.parametrize("q,n,zero_phase,axis", [(4, None, True, -1), (3, 6, False, 0)])
+def test_decimate_iir(rng, q, n, zero_phase, axis):
+    x = rng.standard_normal((2, 480)).astype(np.float32)
+    if axis == 0:
+        x = x.T.copy()
+    got = tp.decimate(_t(x), q, n, ftype="iir", zero_phase=zero_phase, axis=axis)
+    want = jax.jit(lambda v: sp.decimate(v, q, n, ftype="iir", zero_phase=zero_phase, axis=axis))(x)
+    assert _rel(got, want) <= TOL
+    want = ss.decimate(x.astype(np.float64), q, n, ftype="iir", zero_phase=zero_phase, axis=axis)
+    assert _rel(got, want) <= 1e-3
