@@ -97,15 +97,34 @@ Phases, each of which raises on failure:
 20. device and back-to-back wall time of ``pcen`` (forward, and with its
     backward), the front end's forward and train step, ``decimate(ftype=
     "iir")``, ``sosfilt``, ``kalman_filter`` parallel and sequential, and
-    ``cqt``.
+    ``cqt``;
+21. the non-uniform FFTs from numpy input at cuFINUFFT's single-precision
+    sizes (2^20 points, ε = 1e-5): types 1 and 2 in 1-D at 8,192 modes (the
+    fused kernel's 16,384-long grid) on [0, 2π), and in 2-D at 1,024 x 1,024
+    modes on [-π, π)^2; ``radon`` then ``iradon`` of a 400 x 400 Shepp-Logan
+    phantom at 400 angles; each against the float64 direct sum of its
+    definition on a sample of outputs, with its launches, the kernel against
+    its plain version on every plane pair, device and back-to-back times and
+    peak memory;
+22. ``sht``/``isht`` at L = 256 (batch 16, real and complex) and the
+    recurrence pair at L = 512 (plain and compensated) against band-limited
+    fields synthesized in float64 with scipy's spherical harmonics, the
+    recurrence timed at L = 2,048; the SFNO at the shallow-water
+    configuration of Bonev et al. (L = 256, 3 channels, hidden 256, 4
+    layers, batch 2): forward from numpy input against the stage pipeline,
+    layer 0's spectral mix against float64, three train steps, the first
+    with the kernel against its plain version on every plane pair and its
+    loss and gradients leaf by leaf against the stage pipeline, with device
+    and back-to-back times.
 
-``python3 chip_smoke.py audio`` runs phases 1, 2 and 15-17 alone, and
-``python3 chip_smoke.py recurrence`` phases 1, 2 and 18-20 (for
-development; they print no result line).
+``python3 chip_smoke.py audio`` runs phases 1, 2 and 15-17 alone,
+``python3 chip_smoke.py recurrence`` phases 1, 2 and 18-20, and
+``python3 chip_smoke.py sphere`` phases 1, 2, 21 and 22 (for development;
+they print no result line).
 
 The last lines are one JSON line about the kernels (launches of phases 4, 8,
-9, 12, 13, 15, 16, 18 and 19; error over the plane pairs those launches were handed:
-every pair of phases 4, 9, 12, 13, 15, 16 and 19, and in phase 8 the first step's three, every
+9, 12, 13, 15, 16, 18, 19, 21 and 22; error over the plane pairs those launches were handed:
+every pair of phases 4, 9, 12, 13, 15, 16, 19, 21 and 22, and in phase 8 the first step's three, every
 later backward's and the four of the step with an input gradient; times on
 the main path's batch-1024 planes), the card, then ``{"ok": true, "device":
 {...}}``.
@@ -113,6 +132,7 @@ the main path's batch-1024 planes), the card, then ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import functools
 import json
@@ -133,14 +153,16 @@ import mixed_radix_fast_fourier_transform_tpu_torch as tp
 from kernel_bench import SHAPES as YARDSTICK_SHAPES, graph_us, wrapper_us
 from mixed_radix_fast_fourier_transform_tpu_torch import compat
 from mixed_radix_fast_fourier_transform_tpu_torch.models import (
-    afno, audio_frontend, fnet, fno, koopman, s4d,
+    afno, audio_frontend, fnet, fno, koopman, s4d, sfno,
 )
 from mixed_radix_fast_fourier_transform_tpu_torch.ops import _build, cuda_fft
 from mixed_radix_fast_fourier_transform_tpu_torch.ops import cqt as cqt_ops
 from mixed_radix_fast_fourier_transform_tpu_torch.ops import feature as feature_ops
 from mixed_radix_fast_fourier_transform_tpu_torch.ops import scattering as scattering_ops
 from mixed_radix_fast_fourier_transform_tpu_torch.ops.stockham import exec_complex, exec_len
-from mixed_radix_fast_fourier_transform_tpu_torch.utils.tree import tree_leaves, tree_map
+from mixed_radix_fast_fourier_transform_tpu_torch.utils.tree import (
+    tree_leaves, tree_map, tree_map_with_path,
+)
 
 SEED = 0
 KERNEL_TOL = 2e-5   # kernel vs plain version, as the JAX kernel's tests hold it
@@ -2304,6 +2326,435 @@ def recurrence_timings(rng, card: str) -> None:
     torch.cuda.empty_cache()
     log(json.dumps({"recurrence_timing": {"card": card, "calls": rows}}))
 
+# Phases 21-22: the NUFFT and tomography path, the SHT and the SFNO.
+NUFFT_MODES = 8192                 # the oversampled grid mr = 16,384: K1's longest row
+NUFFT_MODES_2D = (1024, 1024)      # cuFINUFFT's single-precision class (arXiv 2102.08463)
+NUFFT_POINTS = 2 ** 20
+NUFFT_EPS = 1e-5
+NUFFT_SAMPLES = 512                # outputs held against the float64 direct sum
+# ε = 1e-5 (6 taps a side) plus fp32 rounding of the spread and the FFT, which
+# the deconvolution multiplies by up to e^(k²τ) = e^(π·6/12) ≈ 4.8 at the band edge
+NUFFT_TOL = 5e-5
+# points with a negative coordinate: the reduction shared with the JAX module
+# loses up to 2^-25 of frac(x/2π) there (ROADMAP F7), a phase error of up to
+# 2π·|k|·2^-25 per axis
+F7_PHASE = 2.0 * math.pi * 2.0 ** -25
+TOMO_N, TOMO_ANGLES = 400, 400     # scikit-image's phantom size and iradon example
+TOMO_ORACLE_ANGLES, TOMO_ORACLE_PIXELS = 8, 256
+SHT_L, SHT_BATCH = 256, 16         # the 256 x 512 Gauss grid
+SHT_REC_L, SHT_REC_BATCH, SHT_REC_TIME_L = 512, 2, 2048
+SHT_ORDERS = 32                    # orders with random coefficients in the float64 fields
+# the plain recurrence's fp32 carry drifts: the analysis by ~L·eps (the JAX
+# module measured 1.6e-4 at L = 512), the synthesis faster (the JAX function
+# reads 2.6e-4 at L = 256 on this script's fields, the port 2.4e-4, on the
+# CPU; the port 1.3e-3 at L = 512 on the card); the compensated pair holds
+# ORACLE_TOL
+SHT_REC_PLAIN_TOL = 3e-4
+ISHT_REC_PLAIN_TOL = 3e-3
+# the SFNO of Bonev et al.'s shallow-water runs (arXiv 2306.03838): L = 256,
+# height and two velocity components in and out; hidden 256, 4 layers, batch 2
+SFNO = dict(in_channels=3, hidden=256, out_channels=3, lmax=255, n_layers=4)
+SFNO_BATCH, SFNO_STEPS, SFNO_LR = 2, 3, 1e-3
+SFNO_ORACLE_CHANNELS = 8
+
+
+def complex64(rng, *shape) -> np.ndarray:
+    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+def cuda_complex(x: np.ndarray) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.complex64, device="cuda")
+
+
+def direct_sum(phases, weights: np.ndarray, sign: float, chunk: int = 1 << 15) -> np.ndarray:
+    """Σ_j w_j·e^(sign·i·θ[o, j]) in float64 for each output o, where
+    ``phases(j0, j1)`` gives the (outputs, j1 - j0) phase block of the
+    terms j0:j1 (chunked, so no (outputs, all terms) matrix is held)."""
+    w = weights.astype(np.complex128)
+
+    def part(j0):
+        th = phases(j0, min(j0 + chunk, w.shape[-1]))
+        return (np.cos(th) + 1j * sign * np.sin(th)) @ w[j0: j0 + th.shape[1]]
+
+    # numpy's ufuncs release the GIL: the chunks run on the host's cores
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        return sum(pool.map(part, range(0, w.shape[-1], chunk)))
+
+
+def modes_of(n: int) -> np.ndarray:
+    return np.arange(-(n // 2), (n + 1) // 2, dtype=np.float64)
+
+
+def shepp_logan(n: int) -> np.ndarray:
+    """The modified Shepp-Logan phantom on an n x n grid from its ten
+    ellipses (value, semi-axes a, b, centre x0, y0, angle in degrees), as
+    scikit-image draws it."""
+    ellipses = [(1.0, 0.69, 0.92, 0.0, 0.0, 0.0), (-0.8, 0.6624, 0.874, 0.0, -0.0184, 0.0),
+                (-0.2, 0.11, 0.31, 0.22, 0.0, -18.0), (-0.2, 0.16, 0.41, -0.22, 0.0, 18.0),
+                (0.1, 0.21, 0.25, 0.0, 0.35, 0.0), (0.1, 0.046, 0.046, 0.0, 0.1, 0.0),
+                (0.1, 0.046, 0.046, 0.0, -0.1, 0.0), (0.1, 0.046, 0.023, -0.08, -0.605, 0.0),
+                (0.1, 0.023, 0.023, 0.0, -0.606, 0.0), (0.1, 0.023, 0.046, 0.06, -0.605, 0.0)]
+    c = (np.arange(n) - (n - 1) / 2.0) / (n / 2.0)
+    y, x = np.meshgrid(-c, c, indexing="ij")
+    img = np.zeros((n, n))
+    for v, a, b, x0, y0, phi in ellipses:
+        t = np.deg2rad(phi)
+        xr = (x - x0) * np.cos(t) + (y - y0) * np.sin(t)
+        yr = -(x - x0) * np.sin(t) + (y - y0) * np.cos(t)
+        img[(xr / a) ** 2 + (yr / b) ** 2 <= 1.0] += v
+    return img
+
+
+def peak_gib(fn):
+    """``fn()`` and the peak device memory it allocated, GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def nufft_tomography(rng, card: str):
+    """Phase 21: the non-uniform FFTs at cuFINUFFT's single-precision sizes
+    and the Radon pair of a 400 x 400 phantom, from numpy input without a
+    device, against float64 direct sums of the definitions (a sample of
+    outputs), with the kernel's launches per call, the kernel against its
+    plain version on every plane pair, device and back-to-back times and
+    peak memory.  Returns the launches and the kernel's worst abs error."""
+    ops = Ops()
+    run, check = ops.run, ops.check
+    cuda_fft.LAUNCHES = 0
+    rows, worst = [], []
+    M, n = NUFFT_POINTS, NUFFT_MODES
+    eps = dict(eps=NUFFT_EPS)
+
+    def timed_row(name, fn, calls=5):
+        _, gib = peak_gib(fn)
+        row = timing_row(name, fn, calls)
+        row["peak_gib"] = gib
+        log(f"{name}: peak device memory {gib:.3f} GiB")
+        rows.append(row)
+
+    # 1-D on [0, 2π): the phase reduction is exact there
+    x = rng.uniform(0.0, 2.0 * np.pi, M).astype(np.float32)
+    c = complex64(rng, M)
+    f = run("nufft1", tp.nufft1, x, c, n, **eps)
+    ks = np.sort(rng.choice(n, NUFFT_SAMPLES, replace=False))
+    kv = modes_of(n)[ks]
+    x64 = x.astype(np.float64)
+    want = direct_sum(lambda a, b: np.outer(kv, x64[a:b]), c, -1.0)
+    check(f"nufft1 {n:,} modes from {M:,} points, eps {NUFFT_EPS} ({NUFFT_SAMPLES} modes vs "
+          "the float64 sum)", f[ks], want, NUFFT_TOL)
+    fm = complex64(rng, n)
+    v = run("nufft2", tp.nufft2, x, fm, **eps)
+    js = np.sort(rng.choice(M, NUFFT_SAMPLES, replace=False))
+    km = modes_of(n)
+    want = direct_sum(lambda a, b: np.outer(x64[js], km[a:b]), fm, 1.0)
+    check(f"nufft2 {n:,} modes to {M:,} points ({NUFFT_SAMPLES} points vs the float64 sum)",
+          v[js], want, NUFFT_TOL)
+    worst.append(kernel_errors(ops.seen, "nufft 1-D planes"))
+    ops.seen.clear()
+    xt, ct, ft = cuda32(x), cuda_complex(c), cuda_complex(fm)
+    with torch.no_grad():
+        timed_row(f"nufft1 {n:,} modes, {M:,} points", lambda: tp.nufft1(xt, ct, n, **eps))
+        timed_row(f"nufft2 {n:,} modes, {M:,} points", lambda: tp.nufft2(xt, ft, **eps))
+    del f, v, xt, ct, ft
+
+    # 2-D on [-π, π)², the benchmark's convention: F7 applies
+    n1, n2 = NUFFT_MODES_2D
+    x, y = (rng.uniform(-np.pi, np.pi, M).astype(np.float32) for _ in range(2))
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    tol2 = NUFFT_TOL + F7_PHASE * (n1 // 2 + n2 // 2)
+    f = run("nufft1_2d", tp.nufft1_2d, x, y, c, (n1, n2), **eps)
+    k1 = rng.integers(0, n1, NUFFT_SAMPLES)
+    k2 = rng.integers(0, n2, NUFFT_SAMPLES)
+    kv1, kv2 = modes_of(n1)[k1], modes_of(n2)[k2]
+    want = direct_sum(lambda a, b: np.outer(kv1, x64[a:b]) + np.outer(kv2, y64[a:b]), c, -1.0)
+    check(f"nufft1_2d {n1} x {n2} modes from {M:,} points on [-π, π)² (bound {tol2:.2e} with "
+          "F7's phase error)", f[k1, k2], want, tol2)
+    fm = complex64(rng, n1, n2)
+    v = run("nufft2_2d", tp.nufft2_2d, x, y, fm, **eps)
+    g1, g2 = np.meshgrid(modes_of(n1), modes_of(n2), indexing="ij")
+    g1, g2 = g1.ravel(), g2.ravel()
+    want = direct_sum(lambda a, b: np.outer(x64[js], g1[a:b]) + np.outer(y64[js], g2[a:b]),
+                      fm.ravel(), 1.0)
+    check(f"nufft2_2d {n1} x {n2} modes to {M:,} points", v[js], want, tol2)
+    worst.append(kernel_errors(ops.seen, "nufft 2-D planes"))
+    ops.seen.clear()
+    xt, yt, ct, ft = cuda32(x), cuda32(y), cuda_complex(c), cuda_complex(fm)
+    with torch.no_grad():
+        timed_row(f"nufft1_2d {n1} x {n2} modes, {M:,} points",
+                  lambda: tp.nufft1_2d(xt, yt, ct, (n1, n2), **eps), 3)
+        timed_row(f"nufft2_2d {n1} x {n2} modes, {M:,} points",
+                  lambda: tp.nufft2_2d(xt, yt, ft, **eps), 3)
+    del f, v, xt, yt, ct, ft, g1, g2
+
+    # tomography: radon then iradon of the phantom
+    N, T = TOMO_N, TOMO_ANGLES
+    img = shepp_logan(N)
+    theta = np.linspace(0.0, np.pi, T, endpoint=False)
+    sino = run("radon", tp.radon, img.astype(np.float32), theta)
+    rows_t = np.linspace(0, T - 1, TOMO_ORACLE_ANGLES).astype(int)
+    th = theta[rows_t]
+    om = 2.0 * np.pi * (np.arange(N) - N // 2) / N
+    off = np.arange(N) - N // 2
+    wx = np.outer(np.cos(th), om).ravel()
+    wy = np.outer(np.sin(th), om).ravel()
+    ex = np.exp(-1j * np.outer(off, wx))                 # (x, points)
+    ey = np.exp(-1j * np.outer(off, wy))                 # (y, points)
+    G = np.sum(ey * (img @ ex), axis=0).reshape(TOMO_ORACLE_ANGLES, N)
+    want = np.fft.fftshift(np.fft.ifft(np.fft.ifftshift(G, axes=-1)), axes=-1).real
+    tol_t = NUFFT_TOL + F7_PHASE * N
+    check(f"radon {N} x {N} Shepp-Logan at {T} angles -> {tuple(sino.shape)} "
+          f"({TOMO_ORACLE_ANGLES} angles vs the float64 definition; bound {tol_t:.2e})",
+          sino[rows_t], want, tol_t)
+    back = run("iradon", tp.iradon, sino, theta)
+    s64 = sino.cpu().numpy().astype(np.float64)
+    slices = np.fft.fftshift(np.fft.fft(np.fft.ifftshift(s64, axes=-1)), axes=-1) * np.abs(om)
+    strengths = (slices * (np.pi / T) * (2.0 * np.pi / N) / (4.0 * np.pi ** 2)).ravel()
+    px = rng.integers(0, N, (TOMO_ORACLE_PIXELS, 2))
+    ox = np.outer(np.cos(theta), om).ravel()
+    oy = np.outer(np.sin(theta), om).ravel()
+    py, pxx = off[px[:, 0]].astype(np.float64), off[px[:, 1]].astype(np.float64)
+    want = direct_sum(lambda a, b: np.outer(py, oy[a:b]) + np.outer(pxx, ox[a:b]), strengths, 1.0).real
+    check(f"iradon -> {tuple(back.shape)} ({TOMO_ORACLE_PIXELS} pixels vs the float64 definition)",
+          back[px[:, 0], px[:, 1]], want, tol_t)
+    worst.append(kernel_errors(ops.seen, "tomography planes"))
+    ops.seen.clear()
+    imgt, sinot = cuda32(img), sino
+    with torch.no_grad():
+        timed_row(f"radon {N} x {N}, {T} angles", lambda: tp.radon(imgt, theta), 3)
+        timed_row(f"iradon {T} x {N}", lambda: tp.iradon(sinot, theta), 3)
+    del sino, back, sinot, imgt
+    torch.cuda.empty_cache()
+
+    launches = sum(ops.used.values())
+    log("nufft and tomography kernel launches: " + ", ".join(f"{k} {v}" for k, v in ops.used.items()))
+    expected = {"nufft1": 1, "nufft2": 1, "nufft1_2d": 2, "nufft2_2d": 2, "radon": 3, "iradon": 3}
+    require(ops.used == expected, f"kernel launches {ops.used}, expected {expected}")
+    log(json.dumps({"nufft_timing": {"card": card, "calls": rows}}))
+    return launches, max(worst)
+
+
+def sh_coefficients(rng, L: int, batch: int, real: bool, orders: np.ndarray) -> np.ndarray:
+    """Packed (batch, 2L-1, L) coefficients, random on the packed rows of
+    ``orders`` (m >= 0; for a complex field also -m), zero below |m| <= l;
+    a real field's negative orders by a_{l,-m} = (-1)^m conj(a_lm)."""
+    a = np.zeros((batch, 2 * L - 1, L), np.complex128)
+    for m in orders:
+        rows = [m] if (real or m == 0) else [m, 2 * L - 1 - m]
+        for r in rows:
+            a[:, r, m:] = rng.standard_normal((batch, L - m)) + 1j * rng.standard_normal((batch, L - m))
+        if real:
+            if m == 0:
+                a[:, 0] = a[:, 0].real
+            else:
+                a[:, 2 * L - 1 - m] = (-1) ** m * np.conj(a[:, m])
+    return a
+
+
+def sh_synthesis64(a: np.ndarray, L: int, orders: np.ndarray, real: bool) -> np.ndarray:
+    """Σ_lm a_lm Y_lm on the (L, 2L) Gauss grid in float64, Y from scipy's
+    ``sph_harm_y``, over the packed rows of ``orders`` (both signs)."""
+    from scipy.special import sph_harm_y
+    theta, phi, _ = tp.sht_grid(L - 1)
+    out = np.zeros(a.shape[:-2] + (L, 2 * L), np.complex128)
+    for m in orders:
+        for mm, r in ([(m, m), (-m, 2 * L - 1 - m)] if m else [(0, 0)]):
+            ls = np.arange(abs(mm), L)
+            Y = sph_harm_y(ls[:, None], mm, theta[None, :], 0.0)           # (l, lat)
+            g = a[..., r, abs(mm):] @ Y                                    # (…, lat)
+            out += g[..., :, None] * np.exp(1j * mm * phi)[None, :]
+    return out.real if real else out
+
+
+def sht_orders(rng, L: int) -> np.ndarray:
+    return np.unique(np.concatenate([[0, 1, L - 1], rng.choice(L, SHT_ORDERS - 3, replace=False)]))
+
+
+def sht_sfno(rng, card: str):
+    """Phase 22: ``sht``/``isht`` at L = 256 (batch 16, real and complex),
+    the recurrence pair at L = 512 (plain and compensated) against fields
+    synthesized in float64 with scipy's spherical harmonics, the recurrence
+    timed at L = 2048; then the SFNO at the shallow-water configuration:
+    forward from numpy input against the stage pipeline, one layer's spectral
+    mix against float64, three train steps (the first with the kernel held
+    against its plain version on every plane pair, its loss and gradients
+    leaf by leaf against the stage pipeline).  Returns the launches and the
+    kernel's worst abs error."""
+    ops = Ops()
+    run, check = ops.run, ops.check
+    cuda_fft.LAUNCHES = 0
+    rows, worst = [], []
+
+    L = SHT_L
+    orders = sht_orders(rng, L)
+    for real in (True, False):
+        kind = "real" if real else "complex"
+        a = sh_coefficients(rng, L, SHT_BATCH, real, orders)
+        f64 = sh_synthesis64(a, L, orders, real)
+        f = f64.astype(np.float32 if real else np.complex64)
+        got = run(f"sht {kind}", tp.sht, f)
+        check(f"sht {kind} L={L}, batch {SHT_BATCH} -> {tuple(got.shape)} vs the float64 "
+              "coefficients", got, a)
+        back = run(f"isht {kind}", tp.isht, a.astype(np.complex64), real_output=real)
+        check(f"isht {kind} L={L} vs the float64 field (scipy sph_harm_y)", back, f64)
+        ft, at = (cuda32(f) if real else cuda_complex(f)), cuda_complex(a)
+        with torch.no_grad():
+            rows.append(timing_row(f"sht {kind} L={L} batch {SHT_BATCH}", lambda: tp.sht(ft), 5))
+            rows.append(timing_row(f"isht {kind} L={L} batch {SHT_BATCH}",
+                                   lambda: tp.isht(at, real_output=real), 5))
+        del got, back, ft, at
+    worst.append(kernel_errors(ops.seen, "sht planes"))
+    ops.seen.clear()
+
+    L = SHT_REC_L
+    orders = sht_orders(rng, L)
+    a = sh_coefficients(rng, L, SHT_REC_BATCH, True, orders)
+    f = sh_synthesis64(a, L, orders, True)
+    for compensated in (False, True):
+        kind = "compensated" if compensated else "plain"
+        got = run(f"sht_recurrence {kind}", tp.sht_recurrence, f.astype(np.float32),
+                  compensated=compensated)
+        check(f"sht_recurrence {kind} L={L} batch {SHT_REC_BATCH}", got, a,
+              ORACLE_TOL if compensated else SHT_REC_PLAIN_TOL)
+        back = run(f"isht_recurrence {kind}", tp.isht_recurrence, a.astype(np.complex64),
+                   real_output=True, compensated=compensated)
+        check(f"isht_recurrence {kind} L={L}", back, f,
+              ORACLE_TOL if compensated else ISHT_REC_PLAIN_TOL)
+    ft = cuda32(f)
+    with torch.no_grad():
+        for compensated in (False, True):
+            rows.append(timing_row(
+                f"sht_recurrence {'compensated' if compensated else 'plain'} L={L} batch "
+                f"{SHT_REC_BATCH}", lambda: tp.sht_recurrence(ft, compensated=compensated), 2))
+        L = SHT_REC_TIME_L
+        fl = cuda32(rng.standard_normal((1, L, 2 * L)))
+        got = tp.sht_recurrence(fl)
+        require(bool(torch.isfinite(got).all()), f"sht_recurrence at L={L} is not finite")
+        rows.append(timing_row(f"sht_recurrence plain L={L} batch 1",
+                               lambda: tp.sht_recurrence(fl), 2))
+    del ft, fl, got
+    worst.append(kernel_errors(ops.seen, "recurrence planes"))
+    ops.seen.clear()
+    log("sht kernel launches: " + ", ".join(f"{k} {v}" for k, v in ops.used.items()))
+    require(all(v == 1 for v in ops.used.values()), f"sht kernel launches {ops.used}")
+
+    # the SFNO
+    launches, err = sfno_path(rng, card, rows)
+    worst.append(err)
+    log(json.dumps({"sht_sfno_timing": {"card": card, "calls": rows}}))
+    return sum(ops.used.values()) + launches, max(worst)
+
+
+def sfno_mix_oracle(layer, a: np.ndarray, L: int, orders: np.ndarray, outs: np.ndarray):
+    """Layer 0's spectral mix in float64 on a band-limited field of packed
+    coefficients ``a`` (channels, 2L-1, L): Re Σ_lm (Σ_i a[i]·R[i, o, l]) Y_lm
+    for the output channels ``outs``."""
+    R = (layer["r_re"].double() + 1j * layer["r_im"].double()).cpu().numpy()[:, outs]
+    rows = sorted({m for m in orders} | {(2 * L - 1 - m) % (2 * L - 1) for m in orders})
+    mixed = np.zeros((len(outs), 2 * L - 1, L), np.complex128)
+    # per degree: (rows, c_in) @ (c_in, outs)
+    part = np.matmul(np.moveaxis(a[:, rows, :], -1, 0).transpose(0, 2, 1), np.moveaxis(R, -1, 0))
+    mixed[:, rows, :] = np.moveaxis(part, 0, -1).transpose(1, 0, 2)
+    return sh_synthesis64(mixed, L, orders, False).real
+
+
+def sfno_path(rng, card: str, rows: list):
+    """The SFNO part of phase 22; appends its timing rows to ``rows`` and
+    returns the launches of its forward and train steps and the kernel's
+    worst abs error."""
+    n_layers = SFNO["n_layers"]
+    L = SFNO["lmax"] + 1
+    gen = torch.Generator().manual_seed(SEED)
+    params = sfno.init_sfno(**SFNO, generator=gen, device="cuda")
+    x = rng.standard_normal((SFNO_BATCH, SFNO["in_channels"], L, 2 * L))
+    target = rng.standard_normal((SFNO_BATCH, SFNO["out_channels"], L, 2 * L))
+    cuda_fft.LAUNCHES = 0
+    with torch.no_grad():
+        y = sfno.apply(params, x)
+        torch.cuda.synchronize()
+        forward = cuda_fft.LAUNCHES
+        y_pipe = sfno.apply(params, x, config=PIPELINE)
+    require(y.device.type == "cuda", f"sfno: result on {y.device}, not the card")
+    err = rel_err(y.cpu().numpy(), y_pipe.cpu().numpy())
+    log(f"sfno L={L} hidden {SFNO['hidden']} x {n_layers} layers, batch {SFNO_BATCH}: forward "
+        f"{tuple(y.shape)} rel err {err:.3e} vs stage pipeline, {forward} launches")
+    require(err <= ROUTES_TOL, f"sfno forward error {err:.3e}")
+    require(forward == 2 * n_layers, f"sfno forward launches {forward}")
+    del y, y_pipe
+
+    # one layer's spectral mix against float64 on a band-limited hidden field
+    orders = sht_orders(rng, L)
+    a = sh_coefficients(rng, L, SFNO["hidden"], True, orders)
+    h = sh_synthesis64(a, L, orders, True)
+    outs = np.sort(rng.choice(SFNO["hidden"], SFNO_ORACLE_CHANNELS, replace=False))
+    with torch.no_grad():
+        mix = sfno.spectral_mix(params["layers"][0], cuda32(h[None]))[0, outs]
+    err = rel_err(mix.cpu().numpy(), sfno_mix_oracle(params["layers"][0], a, L, orders, outs))
+    log(f"sfno spectral_mix of layer 0 on {SFNO['hidden']} band-limited channels "
+        f"({SFNO_ORACLE_CHANNELS} outputs vs float64): rel err {err:.3e}")
+    require(err <= ORACLE_TOL, f"sfno spectral_mix error {err:.3e}")
+    del h, a, mix
+
+    xt, tt = cuda32(x), cuda32(target)
+    before = cuda_fft.LAUNCHES
+    losses = []
+    with recorded_launches() as seen:
+        new, loss = sfno.train_step(params, xt, tt, SFNO_LR)
+        torch.cuda.synchronize()
+    n_step = cuda_fft.LAUNCHES - before
+    log(f"sfno train step: {n_step} launches")
+    require(n_step == 4 * n_layers, f"sfno train step launches {n_step}")
+    worst = kernel_errors(seen, "sfno train-step planes")
+    del seen
+    losses.append(float(loss))
+    # the step against the stage pipeline: loss, stepped parameters, gradients
+    new_pipe, loss_pipe = sfno.train_step(params, xt, tt, SFNO_LR, config=PIPELINE)
+    require(abs(float(loss) - float(loss_pipe)) <= ORACLE_TOL * abs(float(loss_pipe)),
+            f"sfno loss {float(loss)} vs the stage pipeline's {float(loss_pipe)}")
+    err = max(rel_err(p.cpu().numpy(), q.cpu().numpy())
+              for p, q in zip(tree_leaves(new), tree_leaves(new_pipe)))
+    require(err <= ROUTES_TOL, f"sfno stepped parameters: {err:.3e}")
+    names = []
+    tree_map_with_path(lambda path, p: names.append(path), params)
+    grads = dict(zip(names, (g.cpu().numpy() for g in gradients(
+        sfno.loss_fn, params, xt, tt, tp.DEFAULT_CONFIG))))
+    grads_pipe = dict(zip(names, (g.cpu().numpy() for g in gradients(
+        sfno.loss_fn, params, xt, tt, PIPELINE))))
+    errs = {}
+    for name in names:
+        # Re isht(a·i·s_l) = 0 for the Hermitian a of a real field: the exact
+        # gradient of an imaginary spectral weight is zero, both routes' are
+        # rounding noise, held to the scale of the layer's real part's gradient
+        ref = grads_pipe[name[:-2] + "re"] if name.endswith("r_im") else grads_pipe[name]
+        errs[name] = float(np.max(np.abs(grads[name] - grads_pipe[name])) / np.max(np.abs(ref)))
+    log(f"sfno train step: loss {float(loss):.6f} (pipeline {float(loss_pipe):.6f}), stepped "
+        f"parameters {err:.3e}, gradients {max(errs.values()):.3e} (worst leaf: "
+        f"{max(errs, key=errs.get)}) vs stage pipeline")
+    require(max(errs.values()) <= ROUTES_TOL, f"sfno gradients: {errs}")
+    del grads, grads_pipe, new_pipe
+    for _ in range(SFNO_STEPS - 1):
+        new, loss = sfno.train_step(new, xt, tt, SFNO_LR)
+        losses.append(float(loss))
+    moved = max(float((a - b).abs().max()) for a, b in zip(tree_leaves(new), tree_leaves(params)))
+    require(all(math.isfinite(v) for v in losses) and moved > 0.0,
+            f"sfno losses {losses}, largest parameter change {moved}")
+    log(f"sfno {SFNO_STEPS} train steps: losses {losses}, largest parameter change {moved:.3e} "
+        "(random targets: the loss stays at their variance)")
+    launches = cuda_fft.LAUNCHES
+    with torch.no_grad():
+        rows.append(timing_row(f"sfno forward L={L}, hidden {SFNO['hidden']} x {n_layers}, "
+                               f"batch {SFNO_BATCH}", lambda: sfno.apply(params, xt), 3))
+    rows.append(timing_row(f"sfno train step L={L}, hidden {SFNO['hidden']} x {n_layers}, "
+                           f"batch {SFNO_BATCH}", lambda: sfno.train_step(params, xt, tt, SFNO_LR), 3))
+    _, gib = peak_gib(lambda: sfno.train_step(params, xt, tt, SFNO_LR))
+    rows[-1]["peak_gib"] = gib
+    log(f"sfno train step: peak device memory {gib:.2f} GiB")
+    torch.cuda.empty_cache()
+    return launches, worst
+
 
 def timed(phase, *args):
     """Runs one phase and logs its wall time (the whole run has a time limit)."""
@@ -2326,6 +2777,10 @@ def main(argv) -> int:
         for phase in (recurrences, audio_remainder, recurrence_timings):
             timed(phase, rng, card)
         return 0
+    if argv == ["sphere"]:   # development: phases 21-22 alone
+        for phase in (nufft_tomography, sht_sfno):
+            timed(phase, rng, card)
+        return 0
     timed(kernel_vs_plain, rng)
     launches, max_abs, (xr, xi) = timed(main_path, rng)
     timed(core_lengths, rng)
@@ -2344,14 +2799,18 @@ def main(argv) -> int:
     recurrence_launches = timed(recurrences, rng, card)
     remainder_launches, remainder_abs = timed(audio_remainder, rng, card)
     timed(recurrence_timings, rng, card)
+    nufft_launches, nufft_abs = timed(nufft_tomography, rng, card)
+    sphere_launches, sphere_abs = timed(sht_sfno, rng, card)
     log(f"kernel launches by path: filter forward {launches}, training {train_launches}, "
         f"fno {fno_launches}, s4d + fnet + afno {family_launches}, ops tail {ops_launches}, "
         f"audio front end {frontend_launches}, audio ops {audio_launches}, "
-        f"recurrences {recurrence_launches}, audio remainder {remainder_launches}")
+        f"recurrences {recurrence_launches}, audio remainder {remainder_launches}, "
+        f"nufft + tomography {nufft_launches}, sht + sfno {sphere_launches}")
     launches += (train_launches + fno_launches + family_launches + ops_launches
-                 + frontend_launches + audio_launches + recurrence_launches + remainder_launches)
+                 + frontend_launches + audio_launches + recurrence_launches + remainder_launches
+                 + nufft_launches + sphere_launches)
     max_abs = max(max_abs, train_abs, fno_abs, family_abs, ops_abs, frontend_abs, audio_abs,
-                  remainder_abs)
+                  remainder_abs, nufft_abs, sphere_abs)
     # the kernel line's times are on the same planes as its error: the
     # forward transform of the batch-1024 filter call.  ms, plain_ms and
     # library_ms are medians of single timed calls, dispatch included

@@ -42,10 +42,15 @@ Public API (numpy.fft-flavoured):
     IIR design and filtering (butter, ..., lfilter, sosfilt, filtfilt,
     sosfiltfilt), LTI systems (lti, dlti, dlsim, lsim, ...), B-splines
     (cspline1d, ...), kalman_filter, kalman_smoother
+    non-uniform FFTs (nudft1/2, nufft1/2/3 in 1-D, 2-D and 3-D, nufft_lsq*),
+    radon, iradon
+    spherical harmonics (sht, isht, sht_grid, sht_recurrence, isht_recurrence,
+    sphere_laplacian, poisson_solve_sphere, sphere_convolve, sphere_grad,
+    sphere_div, sphere_vort, sphere_helmholtz, vsht, ivsht, rotate_sht)
     plan-level: get_plan, build_complex_plan, build_real_plan, clear_plan_cache
     models: init_params, apply, loss_fn, train_step, params_from_jax,
     SpectralFilter, models.fno, models.s4d, models.fnet, models.afno,
-    models.koopman, models.audio_frontend, models.save_checkpoint, models.load_checkpoint
+    models.koopman, models.audio_frontend, models.sfno, models.save_checkpoint, models.load_checkpoint
 
 Reference-compatible API (plan objects, unnormalized inverse, C-style names):
     from mixed_radix_fast_fourier_transform_tpu_torch import compat
@@ -146,6 +151,17 @@ from .ops.ltisys import (
     dlsim, dstep, dimpulse, dfreqresp, dbode,
     lsim, step, impulse, freqresp, bode,
 )
+from .ops.nufft import (
+    nudft1, nudft2, nudft1_2d, nudft2_2d, nudft1_3d, nudft2_3d,
+    nufft1, nufft2, nufft3, nufft1_2d, nufft2_2d, nufft3_2d, nufft1_3d, nufft2_3d, nufft3_3d,
+    nufft_lsq, nufft_lsq_2d, nufft_lsq_3d,
+)
+from .ops.tomo import radon, iradon
+from .ops.sht import (
+    sht, isht, sht_grid, sht_recurrence, isht_recurrence, sphere_laplacian,
+    poisson_solve_sphere, sphere_convolve, sphere_grad, sphere_div, sphere_vort,
+    sphere_helmholtz, vsht, ivsht, rotate_sht,
+)
 from .plan import (
     BluesteinPlan,
     ComplexPlan,
@@ -225,6 +241,12 @@ __all__ = [
     "tf2ss", "ss2tf", "zpk2ss", "ss2zpk", "abcd_normalize", "cont2discrete",
     "dlsim", "dstep", "dimpulse", "dfreqresp", "dbode", "lsim", "step", "impulse",
     "freqresp", "bode",
+    "nudft1", "nudft2", "nudft1_2d", "nudft2_2d", "nudft1_3d", "nudft2_3d",
+    "nufft1", "nufft2", "nufft3", "nufft1_2d", "nufft2_2d", "nufft3_2d", "nufft1_3d",
+    "nufft2_3d", "nufft3_3d", "nufft_lsq", "nufft_lsq_2d", "nufft_lsq_3d", "radon", "iradon",
+    "sht", "isht", "sht_grid", "sht_recurrence", "isht_recurrence", "sphere_laplacian",
+    "poisson_solve_sphere", "sphere_convolve", "sphere_grad", "sphere_div", "sphere_vort",
+    "sphere_helmholtz", "vsht", "ivsht", "rotate_sht",
     "BluesteinPlan", "ComplexPlan", "MixedRadixPlan", "RaderPlan", "RealPlan",
     "build_bluestein_plan", "build_complex_plan", "build_mixed_radix_plan",
     "build_rader_plan", "build_real_plan", "clear_plan_cache", "get_plan",

@@ -2,7 +2,8 @@
 Chebyshev, Hankel, chirp-z and fractional transforms, the signal-analysis,
 wavelet, auditory and mel families, IIR filters, LTI systems, splines, the
 Kalman filter, time-frequency representations, scattering, the constant-Q
-transform and audio features, the stage pipeline and the fused Stockham
+transform and audio features, the non-uniform FFTs and tomography, the
+spherical harmonic transforms, the stage pipeline and the fused Stockham
 kernel."""
 
 from .fft import (
@@ -26,5 +27,6 @@ from .stockham import exec_bluestein, exec_complex, exec_mixed_radix
 # package itself exports; here they stay modules.
 from . import (
     auditory, chebyshev, cqt, cwt, czt, dct, feature, fht, frft, hos, iir, kalman, lticlasses,
-    ltisys, mdct, mel, scattering, shorttime, signal, splines, stft, tfr, windows,
+    ltisys, mdct, mel, nufft, scattering, sht, shorttime, signal, splines, stft, tfr, tomo,
+    windows,
 )

@@ -1,8 +1,9 @@
 """Complex-as-planes helpers.
 
-Counterpart of ``mixed_radix_fast_fourier_transform_tpu/utils/numerics.py``
-(the plane helpers; the error-free transforms come with the ops that use
-them).  The engine works on separate contiguous fp32 (re, im) planes.
+Counterpart of ``mixed_radix_fast_fourier_transform_tpu/utils/numerics.py``:
+the plane helpers (the engine works on separate contiguous fp32 (re, im)
+planes) and the error-free transforms that the NUFFT's phase reduction and
+the compensated SHT recurrence build on.
 """
 
 from __future__ import annotations
@@ -185,3 +186,63 @@ def fp32_matmul():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+# ---------------------------------------------------------------------------
+# Error-free transforms (Knuth two-sum, Dekker/Veltkamp split product), the
+# JAX package's set.  Each is a chain of separate eager torch ops: one op is
+# one kernel, so no compiler can contract a product and a sum into a fused
+# multiply-add or reassociate them, and the results are bit-equal to the JAX
+# functions'.  Do not rewrite them with addcmul/addcdiv, ``alpha=`` or
+# torch.compile.  Dtype-polymorphic; the splitter constants target fp32.
+# ---------------------------------------------------------------------------
+
+# 2^12 + 1: Dekker splitter for fp32 (balanced 12/12-bit halves, two_prod)
+DW_SPLIT = 4097.0
+# 2^16 + 1: Veltkamp splitter for fp32 8-bit-mantissa heads (products of head
+# pieces stay exact after a further split: the NUFFT phase chain)
+VELTKAMP_SPLIT = 65537.0
+
+
+def two_sum(a, b):
+    """Error-free addition: (s, e) with s + e == a + b exactly (Knuth)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def fast_two_sum(a, b):
+    """Error-free addition assuming |a| >= |b| (or a == 0): Dekker."""
+    s = a + b
+    return s, b - (s - a)
+
+
+def two_prod(a, b):
+    """Error-free product: (p, e) with p + e == a·b exactly (Dekker split)."""
+    p = a * b
+    ca = DW_SPLIT * a
+    ah = ca - (ca - a)
+    al = a - ah
+    cb = DW_SPLIT * b
+    bh = cb - (cb - b)
+    bl = b - bh
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def veltkamp(v):
+    """Exact fp32 split into an 8-bit-mantissa head and a tail."""
+    c = VELTKAMP_SPLIT * v
+    hi = c - (c - v)
+    return hi, v - hi
+
+
+def dw_mul(ah, al, bh, bl):
+    """Double-word × double-word product, renormalized (hi, lo)."""
+    ph, pe = two_prod(ah, bh)
+    return fast_two_sum(ph, pe + (ah * bl + al * bh))
+
+
+def dw_add(ah, al, bh, bl):
+    """Double-word + double-word sum, renormalized (hi, lo)."""
+    sh, se = two_sum(ah, bh)
+    return fast_two_sum(sh, se + al + bl)

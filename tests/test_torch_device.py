@@ -175,6 +175,23 @@ def test_as_tensor_keeps_tensors_and_places_arrays():
     lambda x: tp.specaugment(np.ones((4, 4), np.float32)),
     lambda x: tp.decompose(np.ones((4, 4), np.float32), 2, 2),
     lambda x: tp.beat_track(np.ones(8192, np.float32)),
+    lambda x: tp.nufft1(x, x, 4),
+    lambda x: tp.nufft2(x, np.ones(4, np.complex64), method="grid"),
+    lambda x: tp.nudft1(x, x, 4),
+    lambda x: tp.nufft3(x, x, x, method="fast"),
+    lambda x: tp.nufft1_2d(x, x, x, (4, 4), method="grid"),
+    lambda x: tp.nufft2_3d(x, x, x, np.ones((2, 2, 2), np.complex64)),
+    lambda x: tp.nufft_lsq(x, x, 4, iters=1),
+    lambda x: tp.radon(np.ones((8, 8), np.float32)),
+    lambda x: tp.iradon(np.ones((4, 8), np.float32)),
+    lambda x: tp.sht(np.ones((4, 8), np.float32)),
+    lambda x: tp.isht(np.ones((7, 4), np.complex64)),
+    lambda x: tp.sht_recurrence(np.ones((4, 8), np.float32)),
+    lambda x: tp.sphere_laplacian(np.ones((4, 8), np.float32)),
+    lambda x: tp.sphere_grad(np.ones((4, 8), np.float32)),
+    lambda x: tp.rotate_sht(np.ones((7, 4), np.complex64), 0.1, 0.2, 0.3),
+    lambda x: tp.models.sfno.init_sfno(1, 2, 1, 3),
+    lambda x: tp.models.sfno.SFNO(1, 2, 1, 3),
 ], ids=lambda f: None)
 def test_numpy_input_without_a_device_needs_the_card(call):
     if torch.cuda.is_available():
@@ -192,6 +209,14 @@ def test_cpu_tensor_and_cpu_device_work():
     assert tp.fftfreq(8, device="cpu").device.type == "cpu"
     assert compat.generate_signal(8, device="cpu").device.type == "cpu"
     assert compat.fft_exec(compat.fft_init(8, 1), xt).device.type == "cpu"
+    # numpy beside a CPU tensor, and the tables these ops keep, on the CPU
+    assert tp.nufft1(xt, x, 4, method="grid").device.type == "cpu"
+    assert tp.nufft2_2d(xt, xt, np.ones((4, 4), np.complex64)).device.type == "cpu"
+    assert tp.radon(torch.ones(8, 8), [0.0, 1.0]).device.type == "cpu"
+    assert tp.sht(torch.ones(4, 8)).device.type == "cpu"
+    assert tp.isht_recurrence(torch.ones(7, 4, dtype=torch.complex64)).device.type == "cpu"
+    params = tp.models.sfno.init_sfno(1, 2, 1, 3, device="cpu")
+    assert tp.models.sfno.apply(params, torch.ones(1, 1, 4, 8)).device.type == "cpu"
 
 
 def test_only_the_helper_calls_torch_as_tensor():
@@ -222,7 +247,8 @@ def test_every_module_imports_with_jax_blocked():
         "          'ops.signal', 'ops.hos', 'ops.cwt', 'ops.auditory', 'ops.mel',\n"
         "          'models.audio_frontend', 'utils.scan', 'ops.iir', 'ops.ltisys',\n"
         "          'ops.lticlasses', 'ops.splines', 'ops.kalman', 'ops.tfr', 'ops.scattering',\n"
-        "          'ops.cqt', 'ops.feature']\n"
+        "          'ops.cqt', 'ops.feature', 'ops.nufft', 'ops.tomo', 'ops.sht',\n"
+        "          'models.sfno']\n"
         "assert all(tp.__name__ + '.' + w in names for w in wanted), names\n"
         "print('OK', len(names))\n"
     )
@@ -232,7 +258,7 @@ def test_every_module_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize("module", ["iir", "ltisys", "lticlasses", "splines", "kalman", "tfr",
-                                    "scattering", "cqt", "feature"])
+                                    "scattering", "cqt", "feature", "nufft", "tomo", "sht"])
 def test_every_public_name_of_the_jax_module_is_ported(module):
     """Every public function and class of the JAX module (read from its
     source, without importing it) is defined in the port's module of the

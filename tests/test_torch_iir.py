@@ -175,8 +175,20 @@ def test_sosfilt_zi_zf_axis_and_streaming(rng):
     assert _rel(tp.sosfilt(sos, _t(xt), axis=0), ss.sosfilt(sos, xt.astype(np.float64), axis=0)) <= TOL
 
 
+@pytest.fixture
+def case_rng(request):
+    """A generator made for one test case from its name: its draws do not
+    depend on which tests ran before on the worker."""
+    return np.random.default_rng([ord(ch) for ch in request.node.name])
+
+
 @pytest.mark.parametrize("kind", ["cheby1-ba", "butter4-ba", "fir", "fir-int", "zi"])
-def test_lfilter(rng, kind):
+def test_lfilter(case_rng, kind):
+    """The JAX ``lfilter`` of a Butterworth ba reaches ~1e-5 of float64 on
+    some draws (9.7e-6 worst of 60), so the port is held to the JAX function
+    at the tolerance plus the JAX result's own error against float64 on the
+    same draw (the triangle bound), and to float64 at the tolerance."""
+    rng = case_rng
     x = rng.standard_normal((2, 256)).astype(np.float32)
     if kind == "fir-int":
         x = rng.integers(-5, 5, (2, 256))
@@ -190,8 +202,12 @@ def test_lfilter(rng, kind):
     got = tp.lfilter(b, a, _t(x))
     assert got.dtype == torch.float32
     tol = CHEBY_BA_TOL if kind == "cheby1-ba" else TOL
-    assert _rel(got, jax.jit(lambda v: sp.lfilter(b, a, v))(x)) <= tol
-    assert _rel(got, ss.lfilter(b, a, x.astype(np.float64), axis=-1)) <= tol
+    want = ss.lfilter(b, a, x.astype(np.float64), axis=-1)
+    ref = np.asarray(jax.jit(lambda v: sp.lfilter(b, a, v))(x))
+    scale = np.max(np.abs(want))
+    jax_err = np.max(np.abs(ref - want)) / scale
+    assert _rel(got, want) <= tol and jax_err <= tol
+    assert np.max(np.abs(_np(got) - ref)) / scale <= tol + jax_err
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(padlen=20), dict(padtype=None), dict(axis=0)], ids=str)

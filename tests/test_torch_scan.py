@@ -4,7 +4,8 @@
 ``linear_recurrence`` is held against a float64 loop of s[n] = A·s[n−1] +
 c[n] (relative error 1e-5 of the states' maximum: fp32 sums of a block's
 terms) and against the JAX package's ``iir._recurrence_scan`` on the same
-inputs (1e-5), for p = 1, 2 and 6, lengths that are shorter than a block,
+inputs (1e-5 plus the JAX result's own error against float64, from a
+generator local to the case), for p = 1, 2 and 6, lengths that are shorter than a block,
 a block plus one and several levels of blocks; its device-coefficient
 form (per-channel p = 1, a learned tensor) against a float64 loop, forward
 and gradient (1e-5).  ``associative_scan`` is held against a sequential
@@ -60,11 +61,31 @@ def test_linear_recurrence_against_float64(rng, p, n):
     assert _rel(got, _loop(A, c.astype(np.float64), s0.astype(np.float64))) <= TOL
 
 
+@pytest.fixture
+def case_rng(request):
+    """A generator made for one test case from its parameters: its draws do
+    not depend on which tests ran before on the worker, as the session
+    ``rng``'s do."""
+    return np.random.default_rng([ord(ch) for ch in request.node.name])
+
+
 @pytest.mark.parametrize("p,n", [(1, 700), (2, 129), (6, 37)])
-def test_linear_recurrence_against_jax(rng, p, n):
-    A, c, s0, got = _case(rng, p, n)
-    ref = jax.jit(lambda c, s0: jiir._recurrence_scan(A, c, s0))(jnp.asarray(c), jnp.asarray(s0))
-    assert _rel(got, ref) <= TOL
+def test_linear_recurrence_against_jax(case_rng, p, n):
+    """The port against float64 at TOL, and against the JAX package at TOL
+    plus the JAX result's own error against float64 on the same draw (the
+    triangle bound): ``lax.associative_scan`` takes log2(n) levels of fp32
+    matrix products and reaches ~5e-6 on some draws, so a bound of TOL on
+    port vs JAX alone would sit on the reference's error.  The JAX term is
+    held to TOL as well.  Errors are relative to max |float64 states|."""
+    A, c, s0, got = _case(case_rng, p, n)
+    want = _loop(A, c.astype(np.float64), s0.astype(np.float64))
+    ref = np.asarray(jax.jit(lambda c, s0: jiir._recurrence_scan(A, c, s0))(
+        jnp.asarray(c), jnp.asarray(s0)))
+    scale = np.max(np.abs(want))
+    port_err = np.max(np.abs(got.numpy() - want)) / scale
+    jax_err = np.max(np.abs(ref - want)) / scale
+    assert port_err <= TOL and jax_err <= TOL
+    assert np.max(np.abs(got.numpy() - ref)) / scale <= TOL + jax_err
 
 
 def test_linear_recurrence_broadcasts_the_initial_state_and_keeps_middle_axes(rng):
