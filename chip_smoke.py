@@ -115,16 +115,40 @@ Phases, each of which raises on failure:
     layer 0's spectral mix against float64, three train steps, the first
     with the kernel against its plain version on every plane pair and its
     loss and gradients leaf by leaf against the stage pipeline, with device
-    and back-to-back times.
+    and back-to-back times;
+23. the radar and radio-astronomy front end from numpy input: a
+    pulse-Doppler CPI (16 channels of a half-wavelength ULA x 128 pulses x
+    8,192 samples, a 512-sample LFM ``chirp``, three planted targets):
+    ``range_doppler`` with a Hamming taper against float64 on three
+    channels, 2-D cell-averaging and 1-D order-statistic ``cfar`` against
+    float64 thresholds and detections, ``spatial_covariance``,
+    ``mvdr_spectrum`` over 181 angles and ``music_doa`` on the targets'
+    Doppler bins finding the planted angles, ``find_peaks`` finding the
+    planted delays; ``pfb_analysis`` at 4,096 channels, 4 taps, on 2 x 2^25
+    samples against float64 on 256 frames and ``pfb_synthesis`` of a 2^20
+    cut; ``music``/``root_music``/``esprit`` on 8 records of 4,096 (m = 64,
+    p = 4) recovering the planted frequencies;
+24. the wavelets and the other leaves from numpy input against float64
+    oracles written here: ``wavedec``/``waverec`` db4 (5 levels) and
+    ``wavelet_denoise`` on Whisper's clips, ``wavedec2``/``waverec2``
+    bior4.4 (5 levels) on 4 x 2,048² images, ``swt`` db2 on 16 x 65,536,
+    ``dtcwt2``/``idtcwt2`` on 4 x 512²; ``ewt``, ``hilbert_huang``, ``vmd``
+    (K = 4, 300 sweeps), ``phase_cross_correlation`` to 1/100 pixel on 16
+    pairs of 1,024², ``unwrap_phase_2d``, ``fourier_gaussian``, the median
+    filters, LMS/NLMS/RLS with 256 taps on 8,000 samples, ``ar_psd``,
+    ``ssa`` and ``dmd``; each with its launches, device and back-to-back
+    times, idle share and peak memory; then the kernel against
+    ``torch.fft.fft`` at the shapes of phases 19-24.
 
 ``python3 chip_smoke.py audio`` runs phases 1, 2 and 15-17 alone,
-``python3 chip_smoke.py recurrence`` phases 1, 2 and 18-20, and
-``python3 chip_smoke.py sphere`` phases 1, 2, 21 and 22 (for development;
+``python3 chip_smoke.py recurrence`` phases 1, 2 and 18-20,
+``python3 chip_smoke.py sphere`` phases 1, 2, 21 and 22, and
+``python3 chip_smoke.py frontend`` phases 1, 2, 23 and 24 (for development;
 they print no result line).
 
 The last lines are one JSON line about the kernels (launches of phases 4, 8,
-9, 12, 13, 15, 16, 18, 19, 21 and 22; error over the plane pairs those launches were handed:
-every pair of phases 4, 9, 12, 13, 15, 16, 19, 21 and 22, and in phase 8 the first step's three, every
+9, 12, 13, 15, 16, 18, 19, 21, 22, 23 and 24; error over the plane pairs those launches were handed:
+every pair of phases 4, 9, 12, 13, 15, 16, 19, 21, 22, 23 and 24, and in phase 8 the first step's three, every
 later backward's and the four of the step with an input gradient; times on
 the main path's batch-1024 planes), the card, then ``{"ok": true, "device":
 {...}}``.
@@ -146,6 +170,8 @@ import time
 import numpy as np
 import scipy.fft
 import scipy.linalg
+import scipy.ndimage
+import scipy.optimize
 import scipy.signal
 import torch
 
@@ -2756,6 +2782,716 @@ def sfno_path(rng, card: str, rows: list):
     return launches, worst
 
 
+# ---------------------------------------------------------------------------
+# Phases 23-24: the radar and radio front end, wavelets and the other leaves
+# ---------------------------------------------------------------------------
+
+# A pulse-Doppler coherent processing interval: 16 receive channels of a
+# half-wavelength ULA x 128 pulses x 8,192 complex fast-time samples (128 MiB
+# of complex64), one LFM pulse of 512 samples sweeping ±0.2 cycles/sample,
+# three point targets as (delay in samples, Doppler bin of the 128, angle in
+# degrees, amplitude) in unit complex noise.  The first two share a Doppler
+# bin, so the snapshots of that bin hold two sources for MVDR and MUSIC.
+RADAR_CHANNELS, RADAR_PULSES, RADAR_SAMPLES, RADAR_PULSE = 16, 128, 8192, 512
+RADAR_TARGETS = ((1500, 10, -20.0, 0.5), (4200, 10, 10.0, 0.4), (6100, -24, 35.0, 0.3))
+RADAR_ORACLE_CHANNELS = (0, 7, 15)   # the float64 range-Doppler oracle's channels
+RADAR_CFAR = dict(num_train=8, num_guard=2, pfa=1e-4)
+CFAR_TOL = 1e-4   # thresholds: box sums differenced from fp32 cumulative sums
+MVDR_TOL = 1e-4   # 1/(aᴴR⁻¹a) through a 16 x 16 solve in fp32: cond(R)·2^-24 and more
+# The critically sampled CASPER-style spectrometer (Price, arXiv 1607.03579):
+# 4,096 channels, 4 taps a branch, Hamming; 2 polarizations of 2^25 real
+# samples; the float64 oracle on 256 sampled frames; the synthesis on a cut
+PFB = dict(n_channels=4096, taps_per_branch=4, window="hamming")
+PFB_POLS, PFB_SAMPLES, PFB_ORACLE_FRAMES, PFB_CUT = 2, 1 << 25, 256, 1 << 20
+# line spectra: 8 records of 4,096 complex samples, 4 exponentials each
+SUBSPACE_SIGNALS, SUBSPACE_N, SUBSPACE_M, SUBSPACE_P = 8, 4096, 64, 4
+# Phase 24.  The wavelets on Whisper's clips (16 x 30 s at 16 kHz, as phase
+# 17), JPEG 2000's 9/7 pair on 2,048² images, the dual tree on 512² images
+DWT_LEVELS, DWT2_LEVELS, SWT_LEVELS, DTCWT_LEVELS = 5, 5, 4, 4
+DWT2_IMAGES, DWT2_N = 4, 2048
+SWT_SHAPE, EWT_SHAPE, EWT_BANDS = (16, 65536), (16, 65536), 5
+DTCWT_IMAGES, DTCWT_N = 4, 512
+EMD_N, VMD_SHAPE, VMD_K, VMD_ITERS = 10000, (8, 4096), 4, 300
+VMD_TOL = 1e-4   # 300 ADMM sweeps in fp32 against the same sweeps in float64
+# Guizar-Sicairos et al. 2008: 1/100 pixel on 16 pairs of 1,024² images
+REG_PAIRS, REG_N, REG_UP = 16, 1024, 100
+UNWRAP_N, UNWRAP_TOL = 1024, 1e-4   # a Poisson solve through dctn/idctn in fp32
+GAUSS_N = 2048
+# an echo canceller's 32 ms tail at 8 kHz: 256 taps, 8,000 samples
+ADAPT_TAPS, ADAPT_N = 256, 8000
+AR_ORDER, AR_NFREQ, AR_N = 16, 512, 4096
+SSA_N, SSA_WINDOW, DMD_SHAPE = 4096, 256, (256, 200)
+# K1 against cuFFT at the shapes the CQT, NUFFT and SFNO paths (phases 19-22)
+# and the range-Doppler and PFB paths (phase 23) hand it: (n, rows)
+SLICE_YARDSTICK = ((16384, 10336), (16384, 1), (2048, 2048), (256, 131072), (512, 131072),
+                   (8748, 2048), (128, RADAR_CHANNELS * (RADAR_SAMPLES - RADAR_PULSE + 1)),
+                   (4096, PFB_POLS * (PFB_SAMPLES // 4096)))
+ON_CARD = True   # a CPU rehearsal of phases 23-24 sets this False: no timings, no launch counts
+
+
+def front_end_row(rows, name, fn, calls, err=None, capture=True):
+    """A timing row (device, graph-replay and back-to-back µs, idle share,
+    device kernels, K1 launches and µs) with the call's peak device memory
+    and its error against the float64 oracle."""
+    if not ON_CARD:
+        return
+    _, gib = peak_gib(fn)
+    row = timing_row(name, fn, calls, capture)
+    row["peak_gib"] = gib
+    row["rel_err_vs_float64"] = err
+    log(f"{name}: peak device memory {gib:.3f} GiB, rel err vs float64 {err}")
+    rows.append(row)
+
+
+def lfm_pulse(n: int) -> np.ndarray:
+    """The complex LFM pulse from the port's ``chirp`` (cos and, at -90°,
+    sin of the same phase), computed on the host in float64."""
+    t = np.arange(n, dtype=np.float64)
+    kw = dict(f0=-0.2, t1=float(n - 1), f1=0.2)
+    re = tp.chirp(t, **kw).cpu().numpy()
+    im = tp.chirp(t, phi=-90.0, **kw).cpu().numpy()
+    return (re + 1j * im).astype(np.complex64)
+
+
+def radar_cpi(rng, tx: np.ndarray) -> np.ndarray:
+    c, p, n = RADAR_CHANNELS, RADAR_PULSES, RADAR_SAMPLES
+    rx = ((rng.standard_normal((c, p, n), dtype=np.float32)
+           + 1j * rng.standard_normal((c, p, n), dtype=np.float32)) * 0.5 ** 0.5).astype(np.complex64)
+    for delay, dbin, angle, amp in RADAR_TARGETS:
+        steer = np.exp(1j * np.pi * np.arange(c) * np.sin(np.deg2rad(angle)))
+        dop = np.exp(2j * np.pi * dbin * np.arange(p) / p)
+        echo = amp * steer[:, None, None] * dop[None, :, None] * tx[None, None, :]
+        rx[:, :, delay: delay + tx.size] += echo.astype(np.complex64)
+    return rx
+
+
+def range_doppler64(rx: np.ndarray, tx: np.ndarray) -> np.ndarray:
+    """float64: Σ_n rx[n+d]·conj(w·tx[n]) / Σ w|tx|² by a padded FFT
+    correlation, then the Hann-tapered, fftshifted slow-time DFT."""
+    n, nt = rx.shape[-1], tx.size
+    w = scipy.signal.get_window("hamming", nt, fftbins=True)
+    L = 1 << int(math.ceil(math.log2(n + nt - 1)))
+    kern = np.conj(np.fft.fft(w * tx.astype(np.complex128), L))
+    y = np.fft.ifft(np.fft.fft(rx.astype(np.complex128), L) * kern)[..., : n - nt + 1]
+    y /= np.sum(w * np.abs(tx.astype(np.complex128)) ** 2)
+    m = rx.shape[-2]
+    hann = scipy.signal.get_window("hann", m, fftbins=True)
+    y = y * (hann / hann.sum())[:, None]
+    return np.fft.fftshift(np.fft.fft(y, axis=-2), axes=-2)
+
+
+def cfar_ca64(p: np.ndarray, t: int, g: int, pfa: float, axes) -> np.ndarray:
+    """float64 cell-averaging CFAR over the box ring of ``axes``: the ring's
+    sum and in-bounds count by zero-padded box sums, α = N(pfa^(-1/N) - 1)."""
+    def box(v, half):
+        for a in axes:
+            v = np.moveaxis(v, a, -1)
+            c = np.cumsum(np.pad(v, [(0, 0)] * (v.ndim - 1) + [(half + 1, half)]), axis=-1)
+            v = np.moveaxis(c[..., 2 * half + 1:] - c[..., : -(2 * half + 1)], -1, a)
+        return v
+    ones = np.ones(p.shape)
+    ring_s = box(p, t + g) - box(p, g)
+    ring_n = box(ones, t + g) - box(ones, g)
+    return ring_n * (pfa ** (-1.0 / ring_n) - 1.0) * ring_s / ring_n
+
+
+def cfar_os64(p: np.ndarray, t: int, g: int, pfa: float) -> np.ndarray:
+    """float64 order-statistic CFAR along the last axis: the k-th smallest
+    of the 2t training cells of the reflect-padded row, k = ⌈3·2t/4⌉,
+    Rohling's threshold factor by a root finder."""
+    n, k = 2 * t, int(math.ceil(0.75 * 2 * t))
+    pp = np.pad(p, [(0, 0)] * (p.ndim - 1) + [(t + g, t + g)], mode="reflect")
+    offs = list(range(t)) + list(range(t + 2 * g + 1, 2 * t + 2 * g + 1))
+    win = np.stack([pp[..., o: o + p.shape[-1]] for o in offs], axis=-1)
+    noise = np.partition(win, k - 1, axis=-1)[..., k - 1]
+    i = np.arange(k)
+    alpha = scipy.optimize.brentq(
+        lambda a: np.sum(np.log(n - i) - np.log(n - i + a)) - np.log(pfa), 0.0, 1e6)
+    return alpha * noise
+
+
+def pfb_round_trip64(x: np.ndarray, h: np.ndarray, K: int, P: int, eps: float = 1e-8) -> np.ndarray:
+    """float64 full-mode analysis of ``x`` (..., T) and the Tikhonov-floored
+    deconvolution that inverts it, as ``pfb_analysis``/``pfb_synthesis``
+    define them."""
+    xp = np.pad(x.astype(np.float64), [(0, 0)] * (x.ndim - 1) + [((P - 1) * K, (P - 1) * K + (-x.shape[-1]) % K)])
+    F = (xp.shape[-1] - P * K) // K + 1
+    blocks = xp.reshape(xp.shape[:-1] + (-1, K))
+    v = sum(blocks[..., p: p + F, :] * h[p * K: (p + 1) * K] for p in range(P))
+    y = np.fft.fft(v, axis=-1)
+    hb = h.reshape(P, K)[::-1]
+    Hf = np.fft.fft(np.concatenate([hb, np.zeros((F - P, K))]), axis=0)
+    mag2 = np.abs(Hf) ** 2
+    inv = np.conj(Hf) / (mag2 + eps * mag2.max(axis=0, keepdims=True))
+    xr = np.fft.ifft(np.fft.fft(np.fft.ifft(y, axis=-1), axis=-2) * inv, axis=-2)[..., : F - P + 1, :]
+    return xr.reshape(xr.shape[:-2] + (-1,))
+
+
+def top_angles(ang: np.ndarray, spec: np.ndarray, count: int) -> np.ndarray:
+    pk, _ = tp.find_peaks(spec)
+    return np.sort(ang[pk[np.argsort(spec[pk])[-count:]]])
+
+
+def radar_radio(rng, card: str):
+    """Phase 23: the pulse-Doppler radar chain and the radio-astronomy
+    channelizer at full width, from numpy input without a device, against
+    float64 numpy oracles, with the kernel's launches per op, the kernel
+    against its plain version on every plane pair, and device and
+    back-to-back times, idle shares and peak memory.  Returns the launches
+    and the kernel's worst abs error."""
+    ops = Ops()
+    run, check = ops.run, ops.check
+    cuda_fft.LAUNCHES = 0
+    rows, worst = [], []
+    tx = lfm_pulse(RADAR_PULSE)
+    rx = radar_cpi(rng, tx)
+    rd = run("range_doppler", tp.range_doppler, rx, tx, window="hamming")
+    n_range = RADAR_SAMPLES - RADAR_PULSE + 1
+    require(tuple(rd.shape) == (RADAR_CHANNELS, RADAR_PULSES, n_range), f"range-Doppler {rd.shape}")
+    sel = list(RADAR_ORACLE_CHANNELS)
+    want = range_doppler64(rx[sel], tx)
+    rd_err = rel_err(rd[sel].cpu().numpy(), want)
+    check(f"range_doppler {RADAR_CHANNELS} x {RADAR_PULSES} x {RADAR_SAMPLES} CPI, "
+          f"{RADAR_PULSE}-sample LFM, Hamming (channels {sel} vs float64)", rd[sel], want)
+    del want
+    worst.append(kernel_errors(ops.seen, "range-Doppler planes"))
+    ops.seen.clear()
+
+    # CFAR: 2-D cell averaging on the power map, 1-D order statistic on one channel
+    power = rd.real ** 2 + rd.imag ** 2
+    t_, g_, pfa = RADAR_CFAR["num_train"], RADAR_CFAR["num_guard"], RADAR_CFAR["pfa"]
+    det, thr = run("cfar ca 2-D", tp.cfar, power, t_, g_, pfa, axes=(-2, -1))
+    p64 = power.double().cpu().numpy()
+    thr64 = cfar_ca64(p64, t_, g_, pfa, (-2, -1))
+    cfar_err = rel_err(thr.cpu().numpy(), thr64)
+    log(f"cfar ca 2-D {tuple(power.shape)}: threshold rel err {cfar_err:.3e} vs float64")
+    require(cfar_err <= CFAR_TOL, f"cfar thresholds {cfar_err:.3e}")
+    clear = np.abs(p64 - thr64) > 1e-3 * thr64
+    det_np = det.cpu().numpy()
+    agree = np.array_equal(det_np[clear], (p64 > thr64)[clear])
+    log(f"cfar ca 2-D: {int(det_np.sum())} detections, {int((~clear).sum())} cells within 1e-3 "
+        f"of the threshold, detections elsewhere equal to float64: {agree}")
+    require(agree, "cfar ca detections differ from the float64 oracle away from ties")
+    for delay, dbin, _, _ in RADAR_TARGETS:
+        require(bool(det_np[:, RADAR_PULSES // 2 + dbin, delay].all()),
+                f"target at delay {delay}, Doppler bin {dbin} not detected on every channel")
+    det1, thr1 = run("cfar os 1-D", tp.cfar, power[0], t_, g_, pfa, "os")
+    thr1_64 = cfar_os64(p64[0], t_, g_, pfa)
+    os_err = rel_err(thr1.cpu().numpy(), thr1_64)
+    clear1 = np.abs(p64[0] - thr1_64) > 1e-3 * thr1_64
+    agree1 = np.array_equal(det1.cpu().numpy()[clear1], (p64[0] > thr1_64)[clear1])
+    log(f"cfar os 1-D {tuple(power[0].shape)}: threshold rel err {os_err:.3e}, detections "
+        f"equal away from ties: {agree1}")
+    require(os_err <= CFAR_TOL and agree1, "cfar os differs from the float64 oracle")
+    del p64, thr64, clear, det_np, thr1_64
+
+    # beamforming on the snapshots of the targets' Doppler bins
+    bins = sorted({RADAR_PULSES // 2 + t[1] for t in RADAR_TARGETS}, reverse=True)
+    snaps = rd[:, bins, :].transpose(0, 1).contiguous()          # (bins, channels, cells)
+    R = run("spatial_covariance", tp.spatial_covariance, snaps)
+    s64 = snaps.cpu().numpy().astype(np.complex128)
+    R64 = np.einsum("bit,bjt->bij", s64, s64.conj()) / s64.shape[-1]
+    check(f"spatial_covariance {tuple(snaps.shape)}", R, R64)
+    grid = np.arange(-90.0, 91.0)
+    ang, mv = run("mvdr_spectrum", tp.mvdr_spectrum, R, RADAR_CHANNELS, grid)
+    A = np.exp(1j * np.pi * np.arange(RADAR_CHANNELS)[:, None] * np.sin(np.deg2rad(grid))[None, :])
+    mv64 = 1.0 / np.real(np.einsum("ig,big->bg", A.conj(), np.linalg.solve(
+        R.cpu().numpy().astype(np.complex128), np.broadcast_to(A, (len(bins),) + A.shape))))
+    log(f"covariance condition numbers {np.round(np.linalg.cond(R64), 1)}")
+    mv_err = rel_err(mv.cpu().numpy(), mv64)
+    check(f"mvdr_spectrum over {grid.size} angles, {len(bins)} Doppler bins", mv, mv64, MVDR_TOL)
+    planted = [sorted(t[2] for t in RADAR_TARGETS if RADAR_PULSES // 2 + t[1] == b) for b in bins]
+    for i, want_ang in enumerate(planted):
+        got_ang = top_angles(ang, mv[i].cpu().numpy(), len(want_ang))
+        _, mu = tp.music_doa(R[i], RADAR_CHANNELS, len(want_ang), grid)
+        mu_ang = top_angles(ang, mu, len(want_ang))
+        log(f"Doppler bin {bins[i] - RADAR_PULSES // 2:+d}: MVDR peaks {got_ang}, MUSIC peaks "
+            f"{mu_ang}, planted {want_ang}")
+        require(np.allclose(got_ang, want_ang, atol=1.0) and np.allclose(mu_ang, want_ang, atol=1.0),
+                f"direction finding missed the planted angles {want_ang}")
+    prof = power[0, bins[0]].cpu().numpy()
+    pk, _ = tp.find_peaks(prof, height=0.1 * prof.max(), distance=RADAR_PULSE // 8)
+    planted_cells = [t[0] for t in RADAR_TARGETS if RADAR_PULSES // 2 + t[1] == bins[0]]
+    log(f"find_peaks on the range profile of Doppler bin {bins[0] - RADAR_PULSES // 2:+d}: {pk}")
+    require(set(planted_cells) <= set(pk.tolist()), f"range peaks {pk} miss {planted_cells}")
+
+    if ON_CARD:
+        rxt, txt = cuda_complex(rx), cuda_complex(tx)
+        with torch.no_grad():
+            front_end_row(rows, "range_doppler 16 x 128 x 8192", lambda: tp.range_doppler(
+                rxt, txt, window="hamming"), 3, rd_err)
+            front_end_row(rows, "cfar ca 2-D 16 x 128 x 7681", lambda: tp.cfar(
+                power, t_, g_, pfa, axes=(-2, -1)), 3, cfar_err)
+            front_end_row(rows, "cfar os 1-D 128 x 7681", lambda: tp.cfar(
+                power[0], t_, g_, pfa, "os"), 3, os_err)
+            front_end_row(rows, "spatial_covariance + mvdr_spectrum, 181 angles", lambda: tp.mvdr_spectrum(
+                tp.spatial_covariance(snaps), RADAR_CHANNELS, grid), 3, mv_err, capture=False)
+        del rxt, txt
+    del rx, rd, power, snaps, R
+
+    # the channelizer: 2 polarizations x 2^25 samples, tones plus noise
+    K, P = PFB["n_channels"], PFB["taps_per_branch"]
+    x = rng.standard_normal((PFB_POLS, PFB_SAMPLES), dtype=np.float32) * np.float32(0.1)
+    tt = np.arange(PFB_SAMPLES)
+    for pol, f in enumerate((1000.0 / K, 2345.5 / K)):   # a channel centre, a channel edge
+        x[pol] += np.cos(2.0 * np.pi * f * tt).astype(np.float32)
+    del tt
+    y = run("pfb_analysis", tp.pfb_analysis, x, **PFB)
+    frames = (PFB_SAMPLES - P * K) // K + 1
+    require(tuple(y.shape) == (PFB_POLS, frames, K), f"pfb_analysis {tuple(y.shape)}")
+    h = np.sinc((np.arange(P * K) - (P * K - 1) / 2.0) / K) * scipy.signal.get_window(
+        "hamming", P * K, fftbins=True)
+    h /= h.sum()
+    pick = np.sort(rng.choice(frames, PFB_ORACLE_FRAMES, replace=False))
+    idx = pick[:, None] * K + np.arange(P * K)[None, :]
+    v = (x[:, idx].astype(np.float64) * h).reshape(PFB_POLS, PFB_ORACLE_FRAMES, P, K).sum(-2)
+    want = np.fft.fft(v, axis=-1)
+    pfb_err = rel_err(y[:, pick].cpu().numpy(), want)
+    check(f"pfb_analysis K={K}, P={P}, {PFB_POLS} x 2^25 samples -> {tuple(y.shape)} "
+          f"({PFB_ORACLE_FRAMES} frames vs float64)", y[:, pick], want)
+    del v, want, idx
+    cut = x[:, :PFB_CUT]
+    yf = run("pfb_analysis full", tp.pfb_analysis, cut, mode="full", **PFB)
+    back = run("pfb_synthesis", tp.pfb_synthesis, yf, P, PFB["window"])
+    rt64 = pfb_round_trip64(cut, h, K, P)
+    syn_err = rel_err(back.cpu().numpy(), rt64)
+    check(f"pfb analysis (full) and pfb_synthesis of the 2^20-sample cut, {tuple(yf.shape)} "
+          "frames, against the same two steps in float64", back, rt64)
+    log(f"pfb round trip against the cut itself: {rel_err(back[:, :PFB_CUT].real.cpu().numpy(), cut):.3e} "
+        f"(float64's own: {rel_err(rt64[:, :PFB_CUT].real, cut):.3e}; the Tikhonov floor eps = 1e-8 "
+        "biases the branch inverses where a tone sits at a channel edge)")
+    worst.append(kernel_errors(ops.seen, "pfb planes"))
+    ops.seen.clear()
+    if ON_CARD:
+        xt, yft = cuda32(x), yf
+        with torch.no_grad():
+            front_end_row(rows, "pfb_analysis 4096 ch x 4 taps, 2 x 2^25", lambda: tp.pfb_analysis(
+                xt, **PFB), 3, pfb_err)
+            front_end_row(rows, f"pfb_synthesis {tuple(yf.shape)}", lambda: tp.pfb_synthesis(
+                yft, P, PFB["window"]), 3, syn_err)
+        del xt, yft
+    del x, y, yf, back, cut
+    torch.cuda.empty_cache()
+
+    # line spectra: MUSIC, root-MUSIC and ESPRIT at m = 64, p = 4
+    k = np.arange(SUBSPACE_N)
+    for s in range(SUBSPACE_SIGNALS):
+        f0 = np.sort(rng.uniform(-0.45, 0.45 - 0.06, 1))[0] + np.array([0.0, 0.02, 0.04, 0.06])
+        sig = np.exp(2j * np.pi * f0[:, None] * k[None, :]).sum(0) + 0.1 * (
+            rng.standard_normal(SUBSPACE_N) + 1j * rng.standard_normal(SUBSPACE_N))
+        sig = sig.astype(np.complex64)
+        f, Pm = tp.music(sig, SUBSPACE_P, m=SUBSPACE_M, nfreq=4096)
+        got = {"music": top_angles(f, Pm, SUBSPACE_P),
+               "root_music": tp.root_music(sig, SUBSPACE_P, m=SUBSPACE_M),
+               "esprit": tp.esprit(sig, SUBSPACE_P, m=SUBSPACE_M)}
+        for name, est in got.items():
+            tol = 0.5 / 4096 + 1e-4 if name == "music" else 1e-3
+            require(np.allclose(est, f0, atol=tol), f"{name} found {est}, planted {f0}")
+        if s == 0:
+            log(f"subspace, {SUBSPACE_SIGNALS} records of {SUBSPACE_N}: planted {f0}; " + ", ".join(
+                f"{k_} {np.round(v_, 5)}" for k_, v_ in got.items()))
+    snaps64 = np.lib.stride_tricks.sliding_window_view(sig.astype(np.complex128), SUBSPACE_M)
+    Rs = snaps64.T @ snaps64.conj() / snaps64.shape[0]
+    J = np.eye(SUBSPACE_M)[::-1]
+    corr_err = rel_err(tp.corr_matrix(sig, SUBSPACE_M), 0.5 * (Rs + J @ Rs.conj() @ J))
+    log(f"corr_matrix m={SUBSPACE_M} on {SUBSPACE_N}: rel err {corr_err:.3e} vs float64")
+    require(corr_err <= ORACLE_TOL, "corr_matrix against float64")
+    if ON_CARD:
+        sig_t = cuda_complex(sig)
+        front_end_row(rows, "corr_matrix m=64 on 4096 (to the host)", lambda: tp.corr_matrix(
+            sig_t, SUBSPACE_M), 5, corr_err, capture=False)
+
+    launches = sum(ops.used.values())
+    log("radar and radio kernel launches: " + ", ".join(f"{k} {v}" for k, v in ops.used.items()))
+    expected = {"range_doppler": 4, "cfar ca 2-D": 0, "cfar os 1-D": 0, "spatial_covariance": 0,
+                "mvdr_spectrum": 0, "pfb_analysis": 1, "pfb_analysis full": 1, "pfb_synthesis": 1}
+    require(ops.used == expected or not ON_CARD, f"kernel launches {ops.used}, expected {expected}")
+    log(json.dumps({"radar_radio_timing": {"card": card, "calls": rows}}))
+    return launches, max(worst)
+
+
+def periodized_dwt64(x: np.ndarray, filt: np.ndarray):
+    """float64 periodized analysis along the last axis:
+    out[c, k] = Σ_f filt[c, f]·x[(2k + f) mod N]."""
+    n = x.shape[-1]
+    idx = (2 * np.arange(n // 2)[:, None] + np.arange(filt.shape[-1])[None, :]) % n
+    w = x.astype(np.float64)[..., idx]
+    return w @ filt[0], w @ filt[1]
+
+
+def wavedec64(x: np.ndarray, filt: np.ndarray, levels: int) -> list:
+    out, a = [], x
+    for _ in range(levels):
+        a, d = periodized_dwt64(a, filt)
+        out.append(d)
+    return [a] + out[::-1]
+
+
+def dwt2_64(x: np.ndarray, filt: np.ndarray):
+    lo, hi = periodized_dwt64(x, filt)
+    (ll, lh), (hl, hh) = (tuple(np.swapaxes(v, -1, -2) for v in periodized_dwt64(np.swapaxes(b, -1, -2), filt))
+                          for b in (lo, hi))
+    return ll, (lh, hl, hh)
+
+
+def adaptive64(kind: str, x: np.ndarray, d: np.ndarray, m: int, **kw):
+    """The adaptive recursions in float64 numpy: (y, w)."""
+    x, d = x.astype(np.float64), d.astype(np.float64)
+    U = np.lib.stride_tricks.sliding_window_view(np.concatenate([np.zeros(m - 1), x]), m)[:, ::-1]
+    w, P, ys = np.zeros(m), 100.0 * np.eye(m), np.empty(len(x))
+    for i, (u, dk) in enumerate(zip(U, d)):
+        ys[i] = u @ w
+        e = dk - ys[i]
+        if kind == "lms_filter":
+            w = w + kw["mu"] * e * u
+        elif kind == "nlms_filter":
+            w = w + kw["mu"] / (u @ u + 1e-6) * e * u
+        else:
+            Pu = P @ u
+            g = Pu / (kw["lam"] + u @ Pu)
+            w = w + g * e
+            P = (P - np.outer(g, Pu)) / kw["lam"]
+    return ys, w
+
+
+def vmd64(x: np.ndarray, K: int, alpha: float, n_iter: int, omega0: np.ndarray):
+    """VMD's ADMM (tau = 0) in float64 numpy, from pinned frequencies."""
+    T0 = x.shape[-1]
+    half = T0 // 2
+    xm = np.concatenate([x[..., :half][..., ::-1], x, x[..., T0 - half:][..., ::-1]], -1)
+    T = xm.shape[-1]
+    pos = (np.arange(T) <= T // 2).astype(np.float64)
+    w = np.abs(np.fft.fftfreq(T))
+    f_pos = np.fft.fft(xm.astype(np.float64)) * pos
+    u = np.zeros(x.shape[:-1] + (K, T), complex)
+    om = np.broadcast_to(omega0, x.shape[:-1] + (K,)).copy()
+    for _ in range(n_iter):
+        sum_u = u.sum(-2)
+        for k in range(K):
+            sum_u = sum_u - u[..., k, :]
+            u[..., k, :] = (f_pos - sum_u) / (1 + 2 * alpha * (w - om[..., k, None]) ** 2) * pos
+            p = np.abs(u[..., k, :]) ** 2
+            om[..., k] = (w * p).sum(-1) / (p.sum(-1) + 1e-30)
+            sum_u = sum_u + u[..., k, :]
+    full = u + np.conj(np.flip(np.roll(u, -1, -1), -1))
+    full[..., 0] = u[..., 0].real
+    full[..., T // 2] = u[..., T // 2].real
+    modes = np.fft.ifft(full).real[..., half: half + T0]
+    order = np.argsort(om, -1)
+    return np.take_along_axis(modes, order[..., None], -2), np.take_along_axis(om, order, -1)
+
+
+def wavelets_leaves(rng, card: str):
+    """Phase 24: the wavelet transforms at full width and the other ops
+    leaves from numpy input without a device, against float64 numpy/scipy
+    oracles written out here (sampled rows where the whole would take
+    long), with the kernel's launches, device and back-to-back times, idle
+    shares and peak memory.  Returns the launches and the kernel's worst
+    abs error."""
+    from mixed_radix_fast_fourier_transform_tpu_torch.ops import dtcwt as dtcwt_ops
+    from mixed_radix_fast_fourier_transform_tpu_torch.ops import dwt as dwt_ops
+
+    ops = Ops()
+    run, check = ops.run, ops.check
+    cuda_fft.LAUNCHES = 0
+    rows, worst, errs = [], [], {}
+
+    # db4, 5 levels, periodization, on Whisper's clips
+    sr = WHISPER["sr"]
+    t = np.arange(WHISPER_SAMPLES) / sr
+    # tones under 500 Hz: in the approximation band that the denoiser keeps
+    clean = np.sin(2 * np.pi * rng.uniform(100.0, 400.0, (WHISPER_BATCH, 1)) * t)
+    clips = (clean + 0.3 * rng.standard_normal((WHISPER_BATCH, WHISPER_SAMPLES))).astype(np.float32)
+    lo, hi = dwt_ops._banks("db4")[:2]
+    filt = np.stack([lo, hi])
+    coeffs = run("wavedec", tp.wavedec, clips, "db4", DWT_LEVELS)
+    want = wavedec64(clips[:2], filt, DWT_LEVELS)
+    errs["wavedec"] = max(rel_err(c[:2].cpu().numpy(), w) for c, w in zip(coeffs, want))
+    log(f"wavedec db4 {DWT_LEVELS} levels {clips.shape}: coefficients (2 clips) rel err "
+        f"{errs['wavedec']:.3e} vs float64")
+    require(errs["wavedec"] <= ORACLE_TOL, "wavedec coefficients")
+    rec = run("waverec", tp.waverec, coeffs, "db4")
+    errs["waverec"] = rel_err(rec.cpu().numpy(), clips)
+    check("waverec: perfect reconstruction of the clips", rec, clips)
+    den = run("wavelet_denoise", tp.wavelet_denoise, clips)
+    snr_in = 10 * np.log10(np.mean(clean ** 2) / np.mean((clips - clean) ** 2))
+    snr_out = 10 * np.log10(np.mean(clean ** 2) / np.mean((den.cpu().numpy() - clean) ** 2))
+    log(f"wavelet_denoise db4 (universal, soft, symmetric) on the clips: SNR {snr_in:.2f} -> "
+        f"{snr_out:.2f} dB")
+    require(np.isfinite(snr_out) and snr_out > snr_in + 3.0, "wavelet_denoise did not denoise")
+    del want, rec, den
+
+    # bior4.4 (JPEG 2000's 9/7), 5 levels, on 4 x 2048² images
+    yy, xx = np.mgrid[:DWT2_N, :DWT2_N] / DWT2_N
+    images = np.stack([np.sin(2 * np.pi * (3 + i) * xx) * np.cos(2 * np.pi * (2 + i) * yy)
+                       + 0.1 * rng.standard_normal((DWT2_N, DWT2_N)) for i in range(DWT2_IMAGES)])
+    images = images.astype(np.float32)
+    del yy, xx
+    b_lo, b_hi = dwt_ops._banks("bior4.4")[:2]
+    c2 = run("wavedec2", tp.wavedec2, images, "bior4.4", DWT2_LEVELS)
+    a64, bands64 = dwt2_64(images[0], np.stack([b_lo, b_hi]))
+    errs["wavedec2"] = max(rel_err(c2[-1][i][0].cpu().numpy(), bands64[i]) for i in range(3))
+    log(f"wavedec2 bior4.4 {DWT2_LEVELS} levels {images.shape}: finest level (image 0) rel err "
+        f"{errs['wavedec2']:.3e} vs float64")
+    require(errs["wavedec2"] <= ORACLE_TOL, "wavedec2 coefficients")
+    rec2 = run("waverec2", tp.waverec2, c2, "bior4.4")
+    errs["waverec2"] = rel_err(rec2.cpu().numpy(), images)
+    check("waverec2: perfect reconstruction of the images", rec2, images)
+    del a64, bands64, rec2
+
+    # the stationary transform, db2, 4 levels, on 16 x 65,536
+    sx = rng.standard_normal(SWT_SHAPE).astype(np.float32)
+    st = run("swt", tp.swt, sx, "db2", SWT_LEVELS)
+    d_lo, d_hi = dwt_ops._banks("db2")[:2]
+    a = sx[:2].astype(np.float64)
+    n = SWT_SHAPE[1]
+    e_swt = 0.0
+    for j in range(SWT_LEVELS):
+        idx = (np.arange(n)[:, None] + (1 << j) * np.arange(len(d_lo))[None, :]) % n
+        win = a[..., idx]
+        a, d = win @ d_lo, win @ d_hi
+        got_a, got_d = st[SWT_LEVELS - 1 - j]
+        e_swt = max(e_swt, rel_err(got_a[:2].cpu().numpy(), a), rel_err(got_d[:2].cpu().numpy(), d))
+    errs["swt"] = e_swt
+    log(f"swt db2 {SWT_LEVELS} levels {SWT_SHAPE}: rel err {e_swt:.3e} vs float64 (2 rows)")
+    require(e_swt <= ORACLE_TOL, "swt coefficients")
+    back = tp.iswt(st, "db2")
+    check("iswt: perfect reconstruction", back, sx)
+
+    # the dual tree, 4 levels, on 4 x 512²
+    dimg = images[:, :DTCWT_N, :DTCWT_N].copy()
+    yl, yh = run("dtcwt2", tp.dtcwt2, dimg, DTCWT_LEVELS)
+    bank = dtcwt_ops._dt_bank(3, 3)
+    # level 1 of tree aa is a plain DWT: along axis -2, then the lowpass
+    # band along axis -1 gives LH; Re(z+ + z-) = t_aa
+    lo_r, _ = periodized_dwt64(np.swapaxes(dimg[0], -1, -2), bank.dec_a)
+    _, lh = periodized_dwt64(np.swapaxes(lo_r, -1, -2), bank.dec_a)
+    aa_lh = (yh[0][0, 0] + yh[0][1, 0]).real
+    errs["dtcwt2"] = rel_err(aa_lh.cpu().numpy(), lh)
+    log(f"dtcwt2 {DTCWT_LEVELS} levels {dimg.shape}: level-1 tree aa LH rel err "
+        f"{errs['dtcwt2']:.3e} vs float64")
+    require(errs["dtcwt2"] <= ORACLE_TOL, "dtcwt2 coefficients")
+    drec = run("idtcwt2", tp.idtcwt2, yl, yh)
+    errs["idtcwt2"] = rel_err(drec.cpu().numpy(), dimg)
+    check("idtcwt2: perfect reconstruction", drec, dimg)
+
+    if ON_CARD:
+        ct, it, st_t, dt = cuda32(clips), cuda32(images), cuda32(sx), cuda32(dimg)
+        cfs, c2s = tp.wavedec(ct, "db4", DWT_LEVELS), tp.wavedec2(it, "bior4.4", DWT2_LEVELS)
+        d_yl, d_yh = tp.dtcwt2(dt, DTCWT_LEVELS)
+        with torch.no_grad():
+            front_end_row(rows, "wavedec db4 5 levels 16 x 480000", lambda: tp.wavedec(
+                ct, "db4", DWT_LEVELS), 5, errs["wavedec"])
+            front_end_row(rows, "waverec db4 5 levels", lambda: tp.waverec(cfs, "db4"), 5,
+                          errs["waverec"])
+            front_end_row(rows, "wavedec2 bior4.4 5 levels 4 x 2048²", lambda: tp.wavedec2(
+                it, "bior4.4", DWT2_LEVELS), 3, errs["wavedec2"])
+            front_end_row(rows, "waverec2 bior4.4 5 levels", lambda: tp.waverec2(c2s, "bior4.4"), 3,
+                          errs["waverec2"])
+            front_end_row(rows, "swt db2 4 levels 16 x 65536", lambda: tp.swt(st_t, "db2", SWT_LEVELS),
+                          5, errs["swt"])
+            front_end_row(rows, "dtcwt2 4 levels 4 x 512²", lambda: tp.dtcwt2(dt, DTCWT_LEVELS), 5,
+                          errs["dtcwt2"])
+            front_end_row(rows, "idtcwt2 4 levels", lambda: tp.idtcwt2(d_yl, d_yh), 5, errs["idtcwt2"])
+            front_end_row(rows, "wavelet_denoise db4 16 x 480000", lambda: tp.wavelet_denoise(ct), 3,
+                          None)
+        del ct, it, st_t, dt, cfs, c2s, d_yl, d_yh
+    del coeffs, c2, st, back, yl, yh, drec
+    torch.cuda.empty_cache()
+
+    # EWT, 5 bands, boundaries detected on the first row
+    k = np.arange(EWT_SHAPE[1])
+    ex = sum(np.sin(2 * np.pi * f * k) for f in (0.02, 0.07, 0.15, 0.27, 0.41))
+    ex = (ex[None] + 0.05 * rng.standard_normal(EWT_SHAPE)).astype(np.float32)
+    bounds = tp.ewt_boundaries(ex[0], EWT_BANDS)
+    bands, _ = run("ewt", tp.ewt, ex, boundaries=bounds)
+    X = np.fft.rfft(ex[:2].astype(np.float64))
+    bank64 = tp.ops.ewt._partition_bank(X.shape[-1], bounds, 0.2, EWT_SHAPE[1])
+    want = np.fft.irfft(X[:, None, :] * bank64, n=EWT_SHAPE[1])
+    errs["ewt"] = rel_err(bands[:2].cpu().numpy(), want)
+    check(f"ewt {EWT_BANDS} bands {EWT_SHAPE} (2 rows vs float64)", bands[:2], want)
+    check("ewt: the bands sum to the signal", bands.sum(-2), ex)
+    del bands, X, want
+
+    # EMD on the host, Hilbert-Huang's analytic signal on the card
+    kk = np.arange(EMD_N)
+    tone = np.sin(2 * np.pi * 0.01 * kk) + 0.5 * np.sin(2 * np.pi * 0.13 * kk)
+    imfs, amp, freq = run("hilbert_huang", tp.hilbert_huang, tone)
+    analytic = scipy.signal.hilbert(imfs)
+    errs["hilbert_huang"] = rel_err(amp.cpu().numpy(), np.abs(analytic))
+    check(f"hilbert_huang amplitude ({imfs.shape[0]} rows of {EMD_N}) vs float64", amp,
+          np.abs(analytic))
+    log(f"emd: {imfs.shape[0] - 1} IMFs; mean instantaneous frequency of the first two "
+        f"{np.round(freq[:2, EMD_N // 10: -EMD_N // 10].mean(-1).cpu().numpy(), 5)} "
+        "(planted 0.13, 0.01)")
+    imfs_t = cuda32(imfs)
+
+    # VMD, K = 4, 300 sweeps, pinned centre frequencies
+    kk = np.arange(VMD_SHAPE[1])
+    planted = np.array([0.03, 0.11, 0.2, 0.34])
+    vx = sum(np.cos(2 * np.pi * f * kk + rng.uniform(0, 6.28, (VMD_SHAPE[0], 1))) for f in planted)
+    vx = (vx + 0.05 * rng.standard_normal(VMD_SHAPE)).astype(np.float32)
+    omega0 = planted + np.array([0.005, -0.005, 0.005, -0.005])
+    modes, om = run("vmd", tp.vmd, vx, VMD_K, n_iter=VMD_ITERS, init_omega=omega0)
+    m64, o64 = vmd64(vx[:2], VMD_K, 2000.0, VMD_ITERS, omega0)
+    errs["vmd"] = rel_err(modes[:2].cpu().numpy(), m64)
+    log(f"vmd K={VMD_K}, {VMD_ITERS} sweeps {VMD_SHAPE}: modes rel err {errs['vmd']:.3e} "
+        f"(2 rows vs float64), centre frequencies {np.round(om[0].cpu().numpy(), 5)}")
+    require(errs["vmd"] <= VMD_TOL and np.allclose(om[:2].cpu().numpy(), o64, atol=1e-5),
+            "vmd against float64")
+
+    # registration: 16 sub-pixel shifts of one 1,024² scene, to 1/100 pixel
+    scene = scipy.ndimage.gaussian_filter(rng.standard_normal((REG_N, REG_N)), 3.0)
+    S = np.fft.fft2(scene)
+    shifts = np.round(rng.uniform(-20.0, 20.0, (REG_PAIRS, 2)), 2)
+    fr, fc = np.fft.fftfreq(REG_N)[:, None], np.fft.fftfreq(REG_N)[None, :]
+    moving = np.stack([np.fft.ifft2(S * np.exp(-2j * np.pi * (s[0] * fr + s[1] * fc))).real
+                       for s in shifts]).astype(np.float32)
+    ref = np.broadcast_to(scene.astype(np.float32), moving.shape).copy()
+    del S
+    found, rerr = run("phase_cross_correlation", tp.phase_cross_correlation, ref, moving, REG_UP)
+    miss = float(np.max(np.abs(found.cpu().numpy() + shifts)))
+    errs["phase_cross_correlation"] = miss
+    log(f"phase_cross_correlation {REG_PAIRS} pairs of {REG_N}², upsample {REG_UP}: worst shift "
+        f"error {miss:.4f} px, error metric {float(rerr.max()):.3e}")
+    require(miss <= 1.0 / REG_UP + 1e-4, "registration missed the planted shifts")
+    # unwrapping a smooth phase field with gradients under π a pixel
+    yy, xx = np.mgrid[:UNWRAP_N, :UNWRAP_N] / UNWRAP_N
+    field = 60.0 * np.exp(-((xx - 0.4) ** 2 + (yy - 0.6) ** 2) / 0.1) + 40.0 * xx * yy
+    wrapped = np.angle(np.exp(1j * field)).astype(np.float32)
+    un = run("unwrap_phase_2d", tp.unwrap_phase_2d, wrapped)
+    errs["unwrap_phase_2d"] = rel_err(un.cpu().numpy(), field - field.mean())
+    check(f"unwrap_phase_2d {UNWRAP_N}²", un, field - field.mean(), UNWRAP_TOL)
+    del yy, xx, field
+    spec = np.fft.fft2(images[0].astype(np.float64)).astype(np.complex64)
+    fg = run("fourier_gaussian", tp.fourier_gaussian, spec, 3.0)
+    want = scipy.ndimage.fourier_gaussian(spec.astype(np.complex128), 3.0)
+    errs["fourier_gaussian"] = rel_err(fg.cpu().numpy(), want)
+    check(f"fourier_gaussian {GAUSS_N}² spectrum", fg, want)
+    mf = run("medfilt2d", tp.medfilt2d, images[0], 3)
+    require(np.array_equal(mf.cpu().numpy(), scipy.signal.medfilt2d(images[0], 3)),
+            "medfilt2d differs from scipy")
+    mc = run("medfilt", tp.medfilt, clips, [1, 5])
+    require(np.array_equal(mc[:2].cpu().numpy(), scipy.signal.medfilt(clips[:2], [1, 5])),
+            "medfilt differs from scipy")
+    log("medfilt2d 3x3 on a 2048² image and medfilt 5 on the clips: equal to scipy")
+    errs["medfilt2d"] = errs["medfilt"] = 0.0
+
+    # adaptive echo cancellation: 256 taps, 8,000 samples
+    far = rng.standard_normal(ADAPT_N).astype(np.float32)
+    path = rng.standard_normal(ADAPT_TAPS) * np.exp(-np.arange(ADAPT_TAPS) / 40.0)
+    path /= np.abs(path).max()
+    mic = (np.convolve(far, path)[:ADAPT_N] + 1e-3 * rng.standard_normal(ADAPT_N)).astype(np.float32)
+    adaptive = (("lms_filter", {"mu": 0.002}), ("nlms_filter", {"mu": 0.5}), ("rls_filter", {"lam": 0.9999}))
+    for name, kw in adaptive:
+        y_, e_, w_ = run(name, getattr(tp, name), far, mic, ADAPT_TAPS, **kw)
+        y64, w64 = adaptive64(name, far, mic, ADAPT_TAPS, **kw)
+        err = max(float(np.max(np.abs(y_.cpu().numpy() - y64)) / np.max(np.abs(mic))),
+                  float(np.max(np.abs(w_.cpu().numpy() - w64)) / np.max(np.abs(path))))
+        errs[name] = err
+        erle = 10 * np.log10(np.mean(mic[-1000:] ** 2) / np.mean(e_[-1000:].cpu().numpy() ** 2))
+        log(f"{name} {ADAPT_TAPS} taps, {ADAPT_N} samples: y and w rel err {err:.3e} vs the "
+            f"float64 loop, echo return loss enhancement over the last 1000 samples {erle:.1f} dB")
+        require(err <= ORACLE_TOL, f"{name} against float64")
+
+    # AR fits on the host, the model spectrum on the card
+    poles = [0.95 * np.exp(0.3j), 0.95 * np.exp(-0.3j), 0.9 * np.exp(1.2j), 0.9 * np.exp(-1.2j)]
+    ar = scipy.signal.lfilter([1.0], np.poly(poles).real, rng.standard_normal(AR_N))
+    for fit in (tp.aryule, tp.arburg):
+        a_, s2, _ = fit(ar, AR_ORDER)
+        f_, P_ = run(f"ar_psd ({fit.__name__})", tp.ar_psd, a_, s2, AR_NFREQ)
+        z = np.exp(-2j * np.pi * np.linspace(0.0, 0.5, AR_NFREQ)[None, :] * np.arange(AR_ORDER + 1)[:, None])
+        P64 = s2 / np.abs(a_ @ z) ** 2
+        P64[1:-1] *= 2.0
+        pt_err = float(np.max(np.abs(P_.cpu().numpy() / P64 - 1.0)))
+        errs["ar_psd"] = max(errs.get("ar_psd", 0.0), pt_err)
+        log(f"{fit.__name__} order {AR_ORDER} on {AR_N} samples, ar_psd {AR_NFREQ}: worst "
+            f"pointwise rel err {pt_err:.3e} vs float64")
+        require(pt_err <= ORACLE_TOL, "ar_psd against float64")
+    a_t = cuda32(a_)
+
+    # SSA and DMD: host float64 by design
+    t0 = time.perf_counter()
+    kk = np.arange(SSA_N)
+    series = 0.001 * kk + np.sin(2 * np.pi * kk / 50.0) + 0.1 * rng.standard_normal(SSA_N)
+    comps, sv = tp.ssa(series, SSA_WINDOW)
+    require(np.allclose(comps.sum(0), series, atol=1e-10), "ssa components do not add up")
+    snap_t = np.arange(DMD_SHAPE[1]) * 0.1
+    basis = rng.standard_normal((DMD_SHAPE[0], 3))
+    Xd = (basis[:, :1] * np.cos(2.0 * snap_t) + basis[:, 1:2] * np.sin(2.0 * snap_t)
+          + basis[:, 2:] * np.exp(-0.2 * snap_t)) + 1e-6 * rng.standard_normal(DMD_SHAPE)
+    modes_d, eigs, amps, _ = tp.dmd(Xd, 3, dt=0.1)
+    rec_d = tp.dmd_reconstruct(modes_d, eigs, amps, DMD_SHAPE[1]).real
+    dmd_err = rel_err(rec_d, Xd)
+    log(f"ssa window {SSA_WINDOW} on {SSA_N} and dmd rank 3 on {DMD_SHAPE} (host float64): "
+        f"{time.perf_counter() - t0:.2f} s, dmd reconstruction rel err {dmd_err:.3e}")
+    require(dmd_err <= 1e-4, "dmd reconstruction")
+
+    worst.append(kernel_errors(ops.seen, "leaves planes"))
+    ops.seen.clear()
+    if ON_CARD:
+        et, vt, rt, mt = cuda32(ex), cuda32(vx), cuda32(ref), cuda32(moving)
+        wt, st2 = cuda32(wrapped), cuda_complex(spec)
+        i0, ct = cuda32(images[0]), cuda32(clips)
+        ft, mict = cuda32(far), cuda32(mic)
+        with torch.no_grad():
+            front_end_row(rows, "ewt 5 bands 16 x 65536", lambda: tp.ewt(et, boundaries=bounds), 5,
+                          errs["ewt"])
+            front_end_row(rows, f"hilbert of the {imfs.shape[0]} x {EMD_N} IMF stack", lambda: tp.hilbert(
+                imfs_t), 5, errs["hilbert_huang"])
+            front_end_row(rows, "vmd K=4, 300 sweeps, 8 x 4096", lambda: tp.vmd(
+                vt, VMD_K, n_iter=VMD_ITERS, init_omega=omega0), 1, errs["vmd"])
+            front_end_row(rows, "phase_cross_correlation 16 x 1024², upsample 100", lambda: (
+                tp.phase_cross_correlation(rt, mt, REG_UP)), 3, errs["phase_cross_correlation"])
+            front_end_row(rows, "unwrap_phase_2d 1024² (dctn/idctn, stage pipeline)", lambda: (
+                tp.unwrap_phase_2d(wt)), 3, errs["unwrap_phase_2d"])
+            front_end_row(rows, "fourier_gaussian 2048²", lambda: tp.fourier_gaussian(st2, 3.0), 5,
+                          errs["fourier_gaussian"])
+            front_end_row(rows, "medfilt2d 3x3 2048²", lambda: tp.medfilt2d(i0, 3), 5, 0.0)
+            front_end_row(rows, "medfilt 5 on 16 x 480000", lambda: tp.medfilt(ct, [1, 5]), 3, 0.0)
+            for name, kw in adaptive:
+                front_end_row(rows, f"{name} 256 taps, 8000 samples", lambda: getattr(tp, name)(
+                    ft, mict, ADAPT_TAPS, **kw), 1, errs[name])
+            front_end_row(rows, "ar_psd order 16, 512 frequencies", lambda: tp.ar_psd(a_t, 1.0, AR_NFREQ),
+                          5, errs["ar_psd"])
+        del et, vt, rt, mt, wt, st2, i0, ct, ft, mict
+    del images, clips, imfs_t
+    torch.cuda.empty_cache()
+
+    launches = sum(ops.used.values())
+    log("wavelet and leaves kernel launches: " + ", ".join(f"{k} {v}" for k, v in ops.used.items()))
+    k1_paths = {"hilbert_huang": 2, "vmd": 2, "phase_cross_correlation": 6}
+    require(all(ops.used[k] == v for k, v in k1_paths.items()) or not ON_CARD,
+            f"kernel launches {ops.used}, expected {k1_paths} on these paths")
+    log(json.dumps({"leaves_timing": {"card": card, "calls": rows}}))
+    return launches, max(worst)
+
+
+def slice_yardstick(card: str) -> None:
+    """K1 against ``torch.fft.fft`` (cuFFT) at the shapes phases 19-23 hand
+    the kernel (CQT, NUFFT, SFNO, range-Doppler, PFB), by graph replay in
+    one process, beside the bytes bound."""
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for n, b in SLICE_YARDSTICK:
+        xr, xi = (torch.randn(b, n, device="cuda", generator=gen) for _ in range(2))
+        xc = torch.complex(xr, xi)
+        kernel_us = graph_us(torch, lambda: cuda_fft.exec_kernel(xr, xi, n, -1))
+        cufft_us = graph_us(torch, lambda: torch.fft.fft(xc))
+        bound, bound_by = fft_bound_ms(n, b)
+        row = {"n": n, "rows": b, "kernel_us": kernel_us, "cufft_us": cufft_us,
+               "bound_us": bound * 1e3, "bound_by": bound_by,
+               "share_of_bound": bound * 1e3 / kernel_us, "kernel_over_cufft": kernel_us / cufft_us}
+        rows.append(row)
+        log(f"yardstick n={n} x {b} rows: kernel {kernel_us:.2f} us, cuFFT {cufft_us:.2f} us, "
+            f"bound {bound * 1e3:.2f} us ({bound_by}), share {row['share_of_bound']:.3f}, "
+            f"kernel/cuFFT {row['kernel_over_cufft']:.2f}")
+        del xr, xi, xc
+        torch.cuda.empty_cache()
+    log(json.dumps({"k1_vs_cufft_slice_shapes": {"card": card, "method": "CUDA graph of 20 "
+                    "back-to-back launches, 10 replays, CUDA events", "shapes": rows}}))
+
+
 def timed(phase, *args):
     """Runs one phase and logs its wall time (the whole run has a time limit)."""
     t0 = time.perf_counter()
@@ -2781,6 +3517,10 @@ def main(argv) -> int:
         for phase in (nufft_tomography, sht_sfno):
             timed(phase, rng, card)
         return 0
+    if argv == ["frontend"]:   # development: phases 23-24 alone
+        for phase in (radar_radio, wavelets_leaves, slice_yardstick):
+            timed(phase, *((rng, card) if phase is not slice_yardstick else (card,)))
+        return 0
     timed(kernel_vs_plain, rng)
     launches, max_abs, (xr, xi) = timed(main_path, rng)
     timed(core_lengths, rng)
@@ -2801,16 +3541,20 @@ def main(argv) -> int:
     timed(recurrence_timings, rng, card)
     nufft_launches, nufft_abs = timed(nufft_tomography, rng, card)
     sphere_launches, sphere_abs = timed(sht_sfno, rng, card)
+    radar_launches, radar_abs = timed(radar_radio, rng, card)
+    leaves_launches, leaves_abs = timed(wavelets_leaves, rng, card)
+    timed(slice_yardstick, card)
     log(f"kernel launches by path: filter forward {launches}, training {train_launches}, "
         f"fno {fno_launches}, s4d + fnet + afno {family_launches}, ops tail {ops_launches}, "
         f"audio front end {frontend_launches}, audio ops {audio_launches}, "
         f"recurrences {recurrence_launches}, audio remainder {remainder_launches}, "
-        f"nufft + tomography {nufft_launches}, sht + sfno {sphere_launches}")
+        f"nufft + tomography {nufft_launches}, sht + sfno {sphere_launches}, "
+        f"radar + radio {radar_launches}, wavelets + leaves {leaves_launches}")
     launches += (train_launches + fno_launches + family_launches + ops_launches
                  + frontend_launches + audio_launches + recurrence_launches + remainder_launches
-                 + nufft_launches + sphere_launches)
+                 + nufft_launches + sphere_launches + radar_launches + leaves_launches)
     max_abs = max(max_abs, train_abs, fno_abs, family_abs, ops_abs, frontend_abs, audio_abs,
-                  remainder_abs, nufft_abs, sphere_abs)
+                  remainder_abs, nufft_abs, sphere_abs, radar_abs, leaves_abs)
     # the kernel line's times are on the same planes as its error: the
     # forward transform of the batch-1024 filter call.  ms, plain_ms and
     # library_ms are medians of single timed calls, dispatch included

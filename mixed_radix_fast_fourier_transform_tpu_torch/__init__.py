@@ -47,6 +47,19 @@ Public API (numpy.fft-flavoured):
     spherical harmonics (sht, isht, sht_grid, sht_recurrence, isht_recurrence,
     sphere_laplacian, poisson_solve_sphere, sphere_convolve, sphere_grad,
     sphere_div, sphere_vort, sphere_helmholtz, vsht, ivsht, rotate_sht)
+    the radar and radio front end (chirp and the other waveforms,
+    pulse_compression, range_doppler, cfar, pfb_analysis, pfb_synthesis,
+    steering_vector, spatial_covariance, bartlett_spectrum, mvdr_spectrum,
+    mvdr_weights, music_doa, corr_matrix, music, root_music, esprit, prony,
+    pisarenko, find_peaks and the peak family, medfilt, medfilt2d,
+    order_filter)
+    wavelets and decompositions (dwt, idwt, wavedec, waverec and the 2-D,
+    stationary and packet transforms, wavelet_denoise, cycle_spin, dtcwt,
+    idtcwt, dtcwt2, idtcwt2, ewt, emd, eemd, hilbert_huang, vmd)
+    images (phase_cross_correlation, fourier_shift, unwrap_phase_2d,
+    fourier_gaussian, fourier_uniform, fourier_ellipsoid, wiener), adaptive
+    filters (lms_filter, nlms_filter, rls_filter), AR estimation (levinson,
+    aryule, arburg, ar_psd), ssa, dmd, dmd_reconstruct
     plan-level: get_plan, build_complex_plan, build_real_plan, clear_plan_cache
     models: init_params, apply, loss_fn, train_step, params_from_jax,
     SpectralFilter, models.fno, models.s4d, models.fnet, models.afno,
@@ -162,6 +175,32 @@ from .ops.sht import (
     poisson_solve_sphere, sphere_convolve, sphere_grad, sphere_div, sphere_vort,
     sphere_helmholtz, vsht, ivsht, rotate_sht,
 )
+from .ops.register import phase_cross_correlation, fourier_shift, unwrap_phase_2d
+from .ops.ndimage import fourier_gaussian, fourier_uniform, fourier_ellipsoid, wiener
+from .ops.radar import pulse_compression, range_doppler, cfar
+from .ops.beamform import (
+    steering_vector, spatial_covariance, bartlett_spectrum,
+    mvdr_spectrum, mvdr_weights, music_doa,
+)
+from .ops.waveforms import chirp, sweep_poly, gausspulse, sawtooth, square, unit_impulse
+from .ops.emd import emd, eemd, hilbert_huang
+from .ops.vmd import vmd
+from .ops.ewt import ewt, ewt_boundaries
+from .ops.dwt import wavelet_denoise, wavelet_denoise2, cycle_spin
+from .ops.subspace import corr_matrix, music, root_music, esprit, prony, pisarenko
+from .ops.datadriven import ssa, dmd, dmd_reconstruct
+from .ops.adaptive import lms_filter, nlms_filter, rls_filter
+from .ops.ar import levinson, aryule, arburg, ar_psd
+from .ops.peaks import (
+    find_peaks, find_peaks_cwt, peak_prominences, peak_widths,
+    argrelmin, argrelmax, argrelextrema,
+    medfilt, medfilt2d, order_filter,
+)
+from .ops.pfb import pfb_analysis, pfb_synthesis, pfb_prototype, pfb_frequencies
+from .ops.dwt import (dwt, dwt2, dwt_max_level, idwt, idwt2, iswt, iswt2,
+                      swt, swt2, wavedec, wavedec2, waverec, waverec2,
+                      wpdec, wprec, wpdec2, wprec2)
+from .ops.dtcwt import dtcwt, dtcwt2, idtcwt, idtcwt2
 from .plan import (
     BluesteinPlan,
     ComplexPlan,
@@ -247,6 +286,23 @@ __all__ = [
     "sht", "isht", "sht_grid", "sht_recurrence", "isht_recurrence", "sphere_laplacian",
     "poisson_solve_sphere", "sphere_convolve", "sphere_grad", "sphere_div", "sphere_vort",
     "sphere_helmholtz", "vsht", "ivsht", "rotate_sht",
+    "chirp", "sweep_poly", "gausspulse", "sawtooth", "square", "unit_impulse",
+    "phase_cross_correlation", "fourier_shift", "unwrap_phase_2d",
+    "fourier_gaussian", "fourier_uniform", "fourier_ellipsoid", "wiener",
+    "pulse_compression", "range_doppler", "cfar",
+    "steering_vector", "spatial_covariance", "bartlett_spectrum", "mvdr_spectrum",
+    "mvdr_weights", "music_doa",
+    "pfb_analysis", "pfb_synthesis", "pfb_prototype", "pfb_frequencies",
+    "dwt", "idwt", "dwt2", "idwt2", "wavedec", "waverec", "wavedec2", "waverec2",
+    "swt", "iswt", "swt2", "iswt2", "wpdec", "wprec", "wpdec2", "wprec2", "dwt_max_level",
+    "dtcwt", "idtcwt", "dtcwt2", "idtcwt2",
+    "emd", "eemd", "hilbert_huang", "vmd", "ewt", "ewt_boundaries",
+    "wavelet_denoise", "wavelet_denoise2", "cycle_spin",
+    "corr_matrix", "music", "root_music", "esprit", "prony", "pisarenko",
+    "ssa", "dmd", "dmd_reconstruct", "lms_filter", "nlms_filter", "rls_filter",
+    "levinson", "aryule", "arburg", "ar_psd",
+    "find_peaks", "find_peaks_cwt", "peak_prominences", "peak_widths",
+    "argrelmin", "argrelmax", "argrelextrema", "medfilt", "medfilt2d", "order_filter",
     "BluesteinPlan", "ComplexPlan", "MixedRadixPlan", "RaderPlan", "RealPlan",
     "build_bluestein_plan", "build_complex_plan", "build_mixed_radix_plan",
     "build_rader_plan", "build_real_plan", "clear_plan_cache", "get_plan",

@@ -175,13 +175,23 @@ def fft_init(
 def fft_exec(obj: fft_object, inp, oup=None):
     """Execute the plan (reference: src/highSpeedFFT.c:1920-1942).  Unnormalized
     in both directions.  Returns the output tensor (batched over leading dims);
-    ``oup`` is accepted for signature parity and ignored.  The plan's stage
-    pipeline runs the transform, on the input's device."""
+    ``oup`` is accepted for signature parity and ignored.
+
+    Host input (a numpy array, list or tuple) of N <= 65,536 is transformed
+    in float64 on the host, as the reference's does with its native fp64
+    engine, cast to complex64 and returned on the card.  A tensor takes the
+    plan's stage pipeline on its own device."""
     if obj is None:
         raise ValueError("fft_exec: NULL plan")
     in_len = np.shape(inp)[-1] if np.ndim(inp) else 0
     if in_len != obj.N:
         raise ValueError(f"fft_exec: input length {in_len} != plan N {obj.N}")
+    if isinstance(inp, (np.ndarray, list, tuple)) and obj.N <= 65536:
+        x64 = np.asarray(inp, dtype=np.complex128)
+        # compat sgn=+1 is numpy's forward kernel e^{-2πi·nk/N}; sgn=-1 the
+        # unnormalized inverse
+        out = np.fft.fft(x64) if obj.sgn == 1 else np.fft.ifft(x64, norm="forward")
+        return as_tensor(out.astype(np.complex64))
     xr, xi = to_planes(inp)
     zr, zi = exec_complex(obj._plan, xr, xi)
     return from_planes(zr, zi)

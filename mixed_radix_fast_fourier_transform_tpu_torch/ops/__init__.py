@@ -3,8 +3,11 @@ Chebyshev, Hankel, chirp-z and fractional transforms, the signal-analysis,
 wavelet, auditory and mel families, IIR filters, LTI systems, splines, the
 Kalman filter, time-frequency representations, scattering, the constant-Q
 transform and audio features, the non-uniform FFTs and tomography, the
-spherical harmonic transforms, the stage pipeline and the fused Stockham
-kernel."""
+spherical harmonic transforms, the radar and radio front end (waveforms,
+pulse compression and CFAR, the polyphase filterbank, beamforming,
+subspace estimators, peak picking), wavelets and adaptive decompositions,
+image registration and filters, adaptive filters, AR and data-driven
+estimators, the stage pipeline and the fused Stockham kernel."""
 
 from .fft import (
     fft, ifft, fft2, ifft2, fftn, ifftn,
@@ -26,7 +29,8 @@ from .stockham import exec_bluestein, exec_complex, exec_mixed_radix
 # windows, cwt, ...) share their names with their main functions, which the
 # package itself exports; here they stay modules.
 from . import (
-    auditory, chebyshev, cqt, cwt, czt, dct, feature, fht, frft, hos, iir, kalman, lticlasses,
-    ltisys, mdct, mel, nufft, scattering, sht, shorttime, signal, splines, stft, tfr, tomo,
-    windows,
+    adaptive, ar, auditory, beamform, chebyshev, cqt, cwt, czt, datadriven, dct, dtcwt, dwt,
+    emd, ewt, feature, fht, frft, hos, iir, kalman, lticlasses, ltisys, mdct, mel, ndimage,
+    nufft, peaks, pfb, radar, register, scattering, sht, shorttime, signal, splines, stft,
+    subspace, tfr, tomo, vmd, waveforms, windows,
 )

@@ -90,6 +90,16 @@ def clear_constants() -> None:
         _TABLES.clear()
 
 
+def to_host(x, dtype=None) -> np.ndarray:
+    """``x`` as a numpy array on the host (``dtype`` if given): a tensor is
+    detached and copied from its device; anything else goes through
+    ``np.asarray``.  For the stages that the JAX package runs on the host
+    in float64 by design (eigen and rooting work, sifting, peak picking)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().resolve_conj().cpu().numpy()
+    return np.asarray(x, dtype)
+
+
 def working(x) -> Tensor:
     """``x`` (through :func:`as_tensor`) in the working precision: fp32, or
     complex64 for complex data; float64, complex128 and integers are cast,
@@ -147,6 +157,8 @@ def pad_last(x: Tensor, left: int, right: int, mode: str = "constant", cval=0.0)
                           x[..., -1:].expand(*lead, right)], dim=-1)
     if mode == "wrap":
         n = x.shape[-1]
+        if left <= n and right <= n:
+            return torch.cat([x[..., n - left:], x, x[..., :right]], dim=-1)
         rl, rr = -(-left // n), -(-right // n)
         tiled = x.repeat(*([1] * len(lead)), rl + 1 + rr)
         start = rl * n - left

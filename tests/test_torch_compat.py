@@ -49,6 +49,31 @@ def test_fft_init_exec(n, sgn):
     compat.free_fft(obj)
 
 
+@pytest.mark.parametrize("n", [13, 257, 1024, 5040])
+@pytest.mark.parametrize("sgn", [1, -1])
+def test_fft_exec_host_input_is_float64(n, sgn, monkeypatch):
+    """numpy input of N <= 65,536 is transformed in float64 on the host, as
+    the JAX package's native fp64 engine does, then cast to complex64: the
+    two agree to the cast's rounding, 1.2e-7 of max|want|.  The result goes
+    where numpy input goes (the card; the CPU here)."""
+    from mixed_radix_fast_fourier_transform_tpu_torch.utils import numerics
+
+    monkeypatch.setattr(compat, "as_tensor", lambda x: numerics.as_tensor(x, "cpu"))
+    x = _complex((3, n), 1000 + n)
+    obj, jobj = compat.fft_init(n, sgn), jcompat.fft_init(n, sgn)
+    got = compat.fft_exec(obj, x)
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.complex64
+    want = np.asarray(jcompat.fft_exec(jobj, x))
+    assert want.dtype == np.complex64
+    assert _rel(got.numpy(), want) <= 1.2e-7
+    x64 = x.astype(np.complex128)
+    exact = np.fft.fft(x64) if sgn == 1 else np.fft.ifft(x64) * n
+    assert _rel(got.numpy(), exact) <= 1.2e-7
+    # a tensor keeps the stage pipeline on its own device
+    dev = compat.fft_exec(obj, torch.from_numpy(x))
+    assert dev.device.type == "cpu" and _rel(dev.numpy(), exact) <= TOL
+
+
 def test_fft_init_exec_invalid():
     assert compat.fft_init(0, 1) is None
     with pytest.raises(ValueError):

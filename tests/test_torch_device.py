@@ -192,6 +192,66 @@ def test_as_tensor_keeps_tensors_and_places_arrays():
     lambda x: tp.rotate_sht(np.ones((7, 4), np.complex64), 0.1, 0.2, 0.3),
     lambda x: tp.models.sfno.init_sfno(1, 2, 1, 3),
     lambda x: tp.models.sfno.SFNO(1, 2, 1, 3),
+    lambda x: tp.chirp(x, 1.0, 1.0, 4.0),
+    lambda x: tp.sweep_poly(x, [1.0, 2.0]),
+    lambda x: tp.gausspulse(x),
+    lambda x: tp.sawtooth(x),
+    lambda x: tp.square(x),
+    lambda x: tp.unit_impulse(8),
+    lambda x: tp.pulse_compression(x, x[:3]),
+    lambda x: tp.range_doppler(np.ones((4, 8), np.complex64), x[:3]),
+    lambda x: tp.cfar(np.ones(32, np.float32), 2, 1),
+    lambda x: tp.pfb_analysis(np.ones(64, np.float32), 4, 2),
+    lambda x: tp.pfb_synthesis(np.ones((4, 4), np.complex64), 2),
+    lambda x: tp.spatial_covariance(np.ones((2, 4), np.complex64)),
+    lambda x: tp.bartlett_spectrum(np.eye(2, dtype=np.complex64), 2),
+    lambda x: tp.mvdr_spectrum(np.eye(2, dtype=np.complex64), 2),
+    lambda x: tp.mvdr_weights(np.eye(2, dtype=np.complex64), 2, 0.0),
+    lambda x: tp.corr_matrix(x, 2),
+    lambda x: tp.music(np.ones(16, np.float32), 1),
+    lambda x: tp.root_music(np.ones(16, np.float32), 1),
+    lambda x: tp.esprit(np.ones(16, np.float32), 1),
+    lambda x: tp.pisarenko(np.ones(16, np.float32), 1),
+    lambda x: tp.medfilt(x),
+    lambda x: tp.medfilt2d(np.ones((4, 4), np.float32)),
+    lambda x: tp.order_filter(x, np.ones(3), 1),
+    lambda x: tp.dwt(x),
+    lambda x: tp.idwt(x[:4], x[:4]),
+    lambda x: tp.dwt2(np.ones((4, 4), np.float32)),
+    lambda x: tp.idwt2(np.ones((2, 2), np.float32), [np.ones((2, 2), np.float32)] * 3),
+    lambda x: tp.wavedec(x, "haar", 2),
+    lambda x: tp.waverec([x[:2], x[:2], x[:4]], "haar"),
+    lambda x: tp.wavedec2(np.ones((4, 4), np.float32), "haar"),
+    lambda x: tp.waverec2([np.ones((2, 2), np.float32), [np.ones((2, 2), np.float32)] * 3], "haar"),
+    lambda x: tp.swt(x, "haar"),
+    lambda x: tp.iswt([(x, x)], "haar"),
+    lambda x: tp.swt2(np.ones((4, 4), np.float32), "haar"),
+    lambda x: tp.iswt2([(np.ones((4, 4), np.float32), [np.ones((4, 4), np.float32)] * 3)], "haar"),
+    lambda x: tp.wpdec(x, "haar"),
+    lambda x: tp.wprec([x[:4], x[:4]], "haar"),
+    lambda x: tp.wpdec2(np.ones((4, 4), np.float32), "haar"),
+    lambda x: tp.wprec2([[np.ones((2, 2), np.float32)] * 2] * 2, "haar"),
+    lambda x: tp.wavelet_denoise(x, "haar"),
+    lambda x: tp.wavelet_denoise2(np.ones((8, 8), np.float32), "haar"),
+    lambda x: tp.cycle_spin(x, lambda v: v, 1),
+    lambda x: tp.dtcwt(x, 2),
+    lambda x: tp.idtcwt(np.ones((2, 2), np.float32), [np.ones(4, np.complex64), np.ones(2, np.complex64)]),
+    lambda x: tp.dtcwt2(np.ones((8, 8), np.float32), 2),
+    lambda x: tp.idtcwt2(np.ones((4, 4, 4), np.float32), [np.ones((6, 4, 4), np.complex64)]),
+    lambda x: tp.ewt(np.ones(64, np.float32), boundaries=[0.2]),
+    lambda x: tp.hilbert_huang(np.sin(np.arange(64.0))),
+    lambda x: tp.vmd(x, 2, n_iter=1),
+    lambda x: tp.phase_cross_correlation(np.ones((4, 4), np.float32), np.ones((4, 4), np.float32)),
+    lambda x: tp.fourier_shift(np.ones((4, 4), np.float32), [1.0, 0.0]),
+    lambda x: tp.unwrap_phase_2d(np.ones((4, 4), np.float32)),
+    lambda x: tp.fourier_gaussian(x, 1.0),
+    lambda x: tp.fourier_uniform(x, 1.0),
+    lambda x: tp.fourier_ellipsoid(x, 1.0),
+    lambda x: tp.wiener(x),
+    lambda x: tp.lms_filter(x, x, 2),
+    lambda x: tp.nlms_filter(x, x, 2),
+    lambda x: tp.rls_filter(x, x, 2),
+    lambda x: tp.ar_psd(np.array([1.0, -0.5]), 1.0, 8),
 ], ids=lambda f: None)
 def test_numpy_input_without_a_device_needs_the_card(call):
     if torch.cuda.is_available():
@@ -217,6 +277,73 @@ def test_cpu_tensor_and_cpu_device_work():
     assert tp.isht_recurrence(torch.ones(7, 4, dtype=torch.complex64)).device.type == "cpu"
     params = tp.models.sfno.init_sfno(1, 2, 1, 3, device="cpu")
     assert tp.models.sfno.apply(params, torch.ones(1, 1, 4, 8)).device.type == "cpu"
+
+
+_CPU = torch.arange(16, dtype=torch.float32) % 5
+_IMG = (torch.arange(64, dtype=torch.float32) % 7).reshape(8, 8)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: tp.chirp(torch.linspace(0, 1, 8), 1.0, 1.0, 4.0),
+    lambda: tp.square(torch.linspace(0, 9, 8)),
+    lambda: tp.unit_impulse(8, device="cpu"),
+    lambda: tp.pulse_compression(_CPU, np.ones(3, np.float32)),
+    lambda: tp.range_doppler(_IMG, np.ones(3, np.float32)),
+    lambda: tp.cfar(_CPU, 2, 1)[1],
+    lambda: tp.pfb_analysis(_CPU.repeat(4), 4, 2),
+    lambda: tp.pfb_synthesis(tp.pfb_analysis(_CPU.repeat(4), 4, 2, mode="full"), 2),
+    lambda: tp.spatial_covariance(_IMG[:4]),
+    lambda: tp.mvdr_spectrum(torch.eye(4, dtype=torch.complex64), 4)[1],
+    lambda: tp.mvdr_weights(torch.eye(4, dtype=torch.complex64), 4, 10.0),
+    lambda: tp.bartlett_spectrum(torch.eye(4, dtype=torch.complex64), 4)[1],
+    lambda: tp.medfilt2d(_IMG),
+    lambda: tp.wavedec(_CPU, "db2", 2)[0],
+    lambda: tp.wavedec2(_IMG, "haar", 2)[0],
+    lambda: tp.swt(_CPU, "db2", 2)[0][0],
+    lambda: tp.dtcwt(_CPU, 2)[0],
+    lambda: tp.dtcwt2(_IMG, 2)[1][0],
+    lambda: tp.wavelet_denoise(_CPU, "haar"),
+    lambda: tp.ewt(_CPU.repeat(4), boundaries=[0.2])[0],
+    lambda: tp.hilbert_huang(torch.sin(torch.arange(64.0)))[1],
+    lambda: tp.vmd(_CPU, 2, n_iter=2)[0],
+    lambda: tp.phase_cross_correlation(_IMG, torch.roll(_IMG, 1, 0), 4)[0],
+    lambda: tp.fourier_shift(_IMG, torch.tensor([0.5, 1.0])),
+    lambda: tp.unwrap_phase_2d(_IMG),
+    lambda: tp.fourier_ellipsoid(_IMG, 2.0),
+    lambda: tp.wiener(_IMG),
+    lambda: tp.lms_filter(_CPU, _CPU, 2)[2],
+    lambda: tp.rls_filter(_CPU, _CPU, 2)[2],
+    lambda: tp.ar_psd(torch.tensor([1.0, -0.5]), 1.0, 8)[1],
+], ids=lambda f: None)
+def test_the_radar_wavelet_and_image_ops_keep_cpu_tensors_on_the_cpu(call):
+    """A CPU tensor in, every tensor out on the CPU: the host tables these
+    ops keep follow the data."""
+    out = call()
+    assert isinstance(out, torch.Tensor) and out.device.type == "cpu"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", [
+    lambda: tp.chirp(np.linspace(0, 1, 8), 1.0, 1.0, 4.0),
+    lambda: tp.unit_impulse(8),
+    lambda: tp.range_doppler(np.ones((4, 8), np.complex64), np.ones(3, np.complex64)),
+    lambda: tp.pfb_analysis(np.ones(64, np.float32), 4, 2),
+    lambda: tp.spatial_covariance(np.ones((4, 8), np.complex64)),
+    lambda: tp.medfilt(np.ones(16, np.float32)),
+    lambda: tp.wavedec(np.ones(16, np.float32), "db2", 2)[0],
+    lambda: tp.dtcwt2(np.ones((8, 8), np.float32), 2)[0],
+    lambda: tp.ewt(np.sin(np.arange(64.0)), boundaries=[0.2])[0],
+    lambda: tp.hilbert_huang(np.sin(np.arange(64.0)))[1],
+    lambda: tp.vmd(np.ones(16, np.float32), 2, n_iter=2)[0],
+    lambda: tp.phase_cross_correlation(np.ones((4, 4), np.float32), np.ones((4, 4), np.float32))[0],
+    lambda: tp.wiener(np.ones((4, 4), np.float32)),
+    lambda: tp.lms_filter(np.ones(16, np.float32), np.ones(16, np.float32), 2)[2],
+    lambda: tp.ar_psd(np.array([1.0, -0.5]), 1.0, 8)[1],
+], ids=lambda f: None)
+def test_the_radar_wavelet_and_image_ops_put_numpy_input_on_the_card(call):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert call().device.type == "cuda"
 
 
 def test_only_the_helper_calls_torch_as_tensor():
@@ -248,7 +375,10 @@ def test_every_module_imports_with_jax_blocked():
         "          'models.audio_frontend', 'utils.scan', 'ops.iir', 'ops.ltisys',\n"
         "          'ops.lticlasses', 'ops.splines', 'ops.kalman', 'ops.tfr', 'ops.scattering',\n"
         "          'ops.cqt', 'ops.feature', 'ops.nufft', 'ops.tomo', 'ops.sht',\n"
-        "          'models.sfno']\n"
+        "          'models.sfno', 'ops.waveforms', 'ops.radar', 'ops.pfb', 'ops.beamform',\n"
+        "          'ops.subspace', 'ops.peaks', 'ops.dwt', 'ops.dtcwt', 'ops.ewt', 'ops.emd',\n"
+        "          'ops.vmd', 'ops.register', 'ops.ndimage', 'ops.adaptive', 'ops.ar',\n"
+        "          'ops.datadriven']\n"
         "assert all(tp.__name__ + '.' + w in names for w in wanted), names\n"
         "print('OK', len(names))\n"
     )
@@ -258,7 +388,10 @@ def test_every_module_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize("module", ["iir", "ltisys", "lticlasses", "splines", "kalman", "tfr",
-                                    "scattering", "cqt", "feature", "nufft", "tomo", "sht"])
+                                    "scattering", "cqt", "feature", "nufft", "tomo", "sht",
+                                    "waveforms", "radar", "pfb", "beamform", "subspace", "peaks",
+                                    "dwt", "dtcwt", "ewt", "emd", "vmd", "register", "ndimage",
+                                    "adaptive", "ar", "datadriven"])
 def test_every_public_name_of_the_jax_module_is_ported(module):
     """Every public function and class of the JAX module (read from its
     source, without importing it) is defined in the port's module of the
@@ -280,19 +413,25 @@ def test_no_library_fft_in_the_port():
     """No result of the port comes from a library FFT: ``torch.fft``,
     ``torch.stft``, ``torch.istft``, ``torchaudio`` and the framework's
     convolutions in place of an engine transform appear in no module of the
-    package (``ops/convolve.py`` alone calls ``F.conv*``, for its direct
-    method), and numpy's float64 FFT only where host design constants are made
-    (Bluestein and chirp-z kernel spectra, the Chebyshev window, DPSS ratios,
-    the taps of ``firwin2`` and ``remez``, the reassignment's derivative
-    window, the CQT's spectral kernel) or a host frequency grid is laid
-    out (``np.fft.fftfreq``/``rfftfreq``/``fftshift``)."""
+    package (``ops/convolve.py`` calls ``F.conv*`` for its direct method,
+    and ``ops/dwt.py`` for the wavelet filter banks, which are short FIR
+    filters and no transform), and numpy's float64 FFT only where host
+    design constants are made (Bluestein and chirp-z kernel spectra, the
+    Chebyshev window, DPSS ratios, the taps of ``firwin2`` and ``remez``,
+    the reassignment's derivative window, the CQT's spectral kernel, the
+    PFB's branch spectra, the dual-tree bank's analyticity check), where
+    the JAX module itself runs a float64 transform on the host
+    (``compat.fft_exec`` on host input, ``ewt_boundaries``' spectrum) or a
+    host frequency grid is laid out (``np.fft.fftfreq``/``rfftfreq``/
+    ``fftshift``)."""
     torch_hits, numpy_files, numpy_transforms = [], set(), set()
     for path in sorted(PACKAGE.rglob("*.py")):
         rel = str(path.relative_to(PACKAGE))
         for i, line in enumerate(path.read_text().splitlines(), 1):
             if re.search(r"torch\.(fft\b|stft\(|istft\()|torchaudio", line):
                 torch_hits.append(f"{rel}:{i}")
-            if re.search(r"\bF\.conv\w*\(|functional\.conv", line) and rel != "ops/convolve.py":
+            if re.search(r"\bF\.conv\w*\(|functional\.conv", line) and rel not in (
+                    "ops/convolve.py", "ops/dwt.py"):
                 torch_hits.append(f"{rel}:{i}")
             if re.search(r"\bnp\.fft\.i?r?fft[2n]?\(", line):
                 numpy_transforms.add(rel)
@@ -302,11 +441,14 @@ def test_no_library_fft_in_the_port():
     assert numpy_files == {"plan.py", "ops/czt.py", "ops/stft.py", "ops/shorttime.py",
                            "ops/signal.py", "ops/cwt.py", "ops/auditory.py", "ops/mel.py",
                            "ops/tfr.py", "ops/scattering.py", "ops/feature.py",
-                           "ops/cqt.py"}, numpy_files
+                           "ops/cqt.py", "compat.py", "ops/pfb.py", "ops/vmd.py",
+                           "ops/register.py", "ops/ndimage.py", "ops/ewt.py",
+                           "ops/dtcwt.py"}, numpy_files
     # a float64 transform on the host: plan and window constants, the two
     # filter designs that end in an inverse DFT of their sampled response, the
     # derivative window of the reassignment, and the CQT's spectral kernel
     assert numpy_transforms == {"plan.py", "ops/czt.py", "ops/stft.py", "ops/signal.py",
-                                "ops/tfr.py", "ops/cqt.py"}, numpy_transforms
+                                "ops/tfr.py", "ops/cqt.py", "compat.py", "ops/pfb.py",
+                                "ops/ewt.py", "ops/dtcwt.py"}, numpy_transforms
     text = (PACKAGE / "ops/signal.py").read_text()
     assert len(re.findall(r"np\.fft\.i?r?fft[2n]?\(", text)) == 2   # remez, firwin2
