@@ -138,17 +138,42 @@ Phases, each of which raises on failure:
     filters, LMS/NLMS/RLS with 256 taps on 8,000 samples, ``ar_psd``,
     ``ssa`` and ``dmd``; each with its launches, device and back-to-back
     times, idle share and peak memory; then the kernel against
-    ``torch.fft.fft`` at the shapes of phases 19-24.
+    ``torch.fft.fft`` at the shapes of phases 19-24;
+25. ``parallel/`` on a NCCL world of one (mesh (1, 1), joined through
+    ``initialize_multihost``, left at the phase's end), at BASELINE config
+    5's width: ``require_four_step_hbm(65536, 4096, 1)``; the distributed
+    complex filter at n = 65,536, batch 4,096: its forward against float64
+    ``torch.fft`` on 3 rows, one step's gradients on those rows against
+    float64, peak memory, five ``train_step_distributed``s with a finite,
+    falling loss; ``fft_convolve_sharded`` of 65,408-sample signals with 129
+    taps, "same", against ``scipy.signal.fftconvolve`` on 3 rows; FNet-Base's
+    ``fourier_mix_distributed``, ``apply_distributed`` and one
+    ``train_step_distributed`` against the single-device model;
+    ``rfft_four_step``/``irfft_four_step`` and ``fft_batch_sharded`` at 64 x
+    65,536; K1's launches counted and held against its plain version on the
+    first rows of every plane pair; then, in a fresh process (``python3
+    chip_smoke.py parallel-timings``), each call's device time (profiler
+    sum), back-to-back time, idle share, K1 share, all-to-all time and peak
+    memory;
+26. the rest of ``parallel/`` on a new world of one, one shape each, against
+    the port's single-device function: ``fftn_pencil2``, ``rfftn_pencil2``
+    and ``poisson_solve_pencil2`` at 256³, ``fft2_pencil`` at 2,048² (and
+    float64 on 4 rows), the sharded NUFFTs and SHTs at phases 21-22's sizes,
+    ``kalman_filter_sharded`` on 4 tracks of 10,000 steps,
+    ``pfb_analysis_sharded`` and ``range_doppler_cfar_sharded`` at phase
+    23's sizes; then ``export_transform``/``load_transform`` of ``fft`` at
+    64 x 4,096 on the card against the live call.
 
 ``python3 chip_smoke.py audio`` runs phases 1, 2 and 15-17 alone,
 ``python3 chip_smoke.py recurrence`` phases 1, 2 and 18-20,
 ``python3 chip_smoke.py sphere`` phases 1, 2, 21 and 22, and
-``python3 chip_smoke.py frontend`` phases 1, 2, 23 and 24 (for development;
-they print no result line).
+``python3 chip_smoke.py frontend`` phases 1, 2, 23 and 24, and
+``python3 chip_smoke.py parallel`` phases 1, 2, 25 and 26 (for
+development; they print no result line).
 
 The last lines are one JSON line about the kernels (launches of phases 4, 8,
-9, 12, 13, 15, 16, 18, 19, 21, 22, 23 and 24; error over the plane pairs those launches were handed:
-every pair of phases 4, 9, 12, 13, 15, 16, 19, 21, 22, 23 and 24, and in phase 8 the first step's three, every
+9, 12, 13, 15, 16, 18, 19, 21, 22, 23, 24, 25 and 26; error over the plane pairs those launches were handed:
+every pair of phases 4, 9, 12, 13, 15, 16, 19, 21, 22, 23 and 24, the first rows of phase 25's, and in phase 8 the first step's three, every
 later backward's and the four of the step with an input gradient; times on
 the main path's batch-1024 planes), the card, then ``{"ok": true, "device":
 {...}}``.
@@ -177,7 +202,7 @@ import torch
 
 import mixed_radix_fast_fourier_transform_tpu_torch as tp
 from kernel_bench import SHAPES as YARDSTICK_SHAPES, graph_us, wrapper_us
-from mixed_radix_fast_fourier_transform_tpu_torch import compat
+from mixed_radix_fast_fourier_transform_tpu_torch import compat, parallel
 from mixed_radix_fast_fourier_transform_tpu_torch.models import (
     afno, audio_frontend, fnet, fno, koopman, s4d, sfno,
 )
@@ -333,7 +358,9 @@ def device_and_wall_us(fn, calls: int = 20) -> dict:
     ``calls`` back-to-back calls without it (CUDA events); ``idle_share``,
     1 - device_us / wall_us; ``kernels``, the device kernels (and copies) per
     call; ``k1_us``, the fused kernel's part of the device time; and
-    ``by_name``, the device µs per call by kernel name, largest first."""
+    ``by_name``, the device µs per call by kernel name, largest first;
+    ``collective_spans``, the device µs per call of each NCCL collective's
+    span (its copies and kernels, which ``device_us`` counts once)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -349,7 +376,14 @@ def device_and_wall_us(fn, calls: int = 20) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a NCCL collective also shows as an annotation ("nccl:all_to_all")
+    # spanning its own copies and kernels: kept apart, not counted twice
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("nccl:")]
+    spans = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.name.startswith("nccl:"):
+            spans[e.name] = spans.get(e.name, 0.0) + e.device_time_total / calls
     dev = sum(e.device_time_total for e in on_card)
     k1 = sum(e.device_time_total for e in on_card if "stockham_fft_kernel" in e.name)
     by_name = {}
@@ -359,7 +393,8 @@ def device_and_wall_us(fn, calls: int = 20) -> dict:
     device_us = dev / calls if dev > 0 else None
     return {"device_us": device_us, "wall_us": wall_us,
             "idle_share": None if device_us is None else 1.0 - device_us / wall_us,
-            "kernels": len(on_card) / calls, "k1_us": k1 / calls, "by_name": by_name}
+            "kernels": len(on_card) / calls, "k1_us": k1 / calls, "by_name": by_name,
+            "collective_spans": spans}
 
 
 def fft_bound_ms(n: int, rows: int):
@@ -3492,6 +3527,414 @@ def slice_yardstick(card: str) -> None:
                     "back-to-back launches, 10 replays, CUDA events", "shapes": rows}}))
 
 
+# ---------------------------------------------------------------------------
+# Phases 25-26: parallel/ on a NCCL world of one (mesh (1, 1)).
+# ---------------------------------------------------------------------------
+
+# BASELINE.md config 5: 65,536-point FFT convolution, batch 4,096, sharded
+# over the mesh by the four-step all-to-all transform.  2 GiB a live copy of
+# the (re, im) fp32 planes.
+PAR_N, PAR_BATCH = 65536, 4096
+PAR_CONV_SIGNAL, PAR_CONV_TAPS = 65408, 129   # mode "same" pads to 65,536
+PAR_STEPS = 5
+# the filter learns a gain and a delay: target = 0.5·x delayed 3 samples.
+# x has standard deviation √n, so |X_k|² ≈ n² / n = n and the Hessian of
+# the loss in every gain entry and in the bias is ≈ 2: lr 0.25 halves the
+# error a step
+PAR_SCALE, PAR_LR, PAR_DELAY = float(PAR_N) ** 0.5, 0.25, 3
+PAR_ORACLE_ROWS = (0, PAR_BATCH // 2 - 1, PAR_BATCH - 1)
+PAR_FNET_BATCH = 8                   # FNet-Base: sequence 512, hidden 768, 12 layers
+PAR_RFFT_SHAPE = (64, PAR_N)
+PAR_KERNEL_ROWS = 4096               # rows of each recorded plane pair held against the plain K1
+PENCIL_N, PENCIL2D_N = 256, 2048
+PAR_KALMAN_TRACKS = 4
+EXPORT_SHAPE = (64, 4096)
+
+
+def world_of_one():
+    """Joins a NCCL world of one through the port's own entry point and
+    builds the (1, 1) mesh on the card; raises if NCCL does not start."""
+    import torch.distributed as dist
+
+    rank, world = parallel.initialize_multihost(device=CARD)
+    require((rank, world) == (0, 1), f"world {rank}/{world}, expected a world of one")
+    require(dist.get_backend() == ("nccl" if CARD == "cuda" else "gloo"),
+            f"backend {dist.get_backend()} on {CARD}")
+    mesh = parallel.make_mesh((1, 1), device=CARD)
+    require(mesh.device_type == CARD, f"mesh on {mesh.device_type}")
+    return mesh
+
+
+def end_world() -> None:
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def local(x) -> torch.Tensor:
+    """A DTensor's block on this rank (the whole array in a world of one)."""
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
+def sampled(seen, rows: int = PAR_KERNEL_ROWS):
+    """The first ``rows`` rows of every recorded plane pair."""
+    return [(xr.reshape(-1, n)[:rows].contiguous(), xi.reshape(-1, n)[:rows].contiguous(), n,
+             sign) for xr, xi, n, sign in seen]
+
+
+def filter_oracle64(params, x64: torch.Tensor) -> torch.Tensor:
+    """The distributed filter in float64 on the CPU: Re(ifft(fft(x)·g)) + b."""
+    g = torch.complex(params["gain_re"].double(), params["gain_im"].double()).cpu()
+    return torch.fft.ifft(torch.fft.fft(x64) * g).real + params["bias"].double().cpu()
+
+
+def parallel_main(rng, card: str):
+    """Phase 25: the slice's main path at config 5 width on a NCCL world of
+    one: the distributed complex filter's forward and five train steps, the
+    sharded convolution, FNet-Base's sequence-parallel mix, forward and
+    step, ``rfft_four_step`` and ``fft_batch_sharded``, each against float64
+    or the port's single-device route; then their device times from a fresh
+    process (see ``parallel_timings``).  Returns the launches and the
+    kernel's worst abs error on the plane pairs it was handed."""
+    from mixed_radix_fast_fourier_transform_tpu_torch.models import spectral_filter as sf
+    from mixed_radix_fast_fourier_transform_tpu_torch.utils.profiling import require_four_step_hbm
+
+    mesh = world_of_one()
+    par = parallel
+    est = require_four_step_hbm(PAR_N, PAR_BATCH, 1)
+    log(f"require_four_step_hbm({PAR_N}, {PAR_BATCH}, 1): {est}")
+    cuda_fft.LAUNCHES = 0
+    launches, worst = {}, []
+
+    def counted(name, fn, record=True):
+        """``fn()`` with its K1 launches counted and, with ``record``, K1
+        held against its plain version on the first rows of every plane
+        pair it was handed (a record copies each pair: 2 GiB at config 5)."""
+        before = cuda_fft.LAUNCHES
+        with recorded_launches() if record else contextlib.nullcontext([]) as seen:
+            out = fn()
+            torch.cuda.synchronize()
+        launches[name] = launches.get(name, 0) + cuda_fft.LAUNCHES - before
+        worst.append(kernel_errors(sampled(seen), f"{name} planes") if seen else 0.0)
+        return out
+
+    # the distributed complex filter, n = 65,536, batch 4,096
+    gen = torch.Generator(device=CARD).manual_seed(SEED)
+    params = sf.init_params_complex(PAR_N, generator=gen, device=CARD)
+    x = torch.randn(PAR_BATCH, PAR_N, device=CARD, generator=gen) * PAR_SCALE
+    target = 0.5 * torch.roll(x, PAR_DELAY, dims=-1)
+    rows = list(PAR_ORACLE_ROWS)
+    x64 = x[rows].double().cpu()
+    with torch.no_grad():
+        y = counted("filter forward", lambda: sf.apply_distributed(params, x, mesh))
+    require(tuple(y.shape) == (PAR_BATCH, PAR_N) and local(y).device.type == CARD,
+            f"apply_distributed {tuple(y.shape)} on {local(y).device}")
+    err = rel_err(local(y)[rows].cpu().numpy(), filter_oracle64(params, x64).numpy())
+    log(f"apply_distributed {PAR_BATCH} x {PAR_N}: rel err {err:.3e} vs float64 on rows {rows}")
+    require(err <= ORACLE_TOL, f"distributed filter forward error {err:.3e}")
+    del y
+
+    # one step's gradients on the oracle rows against float64 torch.fft
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    loss = sf.loss_distributed(leaves, x[rows], target[rows], mesh)
+    grads = torch.autograd.grad(loss, [leaves[k] for k in sorted(leaves)])
+    ref = {k: v.detach().double().cpu().requires_grad_(True) for k, v in params.items()}
+    loss64 = torch.mean((filter_oracle64(ref, x64) - target[rows].double().cpu()) ** 2)
+    want = torch.autograd.grad(loss64, [ref[k] for k in sorted(ref)])
+    errs = [rel_err(g.cpu().numpy(), w.numpy()) for g, w in zip(grads, want)]
+    err = max(errs + [abs(float(loss.detach()) - float(loss64.detach())) / float(loss64.detach())])
+    log(f"loss_distributed gradients on rows {rows} ({', '.join(sorted(leaves))}): rel err "
+        f"{', '.join(f'{e:.3e}' for e in errs)} vs float64 torch.fft")
+    require(err <= ROUTES_TOL, f"distributed filter gradients error {err:.3e}")
+    del leaves, loss, grads, ref, want
+
+    _, gib = peak_gib(lambda: sf.train_step_distributed(params, x, target, mesh, lr=PAR_LR))
+    log(f"train_step_distributed peak device memory {gib:.3f} GiB (estimate_four_step_hbm: "
+        f"{est['total_gb']} GB at copies=6)")
+    losses = []
+    for step in range(PAR_STEPS):
+        params, loss = counted("filter train step", lambda: sf.train_step_distributed(
+            params, x, target, mesh, lr=PAR_LR), record=step == 0)
+        losses.append(float(loss))
+    log(f"train_step_distributed x {PAR_STEPS}: losses {losses}")
+    require(all(math.isfinite(v) for v in losses) and all(
+        b < a for a, b in zip(losses, losses[1:])), f"losses not finite and falling: {losses}")
+    del x, target, x64, params
+
+    # config 5: the sharded FFT convolution, 65,408 samples, 129 taps, "same"
+    xs = torch.randn(PAR_BATCH, PAR_CONV_SIGNAL, device=CARD, generator=gen)
+    taps = rng.standard_normal(PAR_CONV_TAPS)
+    with torch.no_grad():
+        out = counted("fft_convolve_sharded", lambda: par.fft_convolve_sharded(
+            xs, taps, mesh, mode="same"))
+    want = scipy.signal.fftconvolve(xs[rows].double().cpu().numpy(), taps[None], mode="same")
+    err = rel_err(local(out)[rows].cpu().numpy(), want)
+    log(f"fft_convolve_sharded {PAR_BATCH} x {PAR_CONV_SIGNAL}, {PAR_CONV_TAPS} taps, same: "
+        f"rel err {err:.3e} vs scipy float64 on rows {rows}")
+    require(tuple(out.shape) == tuple(xs.shape) and err <= ORACLE_TOL,
+            f"fft_convolve_sharded {tuple(out.shape)} error {err:.3e}")
+    del xs, out
+
+    # FNet-Base, sequence parallel, against the port's single-device model
+    fp = fnet.init_fnet(**FNET, generator=gen, device=CARD)
+    xf = rng.standard_normal((PAR_FNET_BATCH, FNET_SEQ, FNET["hidden"])).astype(np.float32)
+    tf = rng.standard_normal(xf.shape).astype(np.float32)
+    with torch.no_grad():
+        mix = counted("fnet mix", lambda: fnet.fourier_mix_distributed(xf, mesh))
+        err = rel_err(local(mix).cpu().numpy(), fnet.fourier_mix(xf).cpu().numpy())
+        log(f"fourier_mix_distributed {xf.shape}: rel err {err:.3e} vs fourier_mix")
+        require(err <= ROUTES_TOL, f"fourier_mix_distributed error {err:.3e}")
+        out = counted("fnet forward", lambda: fnet.apply_distributed(fp, xf, mesh))
+        err = rel_err(local(out).cpu().numpy(), fnet.apply(fp, xf).cpu().numpy())
+        log(f"FNet-Base apply_distributed: rel err {err:.3e} vs apply")
+        require(err <= ROUTES_TOL, f"FNet apply_distributed error {err:.3e}")
+    new, loss = counted("fnet train step", lambda: fnet.train_step_distributed(
+        fp, xf, tf, mesh, lr=1e-3))
+    ref_new, ref_loss = fnet.train_step(fp, xf, tf, lr=1e-3)
+    errs = [abs(float(loss) - float(ref_loss)) / float(ref_loss)] + [
+        rel_err(a.cpu().numpy(), b.cpu().numpy())
+        for a, b in zip(tree_leaves(new), tree_leaves(ref_new))]
+    log(f"FNet-Base train_step_distributed: loss {float(loss):.6f}, worst rel err over loss "
+        f"and {len(errs) - 1} new leaves {max(errs):.3e} vs train_step")
+    require(max(errs) <= ROUTES_TOL, f"FNet train_step_distributed error {max(errs):.3e}")
+    del fp, new, ref_new, mix, out
+
+    # the real four-step and the batch-sharded FFT at 65,536 x 64
+    xr = rng.standard_normal(PAR_RFFT_SHAPE).astype(np.float32)
+    with torch.no_grad():
+        spec = counted("rfft_four_step", lambda: par.rfft_four_step(xr, mesh))
+        few = [0, PAR_RFFT_SHAPE[0] - 1]
+        err = rel_err(local(spec)[few].cpu().numpy(), np.fft.rfft(xr[few].astype(np.float64)))
+        log(f"rfft_four_step {xr.shape}: rel err {err:.3e} vs float64 on rows {few}")
+        require(err <= ORACLE_TOL, f"rfft_four_step error {err:.3e}")
+        back = par.irfft_four_step(spec, mesh)
+        err = rel_err(local(back).cpu().numpy(), xr)
+        log(f"irfft_four_step round trip: rel err {err:.3e}")
+        require(err <= ORACLE_TOL, f"irfft_four_step error {err:.3e}")
+        xc = (xr + 1j * rng.standard_normal(xr.shape)).astype(np.complex64)
+        out = counted("fft_batch_sharded", lambda: par.fft_batch_sharded(xc, mesh))
+        err = rel_err(local(out)[few].cpu().numpy(), np.fft.fft(xc[few].astype(np.complex128)))
+        log(f"fft_batch_sharded {xc.shape}: rel err {err:.3e} vs float64 on rows {few}")
+        require(err <= ORACLE_TOL, f"fft_batch_sharded error {err:.3e}")
+    del spec, back, out
+    end_world()
+    torch.cuda.empty_cache()
+
+    total = sum(launches.values())
+    log("parallel main path kernel launches: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    require(launches["filter forward"] == 4 and launches["fft_convolve_sharded"] == 4
+            or not ON_CARD,
+            f"kernel launches {launches}: the four-step's local transforms missed the kernel")
+    # device times in a fresh process: late in a long run the profiler drops events
+    done = subprocess.run([sys.executable, __file__, "parallel-timings"], capture_output=True,
+                          text=True, timeout=600)
+    sys.stdout.write(done.stdout)
+    require(done.returncode == 0, f"parallel timings failed:\n{done.stderr[-3000:]}")
+    return total, max(worst)
+
+
+def parallel_timings(card: str) -> None:
+    """Phase 25's device times, in a process of its own on a fresh NCCL
+    world of one: per call the torch.profiler sum of device kernels (a NCCL
+    exchange is not captured in a CUDA graph here), back-to-back time, idle
+    share, K1's launches and share, the all-to-alls' device time, and peak
+    memory beside ``estimate_four_step_hbm``."""
+    from mixed_radix_fast_fourier_transform_tpu_torch.models import spectral_filter as sf
+    from mixed_radix_fast_fourier_transform_tpu_torch.utils.profiling import estimate_four_step_hbm
+
+    mesh = world_of_one()
+    par = parallel
+    gen = torch.Generator(device=CARD).manual_seed(SEED)
+    params = sf.init_params_complex(PAR_N, generator=gen, device=CARD)
+    x = torch.randn(PAR_BATCH, PAR_N, device=CARD, generator=gen) * PAR_SCALE
+    target = 0.5 * torch.roll(x, PAR_DELAY, dims=-1)
+    xs = torch.randn(PAR_BATCH, PAR_CONV_SIGNAL, device=CARD, generator=gen)
+    taps = np.random.default_rng(SEED).standard_normal(PAR_CONV_TAPS)
+    fp = fnet.init_fnet(**FNET, generator=gen, device=CARD)
+    xf = torch.randn(PAR_FNET_BATCH, FNET_SEQ, FNET["hidden"], device=CARD, generator=gen)
+    xr = torch.randn(*PAR_RFFT_SHAPE, device=CARD, generator=gen)
+    xc = torch.complex(xr, torch.randn(*PAR_RFFT_SHAPE, device=CARD, generator=gen))
+    est = estimate_four_step_hbm(PAR_N, PAR_BATCH, 1)
+    calls = [
+        ("fft_four_step 4,096 x 65,536", lambda: par.fft_four_step(x, mesh), 5, True),
+        ("filter apply_distributed 4,096 x 65,536", lambda: sf.apply_distributed(
+            params, x, mesh), 5, True),
+        ("filter train_step_distributed 4,096 x 65,536", lambda: sf.train_step_distributed(
+            params, x, target, mesh, lr=PAR_LR), 3, False),
+        ("fft_convolve_sharded 4,096 x 65,408, 129 taps, same", lambda: par.fft_convolve_sharded(
+            xs, taps, mesh, mode="same"), 5, True),
+        ("FNet-Base fourier_mix_distributed 8 x 512 x 768", lambda: fnet.fourier_mix_distributed(
+            xf, mesh), 5, True),
+        ("FNet-Base apply_distributed", lambda: fnet.apply_distributed(fp, xf, mesh), 3, True),
+        ("FNet-Base train_step_distributed", lambda: fnet.train_step_distributed(
+            fp, xf, xf, mesh, lr=1e-3), 3, False),
+        ("rfft_four_step 64 x 65,536", lambda: par.rfft_four_step(xr, mesh), 5, True),
+        ("fft_batch_sharded 64 x 65,536 (stage pipeline)", lambda: par.fft_batch_sharded(
+            xc, mesh), 5, True),
+    ]
+    rows = []
+    for name, fn, n_calls, no_grad in calls:
+        with torch.no_grad() if no_grad else contextlib.nullcontext():
+            _, gib = peak_gib(fn)
+            before = cuda_fft.LAUNCHES
+            fn()
+            torch.cuda.synchronize()
+            k1 = cuda_fft.LAUNCHES - before
+            t = device_and_wall_us(fn, calls=n_calls)
+        nccl = t["collective_spans"].get("nccl:all_to_all", 0.0)
+        row = {"call": name, "device_us_profiler": t["device_us"], "back_to_back_us": t["wall_us"],
+               "idle_share": t["idle_share"], "device_kernels_per_call": t["kernels"],
+               "k1_launches": k1, "k1_device_us": t["k1_us"],
+               "k1_share": None if not t["device_us"] else t["k1_us"] / t["device_us"],
+               "all_to_all_us": nccl, "peak_gib": gib}
+        log(f"{name}: device {t['device_us']} us (torch.profiler sum, fresh process), back to "
+            f"back {t['wall_us']:.2f} us, idle share {t['idle_share']}, {t['kernels']} device "
+            f"kernels, K1 {t['k1_us']:.2f} us in {k1} launches, all-to-alls {nccl:.2f} us, "
+            f"peak {gib:.3f} GiB")
+        for kernel, us in list(t["by_name"].items())[:8]:
+            short = re.sub(r"void |at::native::|\(anonymous namespace\)::|binary_internal::", "",
+                           kernel)
+            log(f"  {us:10.2f} us  {short[:110]}")
+        rows.append(row)
+    log(f"estimate_four_step_hbm({PAR_N}, {PAR_BATCH}, 1): {est}")
+    log(json.dumps({"parallel_timing": {"card": card, "calls": rows, "estimate": est,
+                                        "method": "torch.profiler device-kernel sum in a "
+                                        "fresh process; back to back: CUDA events"}}))
+    end_world()
+
+
+def parallel_rest(rng, card: str):
+    """Phase 26: the rest of parallel/ on a NCCL world of one, one shape
+    each, against the port's single-device function (<= 2e-5) and float64
+    where a few rows are cheap: the pencils at 256³ and 2,048², the sharded
+    NUFFTs and SHTs at phases 21-22's sizes, the batch-sharded Kalman filter,
+    PFB and radar chain at phases 20 and 23's; then an exported ``fft``
+    reloaded on the card against the live call.  Returns the launches."""
+    par = parallel
+    mesh = world_of_one()
+    cuda_fft.LAUNCHES = 0
+    used, rows = {}, []
+
+    def check(name, got, want, tol=ROUTES_TOL):
+        got = local(got)
+        require(got.device.type == CARD, f"{name}: result on {got.device}")
+        err = rel_err(got.cpu().numpy(), want.cpu().numpy() if isinstance(want, torch.Tensor)
+                      else want)
+        log(f"{name}: rel err {err:.3e}")
+        require(err <= tol, f"{name} error {err:.3e}")
+
+    def run(name, fn, calls=3):
+        before = cuda_fft.LAUNCHES
+        out = fn()
+        torch.cuda.synchronize()
+        used[name] = cuda_fft.LAUNCHES - before
+        ms = time_ms(fn, warmup=1, runs=calls)
+        rows.append({"call": name, "ms_per_call": ms, "k1_launches": used[name]})
+        log(f"{name}: {ms:.3f} ms a call (median of {calls}, CUDA events), "
+            f"{used[name]} K1 launches")
+        return out
+
+    gen = torch.Generator(device=CARD).manual_seed(SEED)
+    with torch.no_grad():
+        vol = torch.randn(PENCIL_N, PENCIL_N, PENCIL_N, device=CARD, generator=gen)
+        vc = torch.complex(vol, torch.randn_like(vol))
+        check("fftn_pencil2 256³", run("fftn_pencil2", lambda: par.fftn_pencil2(vc, mesh)),
+              tp.fftn(vc))
+        check("rfftn_pencil2 256³", run("rfftn_pencil2", lambda: par.rfftn_pencil2(vol, mesh)),
+              tp.rfftn(vol))
+        f = vol - vol.mean()
+        check("poisson_solve_pencil2 256³", run("poisson_solve_pencil2",
+              lambda: par.poisson_solve_pencil2(f, mesh)), tp.poisson_solve(f))
+        del vol, vc, f
+        im = torch.complex(*(torch.randn(PENCIL2D_N, PENCIL2D_N, device=CARD, generator=gen)
+                             for _ in range(2)))
+        got = run("fft2_pencil", lambda: par.fft2_pencil(im, mesh))
+        check("fft2_pencil 2048²", got, tp.fft2(im))
+        check("fft2_pencil 2048² (rows 0-3 vs float64)", local(got)[:4],
+              np.fft.fft2(im.cpu().numpy().astype(np.complex128))[:4], ORACLE_TOL)
+        del im, got
+
+        # the NUFFTs at phase 21's sizes: 2^20 points, eps 1e-5
+        xs = rng.uniform(0.0, 2.0 * np.pi, NUFFT_POINTS).astype(np.float32)
+        ys = rng.uniform(-np.pi, np.pi, NUFFT_POINTS).astype(np.float32)
+        cs = complex64(rng, NUFFT_POINTS)
+        xt, yt, ct = cuda32(xs), cuda32(ys), cuda_complex(cs)
+        xst = cuda32(rng.uniform(-np.pi, np.pi, NUFFT_POINTS).astype(np.float32))
+        kw = dict(eps=NUFFT_EPS)
+        check("nufft1_sharded 8,192 modes", run("nufft1_sharded", lambda: par.nufft1_sharded(
+            xt, ct, NUFFT_MODES, mesh, **kw)), tp.nufft1(xt, ct, NUFFT_MODES, method="grid", **kw))
+        f1 = cuda_complex(complex64(rng, NUFFT_MODES))
+        check("nufft2_sharded 8,192 modes", run("nufft2_sharded", lambda: par.nufft2_sharded(
+            xt, f1, mesh, **kw)), tp.nufft2(xt, f1, method="grid", **kw))
+        check("nufft1_2d_sharded 1,024²", run("nufft1_2d_sharded", lambda: par.nufft1_2d_sharded(
+            xst, yt, ct, NUFFT_MODES_2D, mesh, **kw)),
+            tp.nufft1_2d(xst, yt, ct, NUFFT_MODES_2D, method="grid", **kw))
+        f2 = cuda_complex(complex64(rng, *NUFFT_MODES_2D))
+        check("nufft2_2d_sharded 1,024²", run("nufft2_2d_sharded", lambda: par.nufft2_2d_sharded(
+            xst, yt, f2, mesh, **kw)), tp.nufft2_2d(xst, yt, f2, method="grid", **kw))
+        del xt, yt, ct, xst, f1, f2
+
+        # the SHTs at phase 22's sizes
+        fs = cuda32(rng.standard_normal((SHT_BATCH, SHT_L, 2 * SHT_L)))
+        a = run("sht_sharded", lambda: par.sht_sharded(fs, mesh))
+        check(f"sht_sharded L = {SHT_L}, batch {SHT_BATCH}", a, tp.sht(fs))
+        check("isht_sharded", run("isht_sharded", lambda: par.isht_sharded(local(a), mesh)),
+              tp.isht(local(a)))
+        fr = cuda32(rng.standard_normal((SHT_REC_BATCH, SHT_REC_L, 2 * SHT_REC_L)))
+        ar = run("sht_recurrence_sharded", lambda: par.sht_recurrence_sharded(fr, mesh), calls=1)
+        check(f"sht_recurrence_sharded L = {SHT_REC_L}", ar, tp.sht_recurrence(fr))
+        check("isht_recurrence_sharded", run("isht_recurrence_sharded",
+              lambda: par.isht_recurrence_sharded(local(ar), mesh, real_output=True), calls=1),
+              tp.isht_recurrence(local(ar), real_output=True))
+        del fs, a, fr, ar
+
+    # batch-sharded: Kalman tracks (phase 20), the PFB and the radar CPI (phase 23)
+    model = kalman_model()
+    tracks = np.stack([kalman_track(rng, KALMAN_PARALLEL_T) for _ in range(PAR_KALMAN_TRACKS)])
+    ms, Ps = run("kalman_filter_sharded", lambda: par.kalman_filter_sharded(
+        *model, tracks, mesh), calls=1)
+    want = tp.kalman_filter(*model, tracks[1], parallel=True)
+    check(f"kalman_filter_sharded {PAR_KALMAN_TRACKS} tracks, T = {KALMAN_PARALLEL_T:,} (track 1)",
+          local(ms)[1], want[0])
+    check("kalman_filter_sharded covariances (track 1)", local(Ps)[1], want[1])
+    with torch.no_grad():
+        xp = cuda32(rng.standard_normal((PFB_POLS, PFB_SAMPLES)) * 0.1)
+        got = run("pfb_analysis_sharded", lambda: par.pfb_analysis_sharded(
+            xp, PFB["n_channels"], mesh, taps_per_branch=PFB["taps_per_branch"]))
+        want = tp.pfb_analysis(xp, PFB["n_channels"], PFB["taps_per_branch"])
+        check(f"pfb_analysis_sharded {PFB_POLS} x 2^25, {PFB['n_channels']} channels (first "
+              f"{PFB_ORACLE_FRAMES} frames)", local(got)[:, :PFB_ORACLE_FRAMES],
+              want[:, :PFB_ORACLE_FRAMES])
+        require(tuple(got.shape) == tuple(want.shape), f"pfb_analysis_sharded {tuple(got.shape)}")
+        del got, want
+        del xp
+        tx = lfm_pulse(RADAR_PULSE)
+        rx = cuda_complex(radar_cpi(rng, tx))
+        Y, det, th = run("range_doppler_cfar_sharded", lambda: par.range_doppler_cfar_sharded(
+            rx, tx, mesh))
+        Yw = tp.range_doppler(rx, tx)
+        detw, thw = tp.cfar(Yw.real ** 2 + Yw.imag ** 2, axes=(-2, -1))
+        check(f"range_doppler_cfar_sharded {tuple(rx.shape)} map", Y, Yw)
+        check("range_doppler_cfar_sharded thresholds", th, thw)
+        require(torch.equal(local(det), detw), "range_doppler_cfar_sharded detections differ")
+        del rx, Y, det, th, Yw, detw, thw
+    end_world()
+
+    # an exported fft (the stage pipeline) reloaded on the card
+    xe = cuda_complex(complex64(rng, *EXPORT_SHAPE))
+    blob = tp.utils.export_transform(lambda v: tp.fft(v), xe)
+    loaded = tp.utils.load_transform(blob)
+    before = cuda_fft.LAUNCHES
+    got = loaded(xe)
+    require(cuda_fft.LAUNCHES == before, "the exported transform launched the kernel")
+    check(f"export_transform -> load_transform fft {EXPORT_SHAPE} ({len(blob):,} bytes) vs live",
+          got, tp.fft(xe))
+    torch.cuda.empty_cache()
+    log("parallel rest kernel launches: " + ", ".join(f"{k} {v}" for k, v in used.items()))
+    log(json.dumps({"parallel_rest_timing": {"card": card, "calls": rows}}))
+    return sum(used.values())
+
+
 def timed(phase, *args):
     """Runs one phase and logs its wall time (the whole run has a time limit)."""
     t0 = time.perf_counter()
@@ -3521,6 +3964,13 @@ def main(argv) -> int:
         for phase in (radar_radio, wavelets_leaves, slice_yardstick):
             timed(phase, *((rng, card) if phase is not slice_yardstick else (card,)))
         return 0
+    if argv == ["parallel"]:   # development: phases 25-26 alone
+        timed(parallel_main, rng, card)
+        timed(parallel_rest, rng, card)
+        return 0
+    if argv == ["parallel-timings"]:   # phase 25's device times, a process of their own
+        timed(parallel_timings, card)
+        return 0
     timed(kernel_vs_plain, rng)
     launches, max_abs, (xr, xi) = timed(main_path, rng)
     timed(core_lengths, rng)
@@ -3544,17 +3994,21 @@ def main(argv) -> int:
     radar_launches, radar_abs = timed(radar_radio, rng, card)
     leaves_launches, leaves_abs = timed(wavelets_leaves, rng, card)
     timed(slice_yardstick, card)
+    parallel_launches, parallel_abs = timed(parallel_main, rng, card)
+    rest_launches = timed(parallel_rest, rng, card)
     log(f"kernel launches by path: filter forward {launches}, training {train_launches}, "
         f"fno {fno_launches}, s4d + fnet + afno {family_launches}, ops tail {ops_launches}, "
         f"audio front end {frontend_launches}, audio ops {audio_launches}, "
         f"recurrences {recurrence_launches}, audio remainder {remainder_launches}, "
         f"nufft + tomography {nufft_launches}, sht + sfno {sphere_launches}, "
-        f"radar + radio {radar_launches}, wavelets + leaves {leaves_launches}")
+        f"radar + radio {radar_launches}, wavelets + leaves {leaves_launches}, "
+        f"parallel main path {parallel_launches}, parallel rest {rest_launches}")
     launches += (train_launches + fno_launches + family_launches + ops_launches
                  + frontend_launches + audio_launches + recurrence_launches + remainder_launches
-                 + nufft_launches + sphere_launches + radar_launches + leaves_launches)
+                 + nufft_launches + sphere_launches + radar_launches + leaves_launches
+                 + parallel_launches + rest_launches)
     max_abs = max(max_abs, train_abs, fno_abs, family_abs, ops_abs, frontend_abs, audio_abs,
-                  remainder_abs, nufft_abs, sphere_abs, radar_abs, leaves_abs)
+                  remainder_abs, nufft_abs, sphere_abs, radar_abs, leaves_abs, parallel_abs)
     # the kernel line's times are on the same planes as its error: the
     # forward transform of the batch-1024 filter call.  ms, plain_ms and
     # library_ms are medians of single timed calls, dispatch included

@@ -16,15 +16,19 @@ from .koopman import (
 from .spectral_filter import (
     SpectralFilter,
     apply,
+    apply_distributed,
     init_params,
+    init_params_complex,
+    loss_distributed,
     loss_fn,
     params_from_jax,
     train_step,
+    train_step_distributed,
 )
 
 __all__ = [
-    "SpectralFilter", "apply", "init_params", "loss_fn", "params_from_jax",
-    "train_step", "afno", "audio_frontend", "fnet", "fno", "koopman", "s4d", "sfno",
+    "SpectralFilter", "apply", "apply_distributed", "init_params", "init_params_complex",
+    "loss_distributed", "loss_fn", "params_from_jax", "train_step", "train_step_distributed", "afno", "audio_frontend", "fnet", "fno", "koopman", "s4d", "sfno",
     "save_checkpoint", "load_checkpoint",
     "init_koopman", "koopman_encode", "koopman_decode", "koopman_rollout",
     "koopman_loss", "koopman_spectrum",

@@ -13,7 +13,8 @@ runs over axis −2, so the fft layer hands the fused kernel planes made
 contiguous from the moved-axis view, forward and backward.  The feed-forward
 products are ``torch.matmul`` in full fp32 (keep
 ``torch.backends.cuda.matmul.allow_tf32`` False).  The sequence-parallel
-variant of the JAX module comes with ``parallel/``.
+variant runs the sequence-axis FFT through the four-step all-to-all
+transform, so contexts larger than one card's memory still mix globally.
 
 Functional API as in the JAX module; :class:`FNet` wraps it as an
 ``nn.Module``.
@@ -26,7 +27,13 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
+
 from ..ops.fft import fft
+from ..parallel.distributed import (
+    _input, _local, _mean_squared_error, _replicated, _wrap, fft_four_step,
+)
 from ..utils.config import DEFAULT_CONFIG, SpectralConfig
 from ..utils.tree import sgd_step
 from ._common import Draws, TreeModule, as_input, gelu, layer_norm, params_from_jax
@@ -35,8 +42,9 @@ Tensor = torch.Tensor
 Params = Dict[str, object]
 
 __all__ = [
-    "FNet", "apply", "fourier_mix", "init_fnet", "init_layer", "loss_fn",
-    "params_from_jax", "train_step",
+    "FNet", "apply", "apply_distributed", "fourier_mix", "fourier_mix_distributed",
+    "init_fnet", "init_layer", "loss_distributed", "loss_fn", "params_from_jax",
+    "train_step", "train_step_distributed",
 ]
 
 
@@ -95,6 +103,81 @@ def train_step(params, x, target, lr: float = 1e-2, *,
                config: SpectralConfig = DEFAULT_CONFIG) -> Tuple[Params, Tensor]:
     """One SGD step through both FFT passes: (new parameter tree, loss)."""
     return sgd_step(loss_fn, params, x, target, lr=lr, config=config)
+
+
+# ---------------------------------------------------------------------------
+# Distributed variant: data parallelism over "data" (batch) and sequence
+# parallelism over "seq": the sequence-axis mixing FFT is the four-step.
+# ---------------------------------------------------------------------------
+
+
+def _token_spec(data_axis: Optional[str], seq_axis: str):
+    return (data_axis, seq_axis, None)
+
+
+def fourier_mix_distributed(
+    x,
+    mesh: DeviceMesh,
+    *,
+    data_axis: Optional[str] = "data",
+    seq_axis: str = "seq",
+    n1: Optional[int] = None,
+    config: SpectralConfig = DEFAULT_CONFIG,
+) -> DTensor:
+    """Token mixing with the sequence axis sharded over ``seq_axis``:
+    ``x`` (batch, seq, hidden) sharded (data_axis, seq_axis, None).  The
+    hidden-axis FFT is local; the sequence-axis FFT is the distributed
+    four-step (three all-to-alls) on the (batch, hidden, seq) view."""
+    spec = _token_spec(data_axis, seq_axis)
+    x = _input(x, mesh)
+    b, s, h = x.shape
+    xl = as_input(_local(x, mesh, spec))
+    zt = fft(xl, axis=-1, config=config).transpose(-1, -2)      # (batch, hidden, seq) block
+    zt = fft_four_step(_wrap(zt, mesh, (data_axis, None, seq_axis), (b, h, s)), mesh,
+                       seq_axis=seq_axis, data_axis=data_axis, n1=n1, config=config)
+    return _wrap(zt.to_local().transpose(-1, -2).real, mesh, spec, (b, s, h))
+
+
+def apply_distributed(
+    params,
+    x,
+    mesh: DeviceMesh,
+    *,
+    data_axis: Optional[str] = "data",
+    seq_axis: str = "seq",
+    n1: Optional[int] = None,
+    config: SpectralConfig = DEFAULT_CONFIG,
+) -> DTensor:
+    """(batch, seq, hidden) real -> same shape, sharded (data_axis,
+    seq_axis, None); the feed-forward and normalisations act per token on
+    each rank's block.  The parameters are plain tensors every rank holds;
+    their gradients come back summed over the mesh."""
+    params = _replicated(params, mesh)
+    spec = _token_spec(data_axis, seq_axis)
+    x = _input(x, mesh)
+    shape = x.shape
+    xl = as_input(_local(x, mesh, spec))
+    for p in params["layers"]:
+        mix = fourier_mix_distributed(_wrap(xl, mesh, spec, shape), mesh,
+                                      data_axis=data_axis, seq_axis=seq_axis, n1=n1,
+                                      config=config)
+        xl = _encoder_layer(p, xl, mix.to_local())
+    return _wrap(xl, mesh, spec, shape)
+
+
+def loss_distributed(params, x, target, mesh: DeviceMesh, **kw) -> Tensor:
+    """The global MSE, held by every rank."""
+    return _mean_squared_error(apply_distributed(params, x, mesh, **kw), target)
+
+
+def train_step_distributed(
+    params, x, target, mesh: DeviceMesh, lr: float = 1e-2, **kw
+) -> Tuple[Params, Tensor]:
+    """One SGD step of the sequence-parallel FNet: activation gradients ride
+    the reverse all-to-alls of the four-step, and each rank's parameter
+    gradients are summed over the mesh with an all-reduce.  Returns (new
+    parameters, loss)."""
+    return sgd_step(loss_distributed, params, x, target, mesh, lr=lr, **kw)
 
 
 class FNet(TreeModule):

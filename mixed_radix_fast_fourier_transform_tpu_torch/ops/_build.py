@@ -23,11 +23,13 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
+# Where the library is built (settable: set_build_dir), the library, the
+# digest of the sources and flags it was built from, and ptxas's report
+# (registers, shared memory and spills of every kernel instantiation) from
+# the build that made it.
 BUILD_DIR = _PKG / "_build"
 LIB_PATH = BUILD_DIR / "libspectral_kernels.so"
 _STAMP = BUILD_DIR / "libspectral_kernels.sha256"
-# ptxas's report (registers, shared memory and spills of every kernel
-# instantiation) from the build that made LIB_PATH.
 PTXAS_LOG = BUILD_DIR / "ptxas.txt"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -39,6 +41,19 @@ _LIB = None
 # Seconds the last build took in this process (0.0 when the library was
 # already up to date).
 BUILD_SECONDS = 0.0
+
+
+def set_build_dir(path) -> Path:
+    """Build and load the library in ``path`` from now on (a directory that
+    outlives the process spares the next one the compile).  A library this
+    process has loaded stays loaded."""
+    global BUILD_DIR, LIB_PATH, _STAMP, PTXAS_LOG
+    with _LOCK:
+        BUILD_DIR = Path(path)
+        LIB_PATH = BUILD_DIR / "libspectral_kernels.so"
+        _STAMP = BUILD_DIR / "libspectral_kernels.sha256"
+        PTXAS_LOG = BUILD_DIR / "ptxas.txt"
+    return BUILD_DIR
 
 
 def _digest() -> str:
@@ -71,7 +86,7 @@ def build() -> Path:
     if LIB_PATH.exists() and _STAMP.exists() and _STAMP.read_text() == digest:
         BUILD_SECONDS = 0.0
         return LIB_PATH
-    BUILD_DIR.mkdir(exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = os.getpid()
     objs = [BUILD_DIR / f".{src.stem}.{tag}.o" for src in SOURCES]

@@ -559,8 +559,9 @@ def exec_kernel(xr: Tensor, xi: Tensor, n: int, sign: int) -> Tuple[Tensor, Tens
 def maybe_exec_kernel(config, n: int, sign: int, xr: Tensor, xi: Tensor):
     """Dispatch for ``exec_len``: run the fused kernel when the config allows
     it (``use_kernel`` None or True) and :func:`supports` accepts the length;
-    None means "use the stage pipeline"."""
-    if config.use_kernel is False or n <= 1:
+    None means "use the stage pipeline".  While ``torch.export`` traces, the
+    stage pipeline: a ctypes launch cannot be held by an exported program."""
+    if config.use_kernel is False or n <= 1 or torch.compiler.is_exporting():
         return None
     if not supports(n):
         return None

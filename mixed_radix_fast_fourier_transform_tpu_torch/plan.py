@@ -143,6 +143,10 @@ def device_constants(plan, device) -> Dict[str, object]:
             consts[f.name] = _upload(v, device)
         elif isinstance(v, tuple) and v and isinstance(v[0], np.ndarray):
             consts[f.name] = tuple(_upload(a, device) for a in v)
+    if torch.compiler.is_exporting():
+        # made while torch.export traces, these are the tracer's tensors,
+        # which no later call could use: not kept
+        return consts
     with _DEVICE_LOCK:
         return plan._device.setdefault(device, consts)
 

@@ -1,0 +1,111 @@
+"""Ahead-of-time set-up and serialized export of spectral pipelines.
+
+Counterpart of ``mixed_radix_fast_fourier_transform_tpu/utils/aot.py``.  A
+pipeline (any composition of this library's ops) can be
+
+* **set up ahead of time** (:func:`aot_compile`): plans, device tables and
+  the fused kernel's library are built now for the example shapes, and on
+  the card one call is captured in a CUDA graph, so the first real call
+  pays no set-up; or
+* **exported** (:func:`export_transform` / :func:`load_transform`):
+  ``torch.export`` of the pipeline saved to bytes, which reload and run
+  without this library: the exported graph holds the plan constants as
+  tensors, and no plan cache, factorization or Python of the port is left
+  in the serving path.
+
+The fused kernel is a ctypes launch that no exported program can hold, so
+an export traces the stage pipeline (``use_kernel=False``; see
+``ops/cuda_fft.py::maybe_exec_kernel``).  The outputs of the two routes
+agree within 2e-5.
+"""
+
+from __future__ import annotations
+
+import io
+from typing import Any, Callable, Sequence
+
+import torch
+
+from .tree import tree_map
+from .numerics import as_tensor
+
+
+class _Prepared:
+    """A pipeline set up for fixed argument shapes; calls replay the CUDA
+    graph captured at set-up where the arguments live on the card."""
+
+    def __init__(self, fn: Callable, args, kwargs):
+        self._fn, self._kwargs = fn, kwargs
+        self._static = [a.clone() for a in args]
+        self._graph = None
+        out = fn(*self._static, **kwargs)          # plans, tables, the library
+        if all(a.device.type == "cuda" for a in self._static):
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                fn(*self._static, **kwargs)
+                self._graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self._graph, stream=stream):
+                    out = fn(*self._static, **kwargs)
+            torch.cuda.current_stream().wait_stream(stream)
+        self._out = out
+
+    def __call__(self, *args):
+        if len(args) != len(self._static) or any(
+                a.shape != s.shape or a.dtype != s.dtype or a.device != s.device
+                for a, s in zip(args, self._static)):
+            raise ValueError(
+                "arguments differ from the example shapes, dtypes or devices: "
+                f"{[(tuple(a.shape), a.dtype, a.device) for a in args]}")
+        if self._graph is None:
+            return self._fn(*args, **self._kwargs)
+        for s, a in zip(self._static, args):
+            s.copy_(a)
+        self._graph.replay()
+        return tree_map(torch.clone, self._out)
+
+
+def aot_compile(fn: Callable, *example_args: Any, **fn_kwargs):
+    """Set ``fn`` up for the shapes and devices of ``example_args``
+    (tensors; numpy arrays go to the card): one call now builds every plan,
+    device table and the kernel library it needs, and on the card a second
+    call is captured in a CUDA graph.  Returns a callable for arguments of
+    those shapes, dtypes and devices (``fn_kwargs`` are passed on every
+    call).  The JAX executable's ``.cost_analysis()`` and
+    ``.memory_analysis()`` have no counterpart: no compiler holds a view of
+    an eager pipeline."""
+    return _Prepared(fn, [as_tensor(a) for a in example_args], fn_kwargs)
+
+
+class _Pipeline(torch.nn.Module):
+    def __init__(self, fn: Callable):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
+def export_transform(
+    fn: Callable,
+    *example_args: Any,
+    platforms: Sequence[str] | None = None,
+) -> bytes:
+    """Serialize ``fn`` for the given example shapes (tensors on the device
+    the transform will run on) as ``torch.export`` bytes (see the module
+    docstring).  ``platforms`` (the JAX function's lowering targets) has no
+    counterpart: an exported program runs on the device its example
+    tensors were on, and on another after ``.to``; it must be None."""
+    if platforms is not None:
+        raise ValueError("platforms has no torch counterpart; pass example tensors "
+                         "on the target device instead")
+    exported = torch.export.export(_Pipeline(fn), tuple(as_tensor(a) for a in example_args))
+    buf = io.BytesIO()
+    torch.export.save(exported, buf)
+    return buf.getvalue()
+
+
+def load_transform(blob: bytes) -> Callable:
+    """Reload a serialized transform (from :func:`export_transform`) as a
+    callable module, checked against the export-time argument shapes."""
+    return torch.export.load(io.BytesIO(blob)).module()

@@ -201,3 +201,21 @@ def primitive_root(p: int) -> int:
         if all(pow(g, phi // q, p) != 1 for q in qs):
             return g
         g += 1
+
+
+def next_splittable_len(n: int, parts: int, max_stage: int = 256) -> int:
+    """Smallest convenient m >= n that splits as m = n1·n2 with parts | n1,
+    parts | n2 and both factors ``max_stage``-smooth: the padded length of
+    the distributed four-step (``parallel.distributed.choose_split``).
+
+    m = parts² · s with s the next 7-smooth integer >= ceil(n / parts²): any
+    divisor pair (a, b) of s gives n1 = parts·a, n2 = parts·b, both divisible
+    by parts and smooth, so ``choose_split(m, parts)`` always succeeds."""
+    if parts < 1:
+        raise ValueError(f"parts must be >= 1, got {parts}")
+    if not is_smooth(parts, max_stage):
+        raise ValueError(
+            f"mesh size {parts} has a prime factor > max_stage={max_stage}"
+        )
+    pp = parts * parts
+    return pp * next_fast_len(-(-n // pp))

@@ -32,3 +32,13 @@ def get_metrics() -> Dict[str, int]:
 def reset_metrics() -> None:
     with _LOCK:
         _COUNTERS.clear()
+
+
+def enable_logging(level: int = logging.INFO) -> None:
+    """Route library events (plan builds, capped arguments) to stderr."""
+    handler = logging.StreamHandler()
+    handler.setFormatter(
+        logging.Formatter("[%(name)s] %(levelname)s %(message)s")
+    )
+    logger.addHandler(handler)
+    logger.setLevel(level)

@@ -72,6 +72,8 @@ def constant(values, like: Tensor, dtype=DTYPE, *, key: Optional[Hashable] = Non
         return t
     t = _upload(values() if callable(values) else values, device, dtype)
     incr("constant_uploads")
+    if torch.compiler.is_exporting():
+        return t   # the tracer's tensor while torch.export traces: not kept
     with _TABLES_LOCK:
         return _TABLES.setdefault(slot, t)
 

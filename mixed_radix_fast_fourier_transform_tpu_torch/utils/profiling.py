@@ -8,10 +8,9 @@ Counterpart of ``mixed_radix_fast_fourier_transform_tpu/utils/profiling.py``:
   of a function from the difference of a long and a short chain of
   applications, which cancels what a chain costs once; interleaved for an
   A/B comparison;
-* :func:`trace`: a ``torch.profiler`` capture written as a Chrome trace.
-
-The counterpart's memory estimates for the sharded four-step transform come
-with ``parallel/``.
+* :func:`trace`: a ``torch.profiler`` capture written as a Chrome trace;
+* :func:`estimate_four_step_hbm` and :func:`require_four_step_hbm`: the
+  device-memory budget of the sharded four-step transform on one card.
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ import dataclasses
 import math
 import os
 import time
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -215,3 +214,79 @@ def trace(log_dir: str):
         yield prof
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# The budget of one card: an H100 has 80 GB of device memory, of which the
+# CUDA context, NCCL's buffers and the caching allocator's slack keep some.
+CARD_MEMORY_GB = 80.0
+CARD_MARGIN_GB = 4.0
+
+
+def _card_budget_gb() -> float:
+    """Device memory of card 0 less the margin, or the H100's 80 GB less the
+    margin where there is no card (a CPU process planning for one)."""
+    if torch.cuda.is_available():
+        return torch.cuda.get_device_properties(0).total_memory / 2**30 - CARD_MARGIN_GB
+    return CARD_MEMORY_GB - CARD_MARGIN_GB
+
+
+def estimate_four_step_hbm(
+    n: int, batch: int, parts: int, *, dtype_bytes: int = 4,
+    copies: float = 6.0,
+) -> dict:
+    """Per-card device-memory estimate for the distributed four-step FFT
+    (BASELINE config 5's class: transform length ``n``, total ``batch``,
+    sharded over ``parts`` ranks on the sequence axis).
+
+    Live working set per card = batch · (n/parts) · 2 planes · dtype_bytes a
+    copy; ``copies`` bounds the copies alive at once (input, output, the
+    all-to-all buffers, the contiguous copies around the fused kernel, the
+    gradient's).  The default 6 is read on the card: at config 5 (n =
+    65,536, batch 4,096, one rank, 2 GiB a copy) ``chip_smoke.py`` phase 25
+    reads a peak of 10.0 GiB for a train step of the distributed filter and
+    11.0 GiB for the "same" convolution on an H100 80GB HBM3 at 700 W, 5
+    and 5.5 copies.  Plan constants are counted apart.  The byte formulas are
+    the JAX package's, so both give the same bytes for the same arguments.
+    Where the JAX function reports ``fits_v5e_16gb``, this one reports
+    ``fits_h100_80gb``: the total against :data:`CARD_MEMORY_GB` less
+    :data:`CARD_MARGIN_GB`."""
+    shard = batch * (n // parts) * 2 * dtype_bytes
+    # stage constants: bounded by 2·(n/parts)·max_stage entries per plane pair
+    const = 4 * (n // parts) * 256 * dtype_bytes // 64
+    total = copies * shard + const
+    return {
+        "per_copy_bytes": shard,
+        "plan_const_bytes": const,
+        "total_bytes": int(total),
+        "total_gb": round(total / 2**30, 3),
+        "fits_h100_80gb": bool(total < (CARD_MEMORY_GB - CARD_MARGIN_GB) * 2**30),
+    }
+
+
+class HBMBudgetError(ValueError):
+    """A requested distributed transform exceeds the per-card memory budget:
+    resource exhaustion is a checked error at the API boundary, never an
+    out-of-memory error in the middle of a step."""
+
+
+def require_four_step_hbm(
+    n: int, batch: int, parts: int, *, limit_gb: Optional[float] = None,
+    dtype_bytes: int = 4, copies: float = 6.0,
+) -> dict:
+    """Estimate the four-step working set and reject a configuration over
+    budget.  ``limit_gb`` defaults to card 0's device memory less
+    :data:`CARD_MARGIN_GB` (80 GB less the margin without a card).  Returns
+    the :func:`estimate_four_step_hbm` dict when it fits; raises
+    :class:`HBMBudgetError` naming the configuration and both numbers."""
+    if limit_gb is None:
+        limit_gb = _card_budget_gb()
+    est = estimate_four_step_hbm(
+        n, batch, parts, dtype_bytes=dtype_bytes, copies=copies
+    )
+    if est["total_gb"] > limit_gb:
+        raise HBMBudgetError(
+            f"distributed four-step n={n} batch={batch} over {parts} cards "
+            f"needs ~{est['total_gb']} GB/card > budget {limit_gb} GB; "
+            f"shard the batch further or raise parts"
+        )
+    return est

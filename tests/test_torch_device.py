@@ -7,6 +7,7 @@ fallback to the CPU: without a card the call raises.
 """
 
 import ast
+import json
 import pathlib
 import re
 import subprocess
@@ -346,6 +347,37 @@ def test_the_radar_wavelet_and_image_ops_put_numpy_input_on_the_card(call):
     assert call().device.type == "cuda"
 
 
+def test_meshes_and_the_distributed_filter_go_to_the_card_by_default():
+    """``make_mesh``, ``initialize_multihost`` and ``init_params_complex``
+    default to the card (NCCL for the collectives), and numpy input to a
+    sharded entry point goes to the mesh's device.  Without a card each
+    raises torch's own error; ``make_mesh`` runs in a process of its own,
+    since it would start a process group."""
+    import types
+
+    from mixed_radix_fast_fourier_transform_tpu_torch.parallel import distributed, mesh
+
+    assert mesh._backend(numerics.resolve_device(None)) == "nccl"
+    assert mesh._backend(numerics.resolve_device("cpu")) == "gloo"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(NO_CARD):
+        spectral_filter.init_params_complex(8)
+    card_mesh = types.SimpleNamespace(device_type="cuda")
+    with pytest.raises(NO_CARD):
+        distributed._input(np.ones(8, np.float32), card_mesh)
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "from mixed_radix_fast_fourier_transform_tpu_torch.parallel import make_mesh\n"
+            "try:\n"
+            "    make_mesh()\n"
+            "except RuntimeError as e:\n"
+            "    print('refused:', e)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=str(PACKAGE.parent))
+    assert out.returncode == 0 and "refused:" in out.stdout and "NCCL" in out.stdout, out
+
+
 def test_only_the_helper_calls_torch_as_tensor():
     """No module of the port turns caller data into a tensor on its own:
     ``torch.as_tensor`` appears in ``utils/numerics.py::as_tensor`` only."""
@@ -378,7 +410,8 @@ def test_every_module_imports_with_jax_blocked():
         "          'models.sfno', 'ops.waveforms', 'ops.radar', 'ops.pfb', 'ops.beamform',\n"
         "          'ops.subspace', 'ops.peaks', 'ops.dwt', 'ops.dtcwt', 'ops.ewt', 'ops.emd',\n"
         "          'ops.vmd', 'ops.register', 'ops.ndimage', 'ops.adaptive', 'ops.ar',\n"
-        "          'ops.datadriven']\n"
+        "          'ops.datadriven', 'parallel.mesh', 'parallel.distributed', 'utils.cache',\n"
+        "          'utils.aot']\n"
         "assert all(tp.__name__ + '.' + w in names for w in wanted), names\n"
         "print('OK', len(names))\n"
     )
@@ -387,26 +420,77 @@ def test_every_module_imports_with_jax_blocked():
     assert out.returncode == 0 and "OK" in out.stdout, out.stderr
 
 
-@pytest.mark.parametrize("module", ["iir", "ltisys", "lticlasses", "splines", "kalman", "tfr",
-                                    "scattering", "cqt", "feature", "nufft", "tomo", "sht",
-                                    "waveforms", "radar", "pfb", "beamform", "subspace", "peaks",
-                                    "dwt", "dtcwt", "ewt", "emd", "vmd", "register", "ndimage",
-                                    "adaptive", "ar", "datadriven"])
-def test_every_public_name_of_the_jax_module_is_ported(module):
+# Every module of the JAX package but two, which have no file of their own
+# in the port by design: ``utils/native.py`` (the port loads no native
+# library) and ``ops/pallas_fft.py`` (the fused kernel is ops/cuda_fft.py).
+# An ops module is named by its stem, any other by its path.
+JAX_MODULES = [
+    "iir", "ltisys", "lticlasses", "splines", "kalman", "tfr", "scattering", "cqt", "feature",
+    "nufft", "tomo", "sht", "waveforms", "radar", "pfb", "beamform", "subspace", "peaks", "dwt",
+    "dtcwt", "ewt", "emd", "vmd", "register", "ndimage", "adaptive", "ar", "datadriven",
+    "auditory", "chebyshev", "convolve", "cwt", "czt", "dct", "fft", "fht", "frft", "hos", "mdct",
+    "mel", "rfft", "shorttime", "signal", "stft", "stockham", "windows",
+    "compat", "plan",
+    "models/afno", "models/audio_frontend", "models/checkpoint", "models/fnet", "models/fno",
+    "models/koopman", "models/s4d", "models/sfno", "models/spectral_filter",
+    "parallel/distributed", "parallel/mesh",
+    "utils/aot", "utils/cache", "utils/config", "utils/factorize", "utils/metrics",
+    "utils/numerics", "utils/profiling", "utils/twiddle",
+]
+
+
+def test_the_name_check_covers_every_jax_module():
+    jax_pkg = PACKAGE.parent / "mixed_radix_fast_fourier_transform_tpu"
+    found = {str(p.relative_to(jax_pkg))[:-3] for p in jax_pkg.rglob("*.py")
+             if p.name != "__init__.py"}
+    named = {m if "/" in m or m in ("compat", "plan") else f"ops/{m}" for m in JAX_MODULES}
+    assert found - named == {"utils/native", "ops/pallas_fft"}
+    assert named <= found
+
+
+@pytest.fixture(scope="module")
+def port_exports():
+    """The public names of the port's package and subpackages, read in a
+    process where ``jax`` and the JAX package cannot be imported."""
+    code = (
+        "import importlib, json, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mixed_radix_fast_fourier_transform_tpu'] = None\n"
+        "out = {}\n"
+        "for sub in ('', 'ops', 'models', 'parallel', 'utils'):\n"
+        "    name = 'mixed_radix_fast_fourier_transform_tpu_torch' + ('.' + sub if sub else '')\n"
+        "    out[sub] = sorted(n for n in dir(importlib.import_module(name)) if n[:1] != '_')\n"
+        "print(json.dumps(out))\n"
+    )
+    done = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, cwd=str(PACKAGE.parent))
+    assert done.returncode == 0, done.stderr
+    return {k: set(v) for k, v in json.loads(done.stdout).items()}
+
+
+@pytest.mark.parametrize("module", JAX_MODULES)
+def test_every_public_name_of_the_jax_module_is_ported(module, port_exports):
     """Every public function and class of the JAX module (read from its
     source, without importing it) is defined in the port's module of the
-    same path and exported by the package where the JAX package exports it."""
+    same path and exported by the port's package and subpackage wherever
+    the JAX package's ``__init__`` exports it; the port's side is read with
+    ``jax`` blocked."""
     def public(path):
         tree = ast.parse(path.read_text())
         return {n.name for n in tree.body if isinstance(n, (ast.FunctionDef, ast.ClassDef))
                 and not n.name.startswith("_")}
 
-    jax_ops = PACKAGE.parent / "mixed_radix_fast_fourier_transform_tpu" / "ops"
-    want = public(jax_ops / f"{module}.py")
-    assert want and want <= public(PACKAGE / "ops" / f"{module}.py"), want - public(PACKAGE / "ops" / f"{module}.py")
-    exported = re.findall(r"\b(\w+)\b", (jax_ops.parent / "__init__.py").read_text())
-    missing = sorted(n for n in want if n in exported and not hasattr(tp, n))
-    assert not missing, missing
+    rel = module if "/" in module or module in ("compat", "plan") else f"ops/{module}"
+    jax_pkg = PACKAGE.parent / "mixed_radix_fast_fourier_transform_tpu"
+    want = public(jax_pkg / f"{rel}.py")
+    got = public(PACKAGE / f"{rel}.py")
+    assert want and want <= got, want - got
+    sub = rel.split("/")[0] if "/" in rel else ""
+    for pkg in {"", sub}:
+        init = jax_pkg / pkg / "__init__.py"
+        exported = set(re.findall(r"\b(\w+)\b", init.read_text()))
+        missing = sorted(n for n in want if n in exported and n not in port_exports[pkg])
+        assert not missing, (pkg, missing)
 
 
 def test_no_library_fft_in_the_port():
@@ -419,7 +503,8 @@ def test_no_library_fft_in_the_port():
     design constants are made (Bluestein and chirp-z kernel spectra, the
     Chebyshev window, DPSS ratios, the taps of ``firwin2`` and ``remez``,
     the reassignment's derivative window, the CQT's spectral kernel, the
-    PFB's branch spectra, the dual-tree bank's analyticity check), where
+    PFB's branch spectra, the dual-tree bank's analyticity check, the
+    sharded convolutions' kernel spectra), where
     the JAX module itself runs a float64 transform on the host
     (``compat.fft_exec`` on host input, ``ewt_boundaries``' spectrum) or a
     host frequency grid is laid out (``np.fft.fftfreq``/``rfftfreq``/
@@ -443,12 +528,13 @@ def test_no_library_fft_in_the_port():
                            "ops/tfr.py", "ops/scattering.py", "ops/feature.py",
                            "ops/cqt.py", "compat.py", "ops/pfb.py", "ops/vmd.py",
                            "ops/register.py", "ops/ndimage.py", "ops/ewt.py",
-                           "ops/dtcwt.py"}, numpy_files
+                           "ops/dtcwt.py", "parallel/distributed.py"}, numpy_files
     # a float64 transform on the host: plan and window constants, the two
     # filter designs that end in an inverse DFT of their sampled response, the
     # derivative window of the reassignment, and the CQT's spectral kernel
     assert numpy_transforms == {"plan.py", "ops/czt.py", "ops/stft.py", "ops/signal.py",
                                 "ops/tfr.py", "ops/cqt.py", "compat.py", "ops/pfb.py",
-                                "ops/ewt.py", "ops/dtcwt.py"}, numpy_transforms
+                                "ops/ewt.py", "ops/dtcwt.py", "parallel/distributed.py"}, \
+        numpy_transforms
     text = (PACKAGE / "ops/signal.py").read_text()
     assert len(re.findall(r"np\.fft\.i?r?fft[2n]?\(", text)) == 2   # remez, firwin2

@@ -100,10 +100,12 @@ def test_forward_shape_and_default_ff_dim():
 
 
 def test_no_distributed_names_yet():
-    """The sequence-parallel variant comes with ``parallel/``."""
+    """The sequence-parallel variant came with ``parallel/``: both packages
+    have its four names (held against each other on gloo meshes in
+    ``test_torch_parallel_models.py``)."""
     for name in ("fourier_mix_distributed", "apply_distributed", "loss_distributed",
                  "train_step_distributed"):
-        assert hasattr(jfnet, name) and not hasattr(fnet, name)
+        assert hasattr(jfnet, name) and callable(getattr(fnet, name))
 
 
 def test_training_reduces_loss(rng):
