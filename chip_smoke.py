@@ -162,18 +162,32 @@ Phases, each of which raises on failure:
     ``kalman_filter_sharded`` on 4 tracks of 10,000 steps,
     ``pfb_analysis_sharded`` and ``range_doppler_cfar_sharded`` at phase
     23's sizes; then ``export_transform``/``load_transform`` of ``fft`` at
-    64 x 4,096 on the card against the live call.
+    64 x 4,096 on the card against the live call;
+27. the nine example programs (``examples/``), each ``main`` on the card at
+    the JAX example's own sizes with its asserts, then ``mri_recon`` at 256²
+    with 402 spokes of 512 points and the advection at lmax 255 (160 RK4
+    steps, its error against the exact rotation bounded): per run the
+    kernel's launches, the kernel against its plain version on the first
+    two and the last plane pairs it was handed, back-to-back wall ms of a
+    warm run and the profiler's device ms;
+28. ``tools/tune.py kernel all``: the kernel, the stage pipeline and
+    ``torch.fft.fft`` at every length the kernel takes (399, 2^22 complex
+    values a call, CUDA-graph replay), the kernel against float64 on 8 rows
+    each, a summary, and ``torch.fft.fft`` against the kernel at 256 x
+    1,048,576.
 
 ``python3 chip_smoke.py audio`` runs phases 1, 2 and 15-17 alone,
 ``python3 chip_smoke.py recurrence`` phases 1, 2 and 18-20,
 ``python3 chip_smoke.py sphere`` phases 1, 2, 21 and 22, and
 ``python3 chip_smoke.py frontend`` phases 1, 2, 23 and 24, and
-``python3 chip_smoke.py parallel`` phases 1, 2, 25 and 26 (for
-development; they print no result line).
+``python3 chip_smoke.py parallel`` phases 1, 2, 25 and 26,
+``python3 chip_smoke.py examples`` phases 1, 2 and 27, and
+``python3 chip_smoke.py tune`` phases 1, 2 and 28 (for development; they
+print no result line).
 
 The last lines are one JSON line about the kernels (launches of phases 4, 8,
-9, 12, 13, 15, 16, 18, 19, 21, 22, 23, 24, 25 and 26; error over the plane pairs those launches were handed:
-every pair of phases 4, 9, 12, 13, 15, 16, 19, 21, 22, 23 and 24, the first rows of phase 25's, and in phase 8 the first step's three, every
+9, 12, 13, 15, 16, 18, 19, 21, 22, 23, 24, 25, 26 and 27; error over the plane pairs those launches were handed:
+every pair of phases 4, 9, 12, 13, 15, 16, 19, 21, 22, 23 and 24, the first rows of phase 25's, three of each run of phase 27's, and in phase 8 the first step's three, every
 later backward's and the four of the step with an input gradient; times on
 the main path's batch-1024 planes), the card, then ``{"ok": true, "device":
 {...}}``.
@@ -201,7 +215,7 @@ import scipy.signal
 import torch
 
 import mixed_radix_fast_fourier_transform_tpu_torch as tp
-from kernel_bench import SHAPES as YARDSTICK_SHAPES, graph_us, wrapper_us
+from kernel_bench import SHAPES as YARDSTICK_SHAPES, wrapper_us
 from mixed_radix_fast_fourier_transform_tpu_torch import compat, parallel
 from mixed_radix_fast_fourier_transform_tpu_torch.models import (
     afno, audio_frontend, fnet, fno, koopman, s4d, sfno,
@@ -211,6 +225,7 @@ from mixed_radix_fast_fourier_transform_tpu_torch.ops import cqt as cqt_ops
 from mixed_radix_fast_fourier_transform_tpu_torch.ops import feature as feature_ops
 from mixed_radix_fast_fourier_transform_tpu_torch.ops import scattering as scattering_ops
 from mixed_radix_fast_fourier_transform_tpu_torch.ops.stockham import exec_complex, exec_len
+from mixed_radix_fast_fourier_transform_tpu_torch.utils.profiling import graph_time
 from mixed_radix_fast_fourier_transform_tpu_torch.utils.tree import (
     tree_leaves, tree_map, tree_map_with_path,
 )
@@ -479,15 +494,20 @@ def filter_params(rng, n: int):
 
 
 @contextlib.contextmanager
-def recorded_launches():
+def recorded_launches(keep=None):
     """Inside the block, every call of the kernel's wrapper (forward or
     backward: both look ``cuda_fft.exec_kernel`` up at call time) is noted
-    as (xr, xi, n, sign) with copies of the planes it was handed."""
+    as (xr, xi, n, sign) with copies of the planes it was handed; with
+    ``keep``, only the first ``keep`` calls and the latest."""
     seen = []
     launch = cuda_fft.exec_kernel
 
     def recording(xr, xi, n, sign):
-        seen.append((xr.detach().clone(), xi.detach().clone(), n, sign))
+        pair = (xr.detach().clone(), xi.detach().clone(), n, sign)
+        if keep is not None and len(seen) > keep:
+            seen[-1] = pair
+        else:
+            seen.append(pair)
         return launch(xr, xi, n, sign)
 
     cuda_fft.exec_kernel = recording
@@ -1193,11 +1213,11 @@ def ops_tail(rng, card: str):
     before = tp.utils.get_metrics().get("constant_uploads", 0)
     row = {
         "dct2_us": device_and_wall_us(lambda: tp.dct(xt))["device_us"],
-        "dct2_graph_replay_us": graph_us(torch, lambda: tp.dct(xt)),
-        "stft_16x2^18_nperseg1024_graph_replay_us": graph_us(
-            torch, lambda: tp.stft(xs, 1024, 768)),
-        "inner_stage_pipeline_us": graph_us(torch, lambda: exec_complex(plan, xt, zero)),
-        "inner_kernel_us": graph_us(torch, lambda: exec_len(tp.DEFAULT_CONFIG, 1024, -1, xt, zero)),
+        "dct2_graph_replay_us": 1e6 * graph_time(lambda: tp.dct(xt)),
+        "stft_16x2^18_nperseg1024_graph_replay_us": 1e6 * graph_time(
+            lambda: tp.stft(xs, 1024, 768)),
+        "inner_stage_pipeline_us": 1e6 * graph_time(lambda: exec_complex(plan, xt, zero)),
+        "inner_kernel_us": 1e6 * graph_time(lambda: exec_len(tp.DEFAULT_CONFIG, 1024, -1, xt, zero)),
     }
     uploads = tp.utils.get_metrics().get("constant_uploads", 0) - before
     log(f"dct and stft captured in CUDA graphs; host tables uploaded meanwhile: {uploads}")
@@ -1649,7 +1669,7 @@ def timing_row(name: str, fn, calls: int, capture: bool = True) -> dict:
     fn()
     k1_launches = cuda_fft.LAUNCHES - before
     t = device_and_wall_us(fn, calls=calls)
-    graph = graph_us(torch, fn, launches=1, replays=calls) if capture else None
+    graph = 1e6 * graph_time(fn, launches=1, replays=calls) if capture else None
     row = {"call": name, "device_us_profiler": t["device_us"], "device_us_graph_replay": graph,
            "back_to_back_us": t["wall_us"], "idle_share": t["idle_share"],
            "device_kernels_per_call": t["kernels"], "k1_launches": k1_launches,
@@ -1763,7 +1783,7 @@ def train_timings(rng, card: str) -> None:
     rows = []
     for name, calls, captured, step in cases:
         t = device_and_wall_us(step, calls=calls)
-        graph = graph_us(torch, step, launches=captured)
+        graph = 1e6 * graph_time(step, launches=captured)
         row = {"train_step": name, "device_us_profiler": t["device_us"],
                "device_us_graph_replay": graph, "back_to_back_us": t["wall_us"],
                "idle_share": t["idle_share"],
@@ -1841,7 +1861,7 @@ def timings(rng, card: str):
 def yardstick(rng, card: str) -> None:
     """The kernel against torch.fft.fft (cuFFT) at YARDSTICK_SHAPES and at the
     model families' shapes (S4D's 1024 x 8192 rows among them), device times
-    from kernel_bench.graph_us, with the bytes bound and the kernel's share of it."""
+    from utils.profiling.graph_time, with the bytes bound and the kernel's share of it."""
     rows = []
     family_shapes = KERNEL_MANY_ROWS + ((1024, S4D_BATCH * S4D["hidden"]),) + AUDIO_KERNEL_SHAPES
     own = np.random.default_rng(SEED)   # the added shapes leave ``rng``'s stream as it was
@@ -1850,8 +1870,8 @@ def yardstick(rng, card: str) -> None:
         x = draw.standard_normal((b, n)) + 1j * draw.standard_normal((b, n))
         xr, xi = planes(x)
         xc = torch.complex(xr, xi)
-        kernel_ms = graph_us(torch, lambda: cuda_fft.exec_kernel(xr, xi, n, -1)) / 1e3
-        cufft_ms = graph_us(torch, lambda: torch.fft.fft(xc)) / 1e3
+        kernel_ms = 1e6 * graph_time(lambda: cuda_fft.exec_kernel(xr, xi, n, -1)) / 1e3
+        cufft_ms = 1e6 * graph_time(lambda: torch.fft.fft(xc)) / 1e3
         bound, bound_by = fft_bound_ms(n, b)
         row = {"n": n, "batch": b, "kernel_us": kernel_ms * 1e3, "cufft_us": cufft_ms * 1e3,
                "bound_us": bound * 1e3, "bound_by": bound_by,
@@ -3511,8 +3531,8 @@ def slice_yardstick(card: str) -> None:
     for n, b in SLICE_YARDSTICK:
         xr, xi = (torch.randn(b, n, device="cuda", generator=gen) for _ in range(2))
         xc = torch.complex(xr, xi)
-        kernel_us = graph_us(torch, lambda: cuda_fft.exec_kernel(xr, xi, n, -1))
-        cufft_us = graph_us(torch, lambda: torch.fft.fft(xc))
+        kernel_us = 1e6 * graph_time(lambda: cuda_fft.exec_kernel(xr, xi, n, -1))
+        cufft_us = 1e6 * graph_time(lambda: torch.fft.fft(xc))
         bound, bound_by = fft_bound_ms(n, b)
         row = {"n": n, "rows": b, "kernel_us": kernel_us, "cufft_us": cufft_us,
                "bound_us": bound * 1e3, "bound_by": bound_by,
@@ -3935,6 +3955,138 @@ def parallel_rest(rng, card: str):
     return sum(used.values())
 
 
+# ---------------------------------------------------------------------------
+# Phases 27-28: the programs that drive the package (examples/, tools/tune.py).
+# ---------------------------------------------------------------------------
+
+# each example's main at the JAX example's own sizes, in the order of the
+# port (smallest first); then two at a size their users run: MRI at 256²
+# with pi/2·N = 402 spokes of 2N points (the radial Nyquist count), and the
+# advection at phase 22's L = 256 grid with the same 1/8 revolution
+EXAMPLE_RUNS = (
+    ("serving_export", {}), ("fno_train", {}), ("pde_spectral", {}),
+    ("sphere_advection", {}), ("mri_recon", {}), ("radar_array", {}),
+    ("audio_features", {}), ("signal_toolbox", {}), ("demo", {}),
+    ("mri_recon", dict(n=256, spokes=402, per_spoke=512)),
+    ("sphere_advection", dict(lmax=255, steps=160)),
+)
+# fno_train's final evaluation loss against the predict-zero baseline (the
+# JAX example reads 1e-5 against 0.058 on a CPU)
+FNO_TRAIN_GAIN = 0.1
+# the advection's error against the exact rotation at lmax = 255: the RK4
+# truncation and fp32 round-off, 2.09e-6 in a CPU rehearsal of the same run
+# (stage pipeline); five times that
+ADVECTION_255_TOL = 1e-5
+TUNE_BIG = (256, 1 << 20)        # the four-step's K1 shape at config 5 (phase 25)
+
+
+def profiled_device_ms(fn) -> float:
+    """Sum of the device kernels' time of one ``fn()`` under torch.profiler,
+    ms.  Only the card's activity is traced, and the sum is read from the
+    profiler's raw events: a run of an example issues tens of thousands of
+    calls, whose CPU events and whose parse into function events would cost
+    more than the run itself."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and not e.name().startswith("nccl:")) / 1e6
+
+
+def examples(rng, card: str):
+    """Phase 27: every example's ``main`` on the card, its asserts the
+    check; per run the kernel's launches (counted from 0 just before it), the
+    kernel against its plain version on the first two and the latest plane
+    pairs it was handed (relative errors, logged: the planes are
+    unnormalised, so their absolute errors stay off the kernels line),
+    back-to-back wall ms of a second, warm run, the profiler's device ms of a
+    third, and the idle share."""
+    import importlib
+
+    del rng   # each example draws from its own seeds
+    rows, total = [], 0
+    for name, kw in EXAMPLE_RUNS:
+        mod = importlib.import_module(f"mixed_radix_fast_fourier_transform_tpu_torch.examples.{name}")
+        label = name + ("" if not kw else " " + " ".join(f"{k}={v}" for k, v in kw.items()))
+        t0 = time.perf_counter()
+        cuda_fft.LAUNCHES = 0
+        with recorded_launches(keep=2) as seen:
+            out = mod.main(device=CARD, **kw)
+            torch.cuda.synchronize()
+        launches = cuda_fft.LAUNCHES
+        first_s = time.perf_counter() - t0
+        total += launches
+        for pair in seen:   # each logs its relative error, the quantity held to KERNEL_TOL
+            kernel_error(*pair, label)
+        del seen
+        if name == "fno_train":
+            require(out["final_eval_loss"] < FNO_TRAIN_GAIN * out["baseline"],
+                    f"fno_train: final eval loss {out['final_eval_loss']:.3e} against the "
+                    f"baseline {out['baseline']:.3e}")
+        if name == "sphere_advection" and kw:
+            require(out["err"] <= ADVECTION_255_TOL,
+                    f"advection at lmax {kw['lmax']}: error {out['err']:.3e}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(None):
+            mod.main(device=CARD, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(None):
+            device_ms = profiled_device_ms(lambda: mod.main(device=CARD, **kw))
+        profiled_s = time.perf_counter() - t0
+        require(device_ms > 0, f"example {label}: the profiler saw no device time")
+        row = {"example": label, "k1_launches": launches, "first_run_s": first_s,
+               "back_to_back_ms": wall_ms, "device_ms_profiler": device_ms,
+               "idle_share": 1.0 - device_ms / wall_ms, "profiled_run_s": profiled_s}
+        rows.append(row)
+        log(f"example {label}: {launches} K1 launches, back to back {wall_ms:.1f} ms, "
+            f"device {device_ms:.1f} ms (profiler), idle share {row['idle_share']:.3f}, "
+            f"first run {first_s:.1f} s, profiled run {profiled_s:.1f} s")
+        torch.cuda.empty_cache()
+    log(json.dumps({"examples_timing": {"card": card, "runs": rows}}))
+    return total
+
+
+def tune_phase(card: str) -> None:
+    """Phase 28: ``tools/tune.py kernel all`` on the card (every length the
+    kernel takes, 2^22 complex values a call, graph_time of 4 launches and 3
+    replays per route), then ``torch.fft.fft`` and the kernel at 256 x
+    1,048,576 rows.  The sweep's lines are written to
+    chiprun_out/tune_sweep.jsonl as well."""
+    import os
+
+    from mixed_radix_fast_fourier_transform_tpu_torch.tools import tune
+
+    rows, summary = tune.tune_kernel_all(device=CARD, launches=4, replays=3)
+    require(summary["lengths"] == len(tune.sweep_lengths()) == 399,
+            f"sweep covered {summary['lengths']} lengths")
+    require(summary["max_kernel_err"] <= ORACLE_TOL,
+            f"kernel error {summary['max_kernel_err']:.3e} against float64 in the sweep")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "tune_sweep.jsonl"), "w") as fh:
+        fh.write(json.dumps({"card": card}) + "\n")
+        for r in rows:
+            fh.write(json.dumps(r) + "\n")
+        fh.write(json.dumps({"summary": summary}) + "\n")
+    n, b = TUNE_BIG
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    xr, xi = (torch.randn(b, n, device="cuda", generator=gen) for _ in range(2))
+    kernel_us = 1e6 * graph_time(lambda: cuda_fft.exec_kernel(xr, xi, n, -1), launches=4, replays=3)
+    del xi
+    xc = torch.complex(xr, torch.randn(b, n, device="cuda", generator=gen))
+    del xr
+    cufft_us = 1e6 * graph_time(lambda: torch.fft.fft(xc), launches=4, replays=3)
+    bound, bound_by = fft_bound_ms(n, b)
+    log(json.dumps({"tune_big_shape": {"card": card, "n": n, "rows": b, "kernel_us": kernel_us,
+                                       "torch_fft_us": cufft_us, "bound_us": bound * 1e3,
+                                       "bound_by": bound_by}}))
+    del xc
+    torch.cuda.empty_cache()
+
+
 def timed(phase, *args):
     """Runs one phase and logs its wall time (the whole run has a time limit)."""
     t0 = time.perf_counter()
@@ -3968,6 +4120,12 @@ def main(argv) -> int:
         timed(parallel_main, rng, card)
         timed(parallel_rest, rng, card)
         return 0
+    if argv == ["examples"]:   # development: phase 27 alone
+        timed(examples, rng, card)
+        return 0
+    if argv == ["tune"]:   # development: phase 28 alone
+        timed(tune_phase, card)
+        return 0
     if argv == ["parallel-timings"]:   # phase 25's device times, a process of their own
         timed(parallel_timings, card)
         return 0
@@ -3996,23 +4154,26 @@ def main(argv) -> int:
     timed(slice_yardstick, card)
     parallel_launches, parallel_abs = timed(parallel_main, rng, card)
     rest_launches = timed(parallel_rest, rng, card)
+    example_launches = timed(examples, rng, card)
+    timed(tune_phase, card)
     log(f"kernel launches by path: filter forward {launches}, training {train_launches}, "
         f"fno {fno_launches}, s4d + fnet + afno {family_launches}, ops tail {ops_launches}, "
         f"audio front end {frontend_launches}, audio ops {audio_launches}, "
         f"recurrences {recurrence_launches}, audio remainder {remainder_launches}, "
         f"nufft + tomography {nufft_launches}, sht + sfno {sphere_launches}, "
         f"radar + radio {radar_launches}, wavelets + leaves {leaves_launches}, "
-        f"parallel main path {parallel_launches}, parallel rest {rest_launches}")
+        f"parallel main path {parallel_launches}, parallel rest {rest_launches}, "
+        f"examples {example_launches}")
     launches += (train_launches + fno_launches + family_launches + ops_launches
                  + frontend_launches + audio_launches + recurrence_launches + remainder_launches
                  + nufft_launches + sphere_launches + radar_launches + leaves_launches
-                 + parallel_launches + rest_launches)
+                 + parallel_launches + rest_launches + example_launches)
     max_abs = max(max_abs, train_abs, fno_abs, family_abs, ops_abs, frontend_abs, audio_abs,
                   remainder_abs, nufft_abs, sphere_abs, radar_abs, leaves_abs, parallel_abs)
     # the kernel line's times are on the same planes as its error: the
     # forward transform of the batch-1024 filter call.  ms, plain_ms and
     # library_ms are medians of single timed calls, dispatch included
-    # (time_ms); device_ms and library_device_ms are device times (graph_us).
+    # (time_ms); device_ms and library_device_ms are device times (graph_time).
     h = FILTER_N // 2
     xc = torch.complex(xr, xi)
     bound, bound_by = fft_bound_ms(h, xr.shape[0])
@@ -4024,8 +4185,8 @@ def main(argv) -> int:
         "kernel_ms": time_ms(kernel),
         "plain_ms": time_ms(lambda: cuda_fft.exec_kernel_reference(xr, xi, h, -1)),
         "library_ms": time_ms(lambda: torch.fft.fft(xc)),
-        "device_ms": graph_us(torch, kernel) / 1e3,
-        "library_device_ms": graph_us(torch, lambda: torch.fft.fft(xc)) / 1e3,
+        "device_ms": 1e6 * graph_time(kernel) / 1e3,
+        "library_device_ms": 1e6 * graph_time(lambda: torch.fft.fft(xc)) / 1e3,
     }
     log(f"kernel on the main path's planes ({h} x {xr.shape[0]}): " + ", ".join(
         f"{k} {v:.4f}" for k, v in main_row.items()) + f", bound {bound:.4f} ms ({bound_by})")

@@ -556,13 +556,28 @@ def exec_kernel(xr: Tensor, xi: Tensor, n: int, sign: int) -> Tuple[Tensor, Tens
     return _StockhamFFT.apply(xr, xi, n, sign)
 
 
-def maybe_exec_kernel(config, n: int, sign: int, xr: Tensor, xi: Tensor):
-    """Dispatch for ``exec_len``: run the fused kernel when the config allows
-    it (``use_kernel`` None or True) and :func:`supports` accepts the length;
-    None means "use the stage pipeline".  While ``torch.export`` traces, the
-    stage pipeline: a ctypes launch cannot be held by an exported program."""
+def uses_kernel(config, n: int, x: Tensor) -> bool:
+    """Does ``exec_len`` run a length-``n`` transform of ``x`` through the
+    fused kernel?  Only where :func:`supports` accepts the length, and then:
+    ``use_kernel=True`` always (on a CPU tensor, the kernel's plain
+    version); False never; None (the default) on a CUDA tensor, as the JAX
+    package's auto route runs its kernel on its chip, and never on a CPU
+    tensor, where the stage pipeline ran 3.6-45x faster than the kernel's
+    plain version (``tools/tune.py kernel --device cpu`` at n = 64 to
+    16,384, PERF.md).  While ``torch.export`` traces, no: a ctypes launch
+    cannot be held by an exported program."""
     if config.use_kernel is False or n <= 1 or torch.compiler.is_exporting():
-        return None
+        return False
     if not supports(n):
+        return False
+    if config.use_kernel is True:
+        return True
+    return x.device.type == "cuda"
+
+
+def maybe_exec_kernel(config, n: int, sign: int, xr: Tensor, xi: Tensor):
+    """Dispatch for ``exec_len``: the fused kernel where :func:`uses_kernel`
+    says so; None means "use the stage pipeline"."""
+    if not uses_kernel(config, n, xr):
         return None
     return exec_kernel(xr, xi, n, sign)

@@ -1,0 +1,487 @@
+"""Tuning harness: interleaved A/B comparisons of engine variants.
+
+Counterpart of the JAX package's ``tools/tune.py``.  Every comparison is
+timed twice:
+
+* :func:`utils.profiling.ab_compare`: the marginal time of one application,
+  A and B back to back in each round, so drift between rounds cancels;
+* on the card, :func:`utils.profiling.graph_time` as well: the device time
+  of one call from calls captured in a CUDA graph, with no host gap.
+
+Usage (on the card unless ``--device cpu``)::
+
+    python -m mixed_radix_fast_fourier_transform_tpu_torch.tools.tune stages 1024 256
+    python -m ....tools.tune pad 10007 16          # Bluestein padding variants
+    python -m ....tools.tune kernel 1024 256       # fused kernel vs stage pipeline
+    python -m ....tools.tune kernel all            # every length the kernel takes
+    python -m ....tools.tune builtin 1024 256      # the default route vs torch.fft
+    python -m ....tools.tune split 3600 64 120x30 144x25
+    python -m ....tools.tune butterfly 65536 16
+    python -m ....tools.tune matmul_form 1024 256  # stacked vs Karatsuba stages
+    python -m ....tools.tune rader 1009 64         # Rader vs Bluestein
+    python -m ....tools.tune nufft 4096 4096       # dense vs grid at (n, M)
+    python -m ....tools.tune sortspread 4096 65536      # 1-D; 2-D with a trailing 2
+    python -m ....tools.tune sht 256 16            # Hermitian vs full SHT
+
+``--short S`` and ``--rounds R`` cut a probe's chains (long = 5·S).  The
+JAX script's ``precision`` and ``prec`` have no counterpart: the port runs
+fp32 only and has no precision lever.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+
+import numpy as np
+import torch
+
+from .. import plan as P
+from ..ops import cuda_fft, nufft as nf
+from ..ops import stockham as st
+from ..ops.sht import isht, sht
+from ..ops.stockham import exec_complex, exec_len
+from ..utils.config import DEFAULT_CONFIG, SpectralConfig
+from ..utils.numerics import resolve_device
+from ..utils.profiling import ab_compare, graph_time, marginal_time
+
+NO_PRECISION_LEVER = (
+    "the PyTorch port computes in fp32 only and has no precision lever "
+    "(ROADMAP, 'Decisions that stand'): '{}' has no counterpart here"
+)
+SWEEP_VALUES = 1 << 22   # complex values a call of the `kernel all` sweep
+SWEEP_ERROR_ROWS = 8     # rows of each length held against float64
+
+
+def _knobs(short, rounds, default_short: int, default_long: int, default_rounds: int = 5):
+    """(short, long, rounds): the probe's defaults, or ``short`` with long =
+    5·short and ``rounds`` where given."""
+    if short is None:
+        short, long = default_short, default_long
+    else:
+        long = 5 * short
+    return short, long, default_rounds if rounds is None else rounds
+
+
+def _planes(n: int, b: int, device, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))
+    dev = resolve_device(device)
+    return (
+        torch.tensor(x.real, dtype=torch.float32, device=dev),
+        torch.tensor(x.imag, dtype=torch.float32, device=dev),
+    ), x
+
+
+def _rel(got: torch.Tensor, want: np.ndarray) -> float:
+    got = got.detach().cpu().numpy()
+    return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+def _report(name_a, name_b, res):
+    ra = [f"{t * 1e6:.0f}" for t in res["a_seconds"]]
+    rb = [f"{t * 1e6:.0f}" for t in res["b_seconds"]]
+    print(f"  {name_a} us: {ra}")
+    print(f"  {name_b} us: {rb}")
+    print(f"  median ratio {name_a}/{name_b}: {res['ratio_median']:.3f} "
+          f"(>1 means {name_b} faster)")
+    if "a_device_us" in res:
+        print(f"  device us per call (graph_time): {name_a} {res['a_device_us']}, "
+              f"{name_b} {res['b_device_us']}")
+
+
+def _device_us(fn, args):
+    """graph_time of ``fn(*args)`` in µs, or None where the call cannot be
+    captured in a CUDA graph (it copies a host table to the card)."""
+    try:
+        return graph_time(lambda: fn(*args)) * 1e6
+    except RuntimeError as e:   # torch refuses the capture, naming the cause
+        print(f"  graph_time: not capturable ({str(e).splitlines()[0]})")
+        return None
+
+
+def _compare(name_a, fn_a, name_b, fn_b, args, short, long, rounds) -> dict:
+    """ab_compare of A and B, and on the card graph_time of each."""
+    res = ab_compare(fn_a, fn_b, args, short=short, long=long, rounds=rounds)
+    if args[0].device.type == "cuda":
+        res["a_device_us"] = _device_us(fn_a, args)
+        res["b_device_us"] = _device_us(fn_b, args)
+    _report(name_a, name_b, res)
+    return res
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _run(plan):
+    return lambda a, c: exec_complex(plan, a, c)
+
+
+def tune_stages(n: int, b: int, *, device=None, short=None, rounds=None) -> dict:
+    """The default stage split against ``max_stage`` 32/64/128/256."""
+    short, long, rounds = _knobs(short, rounds, 100, 500)
+    args, _ = _planes(n, b, device)
+    base = P.build_complex_plan(n, -1, DEFAULT_CONFIG)
+    print(f"baseline factors: {base.factors}")
+    out = {"base": base.factors, "variants": {}}
+    for max_stage in (32, 64, 128, 256):
+        cfg = dataclasses.replace(DEFAULT_CONFIG, max_stage=max_stage)
+        plan = P.build_complex_plan(n, -1, cfg)
+        if getattr(plan, "factors", None) == base.factors:
+            continue
+        print(f"vs max_stage={max_stage} {getattr(plan, 'factors', type(plan).__name__)}:")
+        out["variants"][max_stage] = _compare(
+            "base", _run(base), str(getattr(plan, "factors", max_stage)), _run(plan),
+            args, short, long, rounds)
+    return out
+
+
+def tune_pad(n: int, b: int, *, device=None, short=None, rounds=None) -> dict:
+    """Bluestein's padded length: pow2 against pow23 and fast."""
+    short, long, rounds = _knobs(short, rounds, 50, 250)
+    args, _ = _planes(n, b, device)
+    plans = {}
+    for mode in ("pow2", "pow23", "fast"):
+        plans[mode] = P.build_complex_plan(n, -1, dataclasses.replace(DEFAULT_CONFIG, pad_mode=mode))
+        print(f"{mode}: m={getattr(plans[mode], 'm', None)}")
+    out = {}
+    for mode in ("pow23", "fast"):
+        print(f"pow2 vs {mode}:")
+        out[mode] = _compare("pow2", _run(plans["pow2"]), mode, _run(plans[mode]),
+                             args, short, long, rounds)
+    return out
+
+
+def tune_kernel(n: int, b: int, *, device=None, short=None, rounds=None) -> dict:
+    """The fused kernel against the stage pipeline at (n, b), with the
+    kernel's error against float64 (on a CPU tensor the kernel's wrapper
+    runs its plain PyTorch version)."""
+    if not cuda_fft.supports(n):
+        raise ValueError(f"the fused kernel does not take n = {n}")
+    short, long, rounds = _knobs(short, rounds, 100, 500)
+    (xr, xi), x = _planes(n, b, device)
+    plan = P.build_complex_plan(n, -1, DEFAULT_CONFIG)
+    zr, zi = cuda_fft.exec_kernel(xr, xi, n, -1)
+    err = _rel(torch.complex(zr, zi), np.fft.fft(x, axis=-1))
+    print(f"kernel err: {err:.2e}")
+    res = _compare("pipeline", _run(plan), "kernel",
+                   lambda a, c: cuda_fft.exec_kernel(a, c, n, -1), (xr, xi), short, long, rounds)
+    return dict(res, kernel_err=err, factors=plan.factors)
+
+
+def sweep_lengths():
+    """Every length the fused kernel takes: the 7-smooth n <= 16,384."""
+    return [n for n in range(2, cuda_fft.MAX_N + 1) if cuda_fft.supports(n)]
+
+
+def tune_kernel_all(*, device=None, lengths=None, values: int = SWEEP_VALUES,
+                    launches: int = 4, replays: int = 3, short: int = 10):
+    """The per-length sweep that decided ``use_kernel``'s default: at every length
+    the kernel takes (or ``lengths``), ``values // n`` rows, one JSON line
+    with the time per call of the kernel, the stage pipeline and
+    ``torch.fft.fft`` on the same values, and the kernel's error against
+    float64 on 8 rows; then a summary line.  On the card the times are
+    :func:`graph_time` (``launches`` calls a graph, ``replays`` replays); on
+    the CPU they are :func:`marginal_time` (host clock, chains of ``short``
+    and 5·``short``), and the line says which.  Returns (rows, summary)."""
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    timer = "graph_time" if on_card else "marginal_time"
+    gen = torch.Generator(device=dev).manual_seed(0)
+    base_r = torch.randn(values, generator=gen, device=dev)
+    base_i = torch.randn(values, generator=gen, device=dev)
+    rows = []
+    for n in sweep_lengths() if lengths is None else lengths:
+        b = values // n
+        xr = base_r[: b * n].view(b, n)
+        xi = base_i[: b * n].view(b, n)
+        xc = torch.complex(xr, xi)
+        plan = P.get_plan(n, -1, "complex", DEFAULT_CONFIG)
+        routes = {
+            "kernel": lambda: cuda_fft.exec_kernel(xr, xi, n, -1),
+            "pipeline": lambda: exec_complex(plan, xr, xi),
+            "torch_fft": lambda: torch.fft.fft(xc),
+        }
+        row = {"n": n, "rows": b, "device": dev.type, "timer": timer}
+        for name, fn in routes.items():
+            if on_card:
+                secs = graph_time(fn, launches=launches, replays=replays)
+            else:
+                secs = marginal_time(lambda *_, f=fn: _as_tuple(f()), (xr,), short=short,
+                                     long=5 * short, reps=1)
+            row[f"{name}_us"] = secs * 1e6
+        k = min(SWEEP_ERROR_ROWS, b)
+        zr, zi = cuda_fft.exec_kernel(xr[:k], xi[:k], n, -1)
+        want = np.fft.fft(torch.complex(xr[:k], xi[:k]).cpu().numpy().astype(np.complex128))
+        row["kernel_err"] = _rel(torch.complex(zr, zi), want)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del xc
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def worst(key):
+        r = max(rows, key=lambda r: r["kernel_us"] / r[key])
+        return {"n": r["n"], "ratio": r["kernel_us"] / r[key]}
+
+    summary = {
+        "lengths": len(rows), "device": dev.type, "timer": timer, "values": values,
+        "kernel_beats_pipeline": [r["n"] for r in rows if r["kernel_us"] < r["pipeline_us"]],
+        "kernel_loses_to_pipeline": [r["n"] for r in rows if r["kernel_us"] >= r["pipeline_us"]],
+        "kernel_beats_torch_fft": [r["n"] for r in rows if r["kernel_us"] < r["torch_fft_us"]],
+        "worst_kernel_over_pipeline": worst("pipeline_us"),
+        "worst_kernel_over_torch_fft": worst("torch_fft_us"),
+        "max_kernel_err": max(r["kernel_err"] for r in rows),
+    }
+    print(json.dumps({"summary": summary}), flush=True)
+    return rows, summary
+
+
+def tune_builtin(n: int, b: int, *, device=None, short=None, rounds=None) -> dict:
+    """The library's default route (``exec_len``) against ``torch.fft.fft``."""
+    short, long, rounds = _knobs(short, rounds, 500, 2500)
+    args, _ = _planes(n, b, device)
+
+    def builtin(a, c):
+        z = torch.fft.fft(torch.complex(a, c))
+        return z.real, z.imag
+
+    route = "kernel" if cuda_fft.uses_kernel(DEFAULT_CONFIG, n, args[0]) else "stage pipeline"
+    print(f"ours: exec_len, the default route at n={n} on {args[0].device.type}: {route}")
+    return _compare("builtin", builtin, "ours",
+                    lambda a, c: exec_len(DEFAULT_CONFIG, n, -1, a, c), args, short, long, rounds)
+
+
+def _plan_with(n: int, stages=None, butterfly=None):
+    """The plan of n with ``stages`` forced as its split (plan_stages
+    replaced for this one build) and ``butterfly`` set where given."""
+    orig = P.plan_stages
+    if stages is not None:
+        P.plan_stages = lambda nn, ms, strategy="balanced": (
+            tuple(stages) if nn == n else orig(nn, ms, strategy))
+    try:
+        plan = P.build_complex_plan(n, -1, DEFAULT_CONFIG)
+    finally:
+        P.plan_stages = orig
+    return plan if butterfly is None else dataclasses.replace(plan, butterfly=butterfly)
+
+
+def tune_split(n: int, b: int, cands, *, device=None, short=None, rounds=None) -> dict:
+    """The default plan against explicit stage splits ("120x30", "128x96x2")."""
+    short, long, rounds = _knobs(short, rounds, min(500, max(50, 700_000 // n)),
+                                 5 * min(500, max(50, 700_000 // n)))
+    args, _ = _planes(n, b, device)
+    base = _plan_with(n)
+    print(f"N={n} b={b} base factors: {base.factors}")
+    out = {}
+    for cand in cands:
+        stages = tuple(int(s) for s in cand.lower().split("x"))
+        if int(np.prod(stages)) != n:
+            raise ValueError(f"{stages} does not multiply to {n}")
+        print(f"vs {stages}:")
+        out[cand] = _compare("base", _run(base), str(stages), _run(_plan_with(n, stages)),
+                             args, short, long, rounds)
+    return out
+
+
+def tune_butterfly(n: int, b: int, *, device=None, short=None, rounds=None) -> dict:
+    """Small-stage butterflies: with a 16 in the plan, matmul-16 against
+    butterflies up to 8 and up to 16; otherwise the 2/4/8 remainder moved to
+    the front factor and each ordering as a butterfly."""
+    short, long, rounds = _knobs(short, rounds, min(500, max(50, 700_000 // n)),
+                                 5 * min(500, max(50, 700_000 // n)))
+    args, x = _planes(n, b, device)
+    base = _plan_with(n, butterfly=False)
+    want = np.fft.fft(x)
+    if 16 in base.factors:
+        cands = [("bfly-to-8", dataclasses.replace(_plan_with(n, butterfly=True), butterfly_max=8)),
+                 ("bfly-to-16", dataclasses.replace(_plan_with(n, butterfly=True), butterfly_max=16))]
+    else:
+        small = [f for f in base.factors if f in (2, 4, 8)]
+        if not small:
+            print(f"N={n} default factors {base.factors} have no small stage")
+            return {}
+        tail = small[0]
+        front = tuple([tail] + [f for f in base.factors if f != tail])
+        cands = [("front-matmul", _plan_with(n, front, butterfly=False)),
+                 ("tail-bfly", _plan_with(n, butterfly=True)),
+                 ("front-bfly", _plan_with(n, front, butterfly=True))]
+    print(f"N={n} b={b} base factors: {base.factors}")
+    out = {}
+    for name, plan in cands:
+        gr, gi = exec_complex(plan, *args)
+        err = _rel(torch.complex(gr, gi), want)
+        print(f"{name}: rel err vs fp64 {err:.2e}")
+        out[name] = dict(_compare("base", _run(base), name, _run(plan), args, short, long, rounds),
+                         err=err)
+    return out
+
+
+def tune_matmul_form(n: int, b: int, *, device=None, short=None, rounds=None) -> dict:
+    """Stacked against Karatsuba stage products, by moving the crossover
+    (``ops/stockham.py::KARATSUBA_MIN_STAGE``) past every stage or below."""
+    short, long, rounds = _knobs(short, rounds, 500, 2500)
+    args, _ = _planes(n, b, device)
+    plan = P.build_complex_plan(n, -1, DEFAULT_CONFIG)
+    print(f"factors={plan.factors}  crossover={st.KARATSUBA_MIN_STAGE}")
+
+    def with_threshold(t):
+        def fn(a, c):
+            old = st.KARATSUBA_MIN_STAGE
+            st.KARATSUBA_MIN_STAGE = t
+            try:
+                return exec_complex(plan, a, c)
+            finally:
+                st.KARATSUBA_MIN_STAGE = old
+        return fn
+
+    return _compare("stacked", with_threshold(10 ** 9), "karatsuba", with_threshold(1),
+                    args, short, long, rounds)
+
+
+def tune_rader(n: int, b: int, *, device=None, short=None, rounds=None) -> dict:
+    """Rader against Bluestein at a prime n with smooth n - 1."""
+    short, long, rounds = _knobs(short, rounds, 200, 1000)
+    args, _ = _planes(n, b, device)
+    rader = P.build_complex_plan(n, -1, SpectralConfig(rader="auto"))
+    blue = P.build_complex_plan(n, -1, SpectralConfig(rader="off"))
+    print(f"rader inner={getattr(getattr(rader, 'inner', None), 'factors', None)}  "
+          f"bluestein m={getattr(blue, 'm', None)}")
+    return _compare("bluestein", _run(blue), "rader", _run(rader), args, short, long, rounds)
+
+
+def _fit(v: torch.Tensor, m: int) -> torch.Tensor:
+    """``v`` flattened, zero-padded or cut to m values (the timing chain
+    feeds outputs back as inputs of the same shape)."""
+    v = v.reshape(-1)
+    return torch.cat([v, v.new_zeros(max(0, m - v.shape[0]))])[:m]
+
+
+def tune_nufft(n: int, m: int, *, device=None, short=None, rounds=None) -> dict:
+    """Dense against grid type-1 NUFFT at (n modes, m points), and their
+    difference."""
+    short, long, rounds = _knobs(short, rounds, 50, 250)
+    dev = resolve_device(device)
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.uniform(0, 2 * np.pi, m), dtype=torch.float32, device=dev)
+    cr = torch.tensor(rng.standard_normal(m), dtype=torch.float32, device=dev)
+    ci = torch.tensor(rng.standard_normal(m), dtype=torch.float32, device=dev)
+
+    def t1(method):
+        def g(a, c):
+            out = nf.nufft1(x, torch.complex(a, c), n, method=method)
+            return _fit(out.real, m), _fit(out.imag, m)
+        return g
+
+    zr, zi = t1("grid")(cr, ci)
+    wr, wi = t1("dense")(cr, ci)
+    err = _rel(torch.complex(zr, zi), torch.complex(wr, wi).cpu().numpy())
+    print(f"grid-vs-dense err: {err:.2e}")
+    return dict(_compare("dense", t1("dense"), "grid", t1("grid"), (cr, ci), short, long, rounds),
+                err=err)
+
+
+def tune_sortspread(n: int, m: int, ndim: int = 1, *, device=None, short=None,
+                    rounds=None) -> dict:
+    """The grid path's spreading: scatter (``index_add_``, the default)
+    against sorted-cell segment sums, at (n modes an axis, m points); the
+    crossover ``_SORTED_MIN_M`` / ``_SORTED_MIN_M_2D`` would be set from it."""
+    short, long, rounds = _knobs(short, rounds, 20, 100)
+    dev = resolve_device(device)
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.uniform(0, 2 * np.pi, m), dtype=torch.float32, device=dev)
+    y = torch.tensor(rng.uniform(0, 2 * np.pi, m), dtype=torch.float32, device=dev)
+    cr = torch.tensor(rng.standard_normal(m), dtype=torch.float32, device=dev)
+    ci = torch.tensor(rng.standard_normal(m), dtype=torch.float32, device=dev)
+    mr, tau, msp = nf._grid_params(n, 1e-6)
+    if ndim == 1:
+        def scatter(a, c):
+            g = nf._spread(x, torch.complex(a, c), mr, tau, msp)
+            return _fit(g.real, m), _fit(g.imag, m)
+
+        def srt(a, c):
+            g = nf._spread_sorted(x, torch.complex(a, c), mr, tau, msp)
+            return _fit(g.real, m), _fit(g.imag, m)
+    else:
+        mrs, taus = (mr, mr), (tau, tau)
+
+        def scatter(a, c):
+            g = nf._spread_2d(x, y, torch.complex(a, c), mrs, taus, msp)
+            return _fit(g.real, m), _fit(g.imag, m)
+
+        def srt(a, c):
+            g = nf._spread_sorted_2d(x, y, torch.complex(a, c), mrs, taus, msp)
+            return _fit(g.real, m), _fit(g.imag, m)
+
+    zr, _ = scatter(cr, ci)
+    wr, _ = srt(cr, ci)
+    diff = float((zr - wr).abs().max())
+    print(f"mr={mr} msp={msp} scatter-vs-sorted re-plane err: {diff:.2e}")
+    return dict(_compare("scatter", scatter, "sorted", srt, (cr, ci), short, long, rounds),
+                err=diff)
+
+
+def tune_sht(L: int, b: int, *, device=None, short=None, rounds=None) -> dict:
+    """Hermitian against full-path SHT round trip at band limit L."""
+    short, long, rounds = _knobs(short, rounds, 20, 100)
+    rng = np.random.default_rng(0)
+    f0 = torch.tensor(rng.standard_normal((b, L, 2 * L)), dtype=torch.float32,
+                      device=resolve_device(device))
+
+    def rt_fast(g):
+        return (isht(sht(g), real_output=True).to(torch.float32),)
+
+    def rt_full(g):
+        return (isht(sht(g.to(torch.complex64))).real.to(torch.float32),)
+
+    return _compare("full", rt_full, "hermitian", rt_fast, (f0,), short, long, rounds)
+
+
+PROBES = {
+    "stages": tune_stages, "pad": tune_pad, "kernel": tune_kernel, "builtin": tune_builtin,
+    "matmul_form": tune_matmul_form, "rader": tune_rader, "butterfly": tune_butterfly,
+    "nufft": tune_nufft, "sht": tune_sht,
+}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m mixed_radix_fast_fourier_transform_tpu_torch.tools.tune")
+    ap.add_argument("which", nargs="?", default="stages")
+    ap.add_argument("n", nargs="?", default="1024")
+    ap.add_argument("b", nargs="?", type=int, default=256)
+    ap.add_argument("extra", nargs="*")
+    ap.add_argument("--device", default=None)
+    ap.add_argument("--short", type=int, default=None)
+    ap.add_argument("--rounds", type=int, default=None)
+    a = ap.parse_args(argv)
+    if a.which in ("precision", "prec"):
+        print(NO_PRECISION_LEVER.format(a.which), file=sys.stderr)
+        return 2
+    knobs = dict(device=a.device, short=a.short, rounds=a.rounds)
+    # the timing chains scale each output by 1e-3 and feed it back, so values
+    # fall through the subnormal range, where a CPU's float units run many
+    # times slower; flushed to zero they time as any other data
+    flush = resolve_device(a.device).type == "cpu"
+    torch.set_flush_denormal(flush)
+    try:
+        if a.which == "kernel" and a.n == "all":
+            tune_kernel_all(device=a.device)
+        elif a.which == "split":
+            tune_split(int(a.n), a.b, a.extra, **knobs)
+        elif a.which == "sortspread":
+            tune_sortspread(int(a.n), a.b, int(a.extra[0]) if a.extra else 1, **knobs)
+        elif a.which in PROBES:
+            PROBES[a.which](int(a.n), a.b, **knobs)
+        else:
+            ap.error(f"unknown probe {a.which!r}; one of "
+                     f"{sorted(PROBES) + ['split', 'sortspread']}")
+    finally:
+        torch.set_flush_denormal(False)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -42,10 +42,18 @@ class SpectralConfig:
     # Stages of size 2/4/8/16 as elementwise butterflies instead of dense
     # DFT matmuls: "auto"/"16" (2..16), "8" (2..8) or "off".
     butterfly: str = "auto"
-    # Fused Stockham kernel (ops/cuda_fft.py) for lengths it supports:
-    # None (default) or True = on, False = always the stage pipeline.  On a
-    # CUDA tensor "on" launches the CUDA kernel; on a CPU tensor it runs the
-    # kernel's plain PyTorch version.
+    # Fused Stockham kernel (ops/cuda_fft.py) for the lengths it supports
+    # (7-smooth, n <= 16,384).  True: always (a CUDA tensor launches the
+    # kernel, a CPU tensor runs its plain PyTorch version); False: never,
+    # the stage pipeline.  None (default): the kernel on a CUDA tensor at
+    # every length it takes, and the stage pipeline on a CPU tensor (3.6-45x
+    # faster there than the plain version; `tools/tune.py kernel --device
+    # cpu` at n = 64 to 16,384; PERF.md).  On the card the sweep
+    # (`tools/tune.py kernel all`, chip_smoke.py phase 28, NVIDIA H100 80GB
+    # HBM3 at 700 W) has the kernel ahead of the stage pipeline at 361 of
+    # 399 lengths at 2^22 values a call and behind at 38 below 128; at the
+    # row counts the examples send there the kernel was the faster route
+    # (phase 27), so short rows are the kernel's to win (ROADMAP queue 2).
     use_kernel: "bool | None" = None
 
     def __post_init__(self):

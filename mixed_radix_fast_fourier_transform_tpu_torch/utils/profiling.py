@@ -8,6 +8,8 @@ Counterpart of ``mixed_radix_fast_fourier_transform_tpu/utils/profiling.py``:
   of a function from the difference of a long and a short chain of
   applications, which cancels what a chain costs once; interleaved for an
   A/B comparison;
+* :func:`graph_time`: the card's time of one call, from calls captured in a
+  CUDA graph and replayed between CUDA events (no host gaps);
 * :func:`trace`: a ``torch.profiler`` capture written as a Chrome trace;
 * :func:`estimate_four_step_hbm` and :func:`require_four_step_hbm`: the
   device-memory budget of the sharded four-step transform on one card.
@@ -23,6 +25,8 @@ import time
 from typing import Callable, List, Optional, Tuple
 
 import torch
+
+from .tree import tree_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,8 +165,8 @@ def marginal_time(
     ``fn`` must map a tuple of tensors to a tuple of tensors of identical
     shapes and dtypes.  On the card the applications are dispatched back to
     back, so where the host dispatches them slower than the card runs them
-    this is the host's time per application; ``kernel_bench.graph_us``
-    replays a captured graph for the device time alone."""
+    this is the host's time per application; :func:`graph_time` replays a
+    captured graph for the device time alone."""
     _chain_seconds(fn, args, short)  # build, plan and settle
     times = {}
     for iters in (short, long):
@@ -200,6 +204,40 @@ def ab_compare(
         "b_seconds": tb,
         "ratio_median": ratios[len(ratios) // 2],
     }
+
+
+def graph_time(fn: Callable, launches: int = 20, replays: int = 10) -> float:
+    """Seconds of device time per call of ``fn()``: ``launches`` back-to-back
+    calls captured in one CUDA graph, replayed ``replays`` times between two
+    CUDA events, so no host gap lies between the calls.  ``fn`` takes no
+    argument and must compute on the card: without one, or for a result
+    tensor on another device, it raises ``ValueError`` (there is no host
+    timing under this name)."""
+    where = {t.device.type for t in tree_leaves(fn()) if isinstance(t, torch.Tensor)} - {"cuda"}
+    if where or not torch.cuda.is_available():
+        raise ValueError(
+            f"graph_time times work on a CUDA device; fn returned tensors on "
+            f"{sorted(where)}, CUDA available: {torch.cuda.is_available()}"
+        )
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(launches):
+                fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e-3 / (launches * replays)
 
 
 @contextlib.contextmanager

@@ -57,7 +57,7 @@ def test_fft_axis_n_and_2d():
 
 
 @pytest.mark.parametrize("n", [4096, 999])
-@pytest.mark.parametrize("use_kernel", [None, False])
+@pytest.mark.parametrize("use_kernel", [None, True, False])
 def test_rfft_irfft_match_jax(n, use_kernel):
     rng = np.random.default_rng(n)
     x = rng.standard_normal((3, n)).astype(np.float32)

@@ -27,7 +27,7 @@ torch.set_num_threads(1)
 TOL = 1e-5
 GRAD_TOL = 1e-4
 N_MELS, N_CLASSES, BATCH, T = 16, 5, 4, 3000
-ROUTES = {"kernel": tp.DEFAULT_CONFIG, "pipeline": tp.SpectralConfig(use_kernel=False)}
+ROUTES = {"kernel": tp.SpectralConfig(use_kernel=True), "pipeline": tp.SpectralConfig(use_kernel=False)}
 
 
 def _rel(got, want):

@@ -21,7 +21,7 @@ torch.set_num_threads(1)
 
 TOL = 1e-5
 ORACLE_TOL = 2e-5
-ROUTES = {"kernel": tp.DEFAULT_CONFIG, "pipeline": tp.SpectralConfig(use_kernel=False)}
+ROUTES = {"kernel": tp.SpectralConfig(use_kernel=True), "pipeline": tp.SpectralConfig(use_kernel=False)}
 
 
 def _rel(got, want):
@@ -43,19 +43,36 @@ CZT_CASES = [
 ]
 
 
+@pytest.fixture
+def case_rng(request):
+    """A generator made for one test case from its id: its draws do not
+    depend on which tests ran before on the worker, as the session ``rng``'s
+    do."""
+    return np.random.default_rng([ord(ch) for ch in request.node.name])
+
+
 @pytest.mark.parametrize("n,m,w,a", CZT_CASES, ids=[f"n{c[0]}-m{c[1]}" for c in CZT_CASES])
-def test_czt_matches_jax_scipy_and_the_direct_sum(rng, n, m, w, a):
-    x = _complex(rng, 2, n)
+def test_czt_matches_jax_scipy_and_the_direct_sum(case_rng, n, m, w, a):
+    """The port against the JAX function at TOL, and against scipy and the
+    direct sum in float64 at ORACLE_TOL wherever the JAX function itself
+    holds ORACLE_TOL on the draw.  Where it does not (the fp32 algorithm on
+    the |w| = 0.999 spiral exceeds 2e-5 on ~5% of draws in both packages),
+    the port is held to the JAX function's own error plus TOL (the triangle
+    bound)."""
+    x = _complex(case_rng, 2, n)
     got = tp.czt(torch.from_numpy(x), m, w, a)
     assert got.dtype == torch.complex64
-    assert _rel(got, sp.czt(x, m, w, a)) <= TOL
+    ref = np.asarray(sp.czt(x, m, w, a))
+    assert _rel(got, ref) <= TOL
     x64 = x.astype(np.complex128)
-    assert _rel(got, scipy.signal.czt(x64, m, w, a)) <= ORACLE_TOL
     mm = m or n
     ww = np.exp(-2j * np.pi / mm) if w is None else w
     k, j = np.arange(mm)[None, :], np.arange(n)[:, None]
     direct = x64 @ (complex(a) ** (-j) * complex(ww) ** (j * k))
-    assert _rel(got, direct) <= ORACLE_TOL
+    for oracle in (scipy.signal.czt(x64, m, w, a), direct):
+        jax_err = _rel(ref, oracle)
+        bound = ORACLE_TOL if jax_err <= ORACLE_TOL else jax_err + TOL
+        assert _rel(got, oracle) <= bound
 
 
 def test_czt_constants_are_bit_equal():
@@ -121,7 +138,7 @@ def test_czt_never_reaches_the_kernel(rng):
     real = cuda_fft.exec_kernel
     cuda_fft.exec_kernel = lambda *a: seen.append(a) or real(*a)
     try:
-        a = tp.czt(x, 77)
+        a = tp.czt(x, 77, config=ROUTES["kernel"])
         b = tp.czt(x, 77, config=ROUTES["pipeline"])
     finally:
         cuda_fft.exec_kernel = real

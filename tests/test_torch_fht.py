@@ -21,7 +21,7 @@ from mixed_radix_fast_fourier_transform_tpu_torch.ops import fht as tfht
 torch.set_num_threads(1)
 
 TOL = 1e-5
-ROUTES = {"kernel": tp.DEFAULT_CONFIG, "pipeline": tp.SpectralConfig(use_kernel=False)}
+ROUTES = {"kernel": tp.SpectralConfig(use_kernel=True), "pipeline": tp.SpectralConfig(use_kernel=False)}
 # (n, dln, mu, offset, bias)
 CASES = [(128, 0.1, 0.0, 0.0, 0.0), (128, 0.1, 1.0, 0.1, 0.3), (64, 0.05, 2.5, -0.2, -0.4),
          (90, 0.2, 0.5, 0.0, 0.0), (45, 0.1, 1.0, 0.0, 0.2)]

@@ -8,6 +8,8 @@ where there is no CUDA device; on a GPU machine without JAX run
     python -m pytest tests/test_torch_kernel.py -m cuda --noconftest -p no:cacheprovider
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -212,14 +214,32 @@ def test_cpu_tensors_never_launch(launches):
 def test_dispatch(launches):
     _, xr, xi = _inputs(360, 2, 2)
     tr, ti = torch.from_numpy(xr), torch.from_numpy(xi)
-    on = tp.SpectralConfig()
+    on = tp.SpectralConfig(use_kernel=True)
     off = tp.SpectralConfig(use_kernel=False)
     assert cuda_fft.maybe_exec_kernel(off, 360, -1, tr, ti) is None
+    # the default (None) takes the stage pipeline for a CPU tensor
+    assert cuda_fft.maybe_exec_kernel(tp.SpectralConfig(), 360, -1, tr, ti) is None
     assert cuda_fft.maybe_exec_kernel(on, 44, -1, tr[:, :44], ti[:, :44]) is None
     assert cuda_fft.maybe_exec_kernel(on, 1, -1, tr[:, :1], ti[:, :1]) is None
     kr, _ = cuda_fft.maybe_exec_kernel(on, 360, -1, tr, ti)
     rr, _ = cuda_fft.exec_kernel_reference(tr, ti, 360, -1)
     assert torch.equal(kr, rr)
+
+
+def test_default_route_is_the_kernel_on_the_card_and_the_pipeline_on_the_cpu():
+    """``use_kernel=None`` runs the kernel on a CUDA tensor at every length
+    it takes, short ones too, and never on a CPU tensor; True runs it
+    wherever it takes the length, False nowhere."""
+    on_card = types.SimpleNamespace(device=torch.device("cuda"))
+    on_cpu = types.SimpleNamespace(device=torch.device("cpu"))
+    default, on, off = tp.SpectralConfig(), tp.SpectralConfig(use_kernel=True), \
+        tp.SpectralConfig(use_kernel=False)
+    for n in (2, 16, 32, 49, 64, 90, 126, 128, 2048, 16384):
+        assert cuda_fft.uses_kernel(default, n, on_card) and cuda_fft.uses_kernel(on, n, on_card)
+        assert not cuda_fft.uses_kernel(off, n, on_card)
+    for n in (2, 90, 2048):
+        assert not cuda_fft.uses_kernel(default, n, on_cpu) and cuda_fft.uses_kernel(on, n, on_cpu)
+    assert not cuda_fft.uses_kernel(on, 1009, on_card) and not cuda_fft.uses_kernel(on, 1, on_card)
 
 
 def test_wrapper_refuses_other_devices():

@@ -24,7 +24,7 @@ from mixed_radix_fast_fourier_transform_tpu_torch.ops import mel as tmel
 torch.set_num_threads(1)
 
 TOL = 1e-5
-ROUTES = {"kernel": tp.DEFAULT_CONFIG, "pipeline": tp.SpectralConfig(use_kernel=False)}
+ROUTES = {"kernel": tp.SpectralConfig(use_kernel=True), "pipeline": tp.SpectralConfig(use_kernel=False)}
 
 
 def _np(v):

@@ -24,6 +24,7 @@ torch.set_num_threads(1)
 
 FORWARD_TOL, LOSS_TOL, GRAD_TOL, STEP_TOL = 2e-5, 1e-5, 1e-4, 2e-5
 PIPELINE = tp.SpectralConfig(use_kernel=False)
+KERNEL = tp.SpectralConfig(use_kernel=True)   # the kernel's plain version on a CPU tensor
 KEY = jax.random.PRNGKey(0)
 AFNO_KW = dict(patch=2, n_blocks=4)
 
@@ -111,7 +112,7 @@ ROUTES = [(f, r) for f in FAMILIES for r in (("kernel", "pipeline") if f.routes 
 @pytest.mark.parametrize("fam,route", ROUTES, ids=[f"{f.name}-{r}" for f, r in ROUTES])
 def test_forward_matches_jax(fam, route):
     kw = {} if route == "only" else {
-        "config": tp.DEFAULT_CONFIG if route == "kernel" else PIPELINE}
+        "config": KERNEL if route == "kernel" else PIPELINE}
     want = np.asarray(fam.apply(fam.jmod, fam.jparams, fam.x))
     with torch.no_grad():
         got = fam.apply(fam.tmod, fam.params(), _tensor(fam.x), **kw)
@@ -124,7 +125,7 @@ def test_loss_and_gradients_match_jax(fam):
     jloss, jgrads = jax.value_and_grad(
         lambda p: fam.loss(fam.jmod, p, fam.x, fam.target))(fam.jparams)
     want = _flatten(jgrads)
-    routes = (tp.DEFAULT_CONFIG, PIPELINE) if fam.routes else (None,)
+    routes = (KERNEL, PIPELINE) if fam.routes else (None,)
     for config in routes:
         kw = {} if config is None else {"config": config}
         leaves = tree_map(lambda p: p.clone().requires_grad_(True), fam.params())

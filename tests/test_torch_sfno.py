@@ -55,7 +55,7 @@ def _case(seed=0):
     return jparams, params, x, target
 
 
-@pytest.mark.parametrize("config", [tp.DEFAULT_CONFIG, PIPELINE], ids=["kernel", "pipeline"])
+@pytest.mark.parametrize("config", [tp.SpectralConfig(use_kernel=True), PIPELINE], ids=["kernel", "pipeline"])
 def test_forward_loss_and_every_gradient_leaf_match_jax(config):
     jparams, params, x, target = _case()
     xt, tt = torch.from_numpy(x), torch.from_numpy(target)

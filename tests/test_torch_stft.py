@@ -26,7 +26,7 @@ torch.set_num_threads(1)
 
 TOL = 1e-5
 VOCODER_TOL = 2e-4
-ROUTES = {"kernel": tp.DEFAULT_CONFIG, "pipeline": tp.SpectralConfig(use_kernel=False)}
+ROUTES = {"kernel": tp.SpectralConfig(use_kernel=True), "pipeline": tp.SpectralConfig(use_kernel=False)}
 
 
 def _rel(got, want):

@@ -16,7 +16,7 @@ from mixed_radix_fast_fourier_transform_tpu_torch import models as tmodels
 torch.set_num_threads(1)
 
 TOL = 1e-5  # max |got − want| / max |want|
-CONFIGS = {"kernel": tp.SpectralConfig(), "pipeline": tp.SpectralConfig(use_kernel=False)}
+CONFIGS = {"kernel": tp.SpectralConfig(use_kernel=True), "pipeline": tp.SpectralConfig(use_kernel=False)}
 
 
 def _rel(got, want):
