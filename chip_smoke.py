@@ -13,6 +13,14 @@ Phases, each of which raises on failure:
    at n = 4096, batch 8 and 1024, against a float64 numpy oracle, with the
    kernel's launches counted; then the kernel against its plain version on
    the planes the forward handed it (n = 2048, both signs);
+4a. the float64 route, ``SpectralConfig(dtype=torch.float64)``: ``fft`` at
+   n = 360, 1024, 1009, 5040 and 10007, the ``rfft`` → ``irfft`` round trip
+   at 4096 and ``dct`` type 2 at 256 against numpy/scipy float64 (1e-12;
+   the DCT 1e-10), and the spectral filter forward at n = 4096, batch 8 and
+   1024, with ``init_params(..., dtype=torch.float64)``, against the float64
+   oracle at 1e-12; the fused kernel (fp32 only) must launch no time in the
+   phase; the float64 forward's device time beside the fp32 forward's
+   (CUDA-graph replay);
 5. the core FFT lengths of the reference benchmark against numpy float64;
 6. CUDA-event timings of the kernel, its plain version, the stage pipeline
    and ``torch.fft`` at the kernel-eligible shapes, and the filter's device
@@ -554,6 +562,69 @@ def main_path(rng):
                     for xr, xi, n, sign in seen)
     big_forward = seen[expected.index((FILTER_BATCHES[-1], -1))]
     return launches, worst_abs, big_forward[:2]
+
+
+F64 = tp.SpectralConfig(dtype=torch.float64)
+F64_TOL = 1e-12          # float64 route vs numpy/scipy float64
+F64_DCT_TOL = 1e-10      # the DCT, absolute, as the JAX package's fp64 test holds it
+F64_LENGTHS = ((360, 64), (1024, 64), (1009, 64), (5040, 16), (10007, 16))
+
+
+def float64_path(rng, card: str) -> None:
+    """The float64 route on the card: the engine's algorithm classes, the
+    real round trip, the DCT and the spectral filter forward against float64
+    oracles, none of it through the fp32 kernel; then the filter forward's
+    device time in float64 beside fp32 (graph replay)."""
+    before = cuda_fft.LAUNCHES
+    for n, b in F64_LENGTHS:
+        x = rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))
+        got = tp.fft(torch.tensor(x, device="cuda"), config=F64)
+        require(got.dtype == torch.complex128, f"float64 fft n={n} gave {got.dtype}")
+        err = rel_err(got.cpu().numpy(), np.fft.fft(x))
+        log(f"float64 fft n={n} b={b}: rel err {err:.3e}")
+        require(err <= F64_TOL, f"float64 fft n={n} error {err:.3e}")
+    x = rng.standard_normal((64, 4096))
+    back = tp.irfft(tp.rfft(torch.tensor(x, device="cuda"), config=F64), n=4096, config=F64)
+    err = float(np.max(np.abs(back.cpu().numpy() - x)))
+    log(f"float64 rfft->irfft 4096 b=64: max abs err {err:.3e}")
+    require(back.dtype == torch.float64 and err <= F64_TOL, f"float64 round trip {err:.3e}")
+    x = rng.standard_normal((64, 256))
+    got = tp.dct(torch.tensor(x, device="cuda"), type=2, config=F64)
+    err = float(np.max(np.abs(got.cpu().numpy() - scipy.fft.dct(x, type=2))))
+    log(f"float64 dct2 256 b=64: max abs err {err:.3e}")
+    require(got.dtype == torch.float64 and err <= F64_DCT_TOL, f"float64 dct {err:.3e}")
+    params = tp.models.spectral_filter.init_params(
+        FILTER_N, torch.Generator(device="cuda").manual_seed(SEED), "cuda", dtype=torch.float64)
+    gain = (params["gain_re"] + 1j * params["gain_im"]).cpu().numpy()
+    bias = float(params["bias"])
+    rows = []
+    with torch.inference_mode():
+        for b in FILTER_BATCHES:
+            x = rng.standard_normal((b, FILTER_N))
+            xt = torch.tensor(x, device="cuda")
+            y = tp.models.spectral_filter.apply(params, xt, config=F64)
+            want = np.fft.irfft(np.fft.rfft(x) * gain, n=FILTER_N) + bias
+            err = rel_err(y.cpu().numpy(), want)
+            log(f"float64 spectral filter n={FILTER_N} batch={b}: rel err {err:.3e}")
+            require(y.dtype == torch.float64 and err <= F64_TOL,
+                    f"float64 spectral filter error {err:.3e} at batch {b}")
+            rows.append({"n": FILTER_N, "batch": b, "float64_rel_err": err, "x": xt})
+    launched = cuda_fft.LAUNCHES - before
+    log(f"fused kernel launches in the float64 phase: {launched}")
+    require(launched == 0, f"the float64 route launched the fp32 kernel {launched} times")
+    p32 = {k: v.float() for k, v in params.items()}
+    for row in rows:
+        xt = row.pop("x")
+        x32 = xt.float()
+        row["float64_device_us"] = 1e6 * graph_time(
+            lambda: tp.models.spectral_filter.apply(params, xt, config=F64))
+        row["fp32_device_us"] = 1e6 * graph_time(
+            lambda: tp.models.spectral_filter.apply(p32, x32))
+        row["fp32_pipeline_device_us"] = 1e6 * graph_time(
+            lambda: tp.models.spectral_filter.apply(p32, x32, config=PIPELINE))
+        log(f"spectral filter b={row['batch']} forward device us (graph replay): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in row.items() if k.endswith("_us")))
+    log(json.dumps({"float64_path": {"card": card, "spectral_filter": rows}}))
 
 
 def core_lengths(rng) -> None:
@@ -2705,17 +2776,19 @@ def sht_sfno(rng, card: str):
         check(f"isht_recurrence {kind} L={L}", back, f,
               ORACLE_TOL if compensated else ISHT_REC_PLAIN_TOL)
     ft = cuda32(f)
+    # the recurrence rows time one call each: the profiler's events of these
+    # 16,000-66,000-kernel calls are most of the phase's wall time
     with torch.no_grad():
         for compensated in (False, True):
             rows.append(timing_row(
                 f"sht_recurrence {'compensated' if compensated else 'plain'} L={L} batch "
-                f"{SHT_REC_BATCH}", lambda: tp.sht_recurrence(ft, compensated=compensated), 2))
+                f"{SHT_REC_BATCH}", lambda: tp.sht_recurrence(ft, compensated=compensated), 1))
         L = SHT_REC_TIME_L
         fl = cuda32(rng.standard_normal((1, L, 2 * L)))
         got = tp.sht_recurrence(fl)
         require(bool(torch.isfinite(got).all()), f"sht_recurrence at L={L} is not finite")
         rows.append(timing_row(f"sht_recurrence plain L={L} batch 1",
-                               lambda: tp.sht_recurrence(fl), 2))
+                               lambda: tp.sht_recurrence(fl), 1))
     del ft, fl, got
     worst.append(kernel_errors(ops.seen, "recurrence planes"))
     ops.seen.clear()
@@ -4126,11 +4199,15 @@ def main(argv) -> int:
     if argv == ["tune"]:   # development: phase 28 alone
         timed(tune_phase, card)
         return 0
+    if argv == ["float64"]:   # development: phase 4a alone
+        timed(float64_path, rng, card)
+        return 0
     if argv == ["parallel-timings"]:   # phase 25's device times, a process of their own
         timed(parallel_timings, card)
         return 0
     timed(kernel_vs_plain, rng)
     launches, max_abs, (xr, xi) = timed(main_path, rng)
+    timed(float64_path, rng, card)
     timed(core_lengths, rng)
     timed(timings, rng, card)
     timed(yardstick, rng, card)

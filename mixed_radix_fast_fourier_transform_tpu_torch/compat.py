@@ -179,7 +179,8 @@ def fft_exec(obj: fft_object, inp, oup=None):
 
     Host input (a numpy array, list or tuple) of N <= 65,536 is transformed
     in float64 on the host, as the reference's does with its native fp64
-    engine, cast to complex64 and returned on the card.  A tensor takes the
+    engine, cast to the plan config's complex dtype (complex64, or
+    complex128 under ``dtype=torch.float64``) and returned on the card.  A tensor takes the
     plan's stage pipeline on its own device."""
     if obj is None:
         raise ValueError("fft_exec: NULL plan")
@@ -191,8 +192,9 @@ def fft_exec(obj: fft_object, inp, oup=None):
         # compat sgn=+1 is numpy's forward kernel e^{-2πi·nk/N}; sgn=-1 the
         # unnormalized inverse
         out = np.fft.fft(x64) if obj.sgn == 1 else np.fft.ifft(x64, norm="forward")
-        return as_tensor(out.astype(np.complex64))
-    xr, xi = to_planes(inp)
+        cdtype = np.complex128 if obj._config.dtype == torch.float64 else np.complex64
+        return as_tensor(out.astype(cdtype))
+    xr, xi = to_planes(inp, obj._config.dtype)
     zr, zi = exec_complex(obj._plan, xr, xi)
     return from_planes(zr, zi)
 

@@ -13,23 +13,32 @@ from torch import nn
 
 from ..utils.config import DTYPE
 from ..utils.numerics import as_tensor, resolve_device
-from ..utils.tree import tree_from_numpy, tree_map, tree_map_with_path
+from ..utils.tree import tree_from_numpy, tree_leaves, tree_map, tree_map_with_path
 
 Tensor = torch.Tensor
 
 
-def params_from_jax(params, device=None):
+def params_from_jax(params, device=None, dtype=DTYPE):
     """A parameter tree of the JAX package (dicts and lists with numpy
-    leaves) as fp32 tensors on ``device`` (default: the card), structure
-    unchanged, so that both packages compute the same function."""
-    return tree_from_numpy(params, device)
+    leaves) as ``dtype`` tensors (fp32, or float64 for parameters made under
+    x64) on ``device`` (default: the card), structure unchanged, so that
+    both packages compute the same function."""
+    return tree_from_numpy(params, device, dtype)
 
 
-def as_input(x, device=None) -> Tensor:
-    """A model's real input or target as an fp32 tensor: a tensor stays on
-    its own device, anything else goes to ``device`` (default: the card, see
+def param_dtype(params) -> torch.dtype:
+    """The working dtype of a parameter tree: its first leaf's (fp32 for a
+    tree without leaves)."""
+    leaves = tree_leaves(params)
+    return leaves[0].dtype if leaves else DTYPE
+
+
+def as_input(x, device=None, dtype=DTYPE) -> Tensor:
+    """A model's real input or target as a ``dtype`` tensor (the
+    parameters' dtype, fp32 by default): a tensor stays on its own device,
+    anything else goes to ``device`` (default: the card, see
     utils.numerics.as_tensor)."""
-    return as_tensor(x, device).to(DTYPE)
+    return as_tensor(x, device).to(dtype)
 
 
 def gelu(x: Tensor) -> Tensor:
@@ -44,28 +53,30 @@ def layer_norm(x: Tensor, scale: Tensor, bias: Tensor, eps: float = 1e-6) -> Ten
 
 
 class Draws:
-    """Random draws from ``generator`` on its own device (the CPU when
-    None), placed on ``device`` (default: the card)."""
+    """Random draws of ``dtype`` (fp32 by default) from ``generator`` on its
+    own device (the CPU when None), placed on ``device`` (default: the
+    card)."""
 
-    def __init__(self, generator: Optional[torch.Generator], device):
+    def __init__(self, generator: Optional[torch.Generator], device, dtype=DTYPE):
         self.generator = generator
         self.source = generator.device if generator is not None else torch.device("cpu")
         self.device = resolve_device(device)
+        self.dtype = dtype
 
     def __call__(self, *shape: int) -> Tensor:
         """N(0, 1)."""
-        return torch.randn(*shape, generator=self.generator, dtype=DTYPE,
+        return torch.randn(*shape, generator=self.generator, dtype=self.dtype,
                            device=self.source).to(self.device)
 
     def uniform(self, low: float, high: float, *shape: int) -> Tensor:
-        u = torch.rand(*shape, generator=self.generator, dtype=DTYPE, device=self.source)
+        u = torch.rand(*shape, generator=self.generator, dtype=self.dtype, device=self.source)
         return (low + (high - low) * u).to(self.device)
 
     def zeros(self, *shape: int) -> Tensor:
-        return torch.zeros(*shape, dtype=DTYPE, device=self.device)
+        return torch.zeros(*shape, dtype=self.dtype, device=self.device)
 
     def ones(self, *shape: int) -> Tensor:
-        return torch.ones(*shape, dtype=DTYPE, device=self.device)
+        return torch.ones(*shape, dtype=self.dtype, device=self.device)
 
 
 class TreeModule(nn.Module):

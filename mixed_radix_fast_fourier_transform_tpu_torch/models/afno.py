@@ -31,9 +31,11 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.rfft import irfft2, rfft2
-from ..utils.config import DEFAULT_CONFIG, SpectralConfig
+from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.tree import sgd_step
-from ._common import Draws, TreeModule, as_input, gelu, layer_norm, params_from_jax
+from ._common import (
+    Draws, TreeModule, as_input, gelu, layer_norm, param_dtype, params_from_jax,
+)
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
@@ -76,16 +78,16 @@ def _init_block(draw: Draws, dim: int, n_blocks: int, mlp_ratio: float) -> Param
 
 
 def init_block(dim: int, n_blocks: int, mlp_ratio: float = 4.0, generator=None,
-               device=None) -> Params:
-    return _init_block(Draws(generator, device), dim, n_blocks, mlp_ratio)
+               device=None, dtype=DTYPE) -> Params:
+    return _init_block(Draws(generator, device, dtype), dim, n_blocks, mlp_ratio)
 
 
 def init_afno(in_channels: int, dim: int, out_channels: int, *, patch: int = 4,
               n_layers: int = 2, n_blocks: int = 4, mlp_ratio: float = 4.0,
-              generator=None, device=None) -> Dict[str, object]:
+              generator=None, device=None, dtype=DTYPE) -> Dict[str, object]:
     """AFNO for (batch, H, W, in_channels) fields: patch embed -> n_layers
     AFNO blocks -> patch de-embed to (batch, H, W, out_channels)."""
-    draw = Draws(generator, device)
+    draw = Draws(generator, device, dtype)
     pdim = patch * patch * in_channels
     odim = patch * patch * out_channels
     return {
@@ -164,7 +166,7 @@ def apply(params: Dict[str, object], x, *, patch: int = 4, n_blocks: int = 4,
           config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     """(batch, H, W, in_channels) -> (batch, H, W, out_channels); ``patch``
     must divide H and W (pass the value used at init)."""
-    x = as_input(x)
+    x = as_input(x, dtype=param_dtype(params))
     p = int(patch)
     b, H, W, cin = x.shape
     if H % p or W % p:
@@ -185,7 +187,7 @@ def apply(params: Dict[str, object], x, *, patch: int = 4, n_blocks: int = 4,
 
 def loss_fn(params, x, target, **kw) -> Tensor:
     y = apply(params, x, **kw)
-    return torch.mean((y - as_input(target, y.device)) ** 2)
+    return torch.mean((y - as_input(target, y.device, y.dtype)) ** 2)
 
 
 def train_step(params, x, target, lr: float = 1e-3, **kw):

@@ -24,7 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..ops.mel import melspectrogram, pcen
-from ..utils.config import DEFAULT_CONFIG, SpectralConfig
+from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.numerics import as_tensor
 from ..utils.tree import sgd_step
 from ._common import Draws, TreeModule, as_input, params_from_jax
@@ -56,19 +56,20 @@ def _init_classifier(draw: Draws, n_mels: int, n_classes: int) -> Params:
     }
 
 
-def init_frontend(n_mels: int = 40, generator=None, device=None) -> Params:
+def init_frontend(n_mels: int = 40, generator=None, device=None, dtype=DTYPE) -> Params:
     """Per-band PCEN parameters at the published initialization
     (gain 0.98, bias 2, power 0.5, smoothing b ≈ 0.025); no random draw."""
-    return _init_frontend(Draws(generator, device), n_mels)
+    return _init_frontend(Draws(generator, device, dtype), n_mels)
 
 
-def init_classifier(n_mels: int, n_classes: int, generator=None, device=None) -> Params:
-    return _init_classifier(Draws(generator, device), n_mels, n_classes)
+def init_classifier(n_mels: int, n_classes: int, generator=None, device=None,
+                    dtype=DTYPE) -> Params:
+    return _init_classifier(Draws(generator, device, dtype), n_mels, n_classes)
 
 
 def init_params(n_mels: int = 40, n_classes: int = 2, generator=None,
-                device=None) -> Dict[str, Params]:
-    draw = Draws(generator, device)
+                device=None, dtype=DTYPE) -> Dict[str, Params]:
+    draw = Draws(generator, device, dtype)
     return {
         "frontend": _init_frontend(draw, n_mels),
         "head": _init_classifier(draw, n_mels, n_classes),
@@ -89,8 +90,8 @@ def apply_frontend(
     TRAINED per-band coefficients."""
     n_mels = params["log_gain"].shape[0]
     hop = n_fft // 4 if hop is None else int(hop)
-    M = melspectrogram(as_input(x, params["log_gain"].device), sr, n_fft=n_fft, hop=hop,
-                       n_mels=n_mels, config=config)
+    x = as_input(x, params["log_gain"].device, params["log_gain"].dtype)
+    M = melspectrogram(x, sr, n_fft=n_fft, hop=hop, n_mels=n_mels, config=config)
     # ops/mel.pcen with learned per-band coefficients
     return pcen(
         M,

@@ -34,9 +34,11 @@ from ..ops.fft import fft
 from ..parallel.distributed import (
     _input, _local, _mean_squared_error, _replicated, _wrap, fft_four_step,
 )
-from ..utils.config import DEFAULT_CONFIG, SpectralConfig
+from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.tree import sgd_step
-from ._common import Draws, TreeModule, as_input, gelu, layer_norm, params_from_jax
+from ._common import (
+    Draws, TreeModule, as_input, gelu, layer_norm, param_dtype, params_from_jax,
+)
 
 Tensor = torch.Tensor
 Params = Dict[str, object]
@@ -61,21 +63,21 @@ def _init_layer(draw: Draws, hidden: int, ff_dim: int) -> Params:
     }
 
 
-def init_layer(hidden: int, ff_dim: int, generator=None, device=None) -> Params:
-    return _init_layer(Draws(generator, device), hidden, ff_dim)
+def init_layer(hidden: int, ff_dim: int, generator=None, device=None, dtype=DTYPE) -> Params:
+    return _init_layer(Draws(generator, device, dtype), hidden, ff_dim)
 
 
 def init_fnet(hidden: int, ff_dim: Optional[int] = None, n_layers: int = 2,
-              generator=None, device=None) -> Dict[str, List[Params]]:
+              generator=None, device=None, dtype=DTYPE) -> Dict[str, List[Params]]:
     """Encoder stack over continuous inputs (batch, seq, hidden)."""
     ff_dim = ff_dim if ff_dim is not None else 4 * hidden
-    draw = Draws(generator, device)
+    draw = Draws(generator, device, dtype)
     return {"layers": [_init_layer(draw, hidden, ff_dim) for _ in range(n_layers)]}
 
 
 def fourier_mix(x, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     """Token mixing: Re(F_seq(F_hidden(x))) over (..., seq, hidden) real."""
-    z = fft(as_input(x), axis=-1, config=config)   # hidden-axis FFT
+    z = fft(as_input(x, dtype=config.dtype), axis=-1, config=config)   # hidden-axis FFT
     z = fft(z, axis=-2, config=config)             # sequence-axis FFT
     return z.real
 
@@ -88,7 +90,7 @@ def _encoder_layer(p: Params, x: Tensor, mix: Tensor) -> Tensor:
 
 def apply(params, x, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     """(batch, seq, hidden) real -> same shape."""
-    x = as_input(x)
+    x = as_input(x, dtype=param_dtype(params))
     for p in params["layers"]:
         x = _encoder_layer(p, x, fourier_mix(x, config=config))
     return x
@@ -96,7 +98,7 @@ def apply(params, x, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
 
 def loss_fn(params, x, target, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     y = apply(params, x, config=config)
-    return torch.mean((y - as_input(target, y.device)) ** 2)
+    return torch.mean((y - as_input(target, y.device, y.dtype)) ** 2)
 
 
 def train_step(params, x, target, lr: float = 1e-2, *,
@@ -131,7 +133,7 @@ def fourier_mix_distributed(
     spec = _token_spec(data_axis, seq_axis)
     x = _input(x, mesh)
     b, s, h = x.shape
-    xl = as_input(_local(x, mesh, spec))
+    xl = as_input(_local(x, mesh, spec), dtype=config.dtype)
     zt = fft(xl, axis=-1, config=config).transpose(-1, -2)      # (batch, hidden, seq) block
     zt = fft_four_step(_wrap(zt, mesh, (data_axis, None, seq_axis), (b, h, s)), mesh,
                        seq_axis=seq_axis, data_axis=data_axis, n1=n1, config=config)
@@ -156,7 +158,7 @@ def apply_distributed(
     spec = _token_spec(data_axis, seq_axis)
     x = _input(x, mesh)
     shape = x.shape
-    xl = as_input(_local(x, mesh, spec))
+    xl = as_input(_local(x, mesh, spec), dtype=param_dtype(params))
     for p in params["layers"]:
         mix = fourier_mix_distributed(_wrap(xl, mesh, spec, shape), mesh,
                                       data_axis=data_axis, seq_axis=seq_axis, n1=n1,

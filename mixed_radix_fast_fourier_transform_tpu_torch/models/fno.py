@@ -31,7 +31,7 @@ from torch import nn
 
 from ..ops.fft import fft, ifft
 from ..ops.rfft import irfft, rfft
-from ..utils.config import DEFAULT_CONFIG, SpectralConfig
+from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.numerics import as_tensor
 from ..utils.tree import sgd_step, tree_map
 from ._common import Draws, params_from_jax
@@ -68,43 +68,43 @@ def _init(normal: Draws, in_channels, hidden, out_channels, n_layers, modes, cor
     }
 
 
-def init_layer(channels: int, modes: int, generator=None, device=None) -> Params:
-    return _init_layer(Draws(generator, device), channels, (modes,), ("r",))
+def init_layer(channels: int, modes: int, generator=None, device=None, dtype=DTYPE) -> Params:
+    return _init_layer(Draws(generator, device, dtype), channels, (modes,), ("r",))
 
 
 def init_fno(in_channels: int, hidden: int, out_channels: int, n_layers: int = 2,
-             modes: int = 16, generator=None, device=None):
+             modes: int = 16, generator=None, device=None, dtype=DTYPE):
     """1-D FNO parameters: a pointwise lift, ``n_layers`` Fourier layers on
     ``hidden`` channels and a pointwise projection."""
-    return _init(Draws(generator, device), in_channels, hidden, out_channels,
+    return _init(Draws(generator, device, dtype), in_channels, hidden, out_channels,
                  n_layers, (modes,), ("r",))
 
 
 def init_layer2d(channels: int, modes_h: int, modes_w: int, generator=None,
-                 device=None) -> Params:
+                 device=None, dtype=DTYPE) -> Params:
     """Two learned tensors, one per low-frequency corner of the half-plane
     spectrum (non-negative H modes ``r``, negative H modes ``r2``)."""
-    return _init_layer(Draws(generator, device), channels, (modes_h, modes_w),
+    return _init_layer(Draws(generator, device, dtype), channels, (modes_h, modes_w),
                        ("r", "r2"))
 
 
 def init_fno2d(in_channels: int, hidden: int, out_channels: int, n_layers: int = 2,
-               modes: int = 8, generator=None, device=None):
-    return _init(Draws(generator, device), in_channels, hidden, out_channels,
+               modes: int = 8, generator=None, device=None, dtype=DTYPE):
+    return _init(Draws(generator, device, dtype), in_channels, hidden, out_channels,
                  n_layers, (modes, modes), ("r", "r2"))
 
 
 def init_layer3d(channels: int, modes_d: int, modes_h: int, modes_w: int,
-                 generator=None, device=None) -> Params:
+                 generator=None, device=None, dtype=DTYPE) -> Params:
     """Four learned tensors ``r0``..``r3``, one per signed-frequency corner
     of the (D, H) plane (W is the non-negative rfft half)."""
-    return _init_layer(Draws(generator, device), channels,
+    return _init_layer(Draws(generator, device, dtype), channels,
                        (modes_d, modes_h, modes_w), ("r0", "r1", "r2", "r3"))
 
 
 def init_fno3d(in_channels: int, hidden: int, out_channels: int, n_layers: int = 2,
-               modes: int = 4, generator=None, device=None):
-    return _init(Draws(generator, device), in_channels, hidden, out_channels,
+               modes: int = 4, generator=None, device=None, dtype=DTYPE):
+    return _init(Draws(generator, device, dtype), in_channels, hidden, out_channels,
                  n_layers, (modes, modes, modes), ("r0", "r1", "r2", "r3"))
 
 

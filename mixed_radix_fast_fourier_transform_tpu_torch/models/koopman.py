@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..utils.config import DTYPE
-from ._common import Draws, TreeModule, as_input, gelu, params_from_jax
+from ._common import Draws, TreeModule, as_input, gelu, param_dtype, params_from_jax
 
 Tensor = torch.Tensor
 Params = Dict[str, object]
@@ -45,27 +45,27 @@ def _mlp(layers, x: Tensor) -> Tensor:
 
 
 def init_koopman(state_dim: int, latent_dim: int = 16, hidden: int = 64, depth: int = 2,
-                 generator=None, device=None) -> Params:
+                 generator=None, device=None, dtype=DTYPE) -> Params:
     """Encoder/decoder MLPs (``depth`` hidden layers of ``hidden``) and the
     latent advance matrix K, initialized as a slightly contractive identity
     so early rollouts don't explode."""
     if latent_dim < 1 or state_dim < 1:
         raise ValueError("state_dim and latent_dim must be >= 1")
-    draw = Draws(generator, device)
+    draw = Draws(generator, device, dtype)
     enc = _init_mlp(draw, [state_dim] + [hidden] * depth + [latent_dim])
     dec = _init_mlp(draw, [latent_dim] + [hidden] * depth + [state_dim])
-    K = 0.99 * torch.eye(latent_dim, dtype=DTYPE, device=draw.device)
+    K = 0.99 * torch.eye(latent_dim, dtype=draw.dtype, device=draw.device)
     return {"enc": enc, "dec": dec, "K": K}
 
 
 def koopman_encode(params: Params, x) -> Tensor:
     """States (..., state_dim) → latents (..., latent_dim)."""
-    return _mlp(params["enc"], as_input(x))
+    return _mlp(params["enc"], as_input(x, dtype=param_dtype(params)))
 
 
 def koopman_decode(params: Params, z) -> Tensor:
     """Latents (..., latent_dim) → states (..., state_dim)."""
-    return _mlp(params["dec"], as_input(z))
+    return _mlp(params["dec"], as_input(z, dtype=param_dtype(params)))
 
 
 def koopman_rollout(params: Params, x0, n_steps: int) -> Tensor:
@@ -85,7 +85,7 @@ def koopman_loss(params: Params, trajs, horizon: int = 8, w_recon: float = 1.0,
     """Lusch-style objective on (batch, T, state_dim) trajectories:
     reconstruction ‖x − ψφx‖², multi-step prediction ‖x_{t+s} − ψ(K^sφx_t)‖²,
     and latent linearity ‖φx_{t+s} − K^sφx_t‖² over s = 1..horizon."""
-    trajs = as_input(trajs)
+    trajs = as_input(trajs, dtype=param_dtype(params))
     if trajs.ndim != 3:
         raise ValueError("trajs must be (batch, T, state_dim)")
     T = trajs.shape[1]

@@ -32,10 +32,12 @@ from typing import Dict, Tuple
 import torch
 
 from ..ops.rfft import irfft, rfft
-from ..utils.config import DEFAULT_CONFIG, SpectralConfig
+from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.factorize import is_smooth
 from ..utils.tree import sgd_step
-from ._common import Draws, TreeModule, as_input, gelu, layer_norm, params_from_jax
+from ._common import (
+    Draws, TreeModule, as_input, gelu, layer_norm, param_dtype, params_from_jax,
+)
 
 Tensor = torch.Tensor
 Params = Dict[str, object]
@@ -53,7 +55,7 @@ def _init_layer(draw: Draws, hidden: int, state: int, dt_min: float, dt_max: flo
     return {
         # S4D-Lin: A_n = -1/2 + i·π·n; Re A = −exp(·) < 0 keeps it stable
         "log_neg_a_re": math.log(0.5) * draw.ones(n2),                      # (N/2,)
-        "a_im": math.pi * torch.arange(n2, dtype=torch.float64).to(draw.device, torch.float32),
+        "a_im": math.pi * torch.arange(n2, dtype=torch.float64).to(draw.device, draw.dtype),
         "log_dt": draw.uniform(math.log(dt_min), math.log(dt_max), hidden),  # (H,)
         "c_re": draw(hidden, n2),                                            # (H, N/2)
         "c_im": draw(hidden, n2),
@@ -67,10 +69,10 @@ def _init_layer(draw: Draws, hidden: int, state: int, dt_min: float, dt_max: flo
 
 
 def init_s4d_layer(hidden: int, state: int = 64, dt_min: float = 1e-3,
-                   dt_max: float = 1e-1, generator=None, device=None) -> Params:
+                   dt_max: float = 1e-1, generator=None, device=None, dtype=DTYPE) -> Params:
     """One S4D-Lin layer: ``state`` must be even (N/2 conjugate pairs are
     kept; the kernel takes 2·Re of the half sum)."""
-    return _init_layer(Draws(generator, device), hidden, state, dt_min, dt_max)
+    return _init_layer(Draws(generator, device, dtype), hidden, state, dt_min, dt_max)
 
 
 def _step_sizes(p: Params) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
@@ -167,9 +169,9 @@ def block_apply(p: Params, x: Tensor, *, config: SpectralConfig = DEFAULT_CONFIG
 
 
 def init_s4d_model(hidden: int, n_layers: int = 2, state: int = 64, in_dim: int = 1,
-                   out_dim: int = 1, generator=None, device=None) -> Dict[str, object]:
+                   out_dim: int = 1, generator=None, device=None, dtype=DTYPE) -> Dict[str, object]:
     """Encoder: linear embed → n S4D blocks → mean-pool → linear head."""
-    draw = Draws(generator, device)
+    draw = Draws(generator, device, dtype)
     return {
         "embed_w": draw(in_dim, hidden) / math.sqrt(in_dim),
         "embed_b": draw.zeros(hidden),
@@ -182,7 +184,7 @@ def init_s4d_model(hidden: int, n_layers: int = 2, state: int = 64, in_dim: int 
 def apply_s4d(params, u, *, pool: bool = True,
               config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     """(B, L, in_dim) → (B, out_dim) when ``pool`` else (B, L, out_dim)."""
-    x = as_input(u) @ params["embed_w"] + params["embed_b"]
+    x = as_input(u, dtype=param_dtype(params)) @ params["embed_w"] + params["embed_b"]
     for p in params["layers"]:
         x = block_apply(p, x, config=config)
     if pool:
@@ -192,8 +194,8 @@ def apply_s4d(params, u, *, pool: bool = True,
 
 def loss_fn(params, u, target, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     """MSE against a (B, out_dim) target (pooled) or a (B, L, out_dim) one."""
-    u = as_input(u)
-    target = as_input(target, u.device)
+    u = as_input(u, dtype=param_dtype(params))
+    target = as_input(target, u.device, u.dtype)
     pred = apply_s4d(params, u, pool=(target.ndim == 2), config=config)
     return torch.mean((pred - target) ** 2)
 

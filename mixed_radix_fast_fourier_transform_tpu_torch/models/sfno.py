@@ -26,10 +26,10 @@ from typing import Dict
 import torch
 
 from ..ops.sht import isht, sht
-from ..utils.config import DEFAULT_CONFIG, SpectralConfig
+from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.numerics import fp32_matmul
 from ..utils.tree import sgd_step
-from ._common import Draws, TreeModule, as_input, gelu, params_from_jax
+from ._common import Draws, TreeModule, as_input, gelu, param_dtype, params_from_jax
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
@@ -45,16 +45,16 @@ def _init_layer(normal: Draws, channels: int, L: int) -> Params:
     }
 
 
-def init_layer(channels: int, L: int, generator=None, device=None) -> Params:
-    return _init_layer(Draws(generator, device), channels, L)
+def init_layer(channels: int, L: int, generator=None, device=None, dtype=DTYPE) -> Params:
+    return _init_layer(Draws(generator, device, dtype), channels, L)
 
 
 def init_sfno(in_channels: int, hidden: int, out_channels: int, lmax: int,
-              n_layers: int = 2, generator=None, device=None) -> Dict[str, object]:
+              n_layers: int = 2, generator=None, device=None, dtype=DTYPE) -> Dict[str, object]:
     """Parameters for an SFNO on (batch, ch, L, 2L) sphere grids,
     L = lmax + 1 (the grid of :func:`..ops.sht.sht_grid`)."""
     L = lmax + 1
-    normal = Draws(generator, device)
+    normal = Draws(generator, device, dtype)
     return {
         "lift": {"w": normal(in_channels, hidden) / max(in_channels, 1),
                  "b": normal.zeros(hidden)},
@@ -87,7 +87,7 @@ def sfno_layer(layer: Params, x: Tensor, *, config: SpectralConfig = DEFAULT_CON
 def apply(params: Dict[str, object], x, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     """(batch, in_channels, L, 2L) -> (batch, out_channels, L, 2L)."""
     with fp32_matmul():
-        h = _pointwise(params["lift"], as_input(x))
+        h = _pointwise(params["lift"], as_input(x, dtype=param_dtype(params)))
     for layer in params["layers"]:
         h = sfno_layer(layer, h, config=config)
     with fp32_matmul():
@@ -96,7 +96,7 @@ def apply(params: Dict[str, object], x, *, config: SpectralConfig = DEFAULT_CONF
 
 def loss_fn(params, x, target, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     y = apply(params, x, config=config)
-    return torch.mean((y - as_input(target, y.device)) ** 2)
+    return torch.mean((y - as_input(target, y.device, y.dtype)) ** 2)
 
 
 def train_step(params, x, target, lr: float = 1e-3, *, config: SpectralConfig = DEFAULT_CONFIG):

@@ -43,22 +43,24 @@ def init_params(
     n: int,
     generator: Optional[torch.Generator] = None,
     device=None,
+    dtype=DTYPE,
 ) -> Params:
     """Per-bin complex gain (identity plus 0.01·N(0, 1) noise) and a zero
-    bias, drawn from ``generator`` on its own device (the CPU when None),
-    then placed on ``device`` (default: the card, see resolve_device)."""
+    bias of ``dtype`` (fp32, or float64 for the float64 route), drawn from
+    ``generator`` on its own device (the CPU when None), then placed on
+    ``device`` (default: the card, see resolve_device)."""
     n_bins = n // 2 + 1
     gen_device = generator.device if generator is not None else torch.device("cpu")
     device = resolve_device(device)
 
     def noise():
-        return torch.randn(n_bins, generator=generator, dtype=DTYPE,
+        return torch.randn(n_bins, generator=generator, dtype=dtype,
                            device=gen_device).to(device)
 
     return {
         "gain_re": 1.0 + 0.01 * noise(),
         "gain_im": 0.01 * noise(),
-        "bias": torch.zeros((), dtype=DTYPE, device=device),
+        "bias": torch.zeros((), dtype=dtype, device=device),
     }
 
 
@@ -106,21 +108,23 @@ def init_params_complex(
     n: int,
     generator: Optional[torch.Generator] = None,
     device=None,
+    dtype=DTYPE,
 ) -> Params:
     """Full-spectrum (length n) gain for the distributed complex filter:
-    identity plus 0.01·N(0, 1) noise in both parts and a zero bias, drawn
+    identity plus 0.01·N(0, 1) noise in both parts and a zero bias of
+    ``dtype``, drawn
     from ``generator`` on its own device (the CPU when None), then placed on
     ``device`` (default: the card)."""
     gen_device = generator.device if generator is not None else torch.device("cpu")
     device = resolve_device(device)
 
     def noise():
-        return torch.randn(n, generator=generator, dtype=DTYPE, device=gen_device).to(device)
+        return torch.randn(n, generator=generator, dtype=dtype, device=gen_device).to(device)
 
     return {
         "gain_re": 1.0 + 0.01 * noise(),
         "gain_im": 0.01 * noise(),
-        "bias": torch.zeros((), dtype=DTYPE, device=device),
+        "bias": torch.zeros((), dtype=dtype, device=device),
     }
 
 

@@ -296,10 +296,10 @@ def _conv_real(x: Tensor, k: Tensor, nd: int) -> Tensor:
     return out.reshape(b, *out.shape[2:])
 
 
-def _direct_convolve_nd(in1: Tensor, in2: Tensor, axes) -> Tensor:
-    """Full-mode direct convolution over ``axes`` (1 to 3 of them); complex
-    inputs expand into real-part convolutions.  Batch dims of ``in2`` must
-    match those of ``in1`` or be of size 1."""
+def _direct_convolve_nd(in1: Tensor, in2: Tensor, axes, dtype=DTYPE) -> Tensor:
+    """Full-mode direct convolution over ``axes`` (1 to 3 of them) at the
+    working ``dtype``; complex inputs expand into real-part convolutions.
+    Batch dims of ``in2`` must match those of ``in1`` or be of size 1."""
     ax = tuple(a % in1.ndim for a in axes)
     nd = len(ax)
     if nd > 3:
@@ -317,12 +317,12 @@ def _direct_convolve_nd(in1: Tensor, in2: Tensor, axes) -> Tensor:
     if x.is_complex() or k.is_complex():
         xr, xi = (x.real, x.imag) if x.is_complex() else (x, torch.zeros_like(x))
         kr, ki = (k.real, k.imag) if k.is_complex() else (k, torch.zeros_like(k))
-        xr, xi, kr, ki = (t.to(DTYPE) for t in (xr, xi, kr, ki))
+        xr, xi, kr, ki = (t.to(dtype) for t in (xr, xi, kr, ki))
         out = torch.complex(
             _conv_real(xr, kr, nd) - _conv_real(xi, ki, nd),
             _conv_real(xr, ki, nd) + _conv_real(xi, kr, nd))
     else:
-        out = _conv_real(x.to(DTYPE), k.to(DTYPE), nd)
+        out = _conv_real(x.to(dtype), k.to(dtype), nd)
     out = out.reshape(bshape + tuple(out.shape[1:]))
     return out.permute(tuple(int(i) for i in np.argsort(order)))
 
@@ -338,8 +338,8 @@ def convolve(
     """N-D convolution with scipy.signal.convolve semantics (``same`` returns
     the shape of ``in1``; ``valid`` needs one input at least as large on every
     axis).  ``method``: "auto" | "fft" | "direct"; direct runs the
-    framework's convolution op (≤ 3-D) in full fp32, fft the engine's padded
-    transforms.  Output is fp32/complex64."""
+    framework's convolution op (≤ 3-D) in full precision, fft the engine's
+    padded transforms.  Output is real or complex at ``config.dtype``."""
     in1, in2 = as_tensors(in1, in2)
     if method not in ("auto", "fft", "direct"):
         raise ValueError(f"method must be auto/fft/direct, got {method!r}")
@@ -356,7 +356,7 @@ def convolve(
         return fft_convolven(in1, in2, mode=mode, config=config)
     axes = tuple(range(in1.ndim))
     _check_valid(mode, in1.shape, in2.shape, axes)
-    out = _direct_convolve_nd(in1, in2, axes)
+    out = _direct_convolve_nd(in1, in2, axes, config.dtype)
     for a in axes:
         out = out.narrow(a, *_window(mode, in1.shape[a], in2.shape[a], scipy_same=True))
     return out

@@ -160,14 +160,14 @@ def cqt(
             "Hz) — lower n_bins or raise fs"
         )
     nf = _frame_len(fs, fmin, n_bins, bins_per_octave, filter_scale, n_fft)
-    x = x.to(_CDTYPE) if x.is_complex() else x.to(DTYPE)
+    x = x.to(config.dtype.to_complex()) if x.is_complex() else x.to(config.dtype)
     # the conjugated spectral kernel, transposed for the product: (nf, n_bins)
     key = _ladder_key("cqt.kernel", fs, fmin, n_bins, bins_per_octave, window,
                       filter_scale, n_fft)
     Kt = constant(lambda: _cqt_spectral_kernel(
         float(fs), float(fmin), int(n_bins), int(bins_per_octave), window,
         float(filter_scale), None if n_fft is None else int(n_fft))[0].T,
-        x, _CDTYPE, key=key)
+        x, config.dtype.to_complex(), key=key)
     if center:
         x = pad_last(x, nf // 2, nf // 2)
     t = x.shape[-1]

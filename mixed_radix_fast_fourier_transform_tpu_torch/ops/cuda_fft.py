@@ -565,8 +565,13 @@ def uses_kernel(config, n: int, x: Tensor) -> bool:
     tensor, where the stage pipeline ran 3.6-45x faster than the kernel's
     plain version (``tools/tune.py kernel --device cpu`` at n = 64 to
     16,384, PERF.md).  While ``torch.export`` traces, no: a ctypes launch
-    cannot be held by an exported program."""
+    cannot be held by an exported program.  Never when the config's
+    working dtype, which the planes carry, is not fp32
+    (``SpectralConfig(dtype=torch.float64)``): the kernel is fp32 only, as
+    the JAX package's is, and such a config refuses ``use_kernel=True``."""
     if config.use_kernel is False or n <= 1 or torch.compiler.is_exporting():
+        return False
+    if config.dtype != DTYPE:
         return False
     if not supports(n):
         return False

@@ -78,10 +78,10 @@ def _czt_constants(
 
 
 def _planes_on(c: np.ndarray, like: Tensor, key) -> Tuple[Tensor, Tensor]:
-    """A host complex128 table as fp32 (re, im) planes beside ``like``,
-    kept on the device under ``key``."""
-    return (constant(lambda: c.real, like, key=key + ("re",)),
-            constant(lambda: c.imag, like, key=key + ("im",)))
+    """A host complex128 table as (re, im) planes of ``like``'s dtype (the
+    working dtype) beside ``like``, kept on the device under ``key``."""
+    return (constant(lambda: c.real, like, like.dtype, key=key + ("re",)),
+            constant(lambda: c.imag, like, like.dtype, key=key + ("im",)))
 
 
 def czt(
@@ -115,7 +115,7 @@ def czt(
 
     L, pre, spec, post = _czt_constants(n, m, w, a, config.pad_mode)
     key = ("czt", n, m, w, a, config.pad_mode)
-    xr, xi = to_planes(x)
+    xr, xi = to_planes(x, config.dtype)
     ar, ai = cmul(xr, xi, *_planes_on(pre, xr, key + ("pre",)))
     ar, ai = F.pad(ar, (0, L - n)), F.pad(ai, (0, L - n))
     plan = get_plan(L, -1, "complex", config)

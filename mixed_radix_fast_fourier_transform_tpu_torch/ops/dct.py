@@ -27,11 +27,17 @@ import torch
 import torch.nn.functional as F
 
 from ..plan import get_plan
-from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
-from ..utils.numerics import as_tensor, constant as _const
+from ..utils.config import DEFAULT_CONFIG, SpectralConfig
+from ..utils.numerics import as_tensor, constant
 from .stockham import exec_complex
 
 Tensor = torch.Tensor
+
+
+def _const(values, like: Tensor, *, key) -> Tensor:
+    """The host float64 table ``values`` at the dtype of ``like`` (the
+    working dtype), kept on its device under ``key``."""
+    return constant(values, like, like.dtype, key=key)
 
 
 def _phase(name: str, n: int, ang, like: Tensor):
@@ -41,12 +47,12 @@ def _phase(name: str, n: int, ang, like: Tensor):
             _const(lambda: np.sin(ang()), like, key=("dct.sin", name, n)))
 
 
-def _prepare(x, n: Optional[int], axis: int, what: str):
-    """The transform axis moved last, fp32, cropped or zero-padded to ``n``:
-    (x, n, axis)."""
+def _prepare(x, n: Optional[int], axis: int, what: str, dtype):
+    """The transform axis moved last, in the working ``dtype``, cropped or
+    zero-padded to ``n``: (x, n, axis)."""
     x = as_tensor(x)
     axis = axis % x.ndim
-    x = torch.movedim(x, axis, -1).to(DTYPE)
+    x = torch.movedim(x, axis, -1).to(dtype)
     if n is not None:
         n = int(n)
         cur = x.shape[-1]
@@ -150,7 +156,7 @@ def dct(
 ) -> Tensor:
     """DCT of type 1, 2, 3, or 4 along ``axis`` (scipy.fft.dct-compatible)."""
     _check(type, norm, "DCT")
-    x, n, axis = _prepare(x, n, axis, "dct")
+    x, n, axis = _prepare(x, n, axis, "dct", config.dtype)
     if type == 1:
         y = _dct1_core(x, n, norm, config)
     elif type == 4:
@@ -243,7 +249,7 @@ def dst(
     through unchanged; type 1 has its own odd-extension core."""
     if type not in (1, 2, 3, 4):
         raise ValueError(f"DST type must be 1, 2, 3 or 4, got {type}")
-    xm, nn, axis = _prepare(x, n, axis, "dst")
+    xm, nn, axis = _prepare(x, n, axis, "dst", config.dtype)
     sgn = _alt_sign(nn, xm)
     if type == 1:
         y = _dst1_core(xm, nn, norm, config)

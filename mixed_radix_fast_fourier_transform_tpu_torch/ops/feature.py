@@ -163,14 +163,15 @@ def spectral_contrast(
     return 10.0 * torch.stack(out, dim=-1)
 
 
-def _centered_frames(x, frame_length: int, hop: int, what: str) -> Tensor:
-    """Zero-padded centered frames of a real signal: (…, frames, frame_length)."""
+def _centered_frames(x, frame_length: int, hop: int, what: str, dtype) -> Tensor:
+    """Zero-padded centered frames of a real signal in the working ``dtype``:
+    (…, frames, frame_length)."""
     from .stft import _frame
 
     x = as_tensor(x)
     if x.is_complex():
         raise ValueError(f"{what} takes real signals")
-    xp = pad_last(x.to(DTYPE), frame_length // 2, frame_length // 2)
+    xp = pad_last(x.to(dtype), frame_length // 2, frame_length // 2)
     return _frame(xp, frame_length, hop)
 
 
@@ -181,10 +182,10 @@ def zero_crossing_rate(
     """Fraction of sign changes per frame: (…, T) -> (…, frames)
     (librosa conventions, center-padded frames)."""
     hop = frame_length // 4 if hop is None else int(hop)
-    frames = _centered_frames(x, frame_length, hop, "zero_crossing_rate")
+    frames = _centered_frames(x, frame_length, hop, "zero_crossing_rate", config.dtype)
     sign = frames >= 0
     flips = sign[..., 1:] != sign[..., :-1]
-    return torch.mean(flips.to(DTYPE), -1)
+    return torch.mean(flips.to(config.dtype), -1)
 
 
 def rms(
@@ -203,7 +204,7 @@ def rms(
         # Parseval: undo the one-sided fold, normalize by n²
         full = 2.0 * torch.sum(mag2, -1) - mag2[..., 0] - mag2[..., -1]
         return torch.sqrt(torch.clamp(full, min=0.0) / (n * n))
-    frames = _centered_frames(x, frame_length, hop, "rms")
+    frames = _centered_frames(x, frame_length, hop, "rms", config.dtype)
     return torch.sqrt(torch.mean(frames * frames, -1))
 
 

@@ -6,8 +6,8 @@ numpy.fft-style surface over the plan-based engine, for every length
 n >= 1 and any batch shape.  Functions take a tensor and compute on the
 tensor's own device; an array-like (numpy array, list, scalar) goes to the
 card, as do the arrays that ``fftfreq``/``rfftfreq`` create unless given a
-``device``.  Results are complex64 (real fp32 for the Hartley transform of
-real input).
+``device``.  Results are complex at the config's working dtype, complex64
+by default (real for the Hartley transform of real input).
 """
 
 from __future__ import annotations
@@ -70,7 +70,7 @@ def _fft_1d(
     if n < 1:
         raise ValueError(f"transform length must be >= 1, got {n}")
     x = _resize_last(x, n)
-    xr, xi = to_planes(x)
+    xr, xi = to_planes(x, config.dtype)
     zr, zi = exec_len(config, n, sign, xr, xi)
     scale = _norm_scale(n, sign, norm)
     if scale != 1.0:

@@ -148,16 +148,17 @@ def _fhtq(a: Tensor, u: np.ndarray, inverse: bool, key, config: SpectralConfig) 
     spec = rfft(a, config=config)
     if inverse:
         u = 1.0 / np.conj(u)
-    ud = torch.complex(_on(u.real, a, key=key + ("re",)), _on(u.imag, a, key=key + ("im",)))
+    ud = torch.complex(_on(u.real, a, a.dtype, key=key + ("re",)),
+                       _on(u.imag, a, a.dtype, key=key + ("im",)))
     out = irfft(spec * ud, n=n, config=config)
     return torch.flip(out, (-1,))
 
 
-def _as_real(a, what: str) -> Tensor:
+def _as_real(a, what: str, dtype) -> Tensor:
     a = as_tensor(a)
     if a.is_complex():
         raise ValueError(f"{what} expects a real input array")
-    return a.to(DTYPE)
+    return a.to(dtype)
 
 
 def fht(
@@ -171,17 +172,18 @@ def fht(
 ) -> Tensor:
     """Fast Hankel transform of order ``mu`` on a log-spaced grid
     (scipy.fft.fht semantics), batched over leading axes."""
-    a = _as_real(a, "fht")
+    a = _as_real(a, "fht", config.dtype)
     n = a.shape[-1]
     key = ("fht", n, float(dln), float(mu), float(offset), float(bias))
     if bias != 0:
         j_c = (n - 1) / 2.0
         j = np.arange(n, dtype=np.float64)
-        a = a * _on(np.exp(-bias * (j - j_c) * dln), a, key=key + ("pre",))
+        a = a * _on(np.exp(-bias * (j - j_c) * dln), a, a.dtype, key=key + ("pre",))
     u = fhtcoeff(n, dln, mu, offset=offset, bias=bias)
     out = _fhtq(a, u, False, key + ("u",), config)
     if bias != 0:
-        out = out * _on(np.exp(-bias * ((j - j_c) * dln + offset)), out, key=key + ("post",))
+        out = out * _on(np.exp(-bias * ((j - j_c) * dln + offset)), out, out.dtype,
+                        key=key + ("post",))
     return out
 
 
@@ -195,17 +197,17 @@ def ifht(
     config: SpectralConfig = DEFAULT_CONFIG,
 ) -> Tensor:
     """Inverse fast Hankel transform (scipy.fft.ifht semantics)."""
-    A = _as_real(A, "ifht")
+    A = _as_real(A, "ifht", config.dtype)
     n = A.shape[-1]
     key = ("ifht", n, float(dln), float(mu), float(offset), float(bias))
     if bias != 0:
         j_c = (n - 1) / 2.0
         j = np.arange(n, dtype=np.float64)
-        A = A * _on(np.exp(bias * ((j - j_c) * dln + offset)), A, key=key + ("pre",))
+        A = A * _on(np.exp(bias * ((j - j_c) * dln + offset)), A, A.dtype, key=key + ("pre",))
     u = fhtcoeff(n, dln, mu, offset=offset, bias=bias, inverse=True)
     out = _fhtq(A, u, True, key + ("u",), config)
     if bias != 0:
-        out = out / _on(np.exp(-bias * (j - j_c) * dln), out, key=key + ("post",))
+        out = out / _on(np.exp(-bias * (j - j_c) * dln), out, out.dtype, key=key + ("post",))
     return out
 
 

@@ -29,7 +29,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
+from ..utils.config import DEFAULT_CONFIG, SpectralConfig
 from ..utils.numerics import as_tensor, constant, content_key, pad_last
 from ..utils.scan import linear_recurrence
 
@@ -1034,13 +1034,13 @@ def _norm_ba(b, a) -> Tuple[np.ndarray, np.ndarray]:
     return b / a[0], a / a[0]
 
 
-def _real_signal(x) -> Tensor:
-    """``x`` as a real fp32 tensor (numpy input goes to the card); integers
-    and float64 are cast, as ``jnp.asarray`` does without x64."""
+def _real_signal(x, dtype) -> Tensor:
+    """``x`` as a real tensor of the working ``dtype`` (numpy input goes to
+    the card); integers and other float dtypes are cast."""
     x = as_tensor(x)
     if x.is_complex():
         raise ValueError("the IIR filters take real signals")
-    return x.to(DTYPE)
+    return x.to(dtype)
 
 
 def lfilter(b, a, x, axis: int = -1, zi: Optional[Tensor] = None,
@@ -1055,7 +1055,7 @@ def lfilter(b, a, x, axis: int = -1, zi: Optional[Tensor] = None,
     from .convolve import _direct_convolve_nd
 
     b, a = _norm_ba(b, a)
-    x = _real_signal(x)
+    x = _real_signal(x, config.dtype)
     axis = axis % x.ndim
     xm = torch.movedim(x, axis, -1)
     if len(a) == 1:  # pure FIR: causal convolution, no recurrence
@@ -1091,7 +1091,7 @@ def sosfilt(sos, x, axis: int = -1, zi: Optional[Tensor] = None,
     section one 2-state blocked scan.  ``zi`` has shape
     (n_sections, ..., 2); providing it returns ``(y, zf)``."""
     sos = _norm_sos(sos)
-    x = _real_signal(x)
+    x = _real_signal(x, config.dtype)
     axis = axis % x.ndim
     y = torch.movedim(x, axis, -1)
     zf = []
@@ -1141,15 +1141,15 @@ def _odd_ext(x: Tensor, n: int, axis: int = -1) -> Tensor:
     return torch.movedim(pad_last(xm, n, n, "odd"), -1, axis)
 
 
-def _zero_phase_setup(x, n_taps: int, padtype, padlen):
-    """(``x`` as a real fp32 tensor, the length of the odd extension at each
+def _zero_phase_setup(x, n_taps: int, padtype, padlen, dtype):
+    """(``x`` as a real tensor of the working ``dtype``, the length of the odd extension at each
     end: 3·``n_taps`` unless ``padlen`` is given, 0 for ``padtype=None``)."""
     if padtype not in ("odd", None):
         raise ValueError("only padtype='odd' (scipy default) or None")
     edge = 3 * int(n_taps) if padlen is None else int(padlen)
     if padtype is None:
         edge = 0
-    x = _real_signal(x)
+    x = _real_signal(x, dtype)
     return x, edge
 
 
@@ -1159,7 +1159,7 @@ def filtfilt(b, a, x, axis: int = -1, padtype: Optional[str] = "odd",
     """Zero-phase forward-backward filtering (scipy.signal.filtfilt,
     method='pad' with odd extension and lfilter_zi edge matching)."""
     b_n, a_n = _norm_ba(b, a)
-    x, edge = _zero_phase_setup(x, max(len(b_n), len(a_n)), padtype, padlen)
+    x, edge = _zero_phase_setup(x, max(len(b_n), len(a_n)), padtype, padlen, config.dtype)
     axis = axis % x.ndim
     ext = _odd_ext(x, edge, axis=axis) if edge else x
     xm = torch.movedim(ext, axis, -1)
@@ -1182,7 +1182,7 @@ def sosfiltfilt(sos, x, axis: int = -1, padtype: Optional[str] = "odd",
     n_sections = sos_n.shape[0]
     ntaps = 2 * n_sections + 1
     ntaps -= min((sos_n[:, 2] == 0).sum(), (sos_n[:, 5] == 0).sum())
-    x, edge = _zero_phase_setup(x, ntaps, padtype, padlen)
+    x, edge = _zero_phase_setup(x, ntaps, padtype, padlen, config.dtype)
     axis = axis % x.ndim
     ext = _odd_ext(x, edge, axis=axis) if edge else x
     xm = torch.movedim(ext, axis, -1)

@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
+from ..utils.config import DEFAULT_CONFIG, SpectralConfig
 from ..utils.numerics import as_tensor, constant, content_key, fp32_matmul
 from .iir import _recurrence_scan, tf2zpk, zpk2tf
 
@@ -237,9 +237,10 @@ def _matrix(M: np.ndarray, like: Tensor) -> Tensor:
     return constant(M, like, like.dtype, key=content_key("ltisys", M))
 
 
-def _inputs(u, device) -> Tensor:
-    """``u`` as (n_steps, m) fp32 (numpy input goes to ``device``)."""
-    u = as_tensor(u, device).to(DTYPE)
+def _inputs(u, device, dtype) -> Tensor:
+    """``u`` as (n_steps, m) in the working ``dtype`` (numpy input goes to
+    ``device``)."""
+    u = as_tensor(u, device).to(dtype)
     u = torch.atleast_1d(u)
     return u[:, None] if u.ndim == 1 else u
 
@@ -276,7 +277,7 @@ def dlsim(system, u, t=None, x0=None, *, device=None,
     input (scipy's convention).  The time loop is one blocked scan;
     ``tout`` is host numpy."""
     Ad, Bd, Cd, Dd, dt = _as_dss(system)
-    u = _inputs(u, device)
+    u = _inputs(u, device, config.dtype)
     steps = u.shape[0]
     tout = np.arange(steps) * dt if t is None else np.asarray(t, np.float64)
     y, x = _scan_ss(Ad, Bd, Cd, Dd, u, x0, config)
@@ -354,7 +355,7 @@ def lsim(system, U, T, X0=None, interp: bool = True, *, device=None,
     dt = T[1] - T[0]
     if not np.allclose(np.diff(T), dt, rtol=1e-6):
         raise ValueError("lsim requires equally spaced time samples")
-    U = _inputs(U, device)
+    U = _inputs(U, device, config.dtype)
     if U.shape[0] != len(T):
         raise ValueError("U must have one row per time sample")
     if interp:

@@ -443,7 +443,7 @@ def _yin_cmnd(x, fmin, fmax, sr, frame_length, win_length, hop, center,
             f"frequency range [{fmin}, {fmax}] needs lags in "
             f"[{tau_min}, {tau_max}]: enlarge frame_length or the range"
         )
-    xw = x.to(DTYPE)
+    xw = x.to(config.dtype)
     if center:
         xw = F.pad(xw, (frame_length // 2, frame_length // 2))
     frames = _frame(xw, frame_length, hop)  # (…, F, frame_length)
@@ -459,7 +459,7 @@ def _yin_cmnd(x, fmin, fmax, sr, frame_length, win_length, hop, center,
     corr = _irfft(spec, n=nfft, config=config)[..., : tau_max + 1]
     d = e0[..., None] + e_tau - 2.0 * corr  # (…, F, tau_max+1)
     # cumulative mean normalized difference
-    tau_f = constant(lambda: np.arange(1, tau_max + 1), d, key=("yin.taus", tau_max))
+    tau_f = constant(lambda: np.arange(1, tau_max + 1), d, d.dtype, key=("yin.taus", tau_max))
     run = torch.cumsum(d[..., 1:], dim=-1)
     cmnd = torch.cat(
         [torch.ones_like(d[..., :1]),

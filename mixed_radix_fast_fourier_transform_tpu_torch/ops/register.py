@@ -23,7 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
+from ..utils.config import DEFAULT_CONFIG, SpectralConfig
 from ..utils.numerics import as_tensor, as_tensors, constant, fp32_matmul
 from .fft import fft2, ifft2
 
@@ -87,9 +87,9 @@ def phase_cross_correlation(
         )
     nr, nc = a.shape[-2], a.shape[-1]
     if not (a.is_floating_point() or a.is_complex()):
-        a = a.to(DTYPE)
+        a = a.to(config.dtype)
     if not (b.is_floating_point() or b.is_complex()):
-        b = b.to(DTYPE)
+        b = b.to(config.dtype)
     Fa = fft2(a, config=config)
     Fb = fft2(b, config=config)
     R0 = Fa * torch.conj(Fb)  # unnormalized: the error metric's correlation
@@ -176,7 +176,7 @@ def unwrap_phase_2d(psi, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
         raise ValueError("psi must be (…, H, W) with H, W >= 2")
     if psi.is_complex():
         raise ValueError("psi must be a real phase field (radians)")
-    psi = psi.to(DTYPE)
+    psi = psi.to(config.dtype)
     H, W = psi.shape[-2], psi.shape[-1]
 
     def wrap(v):

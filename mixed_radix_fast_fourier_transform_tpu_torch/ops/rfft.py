@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..plan import device_constants, get_plan
-from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
+from ..utils.config import DEFAULT_CONFIG, SpectralConfig
 from ..utils.numerics import as_tensor, from_planes, to_planes
 from .fft import _axes_shape, _norm_scale, _resize_last, fft, ifft
 from .stockham import exec_complex, exec_len
@@ -91,7 +91,7 @@ def rfft(
     if x.is_complex():
         raise ValueError("rfft requires real input; use fft for complex data")
     axis = axis % x.ndim
-    x = torch.movedim(x, axis, -1).to(DTYPE)
+    x = torch.movedim(x, axis, -1).to(config.dtype)
     n = int(n) if n is not None else x.shape[-1]
     x = _resize_last(x, n)
     if n % 2 == 0 and n >= 2:
@@ -143,7 +143,7 @@ def irfft(
     if n < 1:
         raise ValueError(f"irfft output length must be >= 1, got {n}")
     x = _resize_last(x, n // 2 + 1)
-    xr, xi = to_planes(x)
+    xr, xi = to_planes(x, config.dtype)
     # numpy.fft.irfft semantics: the imaginary parts of the DC (and, for
     # even n, Nyquist) bins never enter; zero them on a copy, never on the
     # caller's tensor (to_planes may return it as is)

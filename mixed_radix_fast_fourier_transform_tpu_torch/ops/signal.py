@@ -37,13 +37,14 @@ Tensor = torch.Tensor
 _CDTYPE = torch.complex64
 
 
-def _real_last(x, axis: int, what: str):
-    """(x with ``axis`` moved last as fp32, axis >= 0); complex input raises."""
+def _real_last(x, axis: int, what: str, dtype):
+    """(x with ``axis`` moved last in the working ``dtype``, axis >= 0);
+    complex input raises."""
     x = as_tensor(x)
     if x.is_complex():
         raise ValueError(what)
     axis = axis % x.ndim
-    return torch.movedim(x, axis, -1).to(DTYPE), axis
+    return torch.movedim(x, axis, -1).to(dtype), axis
 
 
 def spectral_diff(
@@ -60,7 +61,7 @@ def spectral_diff(
     domain length the samples cover."""
     if order < 1:
         raise ValueError(f"order must be >= 1, got {order}")
-    xm, axis = _real_last(x, axis, "spectral_diff expects a real signal")
+    xm, axis = _real_last(x, axis, "spectral_diff expects a real signal", config.dtype)
     n = xm.shape[-1]
     spec = rfft(xm, config=config)
 
@@ -71,7 +72,8 @@ def spectral_diff(
             m[-1] = 0.0  # odd derivative of the Nyquist mode is ill-defined
         return m
 
-    multd = constant(mult, xm, _CDTYPE, key=("spectral_diff", n, order, float(period)))
+    multd = constant(mult, xm, xm.dtype.to_complex(),
+                     key=("spectral_diff", n, order, float(period)))
     out = irfft(spec * multd, n=n, config=config)
     return torch.movedim(out, -1, axis)
 
@@ -92,10 +94,10 @@ def hilbert(x, n: Optional[int] = None, axis: int = -1,
     """Analytic signal via the Hilbert transform: real (..., N) -> complex
     whose real part is x and imaginary part its Hilbert transform
     (scipy.signal.hilbert semantics)."""
-    xm, axis = _real_last(x, axis, "hilbert requires a real signal")
+    xm, axis = _real_last(x, axis, "hilbert requires a real signal", config.dtype)
     n = int(n) if n is not None else xm.shape[-1]
     spec = fft(xm, n=n, config=config)
-    h = constant(lambda: _analytic_step(n, True), xm, key=("hilbert", n))
+    h = constant(lambda: _analytic_step(n, True), xm, xm.dtype, key=("hilbert", n))
     out = ifft(spec * h, config=config)
     return torch.movedim(out, -1, axis)
 
@@ -119,10 +121,10 @@ def hilbert2(x, n=None, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
         ns = (int(n), int(n)) if np.ndim(n) == 0 else tuple(int(v) for v in n)
         if len(ns) != 2 or min(ns) < 1:
             raise ValueError(f"n must be a positive int or pair, got {n}")
-    spec = fft2(x.to(DTYPE), s=ns, config=config)
+    spec = fft2(x.to(config.dtype), s=ns, config=config)
     h2d = constant(
         lambda: np.outer(_analytic_step(ns[0], False), _analytic_step(ns[1], False)),
-        x, key=("hilbert2", ns))
+        x, config.dtype, key=("hilbert2", ns))
     return ifft2(spec * h2d, config=config)
 
 
@@ -135,7 +137,7 @@ def _onesided_doubling(nfft: int, like: Tensor) -> Tensor:
             m[-1] = 1.0
         return m
 
-    return constant(mult, like, key=("onesided2", nfft))
+    return constant(mult, like, like.dtype, key=("onesided2", nfft))
 
 
 def periodogram(
@@ -154,7 +156,7 @@ def periodogram(
     'linear', or False."""
     x = as_tensor(x)
     axis = axis % x.ndim
-    xm = torch.movedim(x, axis, -1).to(DTYPE)
+    xm = torch.movedim(x, axis, -1).to(config.dtype)
     n = xm.shape[-1]
     xm = _detrend_frames(xm, detrend)
     w_host = get_window(window, n, np.float64)  # host copy: scalar sums
@@ -202,7 +204,7 @@ def _detrend_frames(frames: Tensor, detrend) -> Tensor:
     if detrend == "linear":
         n = frames.shape[-1]
         tt = np.arange(n, dtype=np.float64) - (n - 1) / 2.0  # centered
-        ttd = constant(tt, frames, key=("signal.centered_ramp", n))
+        ttd = constant(tt, frames, frames.dtype, key=("signal.centered_ramp", n))
         denom = float(np.sum(tt * tt)) or 1.0
         slope = torch.sum(frames * ttd, dim=-1, keepdim=True) / denom
         return frames - mean - slope * ttd
@@ -266,11 +268,11 @@ def csd(
     (scipy.signal.csd semantics: conj(X)·Y, mean over segments)."""
     x, y = as_tensors(x, y)
     nperseg, noverlap = _cap_nperseg(min(x.shape[-1], y.shape[-1]), nperseg, noverlap)
-    sx = _welch_spectra(x.to(DTYPE), nperseg, noverlap, window, config, detrend)
-    sy = _welch_spectra(y.to(DTYPE), nperseg, noverlap, window, config, detrend)
+    sx = _welch_spectra(x.to(config.dtype), nperseg, noverlap, window, config, detrend)
+    sy = _welch_spectra(y.to(config.dtype), nperseg, noverlap, window, config, detrend)
     pxy = torch.mean(torch.conj(sx) * sy, dim=-2)
     named = isinstance(window, (str, tuple))
-    mult = constant(lambda: _onesided_scale(nperseg, fs, window, scaling), x, key=(
+    mult = constant(lambda: _onesided_scale(nperseg, fs, window, scaling), x, config.dtype, key=(
         "signal.onesided_scale", nperseg, float(fs), window, scaling) if named else None)
     freqs = rfftfreq(nperseg, 1.0 / fs, device=pxy.device)
     return freqs, pxy * mult
@@ -338,7 +340,7 @@ def welch(
     if average not in ("mean", "median"):
         raise ValueError(f"average must be 'mean' or 'median', got {average!r}")
     axis = axis % x.ndim
-    xm = torch.movedim(x, axis, -1).to(DTYPE)
+    xm = torch.movedim(x, axis, -1).to(config.dtype)
     nperseg, noverlap = _cap_nperseg(xm.shape[-1], nperseg, noverlap)
     spec = _welch_spectra(xm, nperseg, noverlap, window, config,
                           detrend)  # (..., frames, bins)
@@ -412,7 +414,7 @@ def resample(
     named = window is None or isinstance(window, (str, tuple))
 
     if domain == "time" and not x.is_complex():
-        spec = rfft(xm.to(DTYPE), config=config)
+        spec = rfft(xm.to(config.dtype), config=config)
         n_bins = n_x // 2 + 1
 
         def mult() -> np.ndarray:
@@ -427,13 +429,14 @@ def resample(
             return mu / s_fac
 
         spec = spec[..., :m2] * constant(
-            mult, xm, key=("resample.mult", n_x, num, window) if named else None)
+            mult, xm, config.dtype, key=("resample.mult", n_x, num, window) if named else None)
         out = irfft(spec, n=num, config=config)
     else:
-        spec = xm.to(_CDTYPE) if domain == "freq" else fft(xm.to(_CDTYPE), config=config)
+        cdtype = config.dtype.to_complex()
+        spec = xm.to(cdtype) if domain == "freq" else fft(xm.to(cdtype), config=config)
         if w is not None:
             spec = spec * constant(
-                w, spec.real, key=("resample.window", n_x, window) if named else None)
+                w, spec.real, config.dtype, key=("resample.window", n_x, window) if named else None)
         spec = spec / float(s_fac)
         pos = spec[..., :m2]
         n_neg = m - m2  # negative-frequency bins to keep
@@ -480,7 +483,7 @@ def multitaper(
     Scaling/one-sided conventions match :func:`periodogram`.  The taper
     bank applies as one broadcast multiply and the k spectra ride one
     batched rfft: the taper axis is just another batch axis."""
-    xm, axis = _real_last(x, axis, "multitaper expects a real signal")
+    xm, axis = _real_last(x, axis, "multitaper expects a real signal", config.dtype)
     n = xm.shape[-1]
     if n < 2:
         raise ValueError("multitaper needs a signal of length >= 2")
@@ -500,7 +503,7 @@ def multitaper(
             "breaks the tapers' orthonormality (zero-padding nfft > n is fine)"
         )
     key = (n, float(nw), int(k))
-    tap = constant(tapers, xm, key=("multitaper.tapers",) + key)  # (k, n)
+    tap = constant(tapers, xm, xm.dtype, key=("multitaper.tapers",) + key)  # (k, n)
     spec = rfft(xm[..., None, :] * tap, n=nfft, config=config)  # (…, k, bins)
     p = spec.real ** 2 + spec.imag ** 2
     if weighting == "eigen":
@@ -509,7 +512,7 @@ def multitaper(
         wk = np.full(k, 1.0 / k)
     with fp32_matmul():
         p = torch.einsum("...kf,k->...f", p,
-                         constant(wk, p, key=("multitaper.weights", weighting) + key))
+                         constant(wk, p, p.dtype, key=("multitaper.weights", weighting) + key))
     # tapers are unit-energy: density scale is 1/fs
     if scaling != "density":
         raise ValueError(
@@ -559,12 +562,13 @@ def lombscargle(
             "normalize must be False/'power', True/'normalize', or "
             f"'amplitude'; got {normalize!r}"
         )
-    x, y, freqs = x.to(DTYPE), y.to(DTYPE), freqs.to(DTYPE)
+    dt = config.dtype
+    x, y, freqs = x.to(dt), y.to(dt), freqs.to(dt)
     n = x.shape[0]
     if weights is None:
-        w = torch.full((n,), 1.0 / n, dtype=DTYPE, device=x.device)
+        w = torch.full((n,), 1.0 / n, dtype=dt, device=x.device)
     else:
-        w = as_tensor(weights, x.device).to(DTYPE)
+        w = as_tensor(weights, x.device).to(dt)
         if w.shape != (n,):
             raise ValueError(f"weights must have shape ({n},), got {tuple(w.shape)}")
         w = w / torch.sum(w)
@@ -988,7 +992,7 @@ def upfirdn(
     if x.ndim < 1:
         raise ValueError("x must have at least one dimension")
     axis = axis % x.ndim
-    xm = working(torch.movedim(x, axis, -1))
+    xm = working(torch.movedim(x, axis, -1), config.dtype)
     n = xm.shape[-1]
     if n < 1:
         raise ValueError("upfirdn needs a non-empty signal")
@@ -1016,7 +1020,8 @@ def upfirdn(
     last = (nblocks - 1) * stride + int(j0.max()) + T - 1 + P  # largest index read
     xp_ = pad_last(xm, P, max(last - (n - 1 + P), 0), "constant", float(cval))
     # the taps are small: kept on the card under their own contents
-    Cd = constant(C, xp_, key=content_key(f"upfirdn.taps/{up}/{down}", h) if F <= 65536 else None)
+    Cd = constant(C, xp_, xp_.dtype,
+                  key=content_key(f"upfirdn.taps/{up}/{down}", h) if F <= 65536 else None)
     with fp32_matmul():
         y = torch.stack(
             [xp_[..., int(j0[s]) + P:].unfold(-1, T, stride)[..., :nblocks, :] @ Cd[s]
@@ -1094,7 +1099,7 @@ def resample_poly(
     background = None
     ufd_cval = 0.0
     if padtype in stats:
-        x = working(x)
+        x = working(x, config.dtype)
         background = stats[padtype](x)
         x = x - background
     elif padtype == "constant":
@@ -1133,7 +1138,7 @@ def poisson_solve(
     periods = np.broadcast_to(np.asarray(period, np.float64), (ndim,))
     shape = tuple(f.shape)
 
-    spec = rfft(f.to(DTYPE), config=config)
+    spec = rfft(f.to(config.dtype), config=config)
     for a in range(ndim - 1):
         spec = fft(spec, axis=a, config=config)
 
@@ -1151,7 +1156,7 @@ def poisson_solve(
             k2 = k2 + (ka ** 2)[tuple(sl)]
         return np.where(k2 > 0, -1.0 / np.where(k2 > 0, k2, 1.0), 0.0)  # zero the DC mode
 
-    spec = spec * constant(inverse_k2, spec.real,
+    spec = spec * constant(inverse_k2, spec.real, spec.real.dtype,
                            key=("poisson", shape, tuple(float(p) for p in periods)))
     out = spec
     for a in range(ndim - 1):
@@ -1168,10 +1173,10 @@ def rceps(x, n: Optional[int] = None, axis: int = -1,
     """Real cepstrum: ifft(log |fft(x)|).real, for echo/pitch detection and
     homomorphic deconvolution (an echo at lag d appears as a cepstral peak
     at quefrency d).  ``n`` optionally pads/crops the transform length."""
-    xm, axis = _real_last(x, axis, "rceps expects a real signal")
+    xm, axis = _real_last(x, axis, "rceps expects a real signal", config.dtype)
     spec = fft(xm, n=n, config=config)
     mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2)
-    out = ifft(_log_floor(mag).to(_CDTYPE), config=config).real
+    out = ifft(_log_floor(mag).to(mag.dtype.to_complex()), config=config).real
     return torch.movedim(out, -1, axis)
 
 
@@ -1186,7 +1191,7 @@ def _unwrap(p: Tensor) -> Tensor:
 
 def _cepstral_ramp(nn: int, like: Tensor) -> Tensor:
     mid = (nn + 1) // 2  # MATLAB rcunwrap: nh = fix((n+1)/2)
-    return constant(lambda: np.arange(nn, dtype=np.float64) / mid, like,
+    return constant(lambda: np.arange(nn, dtype=np.float64) / mid, like, like.dtype,
                     key=("cceps.ramp", nn))
 
 
@@ -1197,7 +1202,7 @@ def cceps(x, n: Optional[int] = None, axis: int = -1,
     continuous; returns ``(xhat, ndelay)`` where ``ndelay`` is the integer
     circular delay removed (needed by :func:`icceps` for exact
     inversion)."""
-    xm, axis = _real_last(x, axis, "cceps expects a real signal")
+    xm, axis = _real_last(x, axis, "cceps expects a real signal", config.dtype)
     spec = fft(xm, n=n, config=config)
     nn = spec.shape[-1]
     mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2)
@@ -1218,8 +1223,8 @@ def icceps(xhat, ndelay=0, axis: int = -1,
     axis = axis % xhat.ndim
     xm = torch.movedim(xhat, axis, -1)
     nn = xm.shape[-1]
-    logf = fft(xm.to(_CDTYPE), config=config)
-    nd = as_tensor(ndelay, xm.device).to(DTYPE)
+    logf = fft(xm.to(config.dtype.to_complex()), config=config)
+    nd = as_tensor(ndelay, xm.device).to(config.dtype)
     while nd.ndim < xm.ndim - 1:
         nd = nd[None]
     ramp = math.pi * _cepstral_ramp(nn, logf.real) * nd[..., None]
@@ -1251,13 +1256,14 @@ def minimum_phase(
     n_fft = int(n_fft)
     if n_fft < n_h:
         raise ValueError(f"n_fft must be >= len(h) = {n_h}")
-    spec = fft(h.to(DTYPE), n=n_fft, config=config)
+    spec = fft(h.to(config.dtype), n=n_fft, config=config)
     mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2)
     floor = 1e-7 * torch.min(torch.where(mag > 0, mag, torch.full_like(mag, math.inf)))
     logm = torch.log(mag + floor)
     if half:
         logm = logm * 0.5
-    cep = ifft(logm.to(_CDTYPE), config=config).real
+    cdtype = config.dtype.to_complex()
+    cep = ifft(logm.to(cdtype), config=config).real
 
     def lifter() -> np.ndarray:
         win = np.zeros(n_fft)
@@ -1268,8 +1274,8 @@ def minimum_phase(
             win[stop] = 1.0
         return win
 
-    cep = cep * constant(lifter, cep, key=("minimum_phase.lifter", n_fft))
-    eh = fft(cep.to(_CDTYPE), config=config)
+    cep = cep * constant(lifter, cep, cep.dtype, key=("minimum_phase.lifter", n_fft))
+    eh = fft(cep.to(cdtype), config=config)
     ex = torch.exp(eh.real)
     spec_min = torch.complex(ex * torch.cos(eh.imag), ex * torch.sin(eh.imag))
     h_min = ifft(spec_min, config=config).real
@@ -1781,7 +1787,7 @@ def envelope(z, bp_in: Tuple[Optional[int], Optional[int]] = (1, None), *,
     if complex_in:
         Z = fft(zm, config=config)
     else:
-        zm = zm.to(DTYPE)
+        zm = zm.to(config.dtype)
         X = rfft(zm, config=config)
 
         def pos() -> np.ndarray:
@@ -1794,7 +1800,7 @@ def envelope(z, bp_in: Tuple[Optional[int], Optional[int]] = (1, None), *,
                 p[1:bp1] = 2.0
             return p
 
-        X = X * constant(pos, zm, key=("envelope.pos",) + key)
+        X = X * constant(pos, zm, zm.dtype, key=("envelope.pos",) + key)
         Z = torch.cat([X, X.new_zeros(*X.shape[:-1], n - (n // 2 + 1))], dim=-1)
     # envelope: inverse transform of the band (shift-invariant, so the band
     # is taken in place; a zero-straddling band is fftshifted first)
@@ -1828,7 +1834,7 @@ def envelope(z, bp_in: Tuple[Optional[int], Optional[int]] = (1, None), *,
                 mk[0:(n + 1) // 2] = 0.0
         return mk
 
-    Z = Z * constant(mask, Z.real, key=("envelope.mask", residual) + key)
+    Z = Z * constant(mask, Z.real, Z.real.dtype, key=("envelope.mask", residual) + key)
     if complex_in:
         z_res = resample(Z, n_out, axis=-1, domain="freq", config=config)
         z_env = z_env.to(z_res.dtype)

@@ -39,10 +39,11 @@ __all__ = [
 ]
 
 
-def _signal(x) -> Tensor:
-    """``x`` as a real fp32 tensor (numpy input goes to the card; float64
-    and integers are cast, as ``jnp.asarray`` does without x64)."""
-    return as_tensor(x).to(DTYPE)
+def _signal(x, dtype=DTYPE) -> Tensor:
+    """``x`` as a real tensor of ``dtype``: fp32, or the config's working
+    dtype in the ops that read it (numpy input goes to the card; other
+    float dtypes and integers are cast)."""
+    return as_tensor(x).to(dtype)
 
 
 def _weights(w: np.ndarray, like: Tensor) -> Tensor:
@@ -118,7 +119,7 @@ def symiirorder1(signal, c0: float, z1: float, precision: float = -1.0, *,
     """Mirror-symmetric first-order IIR smoother
     H(z) = c0 / ((1 − z1·z⁻¹)(1 − z1·z)) — scipy.signal.symiirorder1
     semantics, batched over leading axes, forward+backward scans."""
-    x = _signal(signal)
+    x = _signal(signal, config.dtype)
     n = x.shape[-1]
     prec = _default_precision(precision, x.dtype)
     m = _horizon(z1, prec, n, "symiirorder1")
@@ -179,7 +180,7 @@ def symiirorder2(input, r: float, omega: float, precision: float = -1.0, *,
     """Mirror-symmetric second-order IIR smoother
     H(z) = cs² / ((1 − 2r·cosω·z⁻¹ + r²·z⁻²)(1 − 2r·cosω·z + r²·z²)) —
     scipy.signal.symiirorder2 semantics, forward+backward scans."""
-    x = _signal(input)
+    x = _signal(input, config.dtype)
     if r >= 1.0:
         raise ValueError(f"r must be < 1.0, got {r}")
     n = x.shape[-1]
@@ -204,7 +205,7 @@ def cspline1d(signal, lamb: float = 0.0, *,
               config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     """Cubic-spline coefficients of a mirror-symmetric signal
     (scipy.signal.cspline1d; ``lamb`` > 0 smooths)."""
-    x = _signal(signal)
+    x = _signal(signal, config.dtype)
     if lamb != 0.0:
         return _cubic_smooth_coeff(x, float(lamb))
     z1 = -2.0 + math.sqrt(3.0)
@@ -218,7 +219,7 @@ def qspline1d(signal, lamb: float = 0.0, *,
     """Quadratic-spline coefficients (scipy.signal.qspline1d)."""
     if lamb != 0.0:
         raise ValueError("smoothing quadratic splines are not supported")
-    x = _signal(signal)
+    x = _signal(signal, config.dtype)
     z1 = -3.0 + 2.0 * math.sqrt(2.0)
     return symiirorder1(x, -z1 * 8.0, z1,
                         precision=_default_precision(-1.0, x.dtype),
@@ -296,7 +297,7 @@ def cspline2d(signal, lamb: float = 0.0, precision: float = -1.0, *,
               config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     """2-D cubic-spline coefficients (scipy.signal.cspline2d): the 1-D
     prefilter separably along both axes."""
-    x = _signal(signal)
+    x = _signal(signal, config.dtype)
     prec = _default_precision(precision, x.dtype)
     if lamb <= 1.0 / 144.0:
         z1 = -2.0 + math.sqrt(3.0)
@@ -316,7 +317,7 @@ def qspline2d(signal, lamb: float = 0.0, precision: float = -1.0, *,
     """2-D quadratic-spline coefficients (scipy.signal.qspline2d)."""
     if lamb > 0:
         raise ValueError("lamb must be <= 0 for quadratic splines")
-    x = _signal(signal)
+    x = _signal(signal, config.dtype)
     prec = _default_precision(precision, x.dtype)
     z1 = -3.0 + 2.0 * math.sqrt(2.0)
     fn = lambda v: symiirorder1(v, -z1 * 8.0, z1, prec, config=config)

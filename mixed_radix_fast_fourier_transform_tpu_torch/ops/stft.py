@@ -22,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
+from ..utils.config import DEFAULT_CONFIG, SpectralConfig
 from ..utils.numerics import as_tensor, constant, pad_last
 from .rfft import irfft, rfft
 
@@ -216,18 +216,19 @@ def get_window(window, nperseg: int, dtype=np.float32, *, sym: bool = False) -> 
     return w
 
 
-def _as_real(x, what: str) -> Tensor:
+def _as_real(x, what: str, dtype) -> Tensor:
     x = as_tensor(x)
     if x.is_complex():
         raise ValueError(f"{what} takes real signals")
-    return x.to(DTYPE)
+    return x.to(dtype)
 
 
 def _window_on(window, nperseg: int, like: Tensor) -> Tensor:
-    """The window beside ``like``: a named window is kept on the device, a
-    caller's array is uploaded on every call."""
+    """The window at the dtype of ``like`` (the working dtype) beside it: a
+    named window is kept on the device, a caller's array is uploaded on
+    every call."""
     key = ("stft.window", window, nperseg) if isinstance(window, (str, tuple)) else None
-    return constant(lambda: get_window(window, nperseg, np.float32), like, key=key)
+    return constant(lambda: get_window(window, nperseg, np.float64), like, like.dtype, key=key)
 
 
 def _frame(x: Tensor, nperseg: int, hop: int) -> Tensor:
@@ -249,7 +250,7 @@ def stft(
     ``center=True`` reflect-pads by nperseg//2 so frame f is centered on
     sample f·hop (librosa/scipy convention).
     """
-    x = _as_real(x, "stft")
+    x = _as_real(x, "stft", config.dtype)
     if noverlap is None:
         noverlap = nperseg // 2
     if not 0 <= noverlap < nperseg:
@@ -308,7 +309,7 @@ def istft(
 
     named = isinstance(window, (str, tuple))
     out = out * constant(
-        nola, out, key=("stft.nola", window, nperseg, hop, n_frames) if named else None)
+        nola, out, out.dtype, key=("stft.nola", window, nperseg, hop, n_frames) if named else None)
 
     if center:
         out = out[..., nperseg // 2 : t_padded - nperseg // 2]
@@ -460,7 +461,7 @@ def griffinlim(
         raise ValueError(f"n_iter must be >= 1, got {n_iter}")
     if not 0.0 <= momentum < 1.0:
         raise ValueError(f"momentum must be in [0, 1), got {momentum}")
-    mag = mag.to(DTYPE)
+    mag = mag.to(config.dtype)
     if noverlap is None:
         noverlap = nperseg // 2
     hop = nperseg - noverlap
@@ -501,7 +502,7 @@ def griffinlim(
 
     if generator is None:
         generator = torch.Generator().manual_seed(seed)
-    ph = (2.0 * math.pi) * torch.rand(mag.shape, generator=generator, dtype=DTYPE,
+    ph = (2.0 * math.pi) * torch.rand(mag.shape, generator=generator, dtype=mag.dtype,
                                        device=generator.device).to(mag.device)
     spec0 = torch.complex(mag * torch.cos(ph), mag * torch.sin(ph))
     return invert(_griffinlim_loop(mag, spec0, n_iter, momentum, project))
@@ -565,7 +566,7 @@ def time_stretch(
     """Time-stretch a real signal by ``rate`` without changing pitch
     (librosa.effects.time_stretch): stft -> :func:`phase_vocoder` ->
     istft at length round(T/rate)."""
-    x = _as_real(x, "time_stretch")
+    x = _as_real(x, "time_stretch", config.dtype)
     if rate <= 0:
         raise ValueError(f"rate must be > 0, got {rate}")
     hop = nperseg // 4
@@ -593,7 +594,7 @@ def pitch_shift(
 
     from .signal import resample_poly  # signal imports this module
 
-    x = _as_real(x, "pitch_shift")
+    x = _as_real(x, "pitch_shift", config.dtype)
     if bins_per_octave < 1:
         raise ValueError(f"bins_per_octave must be >= 1, got {bins_per_octave}")
     rate = 2.0 ** (-float(n_steps) / bins_per_octave)

@@ -5,7 +5,8 @@ The same Cooley-Tukey recursion runs per stage as
 
     reshape → (batched sub-FFTs of the remainder) → twiddle ⊙ → f×f DFT
 
-with each dense stage an fp32 ``torch.matmul`` (the stacked (2f, 2f) form
+with each dense stage one ``torch.matmul`` at the planes' dtype, fp32 or
+float64 (the stacked (2f, 2f) form
 below ``KARATSUBA_MIN_STAGE``, the three-product Karatsuba form at or above
 it) and stages of size 2/4/8/16 as elementwise butterflies when the plan
 enables them.  The stage forms and their crossover mirror the JAX package so
@@ -92,9 +93,16 @@ def _bfly4(pr, pi, sign: int):
     )
 
 
-_SQRT1_2 = float(np.float32(np.sqrt(0.5)))
-_COS_PI_8 = float(np.float32(np.cos(np.pi / 8)))
-_SIN_PI_8 = float(np.float32(np.sin(np.pi / 8)))
+# The W8/W16 constants (√½, cos π/8, sin π/8) for each working dtype,
+# rounded from float64 to it: fp32 planes get the JAX package's fp32 values,
+# float64 planes keep every bit.
+_BFLY_CONSTS = {
+    dtype: tuple(
+        float(np.asarray(v, dtype=np_dtype))
+        for v in (np.sqrt(0.5), np.cos(np.pi / 8), np.sin(np.pi / 8))
+    )
+    for dtype, np_dtype in ((torch.float32, np.float32), (torch.float64, np.float64))
+}
 
 
 def _bfly8(pr, pi, sign: int):
@@ -102,7 +110,7 @@ def _bfly8(pr, pi, sign: int):
     er, ei = _bfly4(pr[0::2], pi[0::2], sign)
     orr, oii = _bfly4(pr[1::2], pi[1::2], sign)
     s = float(sign)
-    c = _SQRT1_2
+    c = _BFLY_CONSTS[pr[0].dtype][0]
     # W8^1 = √½·(1 + i·s), W8^2 = i·s, W8^3 = √½·(−1 + i·s)
     t1r, t1i = c * (orr[1] - s * oii[1]), c * (oii[1] + s * orr[1])
     if sign > 0:
@@ -125,7 +133,7 @@ def _bfly16(pr, pi, sign: int):
     er, ei = _bfly8(pr[0::2], pi[0::2], sign)
     orr, oii = _bfly8(pr[1::2], pi[1::2], sign)
     s = float(sign)
-    c1, s1, c2 = _COS_PI_8, _SIN_PI_8, _SQRT1_2
+    c2, c1, s1 = _BFLY_CONSTS[pr[0].dtype]
 
     def tw(k, cr, sn):
         # t = (cr + i·s·sn) · O_k

@@ -27,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
+from ..utils.config import DEFAULT_CONFIG, SpectralConfig
 from ..utils.numerics import as_tensor, constant, pad_last
 from .fft import fft, fftshift, ifft
 from .signal import hilbert
@@ -110,7 +110,7 @@ def _lag_products(z: Tensor, T: int, nperseg: int, hop: int,
     tables = lambda i: lambda: _lag_tables(T, nperseg, hop)[i]
     ip = constant(tables(0), z, torch.int64, key=key + ("ip",))
     im = constant(tables(1), z, torch.int64, key=key + ("im",))
-    valid = constant(tables(2), z, DTYPE, key=key + ("valid",))
+    valid = constant(tables(2), z, z.dtype.to_real(), key=key + ("valid",))
     return z[..., ip] * torch.conj(w[..., im]) * valid
 
 
@@ -126,7 +126,7 @@ def _windowed_lag_roll(prod: Tensor, nperseg: int, window) -> Tensor:
 
     key = (("tfr.lag_window", window, nperseg) if isinstance(window, (str, tuple))
            else None)
-    h = constant(lag_window, prod, DTYPE, key=key)
+    h = constant(lag_window, prod, prod.dtype.to_real(), key=key)
     return torch.roll(prod, -half, dims=-1) * h
 
 
@@ -296,8 +296,8 @@ def ssq_cwt(
         return xi, np.stack([_morlet_hat(a * xi, w) for a in scales])  # (S, T) real
 
     key = ("tfr.ssq_cwt", T, n_scales, float(fmin), float(fmax), float(w))
-    psid = constant(lambda: bank()[1], X, DTYPE, key=key + ("psi",))
-    dxi = constant(lambda: 1j * bank()[0], X, _CDTYPE, key=key + ("i·xi",))
+    psid = constant(lambda: bank()[1], X, X.dtype.to_real(), key=key + ("psi",))
+    dxi = constant(lambda: 1j * bank()[0], X, X.dtype, key=key + ("i·xi",))
     Wf = X[..., None, :] * psid  # (…, S, T) spectra (psi real: cheap)
     Wt = ifft(Wf, config=config)  # CWT rows
     dWt = ifft(Wf * dxi, config=config)
@@ -326,12 +326,13 @@ def _window_derivative(w: np.ndarray) -> np.ndarray:
     )
 
 
-def _centered_frames(x: Tensor, nperseg: int, hop: int, n_frames: int) -> Tensor:
+def _centered_frames(x: Tensor, nperseg: int, hop: int, n_frames: int,
+                     config: SpectralConfig) -> Tensor:
     """Frames aligned with ``stft(center=True)``: frame m's sample j is
     original sample m·hop + j − nperseg//2 (reflect-padded edges)."""
     from .stft import _frame
 
-    xm = pad_last(x.to(DTYPE), nperseg // 2, nperseg // 2, "reflect")
+    xm = pad_last(x.to(config.dtype), nperseg // 2, nperseg // 2, "reflect")
     t = xm.shape[-1]
     full = nperseg + (n_frames - 1) * hop
     if full > t:
@@ -343,12 +344,12 @@ def _frame_center_phase(nperseg: int, like: Tensor) -> Tensor:
     """e^{2πik·c/n}, c = nperseg//2: references bins to the frame center."""
     return constant(
         lambda: np.exp(2j * np.pi * np.arange(nperseg // 2 + 1) * (nperseg // 2) / nperseg),
-        like, _CDTYPE, key=("tfr.center_phase", nperseg))
+        like, like.dtype, key=("tfr.center_phase", nperseg))
 
 
 def _window_table(values, window, nperseg: int, name: str, like: Tensor) -> Tensor:
     key = (name, window, nperseg) if isinstance(window, (str, tuple)) else None
-    return constant(values, like, DTYPE, key=key)
+    return constant(values, like, like.dtype, key=key)
 
 
 def ssq_stft(
@@ -383,7 +384,7 @@ def ssq_stft(
         noverlap = nperseg - max(1, nperseg // 8)
     S = _stft(x, nperseg, noverlap, window, center=True, config=config)
     hop = nperseg - noverlap
-    frames = _centered_frames(x, nperseg, hop, S.shape[-2])
+    frames = _centered_frames(x, nperseg, hop, S.shape[-2], config)
     # derivative-window STFT: d/dt of the periodic window, host fp64
     wd = _window_table(lambda: _window_derivative(get_window(window, nperseg, np.float64)),
                        window, nperseg, "tfr.window_derivative", frames)
@@ -398,7 +399,7 @@ def ssq_stft(
     mag2 = sr * sr + si * si
     nb = S.shape[-1]
     fgrid = np.fft.rfftfreq(nperseg)  # cycles/sample
-    fg = constant(fgrid, S, DTYPE, key=("tfr.rfftfreq", nperseg))
+    fg = constant(fgrid, S, S.dtype.to_real(), key=("tfr.rfftfreq", nperseg))
     omega = fg - (di * sr - dr * si) / (2.0 * np.pi * torch.clamp(mag2, min=1e-30))
     thresh = gamma * torch.sqrt(torch.amax(mag2, dim=(-2, -1), keepdim=True))
     alive = mag2 > thresh * thresh
@@ -514,7 +515,7 @@ def reassigned_spectrogram(
     n_frames = S.shape[-2]
     nb = S.shape[-1]
     c = nperseg // 2
-    frames = _centered_frames(x, nperseg, hop, n_frames)
+    frames = _centered_frames(x, nperseg, hop, n_frames, config)
     wd = _window_table(lambda: _window_derivative(get_window(window, nperseg, np.float64)),
                        window, nperseg, "tfr.window_derivative", frames)
     wt = _window_table(lambda: (np.arange(nperseg) - c) * get_window(window, nperseg, np.float64),
@@ -527,7 +528,7 @@ def reassigned_spectrogram(
     mag2 = sr * sr + si * si
     denom = torch.clamp(mag2, min=1e-30)
     fgrid = np.fft.rfftfreq(nperseg)
-    fg = constant(fgrid, S, DTYPE, key=("tfr.rfftfreq", nperseg))
+    fg = constant(fgrid, S, S.dtype.to_real(), key=("tfr.rfftfreq", nperseg))
     omega = fg - (di * sr - dr * si) / (2.0 * np.pi * denom)
     dt = (tr * sr + ti * si) / denom  # Re(St/S), samples
     thresh = gamma * torch.sqrt(torch.amax(mag2, dim=(-2, -1), keepdim=True))
@@ -589,8 +590,8 @@ def stockwell(
         )
     if gamma <= 0:
         raise ValueError(f"gamma must be > 0, got {gamma}")
-    z = x.to(DTYPE)
-    X = fft(z.to(_CDTYPE), config=config)
+    z = x.to(config.dtype)
+    X = fft(z.to(z.dtype.to_complex()), config=config)
     ks = np.arange(fmin, fmax + 1)
     idx = np.arange(T)
     j = np.where(idx < (T + 1) // 2, idx, idx - T)  # signed bin offsets
@@ -598,7 +599,7 @@ def stockwell(
     # voice windows in frequency: Gaussian of width k/γ
     G = constant(lambda: np.exp(
         -2.0 * (np.pi * gamma * j[None, :].astype(np.float64)) ** 2
-        / np.maximum(ks[:, None], 1) ** 2), X, DTYPE, key=key + ("G",))
+        / np.maximum(ks[:, None], 1) ** 2), X, X.dtype.to_real(), key=key + ("G",))
     rows = constant(lambda: (j[None, :] + ks[:, None]) % T, X, torch.int64, key=key + ("rows",))
     S = ifft(X[..., rows] * G, config=config)
     if fmin == 0:
@@ -665,7 +666,7 @@ def ambiguity(
     tables = lambda i: lambda: _lag_tables(T, 2 * max_lag + 1, 1)[i].T.copy()
     ip = constant(tables(0), z, torch.int64, key=key + ("ip.T",))
     im = constant(tables(1), z, torch.int64, key=key + ("im.T",))
-    valid = constant(tables(2), z, DTYPE, key=key + ("valid.T",))
+    valid = constant(tables(2), z, z.dtype.to_real(), key=key + ("valid.T",))
     prod = z[..., ip] * torch.conj(z[..., im]) * valid
     A = fft(prod, config=config)  # doppler transform along time
     return fftshift(A, axes=-1)

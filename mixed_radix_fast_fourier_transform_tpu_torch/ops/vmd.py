@@ -21,7 +21,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
+from ..utils.config import DEFAULT_CONFIG, SpectralConfig
 from ..utils.numerics import as_tensor, constant, content_key
 from .fft import fft, ifft
 
@@ -85,7 +85,7 @@ def vmd(x, K: int, alpha: float = 2000.0, tau: float = 0.0,
         raise ValueError("vmd expects a real signal (decompose the real "
                          "and imaginary parts separately for IQ data)")
     if not x.is_floating_point():
-        x = x.to(DTYPE)
+        x = x.to(config.dtype)
     T0 = x.shape[-1]
     half = T0 // 2
     # mirror extension: [rev(first half), x, rev(last half)]

@@ -161,10 +161,11 @@ def _full(x, mesh: DeviceMesh) -> Tensor:
     return _local_placed(x, mesh, [Replicate()] * mesh.ndim)
 
 
-def _planes(x: Tensor) -> Tuple[Tensor, Tensor]:
+def _planes(x: Tensor, dtype) -> Tuple[Tensor, Tensor]:
+    """(re, im) planes of ``x`` in the working ``dtype``."""
     if x.is_complex():
-        return x.real.to(DTYPE), x.imag.to(DTYPE)
-    x = x.to(DTYPE)
+        return x.real.to(dtype), x.imag.to(dtype)
+    x = x.to(dtype)
     return x, torch.zeros_like(x)
 
 
@@ -320,8 +321,8 @@ def _twiddle_block(n1: int, n2: int, sign: int, mesh: DeviceMesh, seq_axis: str,
     def part(i):
         return lambda: _split_twiddle_matrix(n1, n2, sign)[i][:, r * w:(r + 1) * w]
 
-    return (constant(part(0), like, key=key + ("re",)),
-            constant(part(1), like, key=key + ("im",)))
+    return (constant(part(0), like, like.dtype, key=key + ("re",)),
+            constant(part(1), like, like.dtype, key=key + ("im",)))
 
 
 def _local_fft_last(config, n: int, sign: int, xr: Tensor, xi: Tensor):
@@ -433,7 +434,7 @@ def fft_four_step(
             "reshape the input to (batch, N) or pass overlap_chunks=1"
         )
     spec_in = _batch_spec(nbatch, data_axis) + (seq_axis,)
-    xr, xi = _planes(_local(x, mesh, spec_in))
+    xr, xi = _planes(_local(x, mesh, spec_in), config.dtype)
     mat = xr.shape[:-1] + (n1 // p, n2)
     twr, twi = _twiddle_block(n1, n2, sign, mesh, seq_axis, xr)
     group = _group(mesh, seq_axis)
@@ -488,7 +489,7 @@ def fft_four_step_scrambled(
     p = _axis_size(mesh, seq_axis)
     n1, n2 = _split(n, p, n1, config)
     bspec = _batch_spec(len(shape) - 1, data_axis)
-    xr, xi = _planes(_local(x, mesh, bspec + (seq_axis,)))
+    xr, xi = _planes(_local(x, mesh, bspec + (seq_axis,)), config.dtype)
     mat = xr.shape[:-1] + (n1 // p, n2)
     twr, twi = _twiddle_block(n1, n2, -1, mesh, seq_axis, xr)
     group = _group(mesh, seq_axis)
@@ -530,7 +531,7 @@ def ifft_four_step_scrambled(
     if n1 % p or n2 % p:
         raise ValueError(f"matrix {n1}x{n2} not divisible by mesh size {p}")
     bspec = _batch_spec(len(shape) - 2, data_axis)
-    yr, yi = _planes(_local(y, mesh, bspec + (seq_axis, None)))
+    yr, yi = _planes(_local(y, mesh, bspec + (seq_axis, None)), config.dtype)
     twr, twi = _twiddle_block(n1, n2, 1, mesh, seq_axis, yr)
     group = _group(mesh, seq_axis)
 
@@ -606,8 +607,8 @@ def fft_convolve_sharded(
     )
     local = spec.to_local()
     key = content_key("four_step_conv_kernel", kernel) + (m, n1, r, p)
-    gain = torch.complex(constant(spectrum("real"), local.real, key=key + ("re",)),
-                         constant(spectrum("imag"), local.real, key=key + ("im",)))
+    gain = torch.complex(constant(spectrum("real"), local.real, config.dtype, key=key + ("re",)),
+                         constant(spectrum("imag"), local.real, config.dtype, key=key + ("im",)))
     out = ifft_four_step_scrambled(
         _like(spec, local * gain), mesh, seq_axis=seq_axis, data_axis=data_axis,
         overlap_chunks=overlap_chunks, config=config,
@@ -659,7 +660,7 @@ def rfft_four_step(
         raise ValueError(f"distributed rfft requires even length, got {n}")
     h = n // 2
     bspec = _batch_spec(len(shape) - 1, data_axis)
-    xl = _local(x, mesh, bspec + (seq_axis,)).to(DTYPE)
+    xl = _local(x, mesh, bspec + (seq_axis,)).to(config.dtype)
     z = _wrap(torch.complex(xl[..., 0::2], xl[..., 1::2]), mesh, bspec + (seq_axis,),
               shape[:-1] + (h,))
     zc = fft_four_step(z, mesh, seq_axis=seq_axis, data_axis=data_axis, n1=n1,
@@ -739,7 +740,7 @@ def fft2_pencil(
         raise ValueError(f"H={h} and W={w} must divide by mesh size {p}")
     sign = 1 if inverse else -1
     spec = _batch_spec(len(shape) - 2, data_axis) + (seq_axis, None)
-    xr, xi = _planes(_local(x, mesh, spec))
+    xr, xi = _planes(_local(x, mesh, spec), config.dtype)
     group = _group(mesh, seq_axis)
     xr, xi = _local_fft_last(config, w, sign, xr, xi)
     xr, xi = _a2a(xr, xi, group, -1, -2)          # (H/P, W) -> (H, W/P)
@@ -805,8 +806,8 @@ def fft_convolve2_sharded(
     spec = fft2_pencil(x, mesh, seq_axis=seq_axis, data_axis=data_axis, config=config)
     local = spec.to_local()
     key = content_key("pencil_conv_kernel", kernel) + (hh, ww, r, p)
-    gain = torch.complex(constant(spectrum("real"), local.real, key=key + ("re",)),
-                         constant(spectrum("imag"), local.real, key=key + ("im",)))
+    gain = torch.complex(constant(spectrum("real"), local.real, config.dtype, key=key + ("re",)),
+                         constant(spectrum("imag"), local.real, config.dtype, key=key + ("im",)))
     out = ifft2_pencil(_like(spec, local * gain), mesh, seq_axis=seq_axis,
                        data_axis=data_axis, config=config)
     if mode == "same":
@@ -867,7 +868,7 @@ def fftn_pencil(
         bspec[0] = data_axis
     bspec[shard_dim] = seq_axis
     spec = tuple(bspec)
-    xr, xi = _planes(_local(x, mesh, spec))
+    xr, xi = _planes(_local(x, mesh, spec), config.dtype)
     for a in axes:
         if a != shard_dim:
             xr, xi = _fft_axis(config, shape[a], sign, xr, xi, a)
@@ -924,7 +925,7 @@ def fftn_pencil2(
     sign = 1 if inverse else -1
     spec = (data_axis, seq_axis, None)
     gs, gd = _group(mesh, seq_axis), _group(mesh, data_axis)
-    xr, xi = _planes(_local(x, mesh, spec))
+    xr, xi = _planes(_local(x, mesh, spec), config.dtype)
     xr, xi = _local_fft_last(config, n2, sign, xr, xi)
     xr, xi = _a2a(xr, xi, gs, 2, 1)               # gather axis 1, FFT it
     xr, xi = _local_fft_axis2(config, n1, sign, xr, xi)
@@ -977,7 +978,7 @@ def rfftn_pencil2(
     hp = -(-h // pp) * pp
     spec = (data_axis, seq_axis, None)
     gs, gd = _group(mesh, seq_axis), _group(mesh, data_axis)
-    z = rfft(_local(x, mesh, spec).to(DTYPE), config=config)   # local pencil, h bins
+    z = rfft(_local(x, mesh, spec).to(config.dtype), config=config)   # local pencil, h bins
     xr, xi = _pad(z.real, (0, hp - h)), _pad(z.imag, (0, hp - h))
     xr, xi = _a2a(xr, xi, gs, 2, 1)               # scatter the bins over both axes
     xr, xi = _a2a(xr, xi, gd, 2, 0)
@@ -1016,7 +1017,7 @@ def irfftn_pencil2(
     hp = -(-h // pp) * pp
     spec = (data_axis, seq_axis, None)
     gs, gd = _group(mesh, seq_axis), _group(mesh, data_axis)
-    yr, yi = _planes(_local(y, mesh, spec))
+    yr, yi = _planes(_local(y, mesh, spec), config.dtype)
     yr, yi = _pad(yr, (0, hp - h)), _pad(yi, (0, hp - h))
     yr, yi = _a2a(yr, yi, gs, 2, 1)
     yr, yi = _a2a(yr, yi, gd, 2, 0)
@@ -1063,7 +1064,7 @@ def poisson_solve_pencil2(
                + (k2 ** 2)[None, None, :])
         return np.where(ksq > 0, -1.0 / np.where(ksq > 0, ksq, 1.0), 0.0)
 
-    inv = constant(multiplier, local.real,
+    inv = constant(multiplier, local.real, local.real.dtype,
                    key=("poisson_pencil2", n0, n1, n2, periods, r0, b0, r1, b1))
     return irfftn_pencil2(_like(spec, local * inv), mesh, n2=n2, data_axis=data_axis,
                           seq_axis=seq_axis, config=config)

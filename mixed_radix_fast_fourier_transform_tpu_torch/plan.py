@@ -2,8 +2,9 @@
 
 Counterpart of ``mixed_radix_fast_fourier_transform_tpu/plan.py``.  Plans
 are immutable and hold their constants as host numpy arrays, built in fp64
-and cast to fp32 exactly as the JAX package builds them, so both packages
-run the same stage factors with the same constants.
+and cast to the config's working dtype (fp32 or float64) exactly as the JAX
+package builds them, so both packages run the same stage factors with the
+same constants.
 
 What the port adds is :func:`device_constants`: the tensors of a plan's
 constants on one device, uploaded once per (plan, device) and cached on the
@@ -32,7 +33,11 @@ from .utils.factorize import (
 )
 from .utils.twiddle import chirp, dft_matrix, split_twiddles, twiddle_split
 
-_HOST_DTYPE = np.float32
+
+def _host_dtype(config: SpectralConfig):
+    """The numpy dtype of a plan's host constants: the config's working
+    dtype."""
+    return np.float64 if config.dtype == torch.float64 else np.float32
 
 
 def _device_cache():
@@ -151,9 +156,9 @@ def device_constants(plan, device) -> Dict[str, object]:
         return plan._device.setdefault(device, consts)
 
 
-def _host(pair) -> Tuple[np.ndarray, np.ndarray]:
+def _host(pair, dtype) -> Tuple[np.ndarray, np.ndarray]:
     re, im = pair
-    return np.asarray(re, dtype=_HOST_DTYPE), np.asarray(im, dtype=_HOST_DTYPE)
+    return np.asarray(re, dtype=dtype), np.asarray(im, dtype=dtype)
 
 
 def build_mixed_radix_plan(
@@ -169,14 +174,15 @@ def build_mixed_radix_plan(
         factors: Tuple[int, ...] = (n,)
     else:
         factors = plan_stages(n, config.max_stage, config.stage_strategy)
+    dtype = _host_dtype(config)
     dft_re, dft_im, tw_re, tw_im = [], [], [], []
     for i, f in enumerate(factors):
-        wr, wi = _host(dft_matrix(f, sign, np.float64))
+        wr, wi = _host(dft_matrix(f, sign, np.float64), dtype)
         dft_re.append(wr)
         dft_im.append(wi)
         if i < len(factors) - 1:
             n_rem = math.prod(factors[i + 1 :])
-            tr, ti = _host(twiddle_split(f, n_rem, f * n_rem, sign, np.float64))
+            tr, ti = _host(twiddle_split(f, n_rem, f * n_rem, sign, np.float64), dtype)
             tw_re.append(tr)
             tw_im.append(ti)
     return MixedRadixPlan(
@@ -220,15 +226,16 @@ def build_bluestein_plan(
     c[m - n + 1 :] = np.conj(w64)[1:][::-1]
     # fp64 spectrum of the chirp kernel with the inverse inner FFT's 1/m
     spec = np.fft.fft(c) / m
+    dtype = _host_dtype(config)
     return BluesteinPlan(
         n=n,
         sign=sign,
         m=m,
         inner=inner,
-        chirp_re=np.asarray(wr64, dtype=_HOST_DTYPE),
-        chirp_im=np.asarray(wi64, dtype=_HOST_DTYPE),
-        spec_re=np.asarray(spec.real, dtype=_HOST_DTYPE),
-        spec_im=np.asarray(spec.imag, dtype=_HOST_DTYPE),
+        chirp_re=np.asarray(wr64, dtype=dtype),
+        chirp_im=np.asarray(wi64, dtype=dtype),
+        spec_re=np.asarray(spec.real, dtype=dtype),
+        spec_im=np.asarray(spec.imag, dtype=dtype),
     )
 
 
@@ -268,8 +275,8 @@ def build_rader_plan(
         inner=inner,
         perm_in=perm_in.astype(np.int32),
         perm_out=perm_out.astype(np.int32),
-        spec_re=np.asarray(spec.real, dtype=_HOST_DTYPE),
-        spec_im=np.asarray(spec.imag, dtype=_HOST_DTYPE),
+        spec_re=np.asarray(spec.real, dtype=_host_dtype(config)),
+        spec_im=np.asarray(spec.imag, dtype=_host_dtype(config)),
     )
 
 
@@ -298,7 +305,7 @@ def build_real_plan(
         raise ValueError(f"packed real FFT requires even length, got {n}")
     inner = build_complex_plan(n // 2, sign, config)
     c64, s64 = split_twiddles(n, sign, np.float64)
-    dt = _HOST_DTYPE
+    dt = _host_dtype(config)
     return RealPlan(
         n=n, sign=sign, inner=inner,
         split_re=c64.astype(dt), split_im=s64.astype(dt),
@@ -322,6 +329,7 @@ def _cfg_key(config: SpectralConfig):
         config.stage_strategy,
         config.rader,
         config.butterfly,
+        str(config.dtype),
     )
 
 

@@ -6,11 +6,14 @@ packages build the same plans and their outputs compare stage for stage.
 Those defaults were tuned on another accelerator and are kept for parity
 only; none of them is evidence for the GPU.
 
-fp32 is the one working precision of the port: there is no ``precision``
-lever (the JAX package's reduced-precision passes exist for the TPU's bf16
-matrix unit).  TF32 stays off for the stage matmuls; callers that need
-fp32 accuracy on the GPU keep ``torch.backends.cuda.matmul.allow_tf32``
-False, which is PyTorch's default.
+The working dtype is fp32 (the default) or float64 (``dtype=torch.float64``,
+the JAX package's x64 route): the stage pipeline and every op that reads
+``config.dtype`` then compute in float64 on the device, and the fused
+kernel, which is fp32 by construction, is never taken.  There is no
+``precision`` lever and no bf16 (the JAX package's reduced-precision passes
+exist for the TPU's bf16 matrix unit).  TF32 stays off for the stage
+matmuls; callers that need fp32 accuracy on the GPU keep
+``torch.backends.cuda.matmul.allow_tf32`` False, which is PyTorch's default.
 """
 
 from __future__ import annotations
@@ -19,8 +22,11 @@ import dataclasses
 
 import torch
 
-# Working dtype of the (re, im) planes.
+# Default working dtype of the (re, im) planes, and the dtype of the ops
+# that the JAX package fixes at float32.
 DTYPE = torch.float32
+# The working dtypes a config may name.
+DTYPES = (torch.float32, torch.float64)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +39,9 @@ class SpectralConfig:
     # Stage grouping: "balanced" (fewest stages, then equal sizes) or
     # "greedy" (descending-prime packing).
     stage_strategy: str = "balanced"
+    # Working dtype of the (re, im) planes on the device: torch.float32 or
+    # torch.float64.  Complex results are complex64 or complex128 to match.
+    dtype: torch.dtype = DTYPE
     # Padded length for Bluestein and convolution: "pow23" (smallest 2^a or
     # 3·2^a), "pow2" or "fast" (2·3·5·7-smooth).
     pad_mode: str = "pow23"
@@ -57,6 +66,15 @@ class SpectralConfig:
     use_kernel: "bool | None" = None
 
     def __post_init__(self):
+        if self.dtype not in DTYPES:
+            raise ValueError(
+                f"dtype must be torch.float32 or torch.float64, got {self.dtype!r}"
+            )
+        if self.dtype != torch.float32 and self.use_kernel:
+            raise ValueError(
+                "use_kernel=True needs dtype=torch.float32: the fused kernel "
+                "is fp32 only"
+            )
         if self.pad_mode not in ("pow2", "pow23", "fast"):
             raise ValueError(
                 f"pad_mode must be 'pow2', 'pow23' or 'fast', got {self.pad_mode!r}"

@@ -102,12 +102,13 @@ def to_host(x, dtype=None) -> np.ndarray:
     return np.asarray(x, dtype)
 
 
-def working(x) -> Tensor:
-    """``x`` (through :func:`as_tensor`) in the working precision: fp32, or
-    complex64 for complex data; float64, complex128 and integers are cast,
-    as the engine's own entry points cast them."""
+def working(x, dtype=DTYPE) -> Tensor:
+    """``x`` (through :func:`as_tensor`) in the working precision ``dtype``
+    (fp32 by default, a config's ``dtype`` where the op reads one), or its
+    complex counterpart for complex data; other dtypes and integers are
+    cast, as the engine's own entry points cast them."""
     x = as_tensor(x)
-    return x.to(torch.complex64 if x.is_complex() else DTYPE)
+    return x.to(dtype.to_complex() if x.is_complex() else dtype)
 
 
 def as_tensors(*xs) -> Tuple[Tensor, ...]:
@@ -117,22 +118,24 @@ def as_tensors(*xs) -> Tuple[Tensor, ...]:
     return tuple(as_tensor(x, device) for x in xs)
 
 
-def to_planes(x) -> Tuple[Tensor, Tensor]:
-    """Split a complex (or real) tensor into contiguous fp32 (re, im) planes
-    on its own device (array-likes go through :func:`as_tensor`); float64
-    and complex128 are cast down to the working precision here."""
+def to_planes(x, dtype=DTYPE) -> Tuple[Tensor, Tensor]:
+    """Split a complex (or real) tensor into contiguous (re, im) planes of
+    ``dtype`` (fp32 by default; complex128 gives float64 planes only when
+    ``dtype`` is float64) on its own device (array-likes go through
+    :func:`as_tensor`)."""
     x = as_tensor(x)
     if x.is_complex():
         return (
-            x.real.to(DTYPE).contiguous(),
-            x.imag.to(DTYPE).contiguous(),
+            x.real.to(dtype).contiguous(),
+            x.imag.to(dtype).contiguous(),
         )
-    x = x.to(DTYPE).contiguous()
+    x = x.to(dtype).contiguous()
     return x, torch.zeros_like(x)
 
 
 def from_planes(re: Tensor, im: Tensor) -> Tensor:
-    """Combine fp32 (re, im) planes into a complex64 tensor."""
+    """Combine (re, im) planes into a complex tensor of their precision
+    (complex64 for fp32 planes, complex128 for float64)."""
     return torch.complex(re, im)
 
 

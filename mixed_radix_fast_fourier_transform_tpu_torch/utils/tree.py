@@ -48,12 +48,13 @@ def tree_leaves(tree) -> List:
     return out
 
 
-def tree_from_numpy(tree, device=None):
-    """A tree of numpy arrays (the JAX package's parameters) as fp32 tensors
-    on ``device`` (default: the card, see resolve_device)."""
+def tree_from_numpy(tree, device=None, dtype=DTYPE):
+    """A tree of numpy arrays (the JAX package's parameters) as ``dtype``
+    tensors (fp32 by default) on ``device`` (default: the card, see
+    resolve_device)."""
     device = resolve_device(device)
     return tree_map(
-        lambda v: torch.tensor(np.asarray(v), dtype=DTYPE, device=device), tree)
+        lambda v: torch.tensor(np.asarray(v), dtype=dtype, device=device), tree)
 
 
 def sgd_step(loss_fn: Callable, params, *args, lr: float, **kwargs):

@@ -496,6 +496,74 @@ def test_every_public_name_of_the_jax_module_is_ported(module, port_exports):
         assert not missing, (pkg, missing)
 
 
+# Argument names and dataclass fields that the port renames or drops on
+# purpose, each with its reason; nothing else of the JAX package may be
+# missing from the port.
+RENAMED_ARGUMENTS = {
+    # randomness takes a torch.Generator where the JAX function takes a PRNG key
+    "key": "generator",
+    # the fused kernel's switch: the Pallas kernel became ops/cuda_fft.py's
+    "use_pallas": "use_kernel",
+    # a mesh spans the process group's ranks: make_mesh takes one device type
+    "devices": "device",
+}
+# the TPU's reduced-precision (bf16) matmul passes; the port computes in
+# fp32 or float64 only
+DROPPED_ARGUMENTS = {"precision"}
+
+
+def _signatures(path):
+    """{name: argument names} of a module's public functions (the names a
+    caller can pass: not ``*args``/``**kwargs``) and {name: field names} of
+    its public dataclasses, read from the source."""
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if getattr(node, "name", "_").startswith("_"):
+            continue
+        if isinstance(node, ast.FunctionDef):
+            a = node.args
+            out[node.name] = {v.arg for v in a.posonlyargs + a.args + a.kwonlyargs}
+        elif isinstance(node, ast.ClassDef) and any(
+                "dataclass" in ast.unparse(d) for d in node.decorator_list):
+            out[node.name] = {v.target.id for v in node.body
+                              if isinstance(v, ast.AnnAssign) and isinstance(v.target, ast.Name)}
+    return out
+
+
+@pytest.mark.parametrize("module", JAX_MODULES)
+def test_every_argument_and_field_of_the_jax_module_is_ported(module):
+    """Every argument name of every public function, and every field of
+    every public dataclass, of the JAX module (read from its source) is one
+    of the port's function or dataclass of the same name, but for the
+    renamed and dropped names above; the working dtype (``dtype`` of
+    ``SpectralConfig``, ``to_planes`` and the model initialisers) among
+    them."""
+    rel = module if "/" in module or module in ("compat", "plan") else f"ops/{module}"
+    want = _signatures(PACKAGE.parent / "mixed_radix_fast_fourier_transform_tpu" / f"{rel}.py")
+    got = _signatures(PACKAGE / f"{rel}.py")
+    missing = {}
+    for name, names in want.items():
+        need = {RENAMED_ARGUMENTS.get(v, v) for v in names} - DROPPED_ARGUMENTS
+        if need - got.get(name, set()):
+            missing[name] = sorted(need - got.get(name, set()))
+    assert not missing, missing
+
+
+def test_pyproject_lists_every_package_of_the_port():
+    """A wheel holds every directory of the port that has an ``__init__.py``
+    (``tools`` and ``examples`` too), and the kernel sources."""
+    import tomllib
+
+    conf = tomllib.loads((PACKAGE.parent / "pyproject.toml").read_text())["tool"]["setuptools"]
+    on_disk = {".".join(p.parent.relative_to(PACKAGE.parent).parts)
+               for p in PACKAGE.rglob("__init__.py")}
+    listed = {p for p in conf["packages"] if p.startswith(PACKAGE.name)}
+    assert on_disk == listed, (on_disk - listed, listed - on_disk)
+    assert {f"{PACKAGE.name}.tools", f"{PACKAGE.name}.examples"} <= listed
+    assert conf["package-data"][PACKAGE.name] == ["csrc/*.cu", "csrc/*.cuh"]
+    assert list((PACKAGE / "csrc").glob("*.cu")) and list((PACKAGE / "csrc").glob("*.cuh"))
+
+
 def test_no_library_fft_in_the_port():
     """No result of the port comes from a library FFT: ``torch.fft``,
     ``torch.stft``, ``torch.istft``, ``torchaudio`` and the framework's
