@@ -21,6 +21,20 @@ Phases, each of which raises on failure:
    oracle at 1e-12; the fused kernel (fp32 only) must launch no time in the
    phase; the float64 forward's device time beside the fp32 forward's
    (CUDA-graph replay);
+4b. the reduced-precision modes: ``fft`` under each of "highest", "high",
+   "default", "split6" and ("highest", "high") at the stage pipeline's
+   lengths (1009, 10007, 32768, 65536, and 1024 with the kernel off) against
+   numpy float64, with graph-replay device times ("highest" 1e-5, "split6"
+   5e-6, the TF32 ones 16 TF32 units, and "default" at least twice
+   "highest"'s error: the lever is live) and split6's bf16 tensor-core form
+   beside the kept TF32 one; a kernel length (2048) whose output is the same
+   at every precision; the FourCastNet AFNO forward under "default" against
+   "highest"; at bf16 and fp16 ``fft`` and the real round trip at 1024, 1009
+   and 4096 (2e-2, 5e-2), the spectral filter forward at batch 8 and 1024
+   through the kernel on 2-byte planes, the kernel against its plain version
+   on every plane pair it was handed there (one unit in the last place of
+   the largest value), and its device time at 2048 x 1024 in bf16 and fp16
+   beside fp32 and the bytes bounds;
 5. the core FFT lengths of the reference benchmark against numpy float64;
 6. CUDA-event timings of the kernel, its plain version, the stage pipeline
    and ``torch.fft`` at the kernel-eligible shapes, and the filter's device
@@ -184,7 +198,8 @@ Phases, each of which raises on failure:
     each, a summary, and ``torch.fft.fft`` against the kernel at 256 x
     1,048,576.
 
-``python3 chip_smoke.py audio`` runs phases 1, 2 and 15-17 alone,
+``python3 chip_smoke.py precision`` runs phases 1, 2 and 4b alone,
+``python3 chip_smoke.py audio`` phases 1, 2 and 15-17,
 ``python3 chip_smoke.py recurrence`` phases 1, 2 and 18-20,
 ``python3 chip_smoke.py sphere`` phases 1, 2, 21 and 22, and
 ``python3 chip_smoke.py frontend`` phases 1, 2, 23 and 24, and
@@ -208,6 +223,7 @@ import contextlib
 import functools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -453,9 +469,12 @@ def build() -> float:
     # ptxas -v: registers, stack and spills of every kernel instantiation
     name = None
     for line in _build.PTXAS_LOG.read_text().splitlines():
-        m = re.search(r"stockham_fft_kernelILi(n?)1ELi(\d+)ELi(\d+)E", line)
+        m = re.search(r"stockham_fft_kernelI(f|13__nv_bfloat16|6__half)Li(n?)1ELi(\d+)ELi(\d+)E",
+                      line)
         if "Compiling entry function" in line and m:
-            name = f"stockham_fft_kernel<sign={'-' if m.group(1) else '+'}1, elems={m.group(2)}, bound={m.group(3)}>"
+            plane = {"f": "float", "13__nv_bfloat16": "bf16", "6__half": "fp16"}[m.group(1)]
+            name = (f"stockham_fft_kernel<{plane}, sign={'-' if m.group(2) else '+'}1, "
+                    f"elems={m.group(3)}, bound={m.group(4)}>")
         elif name and ("spill" in line or "registers" in line):
             log(f"ptxas {name}: {line.split(':', 1)[-1].strip()}")
     return secs
@@ -463,17 +482,22 @@ def build() -> float:
 
 def kernel_error(xr, xi, n: int, sign: int, what: str, verbose: bool = True) -> float:
     """Checks the kernel against its plain version on (xr, xi): raises past
-    KERNEL_TOL relative to max |plain|; returns the max abs error."""
+    KERNEL_TOL relative to max |plain| (2-byte planes: past HALF_KERNEL_TOL,
+    one unit in the last place of the largest value); returns the max abs
+    error."""
     kr, ki = cuda_fft.exec_kernel(xr, xi, n, sign)
     torch.cuda.synchronize()
     rr, ri = cuda_fft.exec_kernel_reference(xr, xi, n, sign)
-    got = torch.complex(kr, ki).cpu().numpy()
-    want = torch.complex(rr, ri).cpu().numpy()
+    require(kr.dtype == rr.dtype == xr.dtype, f"{what}: the kernel gave {kr.dtype} planes")
+    got = torch.complex(kr.float(), ki.float()).cpu().numpy()
+    want = torch.complex(rr.float(), ri.float()).cpu().numpy()
     err = rel_err(got, want)
+    name = str(xr.dtype).split(".")[-1]
+    tol = HALF_KERNEL_TOL.get(name, KERNEL_TOL)
     if verbose:
-        log(f"kernel vs plain {what} n={n} planes {tuple(got.shape)} sign={sign:+d}: "
-            f"rel err {err:.3e}")
-    require(err <= KERNEL_TOL, f"kernel disagrees with its plain version at n={n} ({what})")
+        log(f"kernel vs plain {what} n={n} planes {tuple(got.shape)}"
+            f"{'' if tol == KERNEL_TOL else ' ' + name} sign={sign:+d}: rel err {err:.3e}")
+    require(err <= tol, f"kernel disagrees with its plain version at n={n} ({what}, {name})")
     return float(np.max(np.abs(got - want)))
 
 
@@ -625,6 +649,179 @@ def float64_path(rng, card: str) -> None:
         log(f"spectral filter b={row['batch']} forward device us (graph replay): " + ", ".join(
             f"{k} {v:.2f}" for k, v in row.items() if k.endswith("_us")))
     log(json.dumps({"float64_path": {"card": card, "spectral_filter": rows}}))
+
+
+# Phase 4b: the reduced-precision modes.
+PRECISION_LADDER = ("highest", "high", "default", "split6", ("highest", "high"))
+# (n, rows, config fields) the stage pipeline carries: Bluestein (1009,
+# 10007), lengths past the kernel's 16,384 (32768, 65536), and 1024 with the
+# kernel off
+PRECISION_SHAPES = ((1009, 64, {}), (10007, 16, {}), (32768, 16, {}), (65536, 16, {}),
+                    (1024, 256, {"use_kernel": False}))
+HIGHEST_TOL = 1e-5
+SPLIT6_TOL = 5e-6        # the JAX package's split6 test bound
+# "high"/"default" are TF32 products on the card: 16 TF32 unit roundoffs
+# (2^-11).  A CPU emulation of TF32 stage products at these shapes reads
+# 2.4e-4 to 7.6e-4 with the inputs rounded to nearest, 6.5e-4 to 2.5e-3
+# with them truncated (``tools/tune.py tf32emu``; PERF.md §6).
+TF32_TOL = 16 * 2.0 ** -11
+# "default" is live where its error passes this many times "highest"'s
+LIVE_FACTOR = 2.0
+# the AFNO under "default" against "highest", l2 over the whole output
+AFNO_TF32_TOL = 1e-2
+# 2-byte working dtypes: the JAX package's bf16 test bounds, for both
+HALF_FFT_TOL, HALF_TRIP_TOL = 2e-2, 5e-2
+HALF_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+# K1 against its plain version on 2-byte planes: both compute in fp32 and
+# round once at the store, so an element differs by at most one unit in its
+# last place, which is at most 2^-7 (bf16) or 2^-10 (fp16) of the largest
+# value (an ulp relative to its value is 2^-8..2^-7 and 2^-11..2^-10)
+HALF_KERNEL_TOL = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+HALF_K1_SHAPE = (2048, 1024)
+
+
+def precision_path(rng, card: str) -> int:
+    """Phase 4b: ``SpectralConfig.precision`` and the 2-byte working dtypes
+    on the card.  Returns the kernel's launches of the driven part (counted
+    from 0 at the phase's start).  The comparisons with the plain version,
+    the AFNO's and the kernel's timings come after the count is read; the
+    ladder's timings run the stage pipeline only (checked), which launches
+    no kernel."""
+    cuda_fft.LAUNCHES = 0
+    ladder = []
+    for n, b, fields in PRECISION_SHAPES:
+        x = rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))
+        xt = torch.tensor(x, dtype=torch.complex64, device=CARD)
+        want = np.fft.fft(x)
+        row = {"n": n, "rows": b, **fields}
+        for prec in PRECISION_LADDER:
+            cfg = tp.SpectralConfig(precision=prec, **fields)
+            before = cuda_fft.LAUNCHES
+            got = tp.fft(xt, config=cfg)
+            torch.cuda.synchronize()
+            require(cuda_fft.LAUNCHES == before, f"n={n} {prec}: took the kernel")
+            row[f"{prec}_err"] = rel_err(got.cpu().numpy(), want)
+            row[f"{prec}_device_us"] = 1e6 * graph_time(lambda: tp.fft(xt, config=cfg),
+                                                        launches=10, replays=5)
+        log(f"precision ladder fft n={n} b={b}: " + ", ".join(
+            f"{p} err {row[f'{p}_err']:.3e} / {row[f'{p}_device_us']:.1f} us"
+            for p in PRECISION_LADDER))
+        require(row["highest_err"] <= HIGHEST_TOL, f"highest n={n}: {row['highest_err']:.3e}")
+        require(row["split6_err"] <= SPLIT6_TOL, f"split6 n={n}: {row['split6_err']:.3e}")
+        for prec in ("high", "default", "('highest', 'high')"):
+            require(row[f"{prec}_err"] <= TF32_TOL, f"{prec} n={n}: {row[f'{prec}_err']:.3e}")
+        require(row["default_err"] > LIVE_FACTOR * row["highest_err"],
+                f"default is not live at n={n}: {row['default_err']:.3e} against "
+                f"highest {row['highest_err']:.3e}")
+        ladder.append(row)
+        del xt
+    # a kernel length: the kernel ignores the lever, as the JAX kernel does
+    x = rng.standard_normal((256, 2048)) + 1j * rng.standard_normal((256, 2048))
+    xt = torch.tensor(x, dtype=torch.complex64, device=CARD)
+    outs = []
+    for prec in PRECISION_LADDER:
+        before = cuda_fft.LAUNCHES
+        outs.append(tp.fft(xt, config=tp.SpectralConfig(precision=prec)))
+        require(cuda_fft.LAUNCHES == before + 1, f"n=2048 {prec}: no kernel launch")
+    require(all(torch.equal(o, outs[0]) for o in outs[1:]),
+            "the kernel's output at n=2048 depends on the precision")
+    log(f"kernel length 2048 b=256: one output for all {len(outs)} precisions, rel err "
+        f"{rel_err(outs[0].cpu().numpy(), np.fft.fft(x)):.3e}")
+    del outs, xt
+    # the FourCastNet AFNO forward under "default" against "highest"
+    gen = torch.Generator().manual_seed(SEED)
+    params = afno.init_afno(**AFNO, generator=gen, device=CARD)
+    xa = cuda32(rng.standard_normal((1, *AFNO_GRID, AFNO["in_channels"])))
+    with torch.no_grad():
+        ys = {p: afno.apply(params, xa, config=tp.SpectralConfig(precision=p), **AFNO_RUN)
+              for p in ("highest", "default")}
+    afno_row = {"default_vs_highest_l2": l2_err(ys["default"].cpu().numpy(),
+                                                ys["highest"].cpu().numpy())}
+    log(f"afno 768 x 12 forward: default vs highest l2 {afno_row['default_vs_highest_l2']:.3e}")
+    require(0.0 < afno_row["default_vs_highest_l2"] <= AFNO_TF32_TOL,
+            f"afno default against highest: {afno_row['default_vs_highest_l2']:.3e}")
+    del ys
+    # the 2-byte working dtypes: fft, the real round trip, the filter forward
+    half, seen_by = [], {}
+    fparams = tp.models.spectral_filter.init_params(
+        FILTER_N, torch.Generator(device=CARD).manual_seed(SEED), CARD)
+    gain = (fparams["gain_re"] + 1j * fparams["gain_im"]).cpu().numpy()
+    bias = float(fparams["bias"])
+    for name, dtype in HALF_DTYPES.items():
+        cfg = tp.SpectralConfig(dtype=dtype)
+        for n in (1024, 1009, 4096):
+            x = rng.standard_normal((64, n)) + 1j * rng.standard_normal((64, n))
+            before = cuda_fft.LAUNCHES
+            got = tp.fft(torch.tensor(x, dtype=torch.complex64, device=CARD), config=cfg)
+            k1 = cuda_fft.LAUNCHES - before
+            require(got.dtype == torch.complex64, f"{name} fft gave {got.dtype}")
+            require(k1 == (0 if n == 1009 else 1), f"{name} fft n={n}: {k1} kernel launches")
+            err = rel_err(got.cpu().numpy(), np.fft.fft(x))
+            r = rng.standard_normal((64, n))
+            back = tp.irfft(tp.rfft(cuda32(r), config=cfg), n=n, config=cfg)
+            trip = rel_err(back.float().cpu().numpy(), r)
+            log(f"{name} fft n={n} b=64: rel err {err:.3e}; rfft->irfft {trip:.3e}; "
+                f"kernel launches (fft) {k1}")
+            require(err <= HALF_FFT_TOL and trip <= HALF_TRIP_TOL,
+                    f"{name} n={n}: fft {err:.3e}, round trip {trip:.3e}")
+            half.append({"dtype": name, "n": n, "fft_err": err, "round_trip_err": trip,
+                         "fft_k1_launches": k1})
+        with recorded_launches() as seen, torch.inference_mode():
+            for b in FILTER_BATCHES:
+                x = rng.standard_normal((b, FILTER_N))
+                before = cuda_fft.LAUNCHES
+                y = tp.models.spectral_filter.apply(fparams, cuda32(x), config=cfg)
+                torch.cuda.synchronize()
+                k1 = cuda_fft.LAUNCHES - before
+                want = np.fft.irfft(np.fft.rfft(x) * gain, n=FILTER_N) + bias
+                err = rel_err(y.float().cpu().numpy(), want)
+                log(f"{name} spectral filter n={FILTER_N} batch={b}: rel err {err:.3e}, "
+                    f"kernel launches {k1}")
+                require(k1 == 2, f"{name} filter forward: {k1} kernel launches, expected 2")
+                require(err <= HALF_TRIP_TOL, f"{name} spectral filter error {err:.3e}")
+                half.append({"dtype": name, "filter_batch": b, "err": err, "k1_launches": k1})
+        seen_by[name] = seen
+    launches = cuda_fft.LAUNCHES
+    # (not counted) the kernel against its plain version on every plane pair
+    # the 2-byte filter forwards handed it
+    for name, seen in seen_by.items():
+        for xr, xi, n, sign in seen:
+            require(xr.dtype == HALF_DTYPES[name], f"{name} filter handed {xr.dtype} planes")
+            kernel_error(xr, xi, n, sign, "filter planes")
+    del seen_by
+    # (not counted) the AFNO forward's device time at both precisions
+    with torch.no_grad():
+        for p in ("highest", "default"):
+            cfg = tp.SpectralConfig(precision=p)
+            afno_row[f"{p}_device_ms"] = 1e3 * graph_time(
+                lambda: afno.apply(params, xa, config=cfg, **AFNO_RUN), launches=1, replays=3)
+    log(f"afno 768 x 12 forward device ms (graph replay): highest "
+        f"{afno_row['highest_device_ms']:.2f}, default {afno_row['default_device_ms']:.2f}")
+    del params, xa
+    torch.cuda.empty_cache()
+    # K1's device time on 2-byte planes beside fp32, and the bytes bounds
+    n, b = HALF_K1_SHAPE
+    gen = torch.Generator(device=CARD).manual_seed(SEED)
+    xr32, xi32 = (torch.randn(b, n, device=CARD, generator=gen) for _ in range(2))
+    k1_times = {"n": n, "rows": b}
+    for name, dtype in (("float32", torch.float32), *HALF_DTYPES.items()):
+        xr, xi = xr32.to(dtype), xi32.to(dtype)
+        if dtype != torch.float32:
+            kernel_error(xr, xi, n, -1, "random")
+        k1_times[f"{name}_device_us"] = 1e6 * graph_time(
+            lambda: cuda_fft.exec_kernel(xr, xi, n, -1))
+        bytes_bound = (4 if dtype == torch.float32 else 2) * 4.0 * n * b / HBM_BYTES_PER_S
+        k1_times[f"{name}_bytes_bound_us"] = 1e6 * bytes_bound
+    log(f"kernel {n} x {b} device us (graph replay): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in k1_times.items() if k.endswith("_us")))
+    line = json.dumps({"precision_path": {"card": card, "ladder": ladder, "afno": afno_row,
+                                          "half_dtypes": half, "k1_half": k1_times,
+                                          "launches": launches}})
+    log(line)
+    os.makedirs("chiprun_out", exist_ok=True)   # the whole run's log outgrows its tail
+    with open(os.path.join("chiprun_out", "precision_path.json"), "w") as fh:
+        fh.write(line + "\n")
+    return launches
 
 
 def core_lengths(rng) -> None:
@@ -4129,8 +4326,6 @@ def tune_phase(card: str) -> None:
     replays per route), then ``torch.fft.fft`` and the kernel at 256 x
     1,048,576 rows.  The sweep's lines are written to
     chiprun_out/tune_sweep.jsonl as well."""
-    import os
-
     from mixed_radix_fast_fourier_transform_tpu_torch.tools import tune
 
     rows, summary = tune.tune_kernel_all(device=CARD, launches=4, replays=3)
@@ -4202,12 +4397,16 @@ def main(argv) -> int:
     if argv == ["float64"]:   # development: phase 4a alone
         timed(float64_path, rng, card)
         return 0
+    if argv == ["precision"]:   # development: phase 4b alone
+        timed(precision_path, rng, card)
+        return 0
     if argv == ["parallel-timings"]:   # phase 25's device times, a process of their own
         timed(parallel_timings, card)
         return 0
     timed(kernel_vs_plain, rng)
     launches, max_abs, (xr, xi) = timed(main_path, rng)
     timed(float64_path, rng, card)
+    precision_launches = timed(precision_path, rng, card)
     timed(core_lengths, rng)
     timed(timings, rng, card)
     timed(yardstick, rng, card)
@@ -4233,7 +4432,8 @@ def main(argv) -> int:
     rest_launches = timed(parallel_rest, rng, card)
     example_launches = timed(examples, rng, card)
     timed(tune_phase, card)
-    log(f"kernel launches by path: filter forward {launches}, training {train_launches}, "
+    log(f"kernel launches by path: filter forward {launches}, "
+        f"reduced precision {precision_launches}, training {train_launches}, "
         f"fno {fno_launches}, s4d + fnet + afno {family_launches}, ops tail {ops_launches}, "
         f"audio front end {frontend_launches}, audio ops {audio_launches}, "
         f"recurrences {recurrence_launches}, audio remainder {remainder_launches}, "
@@ -4241,7 +4441,7 @@ def main(argv) -> int:
         f"radar + radio {radar_launches}, wavelets + leaves {leaves_launches}, "
         f"parallel main path {parallel_launches}, parallel rest {rest_launches}, "
         f"examples {example_launches}")
-    launches += (train_launches + fno_launches + family_launches + ops_launches
+    launches += (precision_launches + train_launches + fno_launches + family_launches + ops_launches
                  + frontend_launches + audio_launches + recurrence_launches + remainder_launches
                  + nufft_launches + sphere_launches + radar_launches + leaves_launches
                  + parallel_launches + rest_launches + example_launches)

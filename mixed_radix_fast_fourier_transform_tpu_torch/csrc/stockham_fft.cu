@@ -3,18 +3,25 @@
 //
 // Replaces mixed_radix_fast_fourier_transform_tpu/ops/pallas_fft.py::_kernel
 // (the fused Pallas kernel).  It computes the same thing: an unnormalized
-// batched complex FFT over the last axis, sign +-1, on separate fp32 (re, im)
-// planes, running every stage of kernel_factors(n) (radix 8/4/2 for the
-// power of two, then 7/5/3) as a Stockham autosort
+// batched complex FFT over the last axis, sign +-1, on separate (re, im)
+// planes of fp32, bf16 or fp16 (the Pallas kernel takes the planes' dtype as
+// it finds them), running every stage of kernel_factors(n) (radix 8/4/2 for
+// the power of two, then 7/5/3) as a Stockham autosort
 //
 //     X: (f, m', l)  ->  Y[q', k, j] = sum_p W_f[k, p] * T[p, j] * X[p, q', j]
 //     (m = f * m', l *= f each stage, T[p, j] = e^(sign*2*pi*i*p*j/(f*l)))
 //
 // What bounds it on this card: device-memory bytes.  A length-n transform
 // does about 5*n*log2(n) flops against 16*n bytes (one fp32 read and one
-// write of each plane): about 4 flops per byte at n = 8192, where the H100's
-// fp32 units (67 TFLOP/s against 3.35 TB/s) would need about 20.  What the
-// design does about that bound:
+// write of each plane; 8*n for 2-byte planes): about 4 flops per byte at
+// n = 8192, where the H100's fp32 units (67 TFLOP/s against 3.35 TB/s) would
+// need about 20.  What the design does about that bound:
+//
+// * 2-byte planes (bf16, fp16) halve the bytes: a load widens each value to
+//   fp32 into the shared-memory row, and the store rounds it back.  Stages,
+//   twiddles and butterflies are fp32 for every plane type, so the shared
+//   memory, the geometry and the error (one rounding at the store, where the
+//   Pallas kernel rounds at every stage) do not depend on it.
 //
 // * One plane pair per row in shared memory (8*n bytes), updated in place.
 //   Each stage reads its butterflies' inputs into registers, combines them
@@ -57,7 +64,7 @@ namespace spectral {
 // Largest dynamic shared memory each (device, instantiation) has been
 // allowed, so that cudaFuncSetAttribute runs once per new maximum.
 constexpr int kMaxDevices = 64;
-constexpr int kVariants = 32;  // launch<>'s kVariant
+constexpr int kVariants = 96;  // launch<>'s kVariant
 std::atomic<int> g_smem_allowed[kMaxDevices][kVariants];
 std::mutex g_smem_mutex;
 
@@ -76,14 +83,29 @@ cudaError_t allow_smem(const void* func, int variant, int smem) {
   return err;
 }
 
+// One launch on planes of element type T, either sign.
+template <typename T>
+cudaError_t launch_dtype(const void* xr, const void* xi, void* yr, void* yi,
+                         int rows, const Params& p, cudaStream_t st) {
+  const auto* txr = static_cast<const T*>(xr);
+  const auto* txi = static_cast<const T*>(xi);
+  auto* tyr = static_cast<T*>(yr);
+  auto* tyi = static_cast<T*>(yi);
+  return p.sign > 0 ? launch_sign<T, 1>(txr, txi, tyr, tyi, rows, p, st)
+                    : launch_sign<T, -1>(txr, txi, tyr, tyi, rows, p, st);
+}
+
 }  // namespace spectral
 
 extern "C" {
 
-// Batched unnormalized FFT of `rows` contiguous rows of length n; `params`
-// points to a host Params (ops/cuda_fft.py::KernelPlan.params).
+// Batched unnormalized FFT of `rows` contiguous rows of length n; `dtype`
+// is the planes' element type (0 fp32, 1 bf16, 2 fp16:
+// ops/cuda_fft.py::PLANE_DTYPES); `params` points to a host Params
+// (ops/cuda_fft.py::KernelPlan.params).
 int spectral_stockham_fft(const void* xr, const void* xi, void* yr, void* yi,
-                          int rows, void* stream, const void* params) {
+                          int rows, int dtype, void* stream,
+                          const void* params) {
   using namespace spectral;
   const Params& p = *static_cast<const Params*>(params);
   if (rows < 1 || p.n < 2 || p.n_stages < 1 || p.n_stages > kMaxStages ||
@@ -91,14 +113,14 @@ int spectral_stockham_fft(const void* xr, const void* xi, void* yr, void* yi,
       p.threads * p.rows > p.bound || (p.sign != 1 && p.sign != -1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto* fxr = static_cast<const float*>(xr);
-  const auto* fxi = static_cast<const float*>(xi);
-  auto* fyr = static_cast<float*>(yr);
-  auto* fyi = static_cast<float*>(yi);
   auto st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      p.sign > 0 ? launch_sign<1>(fxr, fxi, fyr, fyi, rows, p, st)
-                 : launch_sign<-1>(fxr, fxi, fyr, fyi, rows, p, st);
+  cudaError_t err;
+  switch (dtype) {
+    case 0: err = launch_dtype<float>(xr, xi, yr, yi, rows, p, st); break;
+    case 1: err = launch_dtype<__nv_bfloat16>(xr, xi, yr, yi, rows, p, st); break;
+    case 2: err = launch_dtype<__half>(xr, xi, yr, yi, rows, p, st); break;
+    default: err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }
 

@@ -1,10 +1,13 @@
 // Fused Stockham FFT for Hopper: the kernel and its launch templates.
-// Included by stockham_fft.cu (the C entry point) and by stockham_fft_fwd.cu
-// and stockham_fft_inv.cu, which instantiate one sign each so that nvcc
-// builds them in parallel.  The design notes are in stockham_fft.cu.
+// Included by stockham_fft.cu (the C entry point) and by the six
+// stockham_fft_{fwd,inv}{,_bf16,_f16}.cu, which instantiate one sign and one
+// plane type each so that nvcc builds them in parallel.  The design notes
+// are in stockham_fft.cu.
 
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace spectral {
@@ -136,6 +139,47 @@ template <int SIGN> struct Dft<3, SIGN> : DftOdd<3, SIGN> {};
 template <int SIGN> struct Dft<5, SIGN> : DftOdd<5, SIGN> {};
 template <int SIGN> struct Dft<7, SIGN> : DftOdd<7, SIGN> {};
 
+// The planes' element type in device memory: float, __nv_bfloat16 or
+// __half.  A load widens to fp32 (exact), a store rounds to nearest even;
+// everything between them is fp32.
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+  static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
+    const unsigned short bits = __ldg(reinterpret_cast<const unsigned short*>(p));
+    return __bfloat162float(__ushort_as_bfloat16(bits));
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16_rn(v);
+  }
+};
+
+template <>
+struct Elem<__half> {
+  static __device__ __forceinline__ float load(const __half* p) {
+    const unsigned short bits = __ldg(reinterpret_cast<const unsigned short*>(p));
+    return __half2float(__ushort_as_half(bits));
+  }
+  static __device__ __forceinline__ void store(__half* p, float v) {
+    *p = __float2half_rn(v);
+  }
+};
+
+// Index of each element type in the C entry point's `dtype` argument
+// (ops/cuda_fft.py::PLANE_DTYPES).
+template <typename T> struct DtypeCode;
+template <> struct DtypeCode<float> { static constexpr int value = 0; };
+template <> struct DtypeCode<__nv_bfloat16> { static constexpr int value = 1; };
+template <> struct DtypeCode<__half> { static constexpr int value = 2; };
+
 // ops/cuda_fft.py::smem_index
 __device__ __forceinline__ int swz(int i, int src, int mask) {
   return i ^ ((i >> src) & mask);
@@ -238,10 +282,10 @@ __device__ __forceinline__ void stage(float* __restrict__ sre,
 }
 
 // At most 64 registers a thread: BOUND threads a block, 1024 / BOUND blocks.
-template <int SIGN, int E, int BOUND>
+template <typename T, int SIGN, int E, int BOUND>
 __global__ void __launch_bounds__(BOUND, 1024 / BOUND)
-stockham_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                    float* __restrict__ yr, float* __restrict__ yi, int rows,
+stockham_fft_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                    T* __restrict__ yr, T* __restrict__ yi, int rows,
                     const __grid_constant__ Params p) {
   constexpr bool kPrefetch = E == 8;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -265,8 +309,8 @@ stockham_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   for (int e = 0; e < E; ++e) {
     const int i = tx + e * threads;
     if (i < n) {
-      vr[e] = __ldg(xr + off + i);
-      vi[e] = __ldg(xi + off + i);
+      vr[e] = Elem<T>::load(xr + off + i);
+      vi[e] = Elem<T>::load(xi + off + i);
     }
   }
 #pragma unroll
@@ -306,8 +350,8 @@ stockham_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   for (int e = 0; e < E; ++e) {
     const int i = tx + e * threads;
     if (i < n) {
-      yr[off + i] = sre[i];
-      yi[off + i] = sim[i];
+      Elem<T>::store(yr + off + i, sre[i]);
+      Elem<T>::store(yi + off + i, sim[i]);
     }
   }
 }
@@ -316,11 +360,12 @@ stockham_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // instantiation and new maximum (stockham_fft.cu).
 cudaError_t allow_smem(const void* func, int variant, int smem);
 
-template <int SIGN, int E, int BOUND>
-cudaError_t launch(const float* xr, const float* xi, float* yr, float* yi,
-                   int rows, const Params& p, cudaStream_t stream) {
-  constexpr int kVariant = (SIGN > 0 ? 16 : 0) + (E / 16) * 4 + BOUND / 512;
-  auto* kernel = stockham_fft_kernel<SIGN, E, BOUND>;
+template <typename T, int SIGN, int E, int BOUND>
+cudaError_t launch(const T* xr, const T* xi, T* yr, T* yi, int rows,
+                   const Params& p, cudaStream_t stream) {
+  constexpr int kVariant = DtypeCode<T>::value * 32 + (SIGN > 0 ? 16 : 0) +
+                           (E / 16) * 4 + BOUND / 512;
+  auto* kernel = stockham_fft_kernel<T, SIGN, E, BOUND>;
   if (static_cast<size_t>(p.smem) > kDefaultSmem) {
     const cudaError_t err =
         allow_smem(reinterpret_cast<const void*>(kernel), kVariant, p.smem);
@@ -333,25 +378,29 @@ cudaError_t launch(const float* xr, const float* xi, float* yr, float* yi,
 }
 
 // The instantiations ops/cuda_fft.py::BOUNDS names: (elems, launch bound).
-template <int SIGN>
-cudaError_t launch_sign(const float* xr, const float* xi, float* yr, float* yi,
-                        int rows, const Params& p, cudaStream_t stream) {
+template <typename T, int SIGN>
+cudaError_t launch_sign(const T* xr, const T* xi, T* yr, T* yi, int rows,
+                        const Params& p, cudaStream_t stream) {
   switch (p.elems * 10000 + p.bound) {
-    case 80256: return launch<SIGN, 8, 256>(xr, xi, yr, yi, rows, p, stream);
-    case 80512: return launch<SIGN, 8, 512>(xr, xi, yr, yi, rows, p, stream);
-    case 81024: return launch<SIGN, 8, 1024>(xr, xi, yr, yi, rows, p, stream);
-    case 160512: return launch<SIGN, 16, 512>(xr, xi, yr, yi, rows, p, stream);
-    case 161024: return launch<SIGN, 16, 1024>(xr, xi, yr, yi, rows, p, stream);
-    case 321024: return launch<SIGN, 32, 1024>(xr, xi, yr, yi, rows, p, stream);
+    case 80256: return launch<T, SIGN, 8, 256>(xr, xi, yr, yi, rows, p, stream);
+    case 80512: return launch<T, SIGN, 8, 512>(xr, xi, yr, yi, rows, p, stream);
+    case 81024: return launch<T, SIGN, 8, 1024>(xr, xi, yr, yi, rows, p, stream);
+    case 160512: return launch<T, SIGN, 16, 512>(xr, xi, yr, yi, rows, p, stream);
+    case 161024: return launch<T, SIGN, 16, 1024>(xr, xi, yr, yi, rows, p, stream);
+    case 321024: return launch<T, SIGN, 32, 1024>(xr, xi, yr, yi, rows, p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-extern template cudaError_t launch_sign<1>(const float*, const float*, float*,
-                                           float*, int, const Params&,
-                                           cudaStream_t);
-extern template cudaError_t launch_sign<-1>(const float*, const float*, float*,
-                                            float*, int, const Params&,
-                                            cudaStream_t);
+#define SPECTRAL_LAUNCH_SIGN(T, SIGN)                                        \
+  template cudaError_t launch_sign<T, SIGN>(const T*, const T*, T*, T*, int, \
+                                            const Params&, cudaStream_t)
+
+extern SPECTRAL_LAUNCH_SIGN(float, 1);
+extern SPECTRAL_LAUNCH_SIGN(float, -1);
+extern SPECTRAL_LAUNCH_SIGN(__nv_bfloat16, 1);
+extern SPECTRAL_LAUNCH_SIGN(__nv_bfloat16, -1);
+extern SPECTRAL_LAUNCH_SIGN(__half, 1);
+extern SPECTRAL_LAUNCH_SIGN(__half, -1);
 
 }  // namespace spectral

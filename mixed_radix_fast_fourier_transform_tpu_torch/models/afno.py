@@ -14,8 +14,9 @@ sparsifies the spectrum.  A hard mode fraction keeps only the lowest spatial
 frequencies.
 
 The complex arithmetic of the spectral MLP is explicit on (re, im) planes:
-four real ``torch.einsum`` products per complex one, full fp32 (keep
-``torch.backends.cuda.matmul.allow_tf32`` False).  ``rfft2``/``irfft2`` go
+four real ``torch.einsum`` products per complex one, at the config's
+``op_precision`` (fp32 by default; TF32 on the card under "high" or
+"default", as the JAX module passes it to its einsums).  ``rfft2``/``irfft2`` go
 through the engine, so on the card both axes of the token grid, forward and
 backward, run the fused kernel where their lengths qualify.
 
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 
 from ..ops.rfft import irfft2, rfft2
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
+from ..utils.numerics import matmul_precision
 from ..utils.tree import sgd_step
 from ._common import (
     Draws, TreeModule, as_input, gelu, layer_norm, param_dtype, params_from_jax,
@@ -133,9 +135,10 @@ def afno_filter(p: Params, x: Tensor, n_blocks: int, *, sparsity: float = 0.01,
               + bi[None, :, :, None, None])
         return re, im
 
-    o1r, o1i = cmm(keep(spec.real), keep(spec.imag),
-                   p["w1_re"], p["w1_im"], p["b1_re"], p["b1_im"])
-    o2r, o2i = cmm(F.relu(o1r), F.relu(o1i), p["w2_re"], p["w2_im"], p["b2_re"], p["b2_im"])
+    with matmul_precision(config.op_precision):
+        o1r, o1i = cmm(keep(spec.real), keep(spec.imag),
+                       p["w1_re"], p["w1_im"], p["b1_re"], p["b1_im"])
+        o2r, o2i = cmm(F.relu(o1r), F.relu(o1i), p["w2_re"], p["w2_im"], p["b2_re"], p["b2_im"])
 
     def scatter(lo: Tensor) -> Tensor:
         lo = F.softshrink(lo, sparsity).reshape(b, d, kh, kw)

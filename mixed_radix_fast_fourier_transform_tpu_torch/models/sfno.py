@@ -11,8 +11,9 @@ so the spectral path commutes with rotations.  ``sht``/``isht`` are the
 library's Gauss-Legendre pair (:mod:`..ops.sht`): fp32 Legendre products on
 the device and the longitude transforms through the engine, so on the card
 the fused Stockham kernel runs them forward and backward where 2L is
-7-smooth and ≤ 16,384.  The per-degree mix is a complex ``torch.einsum`` in
-full fp32 (TF32 off), as every product of the port.
+7-smooth and ≤ 16,384.  The per-degree mix is a complex ``torch.einsum`` at
+the config's ``op_precision``, as the JAX module passes it; the pointwise
+lifts and projections are full fp32 (TF32 off).
 
 Functional API as in the JAX module (parameters are nested dicts;
 ``params_from_jax`` converts the JAX package's); :class:`SFNO` wraps it as an
@@ -27,7 +28,7 @@ import torch
 
 from ..ops.sht import isht, sht
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
-from ..utils.numerics import fp32_matmul
+from ..utils.numerics import matmul_precision
 from ..utils.tree import sgd_step
 from ._common import Draws, TreeModule, as_input, gelu, param_dtype, params_from_jax
 
@@ -68,7 +69,7 @@ def spectral_mix(layer: Params, x: Tensor, *, config: SpectralConfig = DEFAULT_C
     """(b, c, L, 2L) -> (b, c, L, 2L): per-degree channel mixing in SH space."""
     a = sht(x, config=config)                              # (b, c, 2L-1, L) complex
     r = torch.complex(layer["r_re"], layer["r_im"])        # (c_in, c_out, L)
-    with fp32_matmul():
+    with matmul_precision(config.op_precision):
         mixed = torch.einsum("biql,iol->boql", a, r)
     return isht(mixed, config=config).real
 
@@ -79,18 +80,18 @@ def _pointwise(p: Params, x: Tensor) -> Tensor:
 
 
 def sfno_layer(layer: Params, x: Tensor, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
-    with fp32_matmul():
+    with matmul_precision():
         local = _pointwise(layer, x)
     return gelu(local + spectral_mix(layer, x, config=config))
 
 
 def apply(params: Dict[str, object], x, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     """(batch, in_channels, L, 2L) -> (batch, out_channels, L, 2L)."""
-    with fp32_matmul():
+    with matmul_precision():
         h = _pointwise(params["lift"], as_input(x, dtype=param_dtype(params)))
     for layer in params["layers"]:
         h = sfno_layer(layer, h, config=config)
-    with fp32_matmul():
+    with matmul_precision():
         return _pointwise(params["proj"], h)
 
 

@@ -126,7 +126,7 @@ def library() -> ctypes.CDLL:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.spectral_stockham_fft.argtypes = [vp, vp, vp, vp, ci, vp, vp]
+            lib.spectral_stockham_fft.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp]
             lib.spectral_stockham_fft.restype = ci
             lib.spectral_error_string.argtypes = [ci]
             lib.spectral_error_string.restype = ctypes.c_char_p

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
-from ..utils.numerics import as_tensors, fp32_matmul
+from ..utils.numerics import as_tensors, matmul_precision
 
 Tensor = torch.Tensor
 
@@ -101,7 +101,7 @@ def rls_filter(x, d, n_taps: int, lam: float = 0.99, delta: float = 100.0, *,
     w = _w0(w0, n_taps, x)
     P = delta * torch.eye(n_taps, dtype=DTYPE, device=x.device)
     ys, es = [], []
-    with fp32_matmul():
+    with matmul_precision():
         for k in range(U.shape[0]):
             u = U[k]
             Pu = torch.mv(P, u)

@@ -18,7 +18,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..utils.numerics import as_tensor, constant, content_key, fp32_matmul, to_host
+from ..utils.numerics import as_tensor, constant, content_key, matmul_precision, to_host
 
 Tensor = torch.Tensor
 
@@ -75,7 +75,7 @@ def spatial_covariance(x, forward_backward: bool = False) -> Tensor:
     if x.ndim < 2:
         raise ValueError("snapshots must be (…, n_elements, n_snapshots)")
     x = _complex(x)
-    with fp32_matmul():
+    with matmul_precision():
         R = torch.matmul(x, x.conj().transpose(-1, -2)) / x.shape[-1]
     if forward_backward:
         Rb = torch.flip(torch.conj(R), (-2, -1))
@@ -118,7 +118,7 @@ def bartlett_spectrum(R, array, angles_deg=None) -> Tuple[np.ndarray, Tensor]:
     n = A.shape[0]
     _check_size(R, n)
     Aj = _steering_on(A, R, R.dtype)
-    with fp32_matmul():
+    with matmul_precision():
         RA = torch.matmul(R, Aj)  # (…, n, G)
     p = torch.sum(torch.conj(Aj) * RA, dim=-2)
     return ang, p.real / (n * n)

@@ -18,7 +18,6 @@ framework's convolution op in full fp32.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional
 
 import numpy as np
@@ -27,7 +26,7 @@ import torch.nn.functional as F
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.factorize import next_fast_len, next_pow2
-from ..utils.numerics import as_tensors
+from ..utils.numerics import as_tensors, matmul_precision
 from .fft import fft, ifft
 from .rfft import irfft, rfft
 
@@ -266,21 +265,6 @@ def fft_correlate(
     return fft_convolve(in1, rev, mode=mode, axis=axis, config=config)
 
 
-@contextlib.contextmanager
-def _cudnn_fp32():
-    """cuDNN convolutions in full fp32 inside the block.  PyTorch lets cuDNN
-    use TF32 by default, whose ~3 decimal digits break the library's 1e-5
-    error budget.  Only this flag changes: ``torch.backends.cudnn.flags(
-    allow_tf32=False)`` would also set its other arguments' defaults, which
-    switch cuDNN itself and its autotuner off for the caller's process."""
-    saved = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = saved
-
-
 def _conv_real(x: Tensor, k: Tensor, nd: int) -> Tensor:
     """Full-mode real convolution of x (B, *spatial) with k (1 or B,
     *taps) over the last ``nd`` axes: the framework's convolution op, which
@@ -291,7 +275,7 @@ def _conv_real(x: Tensor, k: Tensor, nd: int) -> Tensor:
     weight = torch.flip(k, spatial)[:, None]             # (kb, 1, *taps)
     x = x[:, None] if kb == 1 else x[None]               # (B, 1, …) or (1, B, …)
     conv = (F.conv1d, F.conv2d, F.conv3d)[nd - 1]
-    with _cudnn_fp32():
+    with matmul_precision():
         out = conv(x, weight, padding=tuple(t - 1 for t in k.shape[1:]), groups=kb)
     return out.reshape(b, *out.shape[2:])
 

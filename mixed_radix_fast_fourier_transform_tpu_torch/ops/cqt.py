@@ -10,7 +10,7 @@ the frequency domain:
               = (1/n_fft)·Σ_b X_t[b]·conj(Ĝ_k[b])   (Parseval)
 
 so the whole transform is one batched frame FFT (the plan engine) followed
-by one dense (n_fft, n_bins) complex product (fp32, TF32 off).  Kernels are
+by one dense (n_fft, n_bins) complex product (at ``op_precision``).  Kernels are
 built on the host in fp64 (exact integer phase reduction like the twiddle
 machinery) and kept on the device per band ladder, as is the inverse's dual
 kernel.
@@ -25,7 +25,9 @@ import torch
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.factorize import next_pow2
-from ..utils.numerics import as_tensor, constant, content_key, fp32_matmul, pad_last
+from ..utils.numerics import (
+    as_tensor, complex_dtype, constant, content_key, matmul_precision, pad_last,
+)
 from .fft import fft, ifft
 from .stft import _frame, get_window
 
@@ -160,14 +162,14 @@ def cqt(
             "Hz) — lower n_bins or raise fs"
         )
     nf = _frame_len(fs, fmin, n_bins, bins_per_octave, filter_scale, n_fft)
-    x = x.to(config.dtype.to_complex()) if x.is_complex() else x.to(config.dtype)
+    x = x.to(complex_dtype(config.dtype)) if x.is_complex() else x.to(config.dtype)
     # the conjugated spectral kernel, transposed for the product: (nf, n_bins)
     key = _ladder_key("cqt.kernel", fs, fmin, n_bins, bins_per_octave, window,
                       filter_scale, n_fft)
     Kt = constant(lambda: _cqt_spectral_kernel(
         float(fs), float(fmin), int(n_bins), int(bins_per_octave), window,
         float(filter_scale), None if n_fft is None else int(n_fft))[0].T,
-        x, config.dtype.to_complex(), key=key)
+        x, complex_dtype(config.dtype), key=key)
     if center:
         x = pad_last(x, nf // 2, nf // 2)
     t = x.shape[-1]
@@ -175,7 +177,7 @@ def cqt(
         x = pad_last(x, 0, nf - t)
     frames = _frame(x, nf, hop)  # (…, n_frames, nf)
     spec = fft(frames, config=config)
-    with fp32_matmul():
+    with matmul_precision(config.op_precision):
         return spec @ Kt
 
 
@@ -253,7 +255,7 @@ def icqt(
         float(filter_scale), None if n_fft is None else int(n_fft),
         float(reg))[0].T, C, _CDTYPE, key=key)
     n_frames = C.shape[-2]
-    with fp32_matmul():
+    with matmul_precision(config.op_precision):
         spec = C @ Pt  # (…, n_frames, nf) analytic spectra
     frames = 2.0 * torch.real(ifft(spec, config=config))  # Hermitian half implied
     # rectangular overlap-add, averaged by per-sample coverage

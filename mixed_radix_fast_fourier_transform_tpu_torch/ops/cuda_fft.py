@@ -18,7 +18,14 @@ sees one read and one write per plane; the stage pipeline
   itself at the opposite sign on the cotangent planes.  Launches are
   counted in ``LAUNCHES``.
 * :func:`exec_kernel_reference` is the plain PyTorch version: the same
-  factor schedule, twiddle layout and index algebra, stage by stage.
+  factor schedule, twiddle layout and index algebra, stage by stage, in
+  fp32 (2-byte planes are widened on the way in and rounded on the way out,
+  as the kernel loads and stores them).
+
+The planes are fp32, bf16 or fp16 (``PLANE_DTYPES``); the kernel's shared
+memory, twiddles and butterflies are fp32 for all three, so a 2-byte
+transform moves half the bytes of an fp32 one and rounds once, at its
+store.  float64 never takes the kernel.
 * :func:`maybe_exec_kernel` is the dispatch that ``exec_len`` calls.
 """
 
@@ -36,7 +43,6 @@ import numpy as np
 import torch
 
 from ..plan import device_constants, get_plan
-from ..utils.config import DTYPE
 
 Tensor = torch.Tensor
 
@@ -62,6 +68,9 @@ SWIZZLES = ((0, 0),) + tuple(
 )
 # Launches of the CUDA kernel since import (or since a caller reset it).
 LAUNCHES = 0
+# The plane dtypes the kernel takes, each with its code in the C entry point
+# (csrc/stockham_fft.cu: the global-memory element type).
+PLANE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def kernel_factors(n: int) -> Tuple[int, ...]:
@@ -404,7 +413,12 @@ def exec_kernel_reference(
     xr: Tensor, xi: Tensor, n: int, sign: int
 ) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of the kernel: per stage, reshape (b, f, m', l)
-    → twiddle → radix-f combine over p → stack to (b, m', f, l)."""
+    → twiddle → radix-f combine over p → stack to (b, m', f, l), in fp32;
+    2-byte planes are widened first and the result rounded back to their
+    dtype, as the kernel does."""
+    if xr.dtype in (torch.bfloat16, torch.float16):
+        yr, yi = exec_kernel_reference(xr.float(), xi.float(), n, sign)
+        return yr.to(xr.dtype), yi.to(xi.dtype)
     st, tw = _plan_on(n, sign, xr.device)
     batch = xr.shape[:-1]
     b = math.prod(batch)
@@ -472,8 +486,10 @@ def _check_cuda_planes(xr: Tensor, xi: Tensor, n: int) -> None:
             f"the CUDA kernel needs both planes on one CUDA device, got "
             f"{xr.device} and {xi.device}"
         )
-    if xr.dtype != DTYPE or xi.dtype != DTYPE:
-        raise TypeError(f"the kernel takes float32 planes, got {xr.dtype}, {xi.dtype}")
+    if xr.dtype not in PLANE_DTYPES or xi.dtype != xr.dtype:
+        raise TypeError(
+            f"the kernel takes float32, bfloat16 or float16 planes of one dtype, "
+            f"got {xr.dtype}, {xi.dtype}")
     if xr.shape != xi.shape or xr.ndim == 0 or xr.shape[-1] != n:
         raise ValueError(
             f"planes must share a shape ending in n={n}, got "
@@ -504,7 +520,8 @@ def _launch(xr: Tensor, xi: Tensor, n: int, sign: int) -> Tuple[Tensor, Tensor]:
     with contextlib.nullcontext() if here else torch.cuda.device(device):
         code = lib.spectral_stockham_fft(
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), rows,
-            torch.cuda.current_stream(device).cuda_stream, ready.address)
+            PLANE_DTYPES[xr.dtype], torch.cuda.current_stream(device).cuda_stream,
+            ready.address)
     if code:
         _build.check(lib, code, f"stockham_fft launch (n={n}, rows={rows})")
     LAUNCHES += 1
@@ -514,8 +531,8 @@ def _launch(xr: Tensor, xi: Tensor, n: int, sign: int) -> Tuple[Tensor, Tensor]:
 class _StockhamFFT(torch.autograd.Function):
     """The fused transform with its gradient.  The unnormalized sign-s DFT
     is linear and its matrix symmetric, so its vector-Jacobian product is
-    the sign −s transform of the cotangent planes: the same kernel, and
-    nothing to save but ``n`` and ``sign``."""
+    the sign −s transform of the cotangent planes: the same kernel at the
+    cotangent's dtype, and nothing to save but ``n`` and ``sign``."""
 
     @staticmethod
     def forward(ctx, xr: Tensor, xi: Tensor, n: int, sign: int):
@@ -547,8 +564,9 @@ def exec_kernel(xr: Tensor, xi: Tensor, n: int, sign: int) -> Tuple[Tensor, Tens
     """Batched unnormalized FFT over the last axis through the fused kernel,
     differentiable in both planes.
 
-    xr/xi: (..., n) fp32 planes.  A CUDA tensor launches the CUDA kernel on
-    the current stream; a CPU tensor runs :func:`exec_kernel_reference`.
+    xr/xi: (..., n) planes of one dtype, fp32, bf16 or fp16; the result has
+    their dtype.  A CUDA tensor launches the CUDA kernel on the current
+    stream; a CPU tensor runs :func:`exec_kernel_reference`.
     Anything else raises.  The backward pass is this function at ``-sign``
     on the cotangent planes, on either device."""
     if sign not in (-1, 1):
@@ -565,13 +583,13 @@ def uses_kernel(config, n: int, x: Tensor) -> bool:
     tensor, where the stage pipeline ran 3.6-45x faster than the kernel's
     plain version (``tools/tune.py kernel --device cpu`` at n = 64 to
     16,384, PERF.md).  While ``torch.export`` traces, no: a ctypes launch
-    cannot be held by an exported program.  Never when the config's
-    working dtype, which the planes carry, is not fp32
-    (``SpectralConfig(dtype=torch.float64)``): the kernel is fp32 only, as
-    the JAX package's is, and such a config refuses ``use_kernel=True``."""
+    cannot be held by an exported program.  The working dtypes fp32, bf16
+    and fp16 take it; float64 (``SpectralConfig(dtype=torch.float64)``)
+    never does: the kernel computes in fp32, and such a config refuses
+    ``use_kernel=True``."""
     if config.use_kernel is False or n <= 1 or torch.compiler.is_exporting():
         return False
-    if config.dtype != DTYPE:
+    if config.dtype not in PLANE_DTYPES:
         return False
     if not supports(n):
         return False

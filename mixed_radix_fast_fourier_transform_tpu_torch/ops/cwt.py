@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
-from ..utils.numerics import as_tensor, as_tensors, constant, content_key, fp32_matmul
+from ..utils.numerics import as_tensor, as_tensors, constant, content_key, matmul_precision
 from .convolve import fft_convolve
 from .fft import fft, ifft
 
@@ -163,7 +163,7 @@ def cwt_tc(
 def _tc_smooth(P: Tensor, scales: np.ndarray, dt: float, dj: float, config) -> Tensor:
     """Torrence & Compo smoothing operator for coherence: per-scale
     Gaussian in time (Fourier multiply, width s) then a 0.6/dj-bin boxcar
-    across scales (one small banded matmul, fp32 with TF32 off)."""
+    across scales (one small banded matmul at ``config.op_precision``)."""
     n = P.shape[-1]
     ns = len(scales)
     key = content_key(f"{n}/{float(dt)}/{float(dj)}", scales)
@@ -185,7 +185,7 @@ def _tc_smooth(P: Tensor, scales: np.ndarray, dt: float, dj: float, config) -> T
     sm = ifft(fft(P.to(torch.complex64), config=config)
               * constant(gaussians, like, key=("tc_smooth.filt",) + key), config=config)
     box = constant(boxcar, like, key=("tc_smooth.box",) + key)
-    with fp32_matmul():
+    with matmul_precision(config.op_precision):
         return torch.complex(box @ sm.real, box @ sm.imag)
 
 

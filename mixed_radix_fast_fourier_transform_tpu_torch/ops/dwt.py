@@ -13,7 +13,7 @@ them with the filter pair in one einsum, each analysis level here is one
 stride-2 ``F.conv1d`` of the periodically padded signal with the stacked
 (2, F) bank, and each synthesis level one ``F.conv1d`` of the padded
 (approx, detail) pair with both polyphase components of both filters —
-the same fp32 sums, with the signal read once (cuDNN with TF32 off).
+the same sums, with the signal read once, at the config's ``op_precision``.
 The stationary transform is the same convolution dilated by 2^j.  The
 extension-mode synthesis keeps the JAX module's polyphase gather.
 
@@ -44,8 +44,9 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.config import DEFAULT_CONFIG, SpectralConfig
-from ..utils.numerics import as_tensor, as_tensors, constant, content_key, median, pad_last
-from .convolve import _cudnn_fp32
+from ..utils.numerics import (
+    as_tensor, as_tensors, constant, content_key, matmul_precision, median, pad_last,
+)
 
 Tensor = torch.Tensor
 
@@ -350,7 +351,8 @@ def _extend_idx(n: int, pad: int, mode: str) -> "np.ndarray | None":
 # contracts them with the filters in one einsum; a materialised window
 # stack is F times the signal, so here each bank is one strided (analysis)
 # or plain (synthesis) ``F.conv1d`` over the periodically padded signal,
-# which reads the input once: the same fp32 sums, cuDNN with TF32 off.
+# which reads the input once: the same sums, at the config's op_precision
+# (cuDNN's TF32 flag set around each convolution).
 # ---------------------------------------------------------------------------
 
 
@@ -360,15 +362,17 @@ def _weights(w: np.ndarray, like: Tensor) -> Tensor:
     return constant(w, like, dtype, key=content_key("dwt.w", w))
 
 
-def _conv(x: Tensor, w: np.ndarray, stride: int = 1, dilation: int = 1) -> Tensor:
+def _conv(x: Tensor, w: np.ndarray, stride: int = 1, dilation: int = 1,
+          precision: str = "highest") -> Tensor:
     """(…, C_in, L) correlated with the real bank ``w`` (C_out, C_in, F):
-    (…, C_out, L_out); complex data as its real and imaginary parts."""
+    (…, C_out, L_out), at ``precision`` (the config's ``op_precision``);
+    complex data as its real and imaginary parts."""
     if x.is_complex():
-        return torch.complex(_conv(x.real, w, stride, dilation),
-                             _conv(x.imag, w, stride, dilation))
+        return torch.complex(_conv(x.real, w, stride, dilation, precision),
+                             _conv(x.imag, w, stride, dilation, precision))
     lead = x.shape[:-2]
     xb = x.reshape((-1,) + tuple(x.shape[-2:]))
-    with _cudnn_fp32():
+    with matmul_precision(precision):
         out = F.conv1d(xb, _weights(w, x), stride=stride, dilation=dilation)
     return out.reshape(lead + out.shape[-2:])
 
@@ -391,7 +395,8 @@ def _dwt_linear(x: Tensor, wavelet: str, mode: str, config: SpectralConfig):
         xe = F.pad(x, (pad, pad))
     else:
         xe = x[..., constant(emap, x, torch.int64, key=("dwt.extend", n, pad, mode))]
-    out = _conv(xe[..., None, 1:], np.stack([dec_lo, dec_hi])[:, None, :], stride=2)
+    out = _conv(xe[..., None, 1:], np.stack([dec_lo, dec_hi])[:, None, :], stride=2,
+                precision=config.op_precision)
     return out[..., 0, :], out[..., 1, :]
 
 
@@ -483,7 +488,8 @@ def periodized_astep(x, filt: np.ndarray, config: SpectralConfig):
     of the periodically padded signal.  The analysis step shared by
     ``dwt(mode="periodization")`` and the dual-tree transform
     (:mod:`.dtcwt`)."""
-    out = _conv(pad_last(x, 0, filt.shape[-1] - 1, mode="wrap")[..., None, :], filt[:, None, :], stride=2)
+    out = _conv(pad_last(x, 0, filt.shape[-1] - 1, mode="wrap")[..., None, :], filt[:, None, :],
+                stride=2, precision=config.op_precision)
     return out[..., 0, :], out[..., 1, :]
 
 
@@ -528,7 +534,8 @@ def periodized_sstep(
     # reversed phases is the convolution above
     w = np.stack([np.stack([syn_lo[p::2][::-1], syn_hi[p::2][::-1]]) for p in (0, 1)])
     ad = pad_last(torch.stack(torch.broadcast_tensors(a, d), dim=-2), half - 1, 0, mode="wrap")
-    out = _conv(ad, w)  # (…, 2, H): phase p along the second-to-last axis
+    # (…, 2, H): phase p along the second-to-last axis
+    out = _conv(ad, w, precision=config.op_precision)
     return out.transpose(-1, -2).reshape(out.shape[:-2] + (2 * h,))
 
 
@@ -605,20 +612,23 @@ def idwt2(
     return idwt(cols[0], cols[1], wavelet, mode, config=config)
 
 
-def _swt_axis(v: Tensor, filt: np.ndarray, up: int) -> Tensor:
+def _swt_axis(v: Tensor, filt: np.ndarray, up: int, precision: str) -> Tensor:
     """Undecimated analysis along the last axis with the bank upsampled by
     ``up``: (…, N) -> (…, 2, N), out[c, t] = Σ_f filt[c, f]·v[(t + up·f) mod N]."""
     f = filt.shape[-1]
-    return _conv(pad_last(v, 0, up * (f - 1), mode="wrap")[..., None, :], filt[:, None, :], dilation=up)
+    return _conv(pad_last(v, 0, up * (f - 1), mode="wrap")[..., None, :], filt[:, None, :],
+                 dilation=up, precision=precision)
 
 
-def _iswt_axis(lo_band: Tensor, hi_band: Tensor, syn_lo, syn_hi, up: int) -> Tensor:
+def _iswt_axis(lo_band: Tensor, hi_band: Tensor, syn_lo, syn_hi, up: int,
+               precision: str) -> Tensor:
     """The undecimated dual-frame identity along the last axis:
     (Σ_s syn_lo[s]·lo[(t − up·s) mod N] + syn_hi[s]·hi[(t − up·s) mod N]) / 2."""
     fs = len(syn_lo)
     w = 0.5 * np.stack([syn_lo[::-1], syn_hi[::-1]])[None]  # (1, 2, FS)
     pair = torch.stack(torch.broadcast_tensors(lo_band, hi_band), dim=-2)
-    return _conv(pad_last(pair, up * (fs - 1), 0, mode="wrap"), w, dilation=up)[..., 0, :]
+    return _conv(pad_last(pair, up * (fs - 1), 0, mode="wrap"), w, dilation=up,
+                 precision=precision)[..., 0, :]
 
 
 def swt(
@@ -648,7 +658,7 @@ def swt(
     out = []
     a = x
     for j in range(level):
-        bands = _swt_axis(a, filt, 1 << j)
+        bands = _swt_axis(a, filt, 1 << j, config.op_precision)
         a = bands[..., 0, :]
         out.append((a, bands[..., 1, :]))
     return out[::-1]
@@ -668,7 +678,7 @@ def iswt(
     level = len(coeffs)
     for lev, (_, d) in enumerate(coeffs):
         j = level - 1 - lev  # upsampling exponent of this level's filters
-        a = _iswt_axis(a, as_tensor(d, a.device), syn_lo, syn_hi, 1 << j)
+        a = _iswt_axis(a, as_tensor(d, a.device), syn_lo, syn_hi, 1 << j, config.op_precision)
     return a
 
 
@@ -697,10 +707,11 @@ def swt2(
     a = x
     for j in range(level):
         up = 1 << j
-        rows = _swt_axis(a, filt, up)  # (…, h, 2, w): lowpass/highpass along w
+        # (…, h, 2, w): lowpass/highpass along w
+        rows = _swt_axis(a, filt, up, config.op_precision)
         bands = []
         for r in (rows[..., 0, :], rows[..., 1, :]):
-            cols = _swt_axis(r.transpose(-1, -2), filt, up)  # (…, w, 2, h)
+            cols = _swt_axis(r.transpose(-1, -2), filt, up, config.op_precision)  # (…, w, 2, h)
             bands.append((cols[..., 0, :].transpose(-1, -2),
                           cols[..., 1, :].transpose(-1, -2)))
         (aa, hh_), (vv, dd) = bands  # (row-lo, col-lo/hi), (row-hi, …)
@@ -724,10 +735,10 @@ def iswt2(
         hh_, vv, dd = as_tensors(a, hh_, vv, dd)[1:]
         # invert columns (axis -2) of each row band, then rows
         rlo = _iswt_axis(a.transpose(-1, -2), hh_.transpose(-1, -2),
-                         syn_lo, syn_hi, up).transpose(-1, -2)
+                         syn_lo, syn_hi, up, config.op_precision).transpose(-1, -2)
         rhi = _iswt_axis(vv.transpose(-1, -2), dd.transpose(-1, -2),
-                         syn_lo, syn_hi, up).transpose(-1, -2)
-        a = _iswt_axis(rlo, rhi, syn_lo, syn_hi, up)
+                         syn_lo, syn_hi, up, config.op_precision).transpose(-1, -2)
+        a = _iswt_axis(rlo, rhi, syn_lo, syn_hi, up, config.op_precision)
     return a
 
 

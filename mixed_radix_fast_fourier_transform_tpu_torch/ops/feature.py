@@ -2,7 +2,7 @@
 
 Counterpart of ``mixed_radix_fast_fourier_transform_tpu/ops/feature.py``.
 All features run off ONE shared engine STFT magnitude (computed here or
-passed in as ``S``) and reduce with dense products (fp32, TF32 off) and
+passed in as ``S``) and reduce with dense products (at ``op_precision``) and
 weighted-moment arithmetic.  Frames follow the library's stft: frame m
 centered on sample m·hop, (…, frames, bins).  Host tables (frequency grids,
 the chroma filterbank, prior weights) are kept on the device.
@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
-from ..utils.numerics import as_tensor, as_tensors, constant, fp32_matmul, pad_last
+from ..utils.numerics import as_tensor, as_tensors, constant, matmul_precision, pad_last
 from .stft import stft as _stft
 
 Tensor = torch.Tensor
@@ -322,7 +322,7 @@ def chroma_stft(
     n_fft = 2 * (p.shape[-1] - 1)
     fbT = constant(lambda: chroma_filterbank(sr, n_fft, n_chroma, tuning).T, p, p.dtype,
                    key=("feature.chroma", float(sr), n_fft, int(n_chroma), float(tuning)))
-    with fp32_matmul():
+    with matmul_precision(config.op_precision):
         c = p @ fbT
     return _max_normalized(c)
 
@@ -476,9 +476,11 @@ def beat_track(
     return bpm, mask & (torch.max(scores) > 1e-6)
 
 
-def _decompose_from(S: Tensor, A: Tensor, C: Tensor, n_iter: int, eps: float):
-    """Lee-Seung multiplicative updates from the initial factors (A, C)."""
-    with fp32_matmul():
+def _decompose_from(S: Tensor, A: Tensor, C: Tensor, n_iter: int, eps: float,
+                    precision: str = "highest"):
+    """Lee-Seung multiplicative updates from the initial factors (A, C),
+    products at ``precision``."""
+    with matmul_precision(precision):
         for _ in range(n_iter):
             A = A * (S @ C.T) / (A @ (C @ C.T) + eps)
             C = C * (A.T @ S) / ((A.T @ A) @ C + eps)
@@ -498,7 +500,7 @@ def decompose(
     activations (frames, k) @ components (k, bins), both nonnegative.
 
     Lee-Seung multiplicative updates for the Euclidean objective — a loop
-    of six fp32 products per iteration (TF32 off).  ``generator`` (a
+    of six products per iteration at ``op_precision``.  ``generator`` (a
     ``torch.Generator`` on S's device; default: a fresh one seeded 0) seeds
     the nonnegative initialisation, uniform in [0.1, 1) times
     sqrt(mean(S)/k + eps)."""
@@ -518,7 +520,7 @@ def decompose(
     draw = lambda *shape: 0.1 + 0.9 * torch.rand(shape, generator=generator, device=S.device)
     A = scale * draw(F, k)
     C = scale * draw(k, B)
-    return _decompose_from(S, A, C, n_iter, eps)
+    return _decompose_from(S, A, C, n_iter, eps, config.op_precision)
 
 
 def _frame_loud(x: np.ndarray, top_db: float, frame_length: int,
@@ -732,7 +734,7 @@ def chroma_cqt(
 
     onehot = constant(fold, C, C.dtype,
                       key=("feature.chroma_cqt", n_bins, int(n_chroma), int(bins_per_octave), float(fmin)))
-    with fp32_matmul():
+    with matmul_precision(config.op_precision):
         ch = C @ onehot
     return _max_normalized(ch)
 
@@ -763,7 +765,7 @@ def tonnetz(
         ]).T  # (12, 6)
 
     norm = torch.clamp(torch.sum(torch.abs(c), -1, keepdim=True), min=1e-30)
-    with fp32_matmul():
+    with matmul_precision(config.op_precision):
         return (c / norm) @ constant(basis, c, c.dtype, key=("feature.tonnetz",))
 
 

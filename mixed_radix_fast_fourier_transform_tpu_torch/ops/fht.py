@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
-from ..utils.numerics import as_tensor, constant as _on
+from ..utils.numerics import as_tensor, constant as _on, matmul_precision
 from .rfft import irfft, rfft
 
 Tensor = torch.Tensor
@@ -148,8 +148,9 @@ def _fhtq(a: Tensor, u: np.ndarray, inverse: bool, key, config: SpectralConfig) 
     spec = rfft(a, config=config)
     if inverse:
         u = 1.0 / np.conj(u)
-    ud = torch.complex(_on(u.real, a, a.dtype, key=key + ("re",)),
-                       _on(u.imag, a, a.dtype, key=key + ("im",)))
+    rdtype = spec.real.dtype
+    ud = torch.complex(_on(u.real, a, rdtype, key=key + ("re",)),
+                       _on(u.imag, a, rdtype, key=key + ("im",)))
     out = irfft(spec * ud, n=n, config=config)
     return torch.flip(out, (-1,))
 
@@ -216,8 +217,7 @@ def fwht(x, axis: int = -1, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tenso
     unnormalized: H @ x with H the ±1 Hadamard matrix of size 2^k).
 
     log2(n) reshape/add passes of the 2×2 ±1 butterfly; for n <= 128 one
-    dense ±1 matrix product instead (full fp32: keep
-    ``torch.backends.cuda.matmul.allow_tf32`` False).  Involution up to n:
+    dense ±1 matrix product instead, at the config's ``op_precision``.  Involution up to n:
     ``fwht(fwht(x)) == n·x`` (see :func:`ifwht`)."""
     x = as_tensor(x)
     if not (x.is_floating_point() or x.is_complex()):
@@ -232,7 +232,8 @@ def fwht(x, axis: int = -1, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tenso
         H = np.array([[1.0]])
         while H.shape[0] < n:
             H = np.block([[H, H], [H, -H]])
-        out = torch.matmul(xm, _on(H, xm, xm.dtype, key=("fwht.H", n)))
+        with matmul_precision(config.op_precision):
+            out = torch.matmul(xm, _on(H, xm, xm.dtype, key=("fwht.H", n)))
         return torch.movedim(out, -1, axis)
     lead = xm.shape[:-1]
     y = xm

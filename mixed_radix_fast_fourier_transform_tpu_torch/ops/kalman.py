@@ -23,7 +23,7 @@ from typing import Tuple
 import torch
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
-from ..utils.numerics import as_tensor, as_tensors, fp32_matmul
+from ..utils.numerics import as_tensor, as_tensors, matmul_precision
 from ..utils.scan import associative_scan
 
 Tensor = torch.Tensor
@@ -120,7 +120,7 @@ def kalman_filter(F, Q, H, R, m0, P0, ys, *, parallel: bool = False,
                          f"d_obs={H.shape[0]}")
     # full fp32 products throughout: reduced-precision passes compound over
     # the log2(T) combine levels and over T serial steps alike
-    with fp32_matmul():
+    with matmul_precision():
         if parallel:
             elems = _filter_elements(F, Q, H, R, m0, P0, ys)
             _, b, C, _, _ = associative_scan(_filter_combine, elems)
@@ -175,7 +175,7 @@ def kalman_smoother(F, Q, H, R, m0, P0, ys, *, parallel: bool = False,
     ms, Ps = kalman_filter(F, Q, H, R, m0, P0, ys, parallel=parallel,
                            config=config)
     F32, Q32 = (as_tensor(m, ms.device).to(DTYPE) for m in (F, Q))
-    with fp32_matmul():
+    with matmul_precision():
         E, g, L = _smoother_elements(F32, Q32, ms, Ps)
         if parallel:
             _, g, L = associative_scan(_smoother_combine, (E, g, L), reverse=True)

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..utils.config import DEFAULT_CONFIG, SpectralConfig
-from ..utils.numerics import as_tensor, constant, content_key, fp32_matmul
+from ..utils.numerics import as_tensor, constant, content_key, matmul_precision
 from .iir import _recurrence_scan, tf2zpk, zpk2tf
 
 Tensor = torch.Tensor
@@ -256,7 +256,7 @@ def _scan_ss(Ad: np.ndarray, Bd: np.ndarray, Cd: np.ndarray, Dd: np.ndarray,
     """(yout, xout) of x[k+1] = Ad x[k] + Bd u[k]; y[k] = Cd x[k] + Dd u[k]
     via one blocked scan over the time axis.  ``u``: (n_steps, m)."""
     n = Ad.shape[0]
-    with fp32_matmul():
+    with matmul_precision():
         if n == 0:  # static system
             y = u @ _matrix(Dd.T, u)
             return y, u.new_zeros((u.shape[0], 0))
@@ -372,7 +372,7 @@ def lsim(system, U, T, X0=None, interp: bool = True, *, device=None,
         G2 = E[:n, n + m:]                     # = Γ2/dt (see cont2discrete)
         Bd_next = G2                           # weight on u[k+1]
         Bd_cur = G1 - G2                       # weight on u[k]
-        with fp32_matmul():
+        with matmul_precision():
             if n == 0:
                 y = U @ _matrix(D.T, U)
                 return T, y, U.new_zeros((len(T), 0))

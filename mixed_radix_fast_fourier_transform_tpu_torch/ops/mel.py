@@ -5,7 +5,7 @@ tracking, PCEN.
 Counterpart of ``mixed_radix_fast_fourier_transform_tpu/ops/mel.py``.  The
 standard speech/audio front end, built on the engine's STFT and DCT: a
 host-generated (n_mels, n_fft//2+1) triangular filterbank applied as one
-fp32 matmul (TF32 off) over the power spectrogram, then a log and a type-II
+matmul at the config's ``op_precision`` over the power spectrogram, then a log and a type-II
 DCT for cepstral coefficients.  Conventions follow librosa's defaults
 (Slaney-style mel scale and filter normalization, HTK formula available) so
 feature pipelines port directly; the filterbank is an lru-cached host
@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
-from ..utils.numerics import as_tensor, constant, fp32_matmul, median, pad_last, working
+from ..utils.numerics import as_tensor, constant, matmul_precision, median, pad_last, working
 from ..utils.scan import linear_recurrence
 from .dct import dct as _dct, idct as _idct
 from .rfft import irfft as _irfft, rfft as _rfft
@@ -162,7 +162,7 @@ def melspectrogram(
     """Mel-scaled spectrogram: (…, T) -> (…, n_frames, n_mels).
 
     |STFT|^power contracted against the mel filterbank: one batched frame
-    rfft (the engine) plus one (bins, n_mels) fp32 matmul."""
+    rfft (the engine) plus one (bins, n_mels) matmul at ``op_precision``."""
     x = as_tensor(x)
     if x.is_complex():
         raise ValueError("melspectrogram expects a real signal")
@@ -176,7 +176,7 @@ def melspectrogram(
     p = spec.real ** 2 + spec.imag ** 2
     if power != 2.0:
         p = torch.pow(torch.clamp(p, min=0.0), power / 2.0)
-    with fp32_matmul():
+    with matmul_precision(config.op_precision):
         return p @ _filterbank_on(p, sr, n_fft, n_mels, fmin, fmax, htk, norm).T
 
 
@@ -310,7 +310,7 @@ def mel_to_stft(
     NNLS per frame: initialize at the clipped pseudo-inverse solution (one
     host pinv of the small (n_mels, bins) filterbank, one matmul) and refine
     with ``n_iter`` projected-gradient steps at the exact Lipschitz rate
-    1/||F Fᵀ||₂, two fp32 matmuls per step."""
+    1/||F Fᵀ||₂, two matmuls per step at ``op_precision``."""
     M = as_tensor(M)
     if M.is_complex():
         raise ValueError("mel_to_stft takes a real mel spectrogram")
@@ -324,7 +324,7 @@ def mel_to_stft(
            None if fmax is None else float(fmax), bool(htk), norm)
     pinv, lam = _nnls_constants(*key)
     fbd = _filterbank_on(M, sr, n_fft, n_mels, fmin, fmax, htk, norm)  # (n_mels, bins)
-    with fp32_matmul():
+    with matmul_precision(config.op_precision):
         s = torch.clamp(M @ constant(pinv, M, key=("mel.pinv",) + key).T, min=0.0)
         for _ in range(n_iter):
             resid = s @ fbd.T - M
@@ -634,7 +634,7 @@ def pyin(
     n_bins, bin_f, onehot_h, logT_h = _pyin_tables(*key)
     onehot = constant(onehot_h, cmnd, key=("pyin.onehot",) + key)  # (lags, bins)
     logT = constant(logT_h, cmnd, key=("pyin.logT",) + key)        # (S, S)
-    with fp32_matmul():
+    with matmul_precision(config.op_precision):
         obs_v = cand @ onehot
     obs_v = obs_v * p_voiced[..., None]
     obs_u = (1.0 - p_voiced)[..., None]

@@ -15,7 +15,7 @@ isign defaults to -1 for types 1 and 3 and +1 for type 2.
 
 Two strategies, selected by ``method``, as in the JAX module:
 
-* ``"dense"``: the exact NUDFT as fp32 matrix products (TF32 off).  Phases
+* ``"dense"``: the exact NUDFT as matrix products at ``op_precision``.  Phases
   come from an error-free fp32 reduction (a Veltkamp-split head and tail of
   x/2π, then an exact int32 k·round(u·4096) mod 4096, :func:`_unit_frac`,
   :func:`_phase_trig`), so the phase error stays at the fp32 floor for
@@ -53,7 +53,7 @@ from ..utils.factorize import next_pow2
 from ..utils.numerics import (
     as_tensors,
     constant,
-    fp32_matmul,
+    matmul_precision,
     two_sum as _twosum,
     veltkamp as _veltkamp,
 )
@@ -143,9 +143,11 @@ def _phase_trig(k: np.ndarray, x: Tensor, isign: int):
     return torch.cos(theta), torch.sin(theta)
 
 
-def _dense_apply(cos: Tensor, sin: Tensor, vr: Tensor, vi: Tensor) -> Tensor:
-    """Σ_m (cos + i·sin)[k, m] · (vr + i·vi)[…, m] as fp32 products."""
-    with fp32_matmul():
+def _dense_apply(cos: Tensor, sin: Tensor, vr: Tensor, vi: Tensor,
+                 precision: str = "highest") -> Tensor:
+    """Σ_m (cos + i·sin)[k, m] · (vr + i·vi)[…, m] as products at
+    ``precision`` (the config's ``op_precision``)."""
+    with matmul_precision(precision):
         fr = vr @ cos.T - vi @ sin.T
         fi = vr @ sin.T + vi @ cos.T
     return torch.complex(fr, fi)
@@ -153,7 +155,7 @@ def _dense_apply(cos: Tensor, sin: Tensor, vr: Tensor, vi: Tensor) -> Tensor:
 
 def nudft1(x, c, n_modes: int, *, isign: int = -1,
            config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
-    """Exact type-1 NUDFT as dense fp32 products: (…, M) -> (…, n_modes)."""
+    """Exact type-1 NUDFT as dense products at ``op_precision``: (…, M) -> (…, n_modes)."""
     x, = _points(x)
     c = _values(as_tensors(x, c)[1])
     if x.ndim != 1 or x.shape[0] < 1:
@@ -164,12 +166,12 @@ def nudft1(x, c, n_modes: int, *, isign: int = -1,
     if n_modes < 1:
         raise ValueError(f"n_modes must be >= 1, got {n_modes}")
     cos, sin = _phase_trig(_centered_modes(n_modes), x, isign)  # (N, M)
-    return _dense_apply(cos, sin, *_planes(c))
+    return _dense_apply(cos, sin, *_planes(c), config.op_precision)
 
 
 def nudft2(x, f, *, isign: int = +1,
            config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
-    """Exact type-2 NUDFT as dense fp32 products: (…, n_modes) -> (…, M)."""
+    """Exact type-2 NUDFT as dense products at ``op_precision``: (…, n_modes) -> (…, M)."""
     x, = _points(x)
     f = _values(as_tensors(x, f)[1])
     if x.ndim != 1 or x.shape[0] < 1:
@@ -177,7 +179,7 @@ def nudft2(x, f, *, isign: int = +1,
     if f.shape[-1] < 1:
         raise ValueError("f must be non-empty along the mode axis")
     cos, sin = _phase_trig(_centered_modes(f.shape[-1]), x, isign)  # (N, M)
-    return _dense_apply(cos.T, sin.T, *_planes(f))
+    return _dense_apply(cos.T, sin.T, *_planes(f), config.op_precision)
 
 
 def _msp(eps: float) -> int:
@@ -564,10 +566,10 @@ def _cis(phase: Tensor) -> Tensor:
     return torch.complex(torch.cos(phase), torch.sin(phase))
 
 
-def _dense_type3(theta: Tensor, isign: int, c: Tensor) -> Tensor:
+def _dense_type3(theta: Tensor, isign: int, c: Tensor, precision: str) -> Tensor:
     if isign < 0:
         theta = -theta
-    return _dense_apply(torch.cos(theta), torch.sin(theta), *_planes(c))
+    return _dense_apply(torch.cos(theta), torch.sin(theta), *_planes(c), precision)
 
 
 def _gauss_taps(freq: Tensor, h: float, rho: float, k: int, n: int, msp: int):
@@ -609,7 +611,7 @@ def nufft3(x, c, s, *, isign: int = -1, eps: float = 1e-6, method: str = "dense"
     if c.shape[-1] != x.shape[0]:
         raise ValueError(
             f"strengths last axis {c.shape[-1]} != number of points {x.shape[0]}")
-    return _dense_type3(s[:, None] * x[None, :], isign, c)
+    return _dense_type3(s[:, None] * x[None, :], isign, c, config.op_precision)
 
 
 def _nufft3_fast(x, c, s, *, isign, eps, x_extent, s_extent, x_center, s_center,
@@ -680,7 +682,7 @@ def nudft1_2d(x, y, c, n_modes, *, isign: int = -1,
     # t = e^{isign·i·k2·y} * c, per mode row: (…, n2, M) planes
     tr = cos2 * cr[..., None, :] - sin2 * ci[..., None, :]
     ti = sin2 * cr[..., None, :] + cos2 * ci[..., None, :]
-    with fp32_matmul():
+    with matmul_precision(config.op_precision):
         fr = cos1 @ tr.transpose(-1, -2) - sin1 @ ti.transpose(-1, -2)
         fi = sin1 @ tr.transpose(-1, -2) + cos1 @ ti.transpose(-1, -2)
     return torch.complex(fr, fi)
@@ -699,7 +701,7 @@ def nudft2_2d(x, y, f, *, isign: int = +1,
     cos2, sin2 = _phase_trig(_centered_modes(n2), y, isign)  # (n2, M)
     fr, fi = _planes(f)
     # k1 first: t[…, k2, m] = sum_k1 f[…, k1, k2] e^{isign·i·k1·x_m}
-    with fp32_matmul():
+    with matmul_precision(config.op_precision):
         frt, fit = fr.transpose(-1, -2), fi.transpose(-1, -2)
         tr = frt @ cos1 - fit @ sin1
         ti = frt @ sin1 + fit @ cos1
@@ -921,7 +923,7 @@ def nudft1_3d(x, y, z, c, n_modes, *, isign: int = -1,
     if min(ns) < 1:
         raise ValueError(f"n_modes must be positive, got {n_modes}")
     E = _phase_tensor_3d(x, y, z, ns, isign)
-    with fp32_matmul():
+    with matmul_precision(config.op_precision):
         out = c.to(_CDTYPE) @ E.reshape(-1, x.shape[0]).T
     return out.reshape(c.shape[:-1] + ns)
 
@@ -935,7 +937,7 @@ def nudft2_3d(x, y, z, f, *, isign: int = +1,
     if f.ndim < 3 or min(f.shape[-3:]) < 1:
         raise ValueError("f must be (…, n1, n2, n3) with non-empty mode axes")
     E = _phase_tensor_3d(x, y, z, tuple(f.shape[-3:]), isign)
-    with fp32_matmul():
+    with matmul_precision(config.op_precision):
         return f.to(_CDTYPE).reshape(f.shape[:-3] + (-1,)) @ E.reshape(-1, x.shape[0])
 
 
@@ -1020,7 +1022,8 @@ def nufft3_2d(x, y, c, s, t, *, isign: int = -1, eps: float = 1e-6, method: str 
         method = "fast" if _type3_fast_wins(
             eps, 2, x.shape[0], s.shape[0], (s1 * x1, s2 * x2)) else "dense"
     if method == "dense":
-        return _dense_type3(s[:, None] * x[None, :] + t[:, None] * y[None, :], isign, c)
+        return _dense_type3(s[:, None] * x[None, :] + t[:, None] * y[None, :], isign, c,
+                            config.op_precision)
     (X1, X2, S1, S2), (x0, y0, s0, t0), (xc, yc, sc, tc) = _type3_setup(
         (x, y, s, t), exts, centers)
     msp = _msp(eps)
@@ -1072,7 +1075,7 @@ def nufft3_3d(x, y, z, c, s, t, u, *, isign: int = -1, eps: float = 1e-6,
             eps, 3, x.shape[0], s.shape[0], (s1 * x1, s2 * x2, s3 * x3)) else "dense"
     if method == "dense":
         theta = s[:, None] * x[None, :] + t[:, None] * y[None, :] + u[:, None] * z[None, :]
-        return _dense_type3(theta, isign, c)
+        return _dense_type3(theta, isign, c, config.op_precision)
     if len(centers) != 6:
         raise ValueError("extents and centers must be 6-tuples")
     X, C0, (xc, yc, zc, sc, tc, uc) = _type3_setup(pts, exts, centers)

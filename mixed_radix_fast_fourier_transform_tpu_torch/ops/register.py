@@ -6,7 +6,7 @@ registration algorithms".  The integer shift comes from the peak of the
 inverse FFT of the cross-power spectrum (engine ``fft2``/``ifft2``); the
 subpixel refinement evaluates an UPSAMPLED DFT of the cross-power spectrum
 only in a small neighborhood of the coarse peak — two dense matrix-DFT
-products in fp32 (TF32 off), with kernels whose phases depend on the
+products at the config's ``op_precision``, with kernels whose phases depend on the
 coarse peak.  No zero-padded giant FFT is ever built.
 
 skimage.registration.phase_cross_correlation conventions: the returned
@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..utils.config import DEFAULT_CONFIG, SpectralConfig
-from ..utils.numerics import as_tensor, as_tensors, constant, fp32_matmul
+from ..utils.numerics import as_tensor, as_tensors, constant, matmul_precision
 from .fft import fft2, ifft2
 
 Tensor = torch.Tensor
@@ -35,7 +35,7 @@ def _freqs(n: int, like: Tensor, dtype) -> Tensor:
 
 
 def _upsampled_dft(R: Tensor, nr: int, nc: int, region: int, up: int,
-                   row0: Tensor, col0: Tensor) -> Tensor:
+                   row0: Tensor, col0: Tensor, precision: str = "highest") -> Tensor:
     """region x region samples of the inverse DFT of ``R`` on a grid of
     1/up pixel spacing starting at (row0, col0) — two matrix-DFT products
     with runtime-phase kernels."""
@@ -48,7 +48,7 @@ def _upsampled_dft(R: Tensor, nr: int, nc: int, region: int, up: int,
     ang_c = (2.0 * math.pi) * cols[..., :, None] * _freqs(nc, R, rdt)
     ker_r = torch.complex(torch.cos(ang_r), torch.sin(ang_r))  # (…, p, nr)
     ker_c = torch.complex(torch.cos(ang_c), torch.sin(ang_c))  # (…, q, nc)
-    with fp32_matmul():
+    with matmul_precision(precision):
         t = torch.matmul(ker_r, R)                        # (…, p, nc)
         return torch.matmul(t, ker_c.transpose(-1, -2))   # (…, p, q)
 
@@ -114,7 +114,7 @@ def phase_cross_correlation(
 
     def _err_at(sr, sc):
         pt = _upsampled_dft(R0, nr, nc, 1, 1, sr.to(R0.real.dtype),
-                            sc.to(R0.real.dtype)) / float(nr * nc)
+                            sc.to(R0.real.dtype), config.op_precision) / float(nr * nc)
         p2 = (pt.real ** 2 + pt.imag ** 2)[..., 0, 0]
         return torch.sqrt(torch.clamp(1.0 - p2 / torch.clamp(ab2, min=1e-30), min=0.0))
 
@@ -126,7 +126,7 @@ def phase_cross_correlation(
     row0 = row - (region // 2) / up
     col0 = col - (region // 2) / up
     local = _upsampled_dft(R, nr, nc, region, up, row0.to(R.real.dtype),
-                           col0.to(R.real.dtype)) / float(nr * nc)
+                           col0.to(R.real.dtype), config.op_precision) / float(nr * nc)
     lpow = local.real ** 2 + local.imag ** 2
     lmax = torch.argmax(lpow.reshape(*lpow.shape[:-2], -1), dim=-1)
     pr = torch.div(lmax, region, rounding_mode="floor").to(torch.float32) / up

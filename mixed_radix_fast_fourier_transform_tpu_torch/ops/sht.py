@@ -15,8 +15,8 @@ matching scipy.special.sph_harm_y) and stored as fp32 triangular chunks over
 m ≥ 0 (``_M_TILE`` orders a chunk; P̄_{l,-m} = (-1)^m P̄_lm folds the
 negative orders into sign flips on the coefficients).  The chunks are kept
 on the device (``utils.numerics.constant`` with a key), so a call can be
-captured in a CUDA graph; each chunk's contraction is one batched fp32
-product with TF32 off.  A real field takes the Hermitian path (rfft/irfft,
+captured in a CUDA graph; each chunk's contraction is one batched product
+at the config's ``op_precision``.  A real field takes the Hermitian path (rfft/irfft,
 half the Legendre work).
 
 Above ``_TABLES_MAX_L`` the tables give way to the recurrence pair
@@ -47,7 +47,7 @@ from ..utils.numerics import (
     content_key,
     dw_add as _dw_add,
     dw_mul as _dw_mul,
-    fp32_matmul,
+    matmul_precision,
 )
 from .fft import fft, ifft
 from .rfft import irfft, rfft
@@ -186,12 +186,12 @@ def _fold_neg_last(Fsel: Tensor, L: int) -> Tensor:
     return torch.cat([z, half], dim=-1) * sign
 
 
-def _bmm_planes(P: Tensor, X: Tensor) -> Tensor:
-    """Batched real P (t, a, b) @ complex X (t, b, n) as fp32 products on
-    the stacked (re, im) planes: (t, a, n) complex."""
+def _bmm_planes(P: Tensor, X: Tensor, precision: str) -> Tensor:
+    """Batched real P (t, a, b) @ complex X (t, b, n) as products at
+    ``precision`` on the stacked (re, im) planes: (t, a, n) complex."""
     xr, xi = X.real, X.imag
     n = xr.shape[-1]
-    with fp32_matmul():
+    with matmul_precision(precision):
         y = torch.bmm(P, torch.cat([xr, xi], dim=-1))
     return torch.complex(y[..., :n], y[..., n:])
 
@@ -220,7 +220,7 @@ def _analyze(chunks, Fsel: Tensor, weights: np.ndarray, L: int, config=DEFAULT_C
         t = Pj.shape[0]
         for src, out in zip(srcs, parts):
             X = src[..., m0: m0 + t].reshape(-1, nlat, t).permute(2, 1, 0)  # (t, i, B)
-            y = _bmm_planes(Pj, X)                                          # (t, l, B)
+            y = _bmm_planes(Pj, X, config.op_precision)               # (t, l, B)
             y = y.permute(2, 0, 1).reshape(lead + (t, L - m0))
             out.append(torch.nn.functional.pad(y, (m0, 0)))
     apos = torch.cat(parts[0], dim=-2)  # (…, L, L) m-major
@@ -393,7 +393,7 @@ def _synthesize(chunks, alm: Tensor, config=DEFAULT_CONFIG, hermitian: bool = Fa
         PT = Pj.transpose(1, 2)                                    # (t, i, l)
         for src, out in zip(srcs, parts):
             X = src[..., m0: m0 + t, m0:].reshape(-1, t, L - m0).permute(1, 2, 0)
-            y = _bmm_planes(PT, X)                                 # (t, i, B)
+            y = _bmm_planes(PT, X, config.op_precision)                                 # (t, i, B)
             out.append(y.permute(2, 1, 0).reshape(lead + (nlat, t)))
     gpos = torch.cat(parts[0], dim=-1)  # (…, i, L)
     nlon = 2 * L
@@ -724,7 +724,7 @@ def _rec_analyze_core(srcs: Tensor, L: int, config=DEFAULT_CONFIG, lat=None,
     X = _as_planes_last(srcs.reshape(-1, ni, L).permute(2, 1, 0))  # (m, i, 2B)
 
     def accumulate(_, p0, rows):
-        with fp32_matmul():
+        with matmul_precision(config.op_precision):
             rows.append(torch.bmm(p0[:, None, :], X)[:, 0])       # (m, 2B)
         return rows
 
@@ -757,7 +757,7 @@ def _rec_synth_core(srcs: Tensor, L: int, config=DEFAULT_CONFIG, lat=None,
     acc0 = torch.zeros((L, ni, X.shape[-1]), dtype=DTYPE, device=srcs.device)
 
     def accumulate(a_l, p0, acc):
-        with fp32_matmul():
+        with matmul_precision(config.op_precision):
             return torch.baddbmm(acc, p0[:, :, None], a_l[:, None, :])
 
     g = _legendre_scan(L, accumulate, acc0, X, lat=lat, compensated=compensated, like=srcs)
@@ -854,6 +854,6 @@ def rotate_sht(alm, alpha: float = 0.0, beta: float = 0.0, gamma: float = 0.0, *
     d = constant(lambda: _wigner_d_stack(L, float(beta)), a, key=("sht_wigner", L, float(beta)))
     lead = a.shape[:-2]
     X = a.reshape(-1, 2 * L - 1, L).permute(2, 1, 0)     # (l, m, B)
-    b = _bmm_planes(d, X)                                 # (l, n, B)
+    b = _bmm_planes(d, X, config.op_precision)                                 # (l, n, B)
     b = b.permute(2, 1, 0).reshape(lead + (2 * L - 1, L))
     return mphase(b, float(alpha))

@@ -10,7 +10,8 @@ machinery.  Every transform goes through the engine.  The filter designs
 ``gammatone``, ``max_len_seq``, …) are numpy float64 on the host, the JAX
 module's line for line, so their taps are bit-equal.  Dense products (the
 polyphase taps of ``upfirdn``, ``goertzel``, ``lombscargle``,
-``freqz`` at given frequencies) are fp32 matmuls with TF32 off.  Host tables
+``freqz`` at given frequencies) are matmuls at the config's ``op_precision``
+(``goertzel``'s fp32 with TF32 off, as the JAX module pins it).  Host tables
 that depend only on hashable arguments are kept on the device
 (``utils.numerics.constant``).
 """
@@ -26,8 +27,8 @@ import torch
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.numerics import (
-    as_tensor, as_tensors, constant, content_key, fp32_matmul, median, pad_last, resolve_device,
-    working,
+    as_tensor, as_tensors, complex_dtype, constant, content_key, matmul_precision, median,
+    pad_last, resolve_device, working,
 )
 from .fft import fft, fft2, fftshift, ifft, ifft2, rfftfreq
 from .rfft import irfft, rfft
@@ -72,7 +73,7 @@ def spectral_diff(
             m[-1] = 0.0  # odd derivative of the Nyquist mode is ill-defined
         return m
 
-    multd = constant(mult, xm, xm.dtype.to_complex(),
+    multd = constant(mult, xm, complex_dtype(xm.dtype),
                      key=("spectral_diff", n, order, float(period)))
     out = irfft(spec * multd, n=n, config=config)
     return torch.movedim(out, -1, axis)
@@ -432,7 +433,7 @@ def resample(
             mult, xm, config.dtype, key=("resample.mult", n_x, num, window) if named else None)
         out = irfft(spec, n=num, config=config)
     else:
-        cdtype = config.dtype.to_complex()
+        cdtype = complex_dtype(config.dtype)
         spec = xm.to(cdtype) if domain == "freq" else fft(xm.to(cdtype), config=config)
         if w is not None:
             spec = spec * constant(
@@ -510,7 +511,7 @@ def multitaper(
         wk = ratios / ratios.sum()
     else:
         wk = np.full(k, 1.0 / k)
-    with fp32_matmul():
+    with matmul_precision(config.op_precision):
         p = torch.einsum("...kf,k->...f", p,
                          constant(wk, p, p.dtype, key=("multitaper.weights", weighting) + key))
     # tapers are unit-energy: density scale is 1/fs
@@ -543,8 +544,10 @@ def lombscargle(
     ``x`` (sample times) and ``freqs`` (angular frequencies) are 1-D;
     ``y`` may carry leading batch axes over shared times (an extension:
     scipy is 1-D only).  Every reduction is a (N,)·(N, F) contraction over
-    the dense trig matrix, in full fp32 whatever the caller's TF32 setting.
-    Weights must be non-negative."""
+    the dense trig matrix, at the config's ``op_precision`` whatever the
+    caller's TF32 setting.  Weights must be non-negative.  The working dtype
+    bf16 raises, as the JAX module's does (its clamp reads numpy's ``finfo``
+    of the dtype)."""
     x, y, freqs = as_tensors(x, y, freqs)
     if x.ndim != 1 or x.shape[0] < 1:
         raise ValueError("x must be a non-empty 1-D array of sample times")
@@ -563,6 +566,11 @@ def lombscargle(
             f"'amplitude'; got {normalize!r}"
         )
     dt = config.dtype
+    if dt == torch.bfloat16:
+        # the JAX module takes its clamp from np.finfo of the working dtype,
+        # which numpy has not for bf16: it raises there, and so here
+        raise ValueError("lombscargle does not take dtype=torch.bfloat16 (numpy has "
+                         "no finfo for it); use torch.float16 or wider")
     x, y, freqs = x.to(dt), y.to(dt), freqs.to(dt)
     n = x.shape[0]
     if weights is None:
@@ -573,7 +581,7 @@ def lombscargle(
             raise ValueError(f"weights must have shape ({n},), got {tuple(w.shape)}")
         w = w / torch.sum(w)
 
-    with fp32_matmul():
+    with matmul_precision(config.op_precision):
         wt = x[:, None] * freqs[None, :]  # (N, F)
         c, s = torch.cos(wt), torch.sin(wt)
         CC = w @ (c * c)
@@ -600,7 +608,8 @@ def lombscargle(
             YS = YS - Y[..., None] * S
             CC = CC - C * C
             SS = SS - S * S
-    eps = float(np.finfo(np.float32).epsneg)
+    eps = float(np.finfo({torch.float64: np.float64, torch.float16: np.float16}.get(
+        dt, np.float32)).epsneg)
     CC = torch.clamp(CC, min=eps)
     SS = torch.clamp(SS, min=eps)
     a = YC / CC
@@ -928,7 +937,7 @@ def freqz(
         if nfft < max(b.shape[0], a.shape[0]):
             # grid too coarse for an FFT evaluation: fall back to dense
             w = np.arange(n) * (fs / nfft)
-            return w, _freqz_dense(b, a, w * (2.0 * np.pi / fs))
+            return w, _freqz_dense(b, a, w * (2.0 * np.pi / fs), config.op_precision)
         hb = _eval_fft(b, nfft)[:n]
         ha = _eval_fft(a, nfft)[:n]
         w = np.arange(n) * (fs / nfft)
@@ -936,10 +945,10 @@ def freqz(
     w = np.asarray(worN, np.float64)
     if w.ndim != 1:
         raise ValueError("worN must be an int or a 1-D frequency array")
-    return w, _freqz_dense(b, a, w * (2.0 * np.pi / fs))
+    return w, _freqz_dense(b, a, w * (2.0 * np.pi / fs), config.op_precision)
 
 
-def _freqz_dense(b: Tensor, a: Tensor, omega: np.ndarray) -> Tensor:
+def _freqz_dense(b: Tensor, a: Tensor, omega: np.ndarray, precision: str) -> Tensor:
     """H(e^{jω}) at arbitrary ω via e^{−jωk} matrix contractions."""
     def resp(v: Tensor) -> Tensor:
         ang = -np.outer(omega, np.arange(v.shape[0]))  # (W, K) host fp64
@@ -948,7 +957,7 @@ def _freqz_dense(b: Tensor, a: Tensor, omega: np.ndarray) -> Tensor:
         ci = constant(np.sin(ang), like)
         vr = like.to(DTYPE)
         vi = v.imag.to(DTYPE) if v.is_complex() else torch.zeros_like(vr)
-        with fp32_matmul():
+        with matmul_precision(precision):
             hr = cr @ vr - ci @ vi
             hi = cr @ vi + ci @ vr
         return torch.complex(hr, hi)
@@ -975,7 +984,7 @@ def upfirdn(
     classes with a FIXED tap vector each:
     y[c·q + s] = Σ_t x[c·(down/g) + j0(s) + t] · C[s, t].  Each class is a
     strided window view of the padded signal (``Tensor.unfold``) contracted
-    with its T taps, an fp32 product with TF32 off; the product makes the
+    with its T taps, a product at ``op_precision``; the product makes the
     view contiguous, so one class holds T copies of its share of the signal
     at a time."""
     x = as_tensor(x)
@@ -1022,7 +1031,7 @@ def upfirdn(
     # the taps are small: kept on the card under their own contents
     Cd = constant(C, xp_, xp_.dtype,
                   key=content_key(f"upfirdn.taps/{up}/{down}", h) if F <= 65536 else None)
-    with fp32_matmul():
+    with matmul_precision(config.op_precision):
         y = torch.stack(
             [xp_[..., int(j0[s]) + P:].unfold(-1, T, stride)[..., :nblocks, :] @ Cd[s]
              for s in range(q)], dim=-1)  # (…, nblocks, q)
@@ -1176,7 +1185,7 @@ def rceps(x, n: Optional[int] = None, axis: int = -1,
     xm, axis = _real_last(x, axis, "rceps expects a real signal", config.dtype)
     spec = fft(xm, n=n, config=config)
     mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2)
-    out = ifft(_log_floor(mag).to(mag.dtype.to_complex()), config=config).real
+    out = ifft(_log_floor(mag).to(complex_dtype(mag.dtype)), config=config).real
     return torch.movedim(out, -1, axis)
 
 
@@ -1223,7 +1232,7 @@ def icceps(xhat, ndelay=0, axis: int = -1,
     axis = axis % xhat.ndim
     xm = torch.movedim(xhat, axis, -1)
     nn = xm.shape[-1]
-    logf = fft(xm.to(config.dtype.to_complex()), config=config)
+    logf = fft(xm.to(complex_dtype(config.dtype)), config=config)
     nd = as_tensor(ndelay, xm.device).to(config.dtype)
     while nd.ndim < xm.ndim - 1:
         nd = nd[None]
@@ -1262,7 +1271,7 @@ def minimum_phase(
     logm = torch.log(mag + floor)
     if half:
         logm = logm * 0.5
-    cdtype = config.dtype.to_complex()
+    cdtype = complex_dtype(config.dtype)
     cep = ifft(logm.to(cdtype), config=config).real
 
     def lifter() -> np.ndarray:
@@ -1423,7 +1432,7 @@ def savgol_filter(x, window_length: int, polyorder: int, deriv: int = 0,
                         key=("savgol.left",) + key)
         right = constant(lambda: edge(np.arange(wl - half, wl)), xw, xw.dtype,
                          key=("savgol.right",) + key)
-        with fp32_matmul():
+        with matmul_precision(config.op_precision):
             interior = _frame(xw, wl, 1) @ cd  # (…, n-wl+1)
             lo = xw[..., :wl] @ left.T
             hi = xw[..., -wl:] @ right.T
@@ -1432,7 +1441,7 @@ def savgol_filter(x, window_length: int, polyorder: int, deriv: int = 0,
         pad_mode = {"mirror": "reflect", "nearest": "edge", "wrap": "wrap",
                     "constant": "constant"}[mode]
         xp_ = pad_last(xw, half, half, pad_mode, cval)
-        with fp32_matmul():
+        with matmul_precision(config.op_precision):
             out = _frame(xp_, wl, 1)[..., :n, :] @ cd
     return torch.movedim(out, -1, axis)
 
@@ -1906,7 +1915,7 @@ def goertzel(x, freqs, *, fs: float = 1.0, axis: int = -1,
     like = xm.real if xm.is_complex() else xm
     tw_re = constant(np.cos(phase).T, like)     # (n, F)
     tw_im = constant(np.sin(phase).T, like)
-    with fp32_matmul():
+    with matmul_precision():
         if xm.is_complex():
             xr, xi = xm.real.to(DTYPE), xm.imag.to(DTYPE)
             re = xr @ tw_re - xi @ tw_im

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
-from ..utils.numerics import as_tensor, constant, content_key, fp32_matmul
+from ..utils.numerics import as_tensor, constant, content_key, matmul_precision
 from .iir import _apply_df2t
 
 Tensor = torch.Tensor
@@ -53,7 +53,7 @@ def _weights(w: np.ndarray, like: Tensor) -> Tensor:
 
 def _dot(x: Tensor, w: np.ndarray) -> Tensor:
     """x (…, m) · w (m,): one fp32 product, TF32 off."""
-    with fp32_matmul():
+    with matmul_precision():
         return x @ _weights(w, x)
 
 

@@ -5,13 +5,18 @@ The same Cooley-Tukey recursion runs per stage as
 
     reshape → (batched sub-FFTs of the remainder) → twiddle ⊙ → f×f DFT
 
-with each dense stage one ``torch.matmul`` at the planes' dtype, fp32 or
-float64 (the stacked (2f, 2f) form
-below ``KARATSUBA_MIN_STAGE``, the three-product Karatsuba form at or above
-it) and stages of size 2/4/8/16 as elementwise butterflies when the plan
-enables them.  The stage forms and their crossover mirror the JAX package so
-that outputs compare stage for stage; which forms suit the GPU is for a
-measurement to decide.
+with each dense stage one ``torch.matmul`` at the planes' dtype (the
+stacked (2f, 2f) form below ``KARATSUBA_MIN_STAGE``, the three-product
+Karatsuba form at or above it) and stages of size 2/4/8/16 as elementwise
+butterflies when the plan enables them.  fp32 and float64 planes multiply at
+their own precision; bf16 and fp16 planes multiply with fp32 accumulation
+and a rounded output, as XLA's ``preferred_element_type`` does.
+
+Each product runs at the plan's precision for its stage (see
+``SpectralConfig.precision``): "highest" in IEEE fp32, "high"/"default" in
+TF32 on a CUDA tensor, "split6" as :func:`_einsum_split6`.  The stage forms
+and their crossover mirror the JAX package so that outputs compare stage
+for stage; which forms suit the GPU is for a measurement to decide.
 
 :func:`exec_len` is the one dispatch point of the fft/rfft layers: the fused
 Stockham kernel (ops/cuda_fft.py) for the lengths it supports, else this
@@ -34,7 +39,7 @@ from ..plan import (
     device_constants,
     get_plan,
 )
-from ..utils.numerics import cmul
+from ..utils.numerics import cmul, matmul_precision
 from .cuda_fft import maybe_exec_kernel
 
 Tensor = torch.Tensor
@@ -50,19 +55,72 @@ def _stacked_dft_matrix(wr: Tensor, wi: Tensor) -> Tensor:
     return torch.cat([top, bot], dim=0)
 
 
+def _bf16_chunks3(v: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """Three bf16 chunks of fp32 ``v``, v ≈ c1 + c2 + c3, bit-equal to the
+    JAX module's: c1 and c2 are cut by clearing the low 16 bits of the fp32
+    pattern (so each is exactly a bf16 value and the residuals are exact
+    fp32 subtractions), c3 is the second residual rounded to bf16."""
+    def cut(x: Tensor) -> Tensor:
+        return (x.contiguous().view(torch.int32) & _HIGH_16).view(torch.float32)
+
+    c1 = cut(v)
+    r1 = v - c1
+    c2 = cut(r1)
+    r2 = r1 - c2
+    return c1.to(torch.bfloat16), c2.to(torch.bfloat16), r2.to(torch.bfloat16)
+
+
+# The mask that keeps the sign, the exponent and the top 7 mantissa bits of
+# an fp32 pattern: a bf16 value.
+_HIGH_16 = ~0xFFFF
+
+
+def _einsum_split6(axis: int, x: Tensor, w: Tensor) -> Tensor:
+    """An fp32 product as ONE product of depth 6K, the JAX module's
+    "split6": the six leading chunk products x1w1; x1w2 + x2w1; x1w3 +
+    x2w2 + x3w1 of :func:`_bf16_chunks3`, stacked on the contraction axis,
+    summed in fp32, fp32 out.  Never rounded to bf16.  On the card the
+    product runs in IEEE fp32 (TF32 off): both tensor-core forms of it (TF32
+    products of the chunks; bf16 chunks with an fp32 output) summed the
+    6K-deep product less exactly and missed split6's 5e-6 bound (PERF.md §6,
+    ``tools/tune.py split6``)."""
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        raise ValueError(
+            f"precision 'split6' needs fp32 planes, got dtype {x.dtype}: its "
+            f"chunks are cut from the fp32 bit pattern")
+    x1, x2, x3 = _bf16_chunks3(x)
+    w1, w2, w3 = _bf16_chunks3(w)
+    xs = torch.cat([x1, x1, x2, x1, x2, x3], dim=axis)
+    ws = torch.cat([w1, w2, w1, w3, w2, w1], dim=0)
+    if axis == -2:   # z[..., m, k] = Σ_n W[n, m] x[..., n, k]
+        xs, ws = ws.transpose(0, 1), xs
+    with matmul_precision("highest"):
+        return torch.matmul(xs.float(), ws.float())
+
+
+def _dot(axis: int, x: Tensor, w: Tensor, precision: str) -> Tensor:
+    """One dense stage product at ``precision`` over ``axis`` (see
+    :func:`_dft_apply`)."""
+    if precision == "split6":
+        return _einsum_split6(axis, x, w)
+    with matmul_precision(precision):
+        return torch.matmul(x, w) if axis == -1 else torch.matmul(w.transpose(0, 1), x)
+
+
 def _dft_apply(
-    axis: int, xr: Tensor, xi: Tensor, wr: Tensor, wi: Tensor
+    axis: int, xr: Tensor, xi: Tensor, wr: Tensor, wi: Tensor,
+    precision: str = "highest",
 ) -> Tuple[Tensor, Tensor]:
-    """Dense complex DFT stage over ``axis`` (-1 or -2).
+    """Dense complex DFT stage over ``axis`` (-1 or -2) at ``precision``.
 
     axis -1: z[..., k] = Σ_n x[..., n] W[n, k];
     axis -2: z[..., m, k] = Σ_n x[..., n, k] W[n, m].
     """
     f = wr.shape[0]
-    if axis == -1:
-        dot = torch.matmul
-    else:
-        dot = lambda a, w: torch.matmul(w.transpose(0, 1), a)
+
+    def dot(a, w):
+        return _dot(axis, a, w, precision)
+
     if f >= KARATSUBA_MIN_STAGE:
         m1 = dot(xr, wr)
         m2 = dot(xi, wi)
@@ -95,13 +153,14 @@ def _bfly4(pr, pi, sign: int):
 
 # The W8/W16 constants (√½, cos π/8, sin π/8) for each working dtype,
 # rounded from float64 to it: fp32 planes get the JAX package's fp32 values,
-# float64 planes keep every bit.
+# float64 planes keep every bit, 2-byte planes the values the JAX package's
+# scalar takes at their dtype.
 _BFLY_CONSTS = {
     dtype: tuple(
-        float(np.asarray(v, dtype=np_dtype))
+        float(torch.tensor(v, dtype=torch.float64).to(dtype))
         for v in (np.sqrt(0.5), np.cos(np.pi / 8), np.sin(np.pi / 8))
     )
-    for dtype, np_dtype in ((torch.float32, np.float32), (torch.float64, np.float64))
+    for dtype in (torch.float32, torch.float64, torch.bfloat16, torch.float16)
 }
 
 
@@ -190,6 +249,9 @@ def _exec_level(
         X[n_rem·k1 + k2] = Σ_{n1} W_f^{n1·k1} · T[n1,k2] · FFT_{n_rem}(x[f·:+n1])[k2]
     """
     factors = plan.factors
+    prec = plan.precision
+    if isinstance(prec, tuple):  # per-stage scheme
+        prec = prec[min(level, len(prec) - 1)]
     f = factors[level]
     bfly = (
         plan.butterfly
@@ -199,7 +261,7 @@ def _exec_level(
     if level == len(factors) - 1:
         if bfly:
             return _butterfly_stage(f, plan.sign, -1, xr, xi)
-        return _dft_apply(-1, xr, xi, consts["dft_re"][level], consts["dft_im"][level])
+        return _dft_apply(-1, xr, xi, consts["dft_re"][level], consts["dft_im"][level], prec)
     n_rem = math.prod(factors[level + 1 :])
     batch = xr.shape[:-1]
     # (..., N_cur) -> (..., n2, n1) -> (..., n1, n2): sub-transform over the last axis
@@ -210,7 +272,7 @@ def _exec_level(
     if bfly:
         zr, zi = _butterfly_stage(f, plan.sign, -2, yr, yi)
     else:
-        zr, zi = _dft_apply(-2, yr, yi, consts["dft_re"][level], consts["dft_im"][level])
+        zr, zi = _dft_apply(-2, yr, yi, consts["dft_re"][level], consts["dft_im"][level], prec)
     return zr.reshape(*batch, f * n_rem), zi.reshape(*batch, f * n_rem)
 
 
@@ -221,7 +283,17 @@ def exec_mixed_radix(
     by the API layer per its ``norm`` argument."""
     if plan.n == 1:
         return xr, xi
-    return _exec_level(plan, device_constants(plan, xr.device), 0, xr, xi)
+    with matmul_precision(_flags_precision(plan)):
+        return _exec_level(plan, device_constants(plan, xr.device), 0, xr, xi)
+
+
+def _flags_precision(plan) -> str:
+    """The precision a transform of ``plan`` sets torch's flags to, once for
+    all its products: its first stage's ("highest" for split6, whose
+    products run in IEEE fp32).  A stage at another precision sets its own."""
+    prec = getattr(plan, "inner", plan).precision
+    prec = prec[0] if isinstance(prec, tuple) else prec
+    return "highest" if prec == "split6" else prec
 
 
 def exec_bluestein(plan: BluesteinPlan, xr: Tensor, xi: Tensor) -> Tuple[Tensor, Tensor]:
@@ -269,9 +341,11 @@ def exec_rader(plan: RaderPlan, xr: Tensor, xi: Tensor) -> Tuple[Tensor, Tensor]
 def exec_complex(plan, xr: Tensor, xi: Tensor) -> Tuple[Tensor, Tensor]:
     """Dispatch on plan type."""
     if isinstance(plan, BluesteinPlan):
-        return exec_bluestein(plan, xr, xi)
+        with matmul_precision(_flags_precision(plan)):
+            return exec_bluestein(plan, xr, xi)
     if isinstance(plan, RaderPlan):
-        return exec_rader(plan, xr, xi)
+        with matmul_precision(_flags_precision(plan)):
+            return exec_rader(plan, xr, xi)
     return exec_mixed_radix(plan, xr, xi)
 
 

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..utils.config import DEFAULT_CONFIG, SpectralConfig
-from ..utils.numerics import as_tensor, fp32_matmul, to_host
+from ..utils.numerics import as_tensor, matmul_precision, to_host
 
 __all__ = ["corr_matrix", "music", "root_music", "esprit", "prony",
            "pisarenko"]
@@ -42,7 +42,7 @@ def corr_matrix(x, m: int, *, config: SpectralConfig = DEFAULT_CONFIG
     if not x.is_complex():
         x = x.to(torch.float32)
     snaps = x.unfold(0, m, 1)  # (n-m+1, m)
-    with fp32_matmul():
+    with matmul_precision():
         R = torch.matmul(snaps.transpose(0, 1), snaps.conj()) / (n - m + 1)
     Rh = to_host(R, np.complex128)
     J = np.eye(m)[::-1]

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..utils.config import DEFAULT_CONFIG, SpectralConfig
-from ..utils.numerics import as_tensor, constant, pad_last
+from ..utils.numerics import as_tensor, complex_dtype, constant, pad_last
 from .fft import fft, fftshift, ifft
 from .signal import hilbert
 from .stft import get_window
@@ -591,7 +591,7 @@ def stockwell(
     if gamma <= 0:
         raise ValueError(f"gamma must be > 0, got {gamma}")
     z = x.to(config.dtype)
-    X = fft(z.to(z.dtype.to_complex()), config=config)
+    X = fft(z.to(complex_dtype(z.dtype)), config=config)
     ks = np.arange(fmin, fmax + 1)
     idx = np.arange(T)
     j = np.where(idx < (T + 1) // 2, idx, idx - T)  # signed bin offsets

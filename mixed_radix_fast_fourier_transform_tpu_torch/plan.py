@@ -2,9 +2,11 @@
 
 Counterpart of ``mixed_radix_fast_fourier_transform_tpu/plan.py``.  Plans
 are immutable and hold their constants as host numpy arrays, built in fp64
-and cast to the config's working dtype (fp32 or float64) exactly as the JAX
-package builds them, so both packages run the same stage factors with the
-same constants.
+and rounded to the config's working dtype exactly as the JAX package rounds
+them, so both packages run the same stage factors with the same constants.
+numpy has no bf16: a bf16 plan keeps its tables in fp32 arrays that hold
+bf16 values (rounded from fp64 by torch, bit-equal to the JAX package's
+ml_dtypes rounding), and the upload casts them to the plan's ``dtype``.
 
 What the port adds is :func:`device_constants`: the tensors of a plan's
 constants on one device, uploaded once per (plan, device) and cached on the
@@ -23,6 +25,9 @@ import numpy as np
 import torch
 
 from .utils.config import DEFAULT_CONFIG, SpectralConfig
+# canonical lower-case name, or tuple of per-stage names, of a config's
+# precision (the JAX package's function of the same name)
+from .utils.config import precision_name as _precision_str
 from .utils.factorize import (
     is_prime,
     is_smooth,
@@ -36,8 +41,19 @@ from .utils.twiddle import chirp, dft_matrix, split_twiddles, twiddle_split
 
 def _host_dtype(config: SpectralConfig):
     """The numpy dtype of a plan's host constants: the config's working
-    dtype."""
-    return np.float64 if config.dtype == torch.float64 else np.float32
+    dtype (fp32 for bf16, whose values the tables hold; see :func:`_round`)."""
+    return {torch.float64: np.float64, torch.float16: np.float16}.get(
+        config.dtype, np.float32)
+
+
+def _round(a, config: SpectralConfig) -> np.ndarray:
+    """fp64 host values ``a`` rounded to the config's working dtype, as a
+    numpy array of :func:`_host_dtype`: one rounding from fp64 (numpy's for
+    fp16, torch's for bf16), as the JAX package's ``np.asarray(a, dtype)``."""
+    if config.dtype == torch.bfloat16:
+        t = torch.from_numpy(np.asarray(a, np.float64)).to(torch.bfloat16)
+        return t.to(torch.float32).numpy()
+    return np.asarray(a, dtype=_host_dtype(config))
 
 
 def _device_cache():
@@ -50,19 +66,24 @@ class MixedRadixPlan:
 
     ``factors`` are dense DFT stage sizes (descending, product = n).
     ``tw_*[i]`` are the Cooley-Tukey split twiddles between stage i and the
-    remainder, shape (f_i, prod(factors[i+1:])).  ``butterfly`` runs stages
+    remainder, shape (f_i, prod(factors[i+1:])).  ``precision`` is the
+    stage products' precision, one name or a tuple of per-stage names
+    (stage i uses precision[min(i, len-1)]).  ``butterfly`` runs stages
     of size 2..``butterfly_max`` (powers of two) as elementwise butterflies.
+    ``dtype`` is the working dtype the tables are uploaded at.
     """
 
     n: int
     sign: int
     factors: Tuple[int, ...]
+    precision: "str | Tuple[str, ...]" = "highest"
     butterfly: bool = False
     butterfly_max: int = 8
     dft_re: Tuple[np.ndarray, ...] = ()
     dft_im: Tuple[np.ndarray, ...] = ()
     tw_re: Tuple[np.ndarray, ...] = ()
     tw_im: Tuple[np.ndarray, ...] = ()
+    dtype: torch.dtype = torch.float32
     _device: Dict = _device_cache()
 
 
@@ -80,6 +101,7 @@ class BluesteinPlan:
     chirp_im: np.ndarray = None
     spec_re: np.ndarray = None
     spec_im: np.ndarray = None
+    dtype: torch.dtype = torch.float32
     _device: Dict = _device_cache()
 
 
@@ -96,6 +118,7 @@ class RaderPlan:
     perm_out: np.ndarray = None   # output bin k (1..n−1) -> conv index m
     spec_re: np.ndarray = None
     spec_im: np.ndarray = None
+    dtype: torch.dtype = torch.float32
     _device: Dict = _device_cache()
 
 
@@ -114,6 +137,7 @@ class RealPlan:
     p_im: np.ndarray = None
     q_re: np.ndarray = None
     q_im: np.ndarray = None
+    dtype: torch.dtype = torch.float32
     _device: Dict = _device_cache()
 
 
@@ -122,15 +146,16 @@ ComplexPlan = (MixedRadixPlan, BluesteinPlan, RaderPlan)
 _DEVICE_LOCK = threading.Lock()
 
 
-def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    # index arrays become int64 for torch.index_select
+def _upload(a: np.ndarray, device: torch.device, dtype) -> torch.Tensor:
+    # index arrays become int64 for torch.index_select; float tables take
+    # the plan's working dtype (``dtype`` None: as they are)
     if np.issubdtype(a.dtype, np.integer):
-        a = a.astype(np.int64)
+        a, dtype = a.astype(np.int64), None
     # the constants outlive the call that first needs them: made under
     # torch.inference_mode() they would be inference tensors, which a later
     # call under autograd could not use
     with torch.inference_mode(False):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
 
 
 def device_constants(plan, device) -> Dict[str, object]:
@@ -142,12 +167,13 @@ def device_constants(plan, device) -> Dict[str, object]:
     if consts is not None:
         return consts
     consts = {}
+    dtype = getattr(plan, "dtype", None)
     for f in dataclasses.fields(plan):
         v = getattr(plan, f.name)
         if isinstance(v, np.ndarray):
-            consts[f.name] = _upload(v, device)
+            consts[f.name] = _upload(v, device, dtype)
         elif isinstance(v, tuple) and v and isinstance(v[0], np.ndarray):
-            consts[f.name] = tuple(_upload(a, device) for a in v)
+            consts[f.name] = tuple(_upload(a, device, dtype) for a in v)
     if torch.compiler.is_exporting():
         # made while torch.export traces, these are the tracer's tensors,
         # which no later call could use: not kept
@@ -156,9 +182,9 @@ def device_constants(plan, device) -> Dict[str, object]:
         return plan._device.setdefault(device, consts)
 
 
-def _host(pair, dtype) -> Tuple[np.ndarray, np.ndarray]:
+def _host(pair, config: SpectralConfig) -> Tuple[np.ndarray, np.ndarray]:
     re, im = pair
-    return np.asarray(re, dtype=dtype), np.asarray(im, dtype=dtype)
+    return _round(re, config), _round(im, config)
 
 
 def build_mixed_radix_plan(
@@ -174,27 +200,28 @@ def build_mixed_radix_plan(
         factors: Tuple[int, ...] = (n,)
     else:
         factors = plan_stages(n, config.max_stage, config.stage_strategy)
-    dtype = _host_dtype(config)
     dft_re, dft_im, tw_re, tw_im = [], [], [], []
     for i, f in enumerate(factors):
-        wr, wi = _host(dft_matrix(f, sign, np.float64), dtype)
+        wr, wi = _host(dft_matrix(f, sign, np.float64), config)
         dft_re.append(wr)
         dft_im.append(wi)
         if i < len(factors) - 1:
             n_rem = math.prod(factors[i + 1 :])
-            tr, ti = _host(twiddle_split(f, n_rem, f * n_rem, sign, np.float64), dtype)
+            tr, ti = _host(twiddle_split(f, n_rem, f * n_rem, sign, np.float64), config)
             tw_re.append(tr)
             tw_im.append(ti)
     return MixedRadixPlan(
         n=n,
         sign=sign,
         factors=factors,
+        precision=_precision_str(config.precision),
         butterfly=config.butterfly != "off",
         butterfly_max=8 if config.butterfly == "8" else 16,
         dft_re=tuple(dft_re),
         dft_im=tuple(dft_im),
         tw_re=tuple(tw_re),
         tw_im=tuple(tw_im),
+        dtype=config.dtype,
     )
 
 
@@ -226,16 +253,16 @@ def build_bluestein_plan(
     c[m - n + 1 :] = np.conj(w64)[1:][::-1]
     # fp64 spectrum of the chirp kernel with the inverse inner FFT's 1/m
     spec = np.fft.fft(c) / m
-    dtype = _host_dtype(config)
     return BluesteinPlan(
         n=n,
         sign=sign,
         m=m,
         inner=inner,
-        chirp_re=np.asarray(wr64, dtype=dtype),
-        chirp_im=np.asarray(wi64, dtype=dtype),
-        spec_re=np.asarray(spec.real, dtype=dtype),
-        spec_im=np.asarray(spec.imag, dtype=dtype),
+        chirp_re=_round(wr64, config),
+        chirp_im=_round(wi64, config),
+        spec_re=_round(spec.real, config),
+        spec_im=_round(spec.imag, config),
+        dtype=config.dtype,
     )
 
 
@@ -275,8 +302,9 @@ def build_rader_plan(
         inner=inner,
         perm_in=perm_in.astype(np.int32),
         perm_out=perm_out.astype(np.int32),
-        spec_re=np.asarray(spec.real, dtype=_host_dtype(config)),
-        spec_im=np.asarray(spec.imag, dtype=_host_dtype(config)),
+        spec_re=_round(spec.real, config),
+        spec_im=_round(spec.imag, config),
+        dtype=config.dtype,
     )
 
 
@@ -305,14 +333,14 @@ def build_real_plan(
         raise ValueError(f"packed real FFT requires even length, got {n}")
     inner = build_complex_plan(n // 2, sign, config)
     c64, s64 = split_twiddles(n, sign, np.float64)
-    dt = _host_dtype(config)
     return RealPlan(
         n=n, sign=sign, inner=inner,
-        split_re=c64.astype(dt), split_im=s64.astype(dt),
-        p_re=((1.0 - sign * s64) / 2.0).astype(dt),
-        p_im=(sign * c64 / 2.0).astype(dt),
-        q_re=((1.0 + sign * s64) / 2.0).astype(dt),
-        q_im=(-sign * c64 / 2.0).astype(dt),
+        split_re=_round(c64, config), split_im=_round(s64, config),
+        p_re=_round((1.0 - sign * s64) / 2.0, config),
+        p_im=_round(sign * c64 / 2.0, config),
+        q_re=_round((1.0 + sign * s64) / 2.0, config),
+        q_im=_round(-sign * c64 / 2.0, config),
+        dtype=config.dtype,
     )
 
 
@@ -330,6 +358,7 @@ def _cfg_key(config: SpectralConfig):
         config.rader,
         config.butterfly,
         str(config.dtype),
+        str(config.precision),
     )
 
 

@@ -16,6 +16,10 @@ Usage (on the card unless ``--device cpu``)::
     python -m ....tools.tune kernel all            # every length the kernel takes
     python -m ....tools.tune builtin 1024 256      # the default route vs torch.fft
     python -m ....tools.tune split 3600 64 120x30 144x25
+    python -m ....tools.tune precision 1024 256    # the matmul precision ladder
+    python -m ....tools.tune prec 1024 256 highest,high   # per-stage schemes
+    python -m ....tools.tune split6 10007 16       # split6's product forms
+    python -m ....tools.tune tf32emu               # "default" as TF32, on the CPU
     python -m ....tools.tune butterfly 65536 16
     python -m ....tools.tune matmul_form 1024 256  # stacked vs Karatsuba stages
     python -m ....tools.tune rader 1009 64         # Rader vs Bluestein
@@ -23,9 +27,10 @@ Usage (on the card unless ``--device cpu``)::
     python -m ....tools.tune sortspread 4096 65536      # 1-D; 2-D with a trailing 2
     python -m ....tools.tune sht 256 16            # Hermitian vs full SHT
 
-``--short S`` and ``--rounds R`` cut a probe's chains (long = 5·S).  The
-JAX script's ``precision`` and ``prec`` have no counterpart: the port runs
-fp32 only and has no precision lever.
+``--short S`` and ``--rounds R`` cut a probe's chains (long = 5·S).
+``precision`` and ``prec`` print each scheme's error against numpy float64
+beside its time against all-"highest": on the card "high" and "default" are
+TF32 products, on the CPU they are fp32 (the decision needs both columns).
 """
 
 from __future__ import annotations
@@ -44,13 +49,9 @@ from ..ops import stockham as st
 from ..ops.sht import isht, sht
 from ..ops.stockham import exec_complex, exec_len
 from ..utils.config import DEFAULT_CONFIG, SpectralConfig
-from ..utils.numerics import resolve_device
+from ..utils.numerics import matmul_precision, resolve_device
 from ..utils.profiling import ab_compare, graph_time, marginal_time
 
-NO_PRECISION_LEVER = (
-    "the PyTorch port computes in fp32 only and has no precision lever "
-    "(ROADMAP, 'Decisions that stand'): '{}' has no counterpart here"
-)
 SWEEP_VALUES = 1 << 22   # complex values a call of the `kernel all` sweep
 SWEEP_ERROR_ROWS = 8     # rows of each length held against float64
 
@@ -255,6 +256,147 @@ def tune_builtin(n: int, b: int, *, device=None, short=None, rounds=None) -> dic
                     lambda a, c: exec_len(DEFAULT_CONFIG, n, -1, a, c), args, short, long, rounds)
 
 
+def _err_of(plan, args, want) -> float:
+    zr, zi = exec_complex(plan, *args)
+    return _rel(torch.complex(zr, zi), want)
+
+
+def tune_precision(n: int, b: int, *, device=None, short=None, rounds=None) -> dict:
+    """The stage products' precision ladder: each precision's error against
+    numpy float64, and "highest" against each of the others."""
+    short, long, rounds = _knobs(short, rounds, 100, 500)
+    args, x = _planes(n, b, device)
+    want = np.fft.fft(x, axis=-1)
+    plans, out = {}, {}
+    for prec in ("highest", "high", "default", "split6"):
+        plans[prec] = P.build_complex_plan(
+            n, -1, dataclasses.replace(DEFAULT_CONFIG, precision=prec))
+        out[prec] = {"err": _err_of(plans[prec], args, want)}
+        print(f"{prec}: err {out[prec]['err']:.2e}")
+    for prec in ("high", "default", "split6"):
+        print(f"highest vs {prec}:")
+        out[prec].update(_compare("highest", _run(plans["highest"]), prec, _run(plans[prec]),
+                                  args, short, long, rounds))
+    return out
+
+
+def tune_prec(n: int, b: int, cands, *, device=None, short=None, rounds=None) -> dict:
+    """Per-stage precision schemes against all-"highest": ``cands`` are
+    comma-joined per-stage names, "highest,high" (stage 0 "highest", the
+    rest "high").  Each scheme's error against numpy float64 beside its
+    time (the budget is 1e-5)."""
+    short, long, rounds = _knobs(short, rounds, min(500, max(50, 700_000 // n)),
+                                 5 * min(500, max(50, 700_000 // n)))
+    args, x = _planes(n, b, device)
+    want = np.fft.fft(x, axis=-1)
+    base = P.build_complex_plan(n, -1, DEFAULT_CONFIG)
+    print(f"N={n} b={b} factors={getattr(base, 'factors', type(base).__name__)}")
+    out = {"all-highest": {"err": _err_of(base, args, want)}}
+    print(f"  all-highest: err {out['all-highest']['err']:.2e}")
+    for cand in cands:
+        scheme = tuple(v.strip() for v in cand.split(","))
+        plan = P.build_complex_plan(n, -1, dataclasses.replace(DEFAULT_CONFIG, precision=scheme))
+        err = _err_of(plan, args, want)
+        print(f"scheme {scheme}: err {err:.2e}")
+        out[cand] = dict(_compare("all-highest", _run(base), cand, _run(plan),
+                                  args, short, long, rounds), err=err)
+    return out
+
+
+def _split6_form(form: str):
+    """split6's stage product (``stockham._einsum_split6``) in a tensor-core
+    form the library does not take: "tf32" multiplies the fp32 copies of the
+    bf16-exact chunks with TF32 allowed, "bf16" the bf16 chunks themselves
+    with an fp32 output (``torch.mm(..., out_dtype=torch.float32)``, on the
+    card only)."""
+    def product(axis, x, w):
+        x1, x2, x3 = st._bf16_chunks3(x)
+        w1, w2, w3 = st._bf16_chunks3(w)
+        xs = torch.cat([x1, x1, x2, x1, x2, x3], dim=axis)
+        ws = torch.cat([w1, w2, w1, w3, w2, w1], dim=0)
+        if axis == -2:
+            xs, ws = ws.transpose(0, 1), xs
+        if form == "tf32":
+            with matmul_precision("high"):
+                return torch.matmul(xs.float(), ws.float())
+        if xs.ndim == 2:   # (m, n) @ (..., n, k): columns of ws side by side
+            lead = ws.shape[:-2]
+            cols = ws.movedim(-2, 0).reshape(ws.shape[-2], -1)
+            out = torch.mm(xs, cols, out_dtype=torch.float32)
+            return out.reshape((xs.shape[0],) + tuple(lead) + (ws.shape[-1],)).movedim(0, -2)
+        out = torch.mm(xs.reshape(-1, xs.shape[-1]), ws, out_dtype=torch.float32)
+        return out.reshape(tuple(xs.shape[:-1]) + (ws.shape[-1],))
+    return product
+
+
+def tune_split6(n: int, b: int, *, device=None, short=None, rounds=None) -> dict:
+    """split6's product forms on one plan: the library's IEEE fp32 form
+    against the TF32 and bf16 tensor-core forms, each form's error against
+    numpy float64 (split6's bound is 5e-6) beside its device time."""
+    args, x = _planes(n, b, device)
+    want = np.fft.fft(x, axis=-1)
+    plan = P.build_complex_plan(n, -1, dataclasses.replace(DEFAULT_CONFIG, precision="split6"))
+    on_card = args[0].device.type == "cuda"
+    kept, out = st._einsum_split6, {}
+    for form in ("fp32", "tf32", "bf16"):
+        if form == "bf16" and not on_card:
+            print("bf16: the card's form only (torch.mm with out_dtype)")
+            continue
+        if form != "fp32":
+            st._einsum_split6 = _split6_form(form)
+        try:
+            out[form] = {"err": _err_of(plan, args, want)}
+            if on_card:
+                out[form]["device_us"] = _device_us(_run(plan), args)
+        finally:
+            st._einsum_split6 = kept
+        print(f"split6 {form} form: err {out[form]['err']:.2e}"
+              + (f", device us {out[form]['device_us']}" if on_card else ""))
+    return out
+
+
+# chip_smoke.py phase 4b's pipeline shapes (n, rows)
+PHASE_4B_SHAPES = ((1009, 64), (10007, 16), (32768, 16), (65536, 16), (1024, 256))
+
+
+def tune_tf32emu(shapes=PHASE_4B_SHAPES) -> dict:
+    """The stage pipeline's error against numpy float64 at "default" with
+    its products emulated as TF32 on the CPU (each operand's 13 low mantissa
+    bits rounded to nearest, or cut, then an fp32 product), at ``shapes``
+    (phase 4b's), one generator across them: what the card's TF32 error can
+    be held against."""
+    def tf32(v, nearest):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000 if nearest else bits) & ~0x1FFF).view(torch.float32)
+
+    kept = st._dot
+
+    def emulated(nearest):
+        def dot(axis, a, w, precision):
+            if precision in ("high", "default") and a.dtype == torch.float32:
+                return kept(axis, tf32(a, nearest), tf32(w, nearest), "highest")
+            return kept(axis, a, w, precision)
+        return dot
+
+    cfg = dataclasses.replace(DEFAULT_CONFIG, precision="default", use_kernel=False)
+    rng = np.random.default_rng(0)
+    out = {}
+    for n, b in shapes:
+        x = rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))
+        xt = torch.from_numpy(x.astype(np.complex64))
+        errs = []
+        for nearest in (True, False):
+            st._dot = emulated(nearest)
+            try:
+                zr, zi = exec_len(cfg, n, -1, xt.real.contiguous(), xt.imag.contiguous())
+            finally:
+                st._dot = kept
+            errs.append(_rel(torch.complex(zr, zi), np.fft.fft(x)))
+        out[n] = {"rounded": errs[0], "cut": errs[1]}
+        print(f"n={n} b={b}: TF32-emulated default, rounded {errs[0]:.2e}, cut {errs[1]:.2e}")
+    return out
+
+
 def _plan_with(n: int, stages=None, butterfly=None):
     """The plan of n with ``stages`` forced as its split (plan_stages
     replaced for this one build) and ``butterfly`` set where given."""
@@ -443,7 +585,8 @@ def tune_sht(L: int, b: int, *, device=None, short=None, rounds=None) -> dict:
 PROBES = {
     "stages": tune_stages, "pad": tune_pad, "kernel": tune_kernel, "builtin": tune_builtin,
     "matmul_form": tune_matmul_form, "rader": tune_rader, "butterfly": tune_butterfly,
-    "nufft": tune_nufft, "sht": tune_sht,
+    "nufft": tune_nufft, "sht": tune_sht, "precision": tune_precision,
+    "split6": tune_split6,
 }
 
 
@@ -457,9 +600,6 @@ def main(argv=None) -> int:
     ap.add_argument("--short", type=int, default=None)
     ap.add_argument("--rounds", type=int, default=None)
     a = ap.parse_args(argv)
-    if a.which in ("precision", "prec"):
-        print(NO_PRECISION_LEVER.format(a.which), file=sys.stderr)
-        return 2
     knobs = dict(device=a.device, short=a.short, rounds=a.rounds)
     # the timing chains scale each output by 1e-3 and feed it back, so values
     # fall through the subnormal range, where a CPU's float units run many
@@ -471,13 +611,17 @@ def main(argv=None) -> int:
             tune_kernel_all(device=a.device)
         elif a.which == "split":
             tune_split(int(a.n), a.b, a.extra, **knobs)
+        elif a.which == "prec":
+            tune_prec(int(a.n), a.b, a.extra or ["highest,high"], **knobs)
+        elif a.which == "tf32emu":
+            tune_tf32emu()
         elif a.which == "sortspread":
             tune_sortspread(int(a.n), a.b, int(a.extra[0]) if a.extra else 1, **knobs)
         elif a.which in PROBES:
             PROBES[a.which](int(a.n), a.b, **knobs)
         else:
             ap.error(f"unknown probe {a.which!r}; one of "
-                     f"{sorted(PROBES) + ['split', 'sortspread']}")
+                     f"{sorted(PROBES) + ['prec', 'split', 'sortspread', 'tf32emu']}")
     finally:
         torch.set_flush_denormal(False)
     return 0

@@ -6,14 +6,34 @@ packages build the same plans and their outputs compare stage for stage.
 Those defaults were tuned on another accelerator and are kept for parity
 only; none of them is evidence for the GPU.
 
-The working dtype is fp32 (the default) or float64 (``dtype=torch.float64``,
-the JAX package's x64 route): the stage pipeline and every op that reads
-``config.dtype`` then compute in float64 on the device, and the fused
-kernel, which is fp32 by construction, is never taken.  There is no
-``precision`` lever and no bf16 (the JAX package's reduced-precision passes
-exist for the TPU's bf16 matrix unit).  TF32 stays off for the stage
-matmuls; callers that need fp32 accuracy on the GPU keep
-``torch.backends.cuda.matmul.allow_tf32`` False, which is PyTorch's default.
+The working dtype (``dtype``) is fp32 (the default), float64 (the JAX
+package's x64 route: the stage pipeline and every op that reads
+``config.dtype`` compute in float64, and the fused kernel is never taken),
+or one of the two 2-byte types, ``torch.bfloat16`` and ``torch.float16``
+(the JAX package's working-dtype mode for ML pipelines: the planes, the
+stage products and the plan tables are at that dtype, products accumulate
+in fp32 and round to it, and complex results are complex64, as the JAX
+package returns them).  The fused kernel takes fp32 and 2-byte planes; it
+loads 2-byte values into fp32, computes in fp32 and rounds its stores.
+
+The matrix-product precision (``precision``) follows ``jax.lax.Precision``
+on a GPU.  "highest" (the default) is IEEE fp32 everywhere.  "high" and
+"default" let fp32 products on a CUDA tensor run in TF32 on the tensor cores
+(``torch.backends.cuda.matmul.allow_tf32``, and cuDNN's flag for a product
+computed as a convolution, set only around the product); on the CPU they are
+fp32, since torch's CPU products ignore the flag as XLA:CPU ignores the
+lever.  "split6" (stage products only) cuts each fp32 operand into three
+bf16-exact chunks and sums the six leading chunk products in fp32 on every
+device (on the card with IEEE fp32 FMAs: the tensor cores' accumulation
+missed split6's 5e-6 bound there, ``tools/tune.py split6``); a
+tuple of these names gives one per stage (stage i takes
+``precision[min(i, len - 1)]``).  Every op outside the stage pipeline reads
+``op_precision``, where a tuple or "split6" is "highest".  The fused kernel
+ignores the lever, as the JAX kernel does.
+
+Select them as ``SpectralConfig(precision="high")`` or
+``SpectralConfig(dtype=torch.bfloat16)``; both combine with every other
+field (but "split6" needs fp32 planes).
 """
 
 from __future__ import annotations
@@ -26,7 +46,25 @@ import torch
 # that the JAX package fixes at float32.
 DTYPE = torch.float32
 # The working dtypes a config may name.
-DTYPES = (torch.float32, torch.float64)
+DTYPES = (torch.float32, torch.float64, torch.bfloat16, torch.float16)
+# The matrix-product precisions, as ``jax.lax.Precision`` names them, and the
+# stage pipeline's own "split6".
+PRECISIONS = ("highest", "high", "default")
+STAGE_PRECISIONS = PRECISIONS + ("split6",)
+
+
+def precision_name(p):
+    """``p`` in canonical form: a lower-case name, or a tuple of them (one
+    per stage).  Raises ValueError, naming the field, for anything else."""
+    if isinstance(p, str) and p.lower() in STAGE_PRECISIONS:
+        return p.lower()
+    if isinstance(p, (tuple, list)) and p and all(
+            isinstance(q, str) and q.lower() in STAGE_PRECISIONS for q in p):
+        return tuple(q.lower() for q in p)
+    raise ValueError(
+        f"precision must be 'highest', 'high', 'default', 'split6' or a "
+        f"non-empty tuple of them (one per stage), got {p!r}"
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,9 +77,16 @@ class SpectralConfig:
     # Stage grouping: "balanced" (fewest stages, then equal sizes) or
     # "greedy" (descending-prime packing).
     stage_strategy: str = "balanced"
-    # Working dtype of the (re, im) planes on the device: torch.float32 or
-    # torch.float64.  Complex results are complex64 or complex128 to match.
+    # Working dtype of the (re, im) planes on the device: torch.float32,
+    # torch.float64, torch.bfloat16 or torch.float16.  Complex results are
+    # complex128 for float64 and complex64 otherwise.
     dtype: torch.dtype = DTYPE
+    # Matrix-product precision of the stage DFTs: "highest" (fp32),
+    # "high"/"default" (TF32 on a CUDA tensor, fp32 on the CPU), "split6"
+    # (three bf16-exact chunks a side, six products summed in fp32), or a
+    # tuple of those, one per stage (stage i uses precision[min(i, len-1)]).
+    # Names are case-insensitive.  Other ops read ``op_precision``.
+    precision: "str | tuple" = "highest"
     # Padded length for Bluestein and convolution: "pow23" (smallest 2^a or
     # 3·2^a), "pow2" or "fast" (2·3·5·7-smooth).
     pad_mode: str = "pow23"
@@ -65,16 +110,26 @@ class SpectralConfig:
     # (phase 27), so short rows are the kernel's to win (ROADMAP queue 2).
     use_kernel: "bool | None" = None
 
+    @property
+    def op_precision(self) -> str:
+        """``precision`` for the products outside the stage pipeline: the
+        per-stage tuples and "split6" belong to the stage products only and
+        resolve to "highest", their accuracy's equal."""
+        p = precision_name(self.precision)
+        return "highest" if isinstance(p, tuple) or p == "split6" else p
+
     def __post_init__(self):
         if self.dtype not in DTYPES:
             raise ValueError(
-                f"dtype must be torch.float32 or torch.float64, got {self.dtype!r}"
+                "dtype must be torch.float32, torch.float64, torch.bfloat16 "
+                f"or torch.float16, got {self.dtype!r}"
             )
-        if self.dtype != torch.float32 and self.use_kernel:
+        if self.dtype == torch.float64 and self.use_kernel:
             raise ValueError(
-                "use_kernel=True needs dtype=torch.float32: the fused kernel "
-                "is fp32 only"
+                "use_kernel=True does not take dtype=torch.float64: the fused "
+                "kernel computes in fp32"
             )
+        precision_name(self.precision)
         if self.pad_mode not in ("pow2", "pow23", "fast"):
             raise ValueError(
                 f"pad_mode must be 'pow2', 'pow23' or 'fast', got {self.pad_mode!r}"

@@ -8,14 +8,13 @@ the compensated SHT recurrence build on.
 
 from __future__ import annotations
 
-import contextlib
 import threading
 from typing import Dict, Hashable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .config import DTYPE
+from .config import DTYPE, PRECISIONS
 from .metrics import incr
 
 Tensor = torch.Tensor
@@ -108,7 +107,13 @@ def working(x, dtype=DTYPE) -> Tensor:
     complex counterpart for complex data; other dtypes and integers are
     cast, as the engine's own entry points cast them."""
     x = as_tensor(x)
-    return x.to(dtype.to_complex() if x.is_complex() else dtype)
+    return x.to(complex_dtype(dtype) if x.is_complex() else dtype)
+
+
+def complex_dtype(dtype) -> torch.dtype:
+    """The complex dtype of results at working dtype ``dtype``: complex128
+    for float64, complex64 otherwise (2-byte planes widen to it)."""
+    return torch.complex128 if dtype == torch.float64 else torch.complex64
 
 
 def as_tensors(*xs) -> Tuple[Tensor, ...]:
@@ -135,7 +140,11 @@ def to_planes(x, dtype=DTYPE) -> Tuple[Tensor, Tensor]:
 
 def from_planes(re: Tensor, im: Tensor) -> Tensor:
     """Combine (re, im) planes into a complex tensor of their precision
-    (complex64 for fp32 planes, complex128 for float64)."""
+    (complex64 for fp32 planes, complex128 for float64).  2-byte planes
+    (bf16, fp16) widen to complex64 at this boundary, as the JAX package's
+    do: the compute stayed at the working dtype."""
+    if re.dtype in (torch.bfloat16, torch.float16):
+        re, im = re.float(), im.float()
     return torch.complex(re, im)
 
 
@@ -192,17 +201,61 @@ def median(x: Tensor, dim: int = -1, keepdim: bool = False) -> Tensor:
     return out if keepdim else out.squeeze(dim)
 
 
-@contextlib.contextmanager
-def fp32_matmul():
-    """Matrix products in full fp32 inside the block, whatever the caller's
-    ``torch.backends.cuda.matmul.allow_tf32``: TF32's ~3 decimal digits
-    break the library's 1e-5 error budget."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
+class matmul_precision:
+    """Matrix products and convolutions inside the block at ``precision``,
+    as ``jax.lax.Precision`` defines it on a GPU, whatever the caller's
+    flags: "highest" is IEEE fp32 (TF32 off), "high" and "default" let fp32
+    products on a CUDA tensor run in TF32 (``torch.backends.cuda.matmul.
+    allow_tf32`` and ``torch.backends.cudnn.allow_tf32`` on).  Products of
+    2-byte operands accumulate in fp32 either way (cuBLAS's reduced-precision
+    reductions off), as XLA's ``preferred_element_type`` asks.  On the CPU
+    every setting computes in fp32: torch's CPU products ignore the flags.
+    The flags are restored on leaving.
+
+    The block writes only the flags that differ, and a block nested in one
+    of the same precision on the same thread reads none, so a transform
+    sets them once for all its stage products.  The flags are torch's and
+    process-wide: while a "high" block runs, fp32 products that other
+    threads launch may run in TF32 too."""
+
+    __slots__ = ("precision", "outer", "saved")
+
+    def __init__(self, precision: str = "highest"):
+        if precision not in PRECISIONS:
+            raise ValueError(
+                f"precision must be 'highest', 'high' or 'default', got {precision!r}"
+            )
+        self.precision = precision
+
+    def __enter__(self):
+        self.outer = getattr(_PRECISION, "active", None)
+        self.saved = None
+        if self.outer == self.precision:
+            return self
+        mm, dnn = torch.backends.cuda.matmul, torch.backends.cudnn
+        saved = (mm.allow_tf32, dnn.allow_tf32, mm.allow_bf16_reduced_precision_reduction,
+                 mm.allow_fp16_reduced_precision_reduction)
+        tf32 = self.precision != "highest"
+        if saved != (tf32, tf32, False, False):
+            self.saved = saved
+            mm.allow_tf32 = dnn.allow_tf32 = tf32
+            mm.allow_bf16_reduced_precision_reduction = False
+            mm.allow_fp16_reduced_precision_reduction = False
+        _PRECISION.active = self.precision
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.outer == self.precision:
+            return
+        if self.saved is not None:
+            mm, dnn = torch.backends.cuda.matmul, torch.backends.cudnn
+            (mm.allow_tf32, dnn.allow_tf32, mm.allow_bf16_reduced_precision_reduction,
+             mm.allow_fp16_reduced_precision_reduction) = self.saved
+        _PRECISION.active = self.outer
+
+
+# The precision of the innermost matmul_precision block on each thread.
+_PRECISION = threading.local()
 
 
 # ---------------------------------------------------------------------------

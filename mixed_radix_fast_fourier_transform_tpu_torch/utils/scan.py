@@ -31,7 +31,7 @@ from typing import Callable, Sequence, Union
 import numpy as np
 import torch
 
-from .numerics import constant, content_key, fp32_matmul
+from .numerics import constant, content_key, matmul_precision
 
 Tensor = torch.Tensor
 
@@ -70,7 +70,7 @@ def _scan_host(A: np.ndarray, c: Tensor, s0: Tensor) -> Tensor:
     if nb * L > n:
         c = torch.cat([c, c.new_zeros(nb * L - n, R, p)])
     blocks = c.reshape(nb, L, R, p).permute(1, 3, 0, 2).reshape(L * p, nb * R)
-    with fp32_matmul():
+    with matmul_precision():
         inner = (Td @ blocks).reshape(L, p, nb, R).permute(2, 0, 3, 1)  # (nb, L, R, p)
         if nb == 1:
             start = s0[None]
@@ -106,7 +106,7 @@ def _scan_device(a: Tensor, c: Tensor, s0: Tensor) -> Tensor:
     if nb * L > n:
         c = torch.cat([c, c.new_zeros(nb * L - n, R, G)])
     blocks = c.reshape(nb, L, R, G)
-    with fp32_matmul():
+    with matmul_precision():
         inner = torch.einsum("gij,njrg->nirg", T, blocks)                 # (nb, L, R, G)
     if nb == 1:
         start = s0[None]

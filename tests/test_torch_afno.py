@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from mixed_radix_fast_fourier_transform_tpu.models import afno as jafno
+from mixed_radix_fast_fourier_transform_tpu.utils.config import SpectralConfig as JaxConfig
 
 import mixed_radix_fast_fourier_transform_tpu_torch as tp
 from mixed_radix_fast_fourier_transform_tpu_torch.models import afno
@@ -110,6 +111,12 @@ def test_patch_and_block_divisibility_errors():
 
 
 def test_no_precision_lever():
-    """fp32 is the port's one precision: the JAX package's ``op_precision``
-    has no counterpart."""
-    assert not hasattr(tp.DEFAULT_CONFIG, "op_precision")
+    """The AFNO's spectral products read ``config.op_precision``, which
+    resolves as the JAX package's: "highest" by default, a lower-cased
+    name as it is, and the stage-only schemes (a per-stage tuple,
+    "split6") to "highest"."""
+    assert tp.DEFAULT_CONFIG.op_precision == "highest"
+    for prec in ("highest", "High", "default", "split6", ("highest", "high")):
+        want = JaxConfig(precision=prec).op_precision
+        assert tp.SpectralConfig(precision=prec).op_precision == (
+            want.lower() if isinstance(want, str) else want)

@@ -170,7 +170,7 @@ def test_median_averages_the_middle_pair_and_fp32_matmul_restores_the_flag():
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        with numerics.fp32_matmul():
+        with numerics.matmul_precision("highest"):
             assert torch.backends.cuda.matmul.allow_tf32 is False
         assert torch.backends.cuda.matmul.allow_tf32 is True
     finally:

@@ -507,9 +507,9 @@ RENAMED_ARGUMENTS = {
     # a mesh spans the process group's ranks: make_mesh takes one device type
     "devices": "device",
 }
-# the TPU's reduced-precision (bf16) matmul passes; the port computes in
-# fp32 or float64 only
-DROPPED_ARGUMENTS = {"precision"}
+# nothing is dropped: ``precision`` (SpectralConfig, MixedRadixPlan) is
+# ported too
+DROPPED_ARGUMENTS = set()
 
 
 def _signatures(path):

@@ -130,12 +130,18 @@ def test_default_is_fp32_and_each_dtype_has_its_own_plan():
 
 
 def test_dtype_errors():
-    for dtype in (torch.bfloat16, torch.float16, torch.complex64, np.float64):
+    """A complex or numpy dtype is refused, and float64 with
+    ``use_kernel=True``; the 2-byte working dtypes (bf16, fp16) are
+    accepted, with the kernel too (``tests/test_torch_precision.py``)."""
+    for dtype in (torch.complex64, np.float64):
         with pytest.raises(ValueError, match="dtype"):
             tp.SpectralConfig(dtype=dtype)
     with pytest.raises(ValueError, match="use_kernel"):
         tp.SpectralConfig(dtype=torch.float64, use_kernel=True)
     tp.SpectralConfig(dtype=torch.float64, use_kernel=False)
+    for dtype in (torch.bfloat16, torch.float16):
+        for use_kernel in (None, True, False):
+            assert tp.SpectralConfig(dtype=dtype, use_kernel=use_kernel).dtype == dtype
 
 
 def test_the_float64_route_takes_no_kernel():

@@ -1,9 +1,10 @@
 """PyTorch port: the fused Stockham kernel's wrapper, plain version and dispatch.
 
 On the CPU the wrapper runs the kernel's plain PyTorch version, which is
-held against the JAX package's Pallas kernel in interpret mode.  The test
-marked ``cuda`` compares the CUDA kernel with its plain version and skips
-where there is no CUDA device; on a GPU machine without JAX run
+held against the JAX package's Pallas kernel in interpret mode.  The tests
+marked ``cuda`` compare the CUDA kernel with its plain version (fp32, bf16
+and fp16 planes) and skip where there is no CUDA device; on a GPU machine
+without JAX run
 
     python -m pytest tests/test_torch_kernel.py -m cuda --noconftest -p no:cacheprovider
 """
@@ -269,3 +270,28 @@ def test_cuda_kernel_matches_plain_version(n, batch, launches):
     assert cuda_fft.LAUNCHES == 2
     with pytest.raises(ValueError):
         cuda_fft.exec_kernel(tr[:, ::2], ti[:, ::2], n // 2, -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,unit", [(torch.bfloat16, 2.0 ** -7), (torch.float16, 2.0 ** -10)])
+@pytest.mark.parametrize("n,batch", [(90, 3), (2048, 1024), (12005, 3), (16384, 3)])
+def test_cuda_kernel_matches_plain_version_on_two_byte_planes(n, batch, dtype, unit, launches):
+    # both compute in fp32 and round once at the store: an element at most
+    # one unit in its last place apart, at most 2^-7 (bf16) or 2^-10 (fp16)
+    # of the largest value
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, xr, xi = _inputs(n, batch, n)
+    tr = torch.from_numpy(xr).to("cuda", dtype)
+    ti = torch.from_numpy(xi).to("cuda", dtype)
+    for sign in (-1, 1):
+        kr, ki = cuda_fft.exec_kernel(tr, ti, n, sign)
+        torch.cuda.synchronize()
+        assert kr.dtype == ki.dtype == dtype
+        rr, ri = cuda_fft.exec_kernel_reference(tr, ti, n, sign)
+        got = torch.complex(kr.float(), ki.float()).cpu().numpy()
+        want = torch.complex(rr.float(), ri.float()).cpu().numpy()
+        assert _rel(got, want) <= unit
+    assert cuda_fft.LAUNCHES == 2
+    with pytest.raises(TypeError):
+        cuda_fft.exec_kernel(tr, ti.float(), n, -1)

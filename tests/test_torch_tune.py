@@ -3,19 +3,20 @@ tensors at a small size (n = 64, b = 4, chains of 2 and 10 applications,
 three rounds: a round whose long chain happens to read faster than its
 short one is dropped, and ``ab_compare`` raises only if every round is).  What is held here: every probe runs and returns its
 comparison; the kernel sweep's JSON lines keep their schema and the
-kernel's error against float64 stays within 1e-5; the probes without a
-counterpart are refused; the device timer refuses work off the card.
+kernel's error against float64 stays within 1e-5; the precision probes
+print each scheme's error; the device timer refuses work off the card.
 No time read here is a device time."""
 
 import io
 import json
-from contextlib import redirect_stderr, redirect_stdout
+import re
+from contextlib import redirect_stdout
 
 import numpy as np
 import pytest
 import torch
 
-from mixed_radix_fast_fourier_transform_tpu_torch.ops import cuda_fft
+from mixed_radix_fast_fourier_transform_tpu_torch.ops import cuda_fft, stockham as stock
 from mixed_radix_fast_fourier_transform_tpu_torch.tools import tune
 from mixed_radix_fast_fourier_transform_tpu_torch.utils.profiling import graph_time
 
@@ -129,11 +130,43 @@ def _prime_factors(n):
 
 
 @pytest.mark.parametrize("which", ["precision", "prec"])
-def test_precision_probes_are_refused(which):
-    err = io.StringIO()
-    with redirect_stderr(err):
-        rc = tune.main([which, "64", "4", "--device", "cpu"])
-    assert rc != 0 and "no precision lever" in err.getvalue() and which in err.getvalue()
+def test_precision_probes_are_refused(which, capsys):
+    """The JAX script's ``precision`` and ``prec`` probes run from the
+    command line at n = 64 on the CPU: each scheme's error against float64
+    (every precision is fp32 there, split6 within 5e-6) beside its A/B."""
+    extra = ["highest,high", "default"] if which == "prec" else []
+    assert tune.main([which, "64", "4", *extra, "--device", "cpu", "--short", "2",
+                      "--rounds", "3"]) == 0
+    out = capsys.readouterr().out
+    errs = [float(m) for m in re.findall(r"err (\S+)", out)]
+    assert len(errs) == (4 if which == "precision" else 3)
+    assert max(errs) <= 5e-6
+    assert out.count("median ratio") == (3 if which == "precision" else 2)
+    if which == "prec":
+        assert "scheme ('highest', 'high')" in out and "scheme ('default',)" in out
+    else:
+        res = tune.tune_precision(N, B, **KNOBS)
+        assert all(_is_ab(res[p]) for p in ("high", "default", "split6"))
+        assert res["highest"]["err"] <= TOL and res["split6"]["err"] <= 5e-6
+
+
+def test_split6_forms_and_the_tf32_emulation(capsys):
+    """``split6``: on the CPU the library's form and the TF32 form are both
+    the exact chunk products summed in fp32 (split6's 5e-6), and the bf16
+    form is the card's only; ``tf32emu``: TF32-rounded operands put the
+    "default" pipeline between fp32's error and 16 TF32 unit roundoffs.
+    Both probes put the library's products back."""
+    kept = (stock._einsum_split6, stock._dot)
+    assert tune.main(["split6", "64", "4", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    errs = [float(m) for m in re.findall(r"form: err (\S+)", out)]
+    assert len(errs) == 2 and max(errs) <= 5e-6
+    assert "bf16: the card's form only" in out
+    res = tune.tune_tf32emu(((64, 2), (1009, 2)))
+    for row in res.values():
+        assert TOL < row["rounded"] <= 16 * 2.0 ** -11
+        assert TOL < row["cut"] <= 16 * 2.0 ** -11
+    assert (stock._einsum_split6, stock._dot) == kept
 
 
 def test_command_line(capsys):
