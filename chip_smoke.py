@@ -184,7 +184,9 @@ Phases, each of which raises on failure:
     ``kalman_filter_sharded`` on 4 tracks of 10,000 steps,
     ``pfb_analysis_sharded`` and ``range_doppler_cfar_sharded`` at phase
     23's sizes; then ``export_transform``/``load_transform`` of ``fft`` at
-    64 x 4,096 on the card against the live call;
+    64 x 4,096 on the card against the live call, on K1 (the program holds
+    the kernel's operator and launches it) and on the stage pipeline (no
+    launch);
 27. the nine example programs (``examples/``), each ``main`` on the card at
     the JAX example's own sizes with its asserts, then ``mri_recon`` at 256²
     with 402 spokes of 512 points and the advection at lmax 255 (160 RK4
@@ -196,7 +198,17 @@ Phases, each of which raises on failure:
     ``torch.fft.fft`` at every length the kernel takes (399, 2^22 complex
     values a call, CUDA-graph replay), the kernel against float64 on 8 rows
     each, a summary, and ``torch.fft.fft`` against the kernel at 256 x
-    1,048,576.
+    1,048,576;
+29. the compiled path (``torch.compile``, Inductor, ``fullgraph=True,
+    dynamic=False``, as the JAX package runs under ``jax.jit``):
+    ``fft``/``rfft``/``irfft`` at 2048 x 1024, the spectral filter's
+    forward and SGD step (``utils.tree.compile_sgd_step``) at n = 4096,
+    batch 8 and 1024, and ``fno_train`` at the JAX sizes, each beside the
+    same call eager: zero graph breaks, no recompile, K1's launches (its
+    operator is a node of the graphs), compiled against eager (2e-5) and
+    the filter against float64 (1e-5), compile seconds, device µs by graph
+    replay and profiler, kernels a call, back-to-back time, idle share, and
+    the host's events of a compiled call.
 
 ``python3 chip_smoke.py precision`` runs phases 1, 2 and 4b alone,
 ``python3 chip_smoke.py audio`` phases 1, 2 and 15-17,
@@ -205,11 +217,12 @@ Phases, each of which raises on failure:
 ``python3 chip_smoke.py frontend`` phases 1, 2, 23 and 24, and
 ``python3 chip_smoke.py parallel`` phases 1, 2, 25 and 26,
 ``python3 chip_smoke.py examples`` phases 1, 2 and 27, and
-``python3 chip_smoke.py tune`` phases 1, 2 and 28 (for development; they
-print no result line).
+``python3 chip_smoke.py tune`` phases 1, 2 and 28, and
+``python3 chip_smoke.py compile`` phases 1, 2 and 29 (for development;
+they print no result line).
 
-The last lines are one JSON line about the kernels (launches of phases 4, 8,
-9, 12, 13, 15, 16, 18, 19, 21, 22, 23, 24, 25, 26 and 27; error over the plane pairs those launches were handed:
+The last lines are one JSON line about the kernels (launches of phases 4, 4b, 8,
+9, 12, 13, 15, 16, 18, 19, 21, 22, 23, 24, 25, 26, 27 and 29; error over the plane pairs those launches were handed:
 every pair of phases 4, 9, 12, 13, 15, 16, 19, 21, 22, 23 and 24, the first rows of phase 25's, three of each run of phase 27's, and in phase 8 the first step's three, every
 later backward's and the four of the step with an input gradient; times on
 the main path's batch-1024 planes), the card, then ``{"ok": true, "device":
@@ -249,6 +262,7 @@ from mixed_radix_fast_fourier_transform_tpu_torch.ops import cqt as cqt_ops
 from mixed_radix_fast_fourier_transform_tpu_torch.ops import feature as feature_ops
 from mixed_radix_fast_fourier_transform_tpu_torch.ops import scattering as scattering_ops
 from mixed_radix_fast_fourier_transform_tpu_torch.ops.stockham import exec_complex, exec_len
+from mixed_radix_fast_fourier_transform_tpu_torch.utils.numerics import traced
 from mixed_radix_fast_fourier_transform_tpu_torch.utils.profiling import graph_time
 from mixed_radix_fast_fourier_transform_tpu_torch.utils.tree import (
     tree_leaves, tree_map, tree_map_with_path,
@@ -390,7 +404,7 @@ def time_ms(fn, warmup: int = 10, runs: int = 50) -> float:
     return statistics.median(times)
 
 
-def device_and_wall_us(fn, calls: int = 20) -> dict:
+def device_and_wall_us(fn, calls: int = 20, collectives: bool = False) -> dict:
     """Per call, in one process on the same inputs: ``device_us``, the summed
     device-kernel time of ``calls`` calls under torch.profiler (None where
     the profiler saw no device activity); ``wall_us``, the wall time of
@@ -398,8 +412,9 @@ def device_and_wall_us(fn, calls: int = 20) -> dict:
     1 - device_us / wall_us; ``kernels``, the device kernels (and copies) per
     call; ``k1_us``, the fused kernel's part of the device time; and
     ``by_name``, the device µs per call by kernel name, largest first;
-    ``collective_spans``, the device µs per call of each NCCL collective's
-    span (its copies and kernels, which ``device_us`` counts once)."""
+    ``collective_spans``, with ``collectives``, the device µs per call of
+    each NCCL collective's span (its copies and kernels, which ``device_us``
+    counts once)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -410,24 +425,32 @@ def device_and_wall_us(fn, calls: int = 20) -> dict:
     end.record()
     end.synchronize()
     wall_us = start.elapsed_time(end) * 1000.0 / calls
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    # the card's activity, read from the profiler's raw events: a call of
+    # tens of thousands of kernels costs more in host events and their parse
+    # into function events than in the run itself.  A collective's span
+    # ("nccl:all_to_all") is the device side of a host range, which the
+    # profiler records only while it traces the host too
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    if collectives:
+        activities.append(torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=activities) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    events = [(e.name(), e.duration_ns() / 1e3) for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
     # a NCCL collective also shows as an annotation ("nccl:all_to_all")
     # spanning its own copies and kernels: kept apart, not counted twice
-    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith("nccl:")]
+    on_card = [(name, us) for name, us in events if not name.startswith("nccl:")]
     spans = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.name.startswith("nccl:"):
-            spans[e.name] = spans.get(e.name, 0.0) + e.device_time_total / calls
-    dev = sum(e.device_time_total for e in on_card)
-    k1 = sum(e.device_time_total for e in on_card if "stockham_fft_kernel" in e.name)
+    for name, us in events:
+        if name.startswith("nccl:"):
+            spans[name] = spans.get(name, 0.0) + us / calls
+    dev = sum(us for _, us in on_card)
+    k1 = sum(us for name, us in on_card if "stockham_fft_kernel" in name)
     by_name = {}
-    for e in on_card:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / calls
+    for name, us in on_card:
+        by_name[name] = by_name.get(name, 0.0) + us / calls
     by_name = dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
     device_us = dev / calls if dev > 0 else None
     return {"device_us": device_us, "wall_us": wall_us,
@@ -530,11 +553,15 @@ def recorded_launches(keep=None):
     """Inside the block, every call of the kernel's wrapper (forward or
     backward: both look ``cuda_fft.exec_kernel`` up at call time) is noted
     as (xr, xi, n, sign) with copies of the planes it was handed; with
-    ``keep``, only the first ``keep`` calls and the latest."""
+    ``keep``, only the first ``keep`` calls and the latest.  A call made
+    while torch.compile or torch.export traces is not noted (its planes are
+    the tracer's, and the compiled graph calls the operator directly)."""
     seen = []
     launch = cuda_fft.exec_kernel
 
     def recording(xr, xi, n, sign):
+        if traced(xr):
+            return launch(xr, xi, n, sign)
         pair = (xr.detach().clone(), xi.detach().clone(), n, sign)
         if keep is not None and len(seen) > keep:
             seen[-1] = pair
@@ -4070,7 +4097,7 @@ def parallel_timings(card: str) -> None:
             fn()
             torch.cuda.synchronize()
             k1 = cuda_fft.LAUNCHES - before
-            t = device_and_wall_us(fn, calls=n_calls)
+            t = device_and_wall_us(fn, calls=n_calls, collectives=True)
         nccl = t["collective_spans"].get("nccl:all_to_all", 0.0)
         row = {"call": name, "device_us_profiler": t["device_us"], "back_to_back_us": t["wall_us"],
                "idle_share": t["idle_share"], "device_kernels_per_call": t["kernels"],
@@ -4086,6 +4113,9 @@ def parallel_timings(card: str) -> None:
                            kernel)
             log(f"  {us:10.2f} us  {short[:110]}")
         rows.append(row)
+    # the four-step rows exchange (fft_batch_sharded does not): a profiler
+    # that records no collective span reads 0 for all of them
+    require(any(r["all_to_all_us"] > 0 for r in rows), "the profiler saw no all_to_all span")
     log(f"estimate_four_step_hbm({PAR_N}, {PAR_BATCH}, 1): {est}")
     log(json.dumps({"parallel_timing": {"card": card, "calls": rows, "estimate": est,
                                         "method": "torch.profiler device-kernel sum in a "
@@ -4210,15 +4240,22 @@ def parallel_rest(rng, card: str):
         del rx, Y, det, th, Yw, detw, thw
     end_world()
 
-    # an exported fft (the stage pipeline) reloaded on the card
+    # an exported fft reloaded on the card: at a K1 length the program holds
+    # the kernel's operator and launches it, as the live call does; exported
+    # on the stage pipeline it launches none
     xe = cuda_complex(complex64(rng, *EXPORT_SHAPE))
-    blob = tp.utils.export_transform(lambda v: tp.fft(v), xe)
-    loaded = tp.utils.load_transform(blob)
-    before = cuda_fft.LAUNCHES
-    got = loaded(xe)
-    require(cuda_fft.LAUNCHES == before, "the exported transform launched the kernel")
-    check(f"export_transform -> load_transform fft {EXPORT_SHAPE} ({len(blob):,} bytes) vs live",
-          got, tp.fft(xe))
+    for route, config in (("K1", tp.DEFAULT_CONFIG), ("stage pipeline", PIPELINE)):
+        blob = tp.utils.export_transform(lambda v, c=config: tp.fft(v, config=c), xe)
+        loaded = tp.utils.load_transform(blob)
+        before = cuda_fft.LAUNCHES
+        got = loaded(xe)
+        torch.cuda.synchronize()
+        launched = cuda_fft.LAUNCHES - before
+        used[f"exported fft ({route})"] = launched
+        require((launched > 0) == (route == "K1"),
+                f"the exported transform on the {route} launched the kernel {launched} times")
+        check(f"export_transform -> load_transform fft {EXPORT_SHAPE} on the {route} "
+              f"({len(blob):,} bytes, {launched} K1 launches) vs live", got, tp.fft(xe, config=config))
     torch.cuda.empty_cache()
     log("parallel rest kernel launches: " + ", ".join(f"{k} {v}" for k, v in used.items()))
     log(json.dumps({"parallel_rest_timing": {"card": card, "calls": rows}}))
@@ -4234,7 +4271,7 @@ def parallel_rest(rng, card: str):
 # with pi/2·N = 402 spokes of 2N points (the radial Nyquist count), and the
 # advection at phase 22's L = 256 grid with the same 1/8 revolution
 EXAMPLE_RUNS = (
-    ("serving_export", {}), ("fno_train", {}), ("pde_spectral", {}),
+    ("serving_export", {}), ("fno_train", dict(compile=False)), ("pde_spectral", {}),
     ("sphere_advection", {}), ("mri_recon", {}), ("radar_array", {}),
     ("audio_features", {}), ("signal_toolbox", {}), ("demo", {}),
     ("mri_recon", dict(n=256, spokes=402, per_spoke=512)),
@@ -4271,7 +4308,12 @@ def examples(rng, card: str):
     pairs it was handed (relative errors, logged: the planes are
     unnormalised, so their absolute errors stay off the kernels line),
     back-to-back wall ms of a second, warm run, the profiler's device ms of a
-    third, and the idle share."""
+    third, and the idle share.  ``fno_train`` runs eagerly here, so that
+    its row stays comparable across runs (phase 29 times its compiled
+    loop); ``serving_export``
+    exports and compiles in every run, as the JAX example lowers and
+    compiles in every run: its traced calls hand no planes to note, its
+    eager ones (the live denoiser) do."""
     import importlib
 
     del rng   # each example draws from its own seeds
@@ -4355,6 +4397,246 @@ def tune_phase(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: the compiled path, torch.compile as jax.jit runs the JAX package
+# ---------------------------------------------------------------------------
+
+# the spectral filter's inner transform at batch 1024: rows x n
+COMPILE_FFT_SHAPE = (1024, 2048)
+# compiled against eager: the same fp32 work, its elementwise passes fused
+# and ordered by Inductor, a few ulps apart
+COMPILE_TOL = ROUTES_TOL
+# fno_train's per-step losses, compiled against eager, over the first steps
+FNO_COMPILE_STEPS = 20
+FNO_COMPILE_TOL = 1e-4
+
+
+def compiled(fn):
+    """``fn`` under ``torch.compile(fullgraph=True, dynamic=False)`` on the
+    default (Inductor) backend: the counterpart of ``jax.jit``."""
+    return torch.compile(fn, fullgraph=True, dynamic=False)
+
+
+def first_call(name: str, fn, *args):
+    """The first call of a compiled ``fn`` (it compiles: set-up seconds),
+    then a second under ``fail_on_recompile``; zero graph breaks by
+    ``torch._dynamo.explain`` of the same function.  Returns the second
+    call's output and the compile seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    with torch.compiler.set_stance("fail_on_recompile"):
+        out = fn(*args)
+    torch.cuda.synchronize()
+    log(f"compiled {name}: first call (compile) {secs:.2f} s, no recompile on the second")
+    return out, secs
+
+
+def graph_breaks(fn, *args) -> int:
+    explained = torch._dynamo.explain(fn)(*args)
+    return explained.graph_break_count
+
+
+def step_oracle64(params, x: np.ndarray, target: np.ndarray, lr: float):
+    """One SGD step of the spectral filter in float64 on the CPU."""
+    leaves = {k: torch.tensor(v, dtype=torch.float64, requires_grad=True)
+              for k, v in params.items()}
+    loss = torch.mean((oracle_filter(leaves, torch.tensor(x)) - torch.tensor(target)) ** 2)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return {k: (v - lr * g).detach() for (k, v), g in zip(leaves.items(), grads)}, loss.detach()
+
+
+def timing_pair(name: str, eager, comp, calls: int, captured: int) -> dict:
+    """Eager and compiled forms of one call side by side: device µs by
+    graph replay, the profiler's device µs and kernels per call,
+    back-to-back µs, and the idle share 1 - graph-replay µs / back-to-back
+    µs (late in a whole run the profiler can drop events; replay cannot)."""
+    row = {"call": name}
+    for label, fn in (("eager", eager), ("compiled", comp)):
+        t = device_and_wall_us(fn, calls=calls)
+        graph_us = 1e6 * graph_time(fn, launches=captured)
+        row[label] = {"device_us_graph_replay": graph_us,
+                      "device_us_profiler": t["device_us"],
+                      "device_kernels_per_call": t["kernels"], "k1_us": t["k1_us"],
+                      "back_to_back_us": t["wall_us"],
+                      "idle_share": 1.0 - graph_us / t["wall_us"]}
+        r = row[label]
+        log(f"{name} {label}: {r['device_us_graph_replay']:.2f} us device (graph replay), "
+            f"{r['device_us_profiler']} us (profiler), {r['device_kernels_per_call']} "
+            f"kernels a call, K1 {r['k1_us']:.2f} us, back to back "
+            f"{r['back_to_back_us']:.2f} us, idle share {r['idle_share']}")
+    return row
+
+
+def host_breakdown(name: str, fn, calls: int = 20, top: int = 8) -> list:
+    """The host side of ``calls`` calls of ``fn``: torch.profiler's CPU
+    events by self time per call, largest first (what keeps the card idle
+    between launches)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_cpu_time_total / calls, e.count / calls)
+                   for e in prof.key_averages()), key=lambda r: -r[1])[:top]
+    for key, us, count in rows:
+        log(f"  host {name}: {us:9.2f} us self a call ({count:g} calls)  {key[:90]}")
+    return [{"event": key, "self_us": us, "count": count} for key, us, count in rows]
+
+
+def compile_path(rng, card: str) -> int:
+    """Phase 29: the main path under ``torch.compile`` (Inductor,
+    ``fullgraph=True, dynamic=False``), as the JAX package runs it under
+    ``jax.jit``.  ``fft``/``rfft``/``irfft`` at 2048 x 1024; the spectral
+    filter's forward and SGD step (``utils.tree.compile_sgd_step``) at
+    n = 4096, batch 8 and 1024; ``fno_train`` at the JAX sizes compiled
+    beside eager.  Each: zero graph breaks, no recompile on the second call,
+    the fused kernel's launches (the compiled graph holds its operator),
+    compiled against eager (2e-5) and the filter against float64 (1e-5),
+    compile seconds, and device / back-to-back times and idle share beside
+    eager's.  Returns the launches of the counted calls (from 0 at the
+    phase's start; explain, compiles and timings add none to it)."""
+    from mixed_radix_fast_fourier_transform_tpu_torch.examples import fno_train
+    from mixed_radix_fast_fourier_transform_tpu_torch.utils.tree import compile_sgd_step
+
+    rows, counted = [], 0
+    rows_n, n = COMPILE_FFT_SHAPE
+    x = torch.complex(cuda32(rng.standard_normal(COMPILE_FFT_SHAPE)),
+                      cuda32(rng.standard_normal(COMPILE_FFT_SHAPE)))
+    xr = x.real.contiguous()
+    spec = tp.rfft(xr)
+    for name, fn, arg in (("fft", lambda v: tp.fft(v), x), ("rfft", lambda v: tp.rfft(v), xr),
+                          ("irfft", lambda v: tp.irfft(v, n=n), spec)):
+        label = f"{name} {n} x {rows_n}"
+        breaks = graph_breaks(fn, arg)
+        require(breaks == 0, f"{label}: {breaks} graph breaks")
+        comp = compiled(fn)
+        _, secs = first_call(label, comp, arg)
+        before = cuda_fft.LAUNCHES
+        got = comp(arg)
+        torch.cuda.synchronize()
+        launched = cuda_fft.LAUNCHES - before
+        counted += launched
+        require(launched == 1, f"{label}: {launched} K1 launches compiled")
+        err = rel_err(got.cpu().numpy(), fn(arg).cpu().numpy())
+        log(f"{label} compiled: 0 graph breaks, {launched} K1 launch, rel err {err:.3e} vs eager")
+        require(err <= COMPILE_TOL, f"{label} compiled vs eager {err:.3e}")
+        rows.append({"call": label, "compile_s": secs, "graph_breaks": breaks,
+                     "k1_launches": launched, "rel_err_vs_eager": err,
+                     **timing_pair(label, lambda: fn(arg), lambda: comp(arg), 20, 20)})
+        if name == "fft":   # the same four device kernels: what the compiled call adds on the host
+            rows[-1]["host_eager"] = host_breakdown(f"{label} eager", lambda: fn(arg))
+            rows[-1]["host_compiled"] = host_breakdown(f"{label} compiled", lambda: comp(arg))
+    del x, xr, spec
+
+    for b in FILTER_BATCHES:
+        params = filter_params(rng, FILTER_N)
+        xn = rng.standard_normal((b, FILTER_N))
+        true_gain = 1.0 + 0.3 * rng.standard_normal(FILTER_N // 2 + 1)
+        tn = np.fft.irfft(np.fft.rfft(xn) * true_gain, n=FILTER_N) + 0.3
+        xt, tt = cuda32(xn), cuda32(tn)
+        tparams = tp.models.params_from_jax(params, CARD)
+        label = f"spectral filter n={FILTER_N} b={b}"
+
+        # the forward
+        breaks = graph_breaks(tp.models.apply, tparams, xt)
+        require(breaks == 0, f"{label} forward: {breaks} graph breaks")
+        fwd = compiled(tp.models.apply)
+        _, fwd_s = first_call(f"{label} forward", fwd, tparams, xt)
+        before = cuda_fft.LAUNCHES
+        y = fwd(tparams, xt)
+        torch.cuda.synchronize()
+        fwd_launches = cuda_fft.LAUNCHES - before
+        counted += fwd_launches
+        require(fwd_launches == 2, f"{label}: {fwd_launches} K1 launches a compiled forward")
+        gain = params["gain_re"] + 1j * params["gain_im"]
+        want = np.fft.irfft(np.fft.rfft(xn) * gain, n=FILTER_N) + params["bias"]
+        err64 = rel_err(y.cpu().numpy(), want)
+        err = rel_err(y.cpu().numpy(), tp.models.apply(tparams, xt).cpu().numpy())
+        log(f"{label} compiled forward: rel err {err:.3e} vs eager, {err64:.3e} vs float64; "
+            f"{fwd_launches} K1 launches")
+        require(err <= COMPILE_TOL and err64 <= ORACLE_TOL,
+                f"{label} compiled forward: {err:.3e} vs eager, {err64:.3e} vs float64")
+
+        # the SGD step: loss and update compiled, the gradient between them
+        step = compile_sgd_step(tp.models.loss_fn)
+        _, step_s = first_call(f"{label} train step", lambda: step(tparams, xt, tt, lr=TRAIN_LR))
+        before = cuda_fft.LAUNCHES
+        new, loss = step(tparams, xt, tt, lr=TRAIN_LR)
+        torch.cuda.synchronize()
+        step_launches = cuda_fft.LAUNCHES - before
+        counted += step_launches
+        require(step_launches == 3, f"{label}: {step_launches} K1 launches a compiled step")
+        new_e, loss_e = tp.models.train_step(tparams, xt, tt, lr=TRAIN_LR)
+        new64, loss64 = step_oracle64(params, xn, tn, TRAIN_LR)
+        errs = [rel_err(float(loss), float(loss_e))] + [
+            rel_err(new[k].cpu().numpy(), new_e[k].cpu().numpy()) for k in new]
+        errs64 = [rel_err(float(loss), float(loss64))] + [
+            rel_err(new[k].cpu().numpy(), new64[k].numpy()) for k in new]
+        log(f"{label} compiled train step: loss and new parameters rel err {max(errs):.3e} "
+            f"vs eager, {max(errs64):.3e} vs float64; {step_launches} K1 launches")
+        require(max(errs) <= COMPILE_TOL and max(errs64) <= ORACLE_TOL,
+                f"{label} compiled step: {max(errs):.3e} vs eager, {max(errs64):.3e} vs float64")
+        rows.append({"call": f"{label} forward", "compile_s": fwd_s, "graph_breaks": breaks,
+                     "k1_launches": fwd_launches, "rel_err_vs_eager": err,
+                     "rel_err_vs_float64": err64,
+                     **timing_pair(f"{label} forward", lambda: tp.models.apply(tparams, xt),
+                                   lambda: fwd(tparams, xt), 20, 20)})
+        if b == FILTER_BATCHES[0]:
+            rows[-1]["host_compiled"] = host_breakdown(f"{label} forward compiled",
+                                                       lambda: fwd(tparams, xt))
+        rows.append({"call": f"{label} train step", "compile_s": step_s,
+                     "k1_launches": step_launches, "rel_err_vs_eager": max(errs),
+                     "rel_err_vs_float64": max(errs64),
+                     **timing_pair(f"{label} train step",
+                                   lambda: tp.models.train_step(tparams, xt, tt, lr=TRAIN_LR),
+                                   lambda: step(tparams, xt, tt, lr=TRAIN_LR), 20, 5)})
+        torch.cuda.empty_cache()
+
+    # fno_train at the JAX sizes: the loss compiled (the default on a card)
+    # beside the eager loop
+    runs = {}
+    for mode in (False, True):
+        label = f"fno_train {'compiled' if mode else 'eager'}"
+        t0 = time.perf_counter()
+        before = cuda_fft.LAUNCHES
+        with contextlib.redirect_stdout(None):
+            out = fno_train.main(device=CARD, compile=mode)
+            torch.cuda.synchronize()
+        launched = cuda_fft.LAUNCHES - before
+        counted += launched
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(None):
+            fno_train.main(device=CARD, compile=mode)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with contextlib.redirect_stdout(None):
+            device_ms = profiled_device_ms(lambda: fno_train.main(device=CARD, compile=mode))
+        require(out["final_eval_loss"] < FNO_TRAIN_GAIN * out["baseline"],
+                f"{label}: final eval loss {out['final_eval_loss']:.3e}")
+        runs[mode] = out
+        rows.append({"call": label, "k1_launches": launched, "first_run_s": first_s,
+                     "back_to_back_ms": wall_ms, "device_ms_profiler": device_ms,
+                     "idle_share": 1.0 - device_ms / wall_ms})
+        log(f"{label}: {launched} K1 launches, first run {first_s:.1f} s, back to back "
+            f"{wall_ms:.1f} ms, device {device_ms:.1f} ms (profiler), idle share "
+            f"{1.0 - device_ms / wall_ms:.3f}")
+    a, b = (runs[m]["losses"][:FNO_COMPILE_STEPS] for m in (True, False))
+    err = float(np.max(np.abs(a - b) / np.abs(b)))
+    log(f"fno_train: first {FNO_COMPILE_STEPS} losses compiled vs eager, rel err {err:.3e}")
+    require(len(a) == FNO_COMPILE_STEPS and err <= FNO_COMPILE_TOL,
+            f"fno_train compiled vs eager losses: {err:.3e}")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "compile_path.json"), "w") as fh:
+        json.dump({"card": card, "torch": torch.__version__, "rows": rows}, fh, indent=1)
+    log(json.dumps({"compile_timing": {"card": card, "rows": rows}}))
+    return counted
+
+
 def timed(phase, *args):
     """Runs one phase and logs its wall time (the whole run has a time limit)."""
     t0 = time.perf_counter()
@@ -4400,6 +4682,9 @@ def main(argv) -> int:
     if argv == ["precision"]:   # development: phase 4b alone
         timed(precision_path, rng, card)
         return 0
+    if argv == ["compile"]:   # development: phase 29 alone
+        timed(compile_path, rng, card)
+        return 0
     if argv == ["parallel-timings"]:   # phase 25's device times, a process of their own
         timed(parallel_timings, card)
         return 0
@@ -4432,6 +4717,7 @@ def main(argv) -> int:
     rest_launches = timed(parallel_rest, rng, card)
     example_launches = timed(examples, rng, card)
     timed(tune_phase, card)
+    compile_launches = timed(compile_path, rng, card)
     log(f"kernel launches by path: filter forward {launches}, "
         f"reduced precision {precision_launches}, training {train_launches}, "
         f"fno {fno_launches}, s4d + fnet + afno {family_launches}, ops tail {ops_launches}, "
@@ -4440,11 +4726,11 @@ def main(argv) -> int:
         f"nufft + tomography {nufft_launches}, sht + sfno {sphere_launches}, "
         f"radar + radio {radar_launches}, wavelets + leaves {leaves_launches}, "
         f"parallel main path {parallel_launches}, parallel rest {rest_launches}, "
-        f"examples {example_launches}")
+        f"examples {example_launches}, compiled {compile_launches}")
     launches += (precision_launches + train_launches + fno_launches + family_launches + ops_launches
                  + frontend_launches + audio_launches + recurrence_launches + remainder_launches
                  + nufft_launches + sphere_launches + radar_launches + leaves_launches
-                 + parallel_launches + rest_launches + example_launches)
+                 + parallel_launches + rest_launches + example_launches + compile_launches)
     max_abs = max(max_abs, train_abs, fno_abs, family_abs, ops_abs, frontend_abs, audio_abs,
                   remainder_abs, nufft_abs, sphere_abs, radar_abs, leaves_abs, parallel_abs)
     # the kernel line's times are on the same planes as its error: the

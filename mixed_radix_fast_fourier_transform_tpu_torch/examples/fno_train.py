@@ -5,12 +5,17 @@ the map u0 -> the solution of the periodic heat equation at time t
 (u_t = nu * u_xx), whose exact solution is a per-mode spectral decay:
 learnable by the FNO's frequency-domain channel mixing, and an end-to-end
 exercise of the rfft/irfft gradients.  Adam (lr 3e-3) as the JAX example's
-``optax.adam``.
+``optax.adam``.  The JAX example jits its step; here the loss is compiled
+(``torch.compile``, fullgraph; its backward with it, the fused kernel an
+operator node of both graphs) and the gradient and Adam's update run
+outside it, Adam ``capturable`` on the card so its step count stays there.
 
 Run: python -m mixed_radix_fast_fourier_transform_tpu_torch.examples.fno_train
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -37,12 +42,25 @@ def make_batch(rng: np.random.Generator, batch: int, n: int):
     return u0[:, None, :], heat_solution(u0)[:, None, :]  # (b, 1, n)
 
 
+@functools.lru_cache(maxsize=None)
+def _compiled_loss():
+    # one compiled loss for the process: each torch.compile wrapper would
+    # trace anew
+    return torch.compile(fno.loss_fn, fullgraph=True, dynamic=False)
+
+
 def main(*, device=None, steps: int = 300, n: int = 256, batch: int = 32,
-         params=None) -> dict:
+         params=None, compile: bool | None = None) -> dict:
     """Trains from ``params`` (a parameter tree: tensors, or numpy arrays such
     as the JAX package's initialisation; default: ``fno.init_fno`` from
-    seed 0) and returns the losses."""
+    seed 0) and returns the losses: ``history`` (step, train, eval) every 50
+    steps, ``losses`` every step's train loss.  ``compile``: True compiles
+    the loss with Inductor, False runs it eagerly, None (the default)
+    compiles on a CUDA device only.  The evaluation loss is always eager."""
     dev = resolve_device(device)
+    if compile is None:
+        compile = dev.type == "cuda"
+    loss_fn = _compiled_loss() if compile else fno.loss_fn
     rng = np.random.default_rng(0)
     if params is None:
         params = fno.init_fno(1, 16, 1, n_layers=2, modes=24,
@@ -54,20 +72,22 @@ def main(*, device=None, steps: int = 300, n: int = 256, batch: int = 32,
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    opt = torch.optim.Adam(leaves, lr=3e-3)
+    opt = torch.optim.Adam(leaves, lr=3e-3,
+                           capturable=compile and dev.type == "cuda")
 
     def as_dev(a):
         return torch.tensor(a, device=dev)
 
     xe, ye = make_batch(rng, batch, n)
     xe_t, ye_t = as_dev(xe), as_dev(ye)
-    history = []
+    history, losses = [], []
     for i in range(steps):
         x, y = make_batch(rng, batch, n)
         opt.zero_grad(set_to_none=True)
-        loss = fno.loss_fn(params, as_dev(x), as_dev(y))
+        loss = loss_fn(params, as_dev(x), as_dev(y))
         loss.backward()
         opt.step()
+        losses.append(loss.detach())
         if i % 50 == 0:
             with torch.no_grad():
                 eval_loss = float(fno.loss_fn(params, xe_t, ye_t))
@@ -79,6 +99,7 @@ def main(*, device=None, steps: int = 300, n: int = 256, batch: int = 32,
     print(f"final eval loss: {final:.5f}  (predict-zero baseline {base:.5f})")
     assert np.isfinite(final)
     return {"final_eval_loss": final, "baseline": base, "history": history,
+            "losses": torch.stack(losses).cpu().numpy() if losses else np.zeros(0),
             "params": params}
 
 

@@ -3,11 +3,13 @@
 Counterpart of the JAX package's ``examples/serving_export.py``.  Exports a
 denoise pipeline (rfft -> per-bin Wiener-style gain -> irfft) with
 ``torch.export`` to bytes, then reloads and runs it as a serving fleet would:
-no plan construction, no factorization, no library code on the serving path
-(the stage matrices and twiddles are constants of the exported graph).
-Then the same pipeline set up ahead of time in-process (``aot_compile``:
-plans, tables and the kernel built now, one call captured in a CUDA graph
-on the card).
+no plan construction, no factorization on the serving path (the stage
+matrices and twiddles are constants of the exported graph; on the card the
+graph holds the fused kernel's operator, which the reloading process
+registers by importing the port).  Then the same pipeline compiled ahead of
+time in-process (``aot_compile``: ``torch.compile`` now, plans, tables and
+the kernel built while it traces, one call captured in a CUDA graph on the
+card).
 
 Run: python -m mixed_radix_fast_fourier_transform_tpu_torch.examples.serving_export
 """
@@ -21,8 +23,9 @@ from .. import irfft, rfft
 from ..utils.aot import aot_compile, export_transform, load_transform
 from ..utils.numerics import resolve_device
 
-# the exported pipeline runs the stage pipeline, the live one the fused
-# kernel where it takes the length: the two routes agree within 2e-5
+# the exported and compiled pipelines take the live call's route, but
+# Inductor fuses and orders the elementwise work its own way: the outputs
+# agree within the two fp32 routes' 2e-5
 RELOAD_TOL = 2e-5
 
 

@@ -12,11 +12,16 @@ sees one read and one write per plane; the stage pipeline
   in each stage, the shared-memory swizzle of each stage's output, and the
   shared memory a block needs.  It is plain Python, so the CPU tests check
   it: every butterfly covered once, every exchange free of bank conflicts.
-* :func:`exec_kernel` is the wrapper, a ``torch.autograd.Function``.  On a
-  CUDA tensor it launches the kernel (building it at first use) or raises;
-  on a CPU tensor it runs :func:`exec_kernel_reference`.  Its backward is
-  itself at the opposite sign on the cotangent planes.  Launches are
-  counted in ``LAUNCHES``.
+* :func:`exec_kernel` is the wrapper.  It calls the PyTorch operator
+  ``torch.ops.mixed_radix_fft.stockham_fft`` (``torch.library.Library``),
+  whose CUDA implementation launches the kernel (building it at first use)
+  or raises and whose CPU implementation is :func:`exec_kernel_reference`.
+  The operator's gradient is itself at the opposite sign on the cotangent
+  planes, and its fake implementation gives ``torch.compile`` and
+  ``torch.export`` the output planes' shapes, so a traced graph holds the
+  kernel as one opaque node that Inductor neither replaces nor decomposes,
+  and fuses the elementwise work around it.  Launches are counted in
+  ``LAUNCHES``.
 * :func:`exec_kernel_reference` is the plain PyTorch version: the same
   factor schedule, twiddle layout and index algebra, stage by stage, in
   fp32 (2-byte planes are widened on the way in and rounded on the way out,
@@ -66,7 +71,9 @@ TILE_WIDTHS = (0, 1, 2, 4, 8, 16, 32)
 SWIZZLES = ((0, 0),) + tuple(
     (src, (1 << w) - 1) for w in (5, 4, 3, 2, 1) for src in range(1, 9)
 )
-# Launches of the CUDA kernel since import (or since a caller reset it).
+# Launches of the CUDA kernel since import (or since a caller reset it),
+# counted by the operator's CUDA implementation: eager and compiled calls
+# alike, none for a CUDA-graph replay (the host does not run then).
 LAUNCHES = 0
 # The plane dtypes the kernel takes, each with its code in the C entry point
 # (csrc/stockham_fft.cu: the global-memory element type).
@@ -277,13 +284,19 @@ def _geometry(n, npad, warps, elems, shapes, found) -> KernelGeometry:
     )
 
 
+@torch.compiler.assume_constant_result
 def supports(n: int, batch: int = 1) -> bool:
     """Can the fused kernel run a length-``n`` transform?
 
     Whatever :func:`kernel_geometry` admits: every prime factor <= 7,
     n <= 16,384, and a bank-conflict-free geometry of at most 1024 threads
     a row (every 7-smooth n up to 16,384 has one).
-    Rows map to blocks, so ``batch`` does not limit it."""
+    Rows map to blocks, so ``batch`` does not limit it.
+
+    While dynamo traces it runs on the host and its answer is a constant of
+    the trace (``assume_constant_result``): traced, the geometry search's
+    numpy would become data-dependent graph ops, and dynamo would not use
+    ``kernel_geometry``'s cache."""
     return kernel_geometry(n) is not None
 
 
@@ -371,6 +384,7 @@ class KernelPlan:
     offsets: Tuple[int, ...]   # per stage, into tw; -1 for the first stage
     tw: np.ndarray             # all stage twiddles: per stage re plane, im plane
     geometry: KernelGeometry = dataclasses.field(compare=False, repr=False)
+    key: tuple = dataclasses.field(default=(), compare=False, repr=False)
     _device: Dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     def params(self, tw_ptr: int) -> _Params:
@@ -499,9 +513,21 @@ def _check_cuda_planes(xr: Tensor, xi: Tensor, n: int) -> None:
         raise ValueError("the kernel takes contiguous planes")
 
 
-def _launch(xr: Tensor, xi: Tensor, n: int, sign: int) -> Tuple[Tensor, Tensor]:
-    """One launch of the CUDA kernel on the current stream, on checked CUDA
-    planes.  The one place that counts into ``LAUNCHES``."""
+# The operator is defined through ``torch.library.Library`` with a kernel
+# for each dispatch key, not ``torch.library.custom_op``: on the card the
+# latter's Python layers cost more host time per call than the launch
+# (``tools/tune.py dispatch``, PERF.md).  Schema: two planes in, two out,
+# nothing mutated.
+_LIB = torch.library.Library("mixed_radix_fft", "DEF")
+_LIB.define("stockham_fft(Tensor xr, Tensor xi, int n, int sign) -> (Tensor, Tensor)")
+
+
+def _stockham_fft_cuda(xr: Tensor, xi: Tensor, n: int, sign: int) -> Tuple[Tensor, Tensor]:
+    """The operator's CUDA implementation: one launch of the CUDA kernel on
+    the current stream, on checked CUDA planes, and the one place that
+    counts into ``LAUNCHES`` (so a compiled graph's calls count too; a CUDA
+    graph's replay counts none).  The ctypes build of ``_build.py`` stays
+    the binding; the operator is what lets a graph hold the launch."""
     global LAUNCHES
     _check_cuda_planes(xr, xi, n)
     from . import _build
@@ -528,36 +554,52 @@ def _launch(xr: Tensor, xi: Tensor, n: int, sign: int) -> Tuple[Tensor, Tensor]:
     return yr, yi
 
 
-class _StockhamFFT(torch.autograd.Function):
-    """The fused transform with its gradient.  The unnormalized sign-s DFT
-    is linear and its matrix symmetric, so its vector-Jacobian product is
-    the sign −s transform of the cotangent planes: the same kernel at the
-    cotangent's dtype, and nothing to save but ``n`` and ``sign``."""
+def _stockham_fft_fake(xr: Tensor, xi: Tensor, n: int, sign: int) -> Tuple[Tensor, Tensor]:
+    return torch.empty_like(xr), torch.empty_like(xi)
+
+
+class _Gradient(torch.autograd.Function):
+    """The operator's gradient.  The unnormalized sign-s DFT is linear and
+    its matrix symmetric, so its vector-Jacobian product is the sign −s
+    transform of the cotangent planes: the same operator at the cotangent's
+    dtype, and nothing to save but ``n`` and ``sign``."""
 
     @staticmethod
     def forward(ctx, xr: Tensor, xi: Tensor, n: int, sign: int):
         ctx.n, ctx.sign = n, sign
         ctx.set_materialize_grads(False)
-        if xr.device.type == "cpu" and xi.device.type == "cpu":
-            return exec_kernel_reference(xr, xi, n, sign)
-        return _launch(xr, xi, n, sign)
+        with torch._C._AutoDispatchBelowAutograd():
+            return torch.ops.mixed_radix_fft.stockham_fft(xr, xi, n, sign)
 
     @staticmethod
     def backward(ctx, gr: Optional[Tensor], gi: Optional[Tensor]):
-        need_r, need_i = ctx.needs_input_grad[:2]
-        if not (need_r or need_i) or (gr is None and gi is None):
+        if gr is None and gi is None:
             return None, None, None, None
         # a cotangent may be missing (a plane nobody used), expanded from a
         # scalar (sum, mean) or a strided view (flip, slices): the kernel
         # takes dense planes only
-        gr = None if gr is None else gr.contiguous()
+        gr = torch.zeros_like(gi) if gr is None else gr.contiguous()
         gi = torch.zeros_like(gr) if gi is None else gi.contiguous()
-        if gr is None:
-            gr = torch.zeros_like(gi)
-        # through exec_kernel, not _launch: a second derivative then works
-        # the same way, and the launch is counted
+        # through the operator with its gradient: a second derivative then
+        # works the same way, and the launch is counted
         yr, yi = exec_kernel(gr, gi, ctx.n, -ctx.sign)
+        need_r, need_i = ctx.needs_input_grad[:2]
         return (yr if need_r else None), (yi if need_i else None), None, None
+
+
+def _stockham_fft_autograd(xr: Tensor, xi: Tensor, n: int, sign: int):
+    """The operator's autograd kernel: :class:`_Gradient` where a plane needs
+    a gradient, else straight to the device's implementation."""
+    if torch.is_grad_enabled() and (xr.requires_grad or xi.requires_grad):
+        return _Gradient.apply(xr, xi, n, sign)
+    with torch._C._AutoDispatchBelowAutograd():
+        return torch.ops.mixed_radix_fft.stockham_fft(xr, xi, n, sign)
+
+
+_LIB.impl("stockham_fft", _stockham_fft_cuda, "CUDA")
+_LIB.impl("stockham_fft", exec_kernel_reference, "CPU")
+_LIB.impl("stockham_fft", _stockham_fft_autograd, "Autograd")
+torch.library.register_fake("mixed_radix_fft::stockham_fft", _stockham_fft_fake, lib=_LIB)
 
 
 def exec_kernel(xr: Tensor, xi: Tensor, n: int, sign: int) -> Tuple[Tensor, Tensor]:
@@ -568,10 +610,14 @@ def exec_kernel(xr: Tensor, xi: Tensor, n: int, sign: int) -> Tuple[Tensor, Tens
     their dtype.  A CUDA tensor launches the CUDA kernel on the current
     stream; a CPU tensor runs :func:`exec_kernel_reference`.
     Anything else raises.  The backward pass is this function at ``-sign``
-    on the cotangent planes, on either device."""
+    on the cotangent planes, on either device.  Under ``torch.compile`` and
+    ``torch.export`` the call is the operator's node in the graph."""
     if sign not in (-1, 1):
         raise ValueError(f"sign must be -1 or +1, got {sign}")
-    return _StockhamFFT.apply(xr, xi, n, sign)
+    if xr.device.type not in ("cpu", "cuda") or xi.device.type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"the kernel takes CPU or CUDA planes, got {xr.device} and {xi.device}")
+    return torch.ops.mixed_radix_fft.stockham_fft(xr, xi, n, sign)
 
 
 def uses_kernel(config, n: int, x: Tensor) -> bool:
@@ -582,12 +628,12 @@ def uses_kernel(config, n: int, x: Tensor) -> bool:
     package's auto route runs its kernel on its chip, and never on a CPU
     tensor, where the stage pipeline ran 3.6-45x faster than the kernel's
     plain version (``tools/tune.py kernel --device cpu`` at n = 64 to
-    16,384, PERF.md).  While ``torch.export`` traces, no: a ctypes launch
-    cannot be held by an exported program.  The working dtypes fp32, bf16
+    16,384, PERF.md).  Under ``torch.compile`` and ``torch.export`` the
+    same: the graph holds the operator.  The working dtypes fp32, bf16
     and fp16 take it; float64 (``SpectralConfig(dtype=torch.float64)``)
     never does: the kernel computes in fp32, and such a config refuses
     ``use_kernel=True``."""
-    if config.use_kernel is False or n <= 1 or torch.compiler.is_exporting():
+    if config.use_kernel is False or n <= 1:
         return False
     if config.dtype not in PLANE_DTYPES:
         return False

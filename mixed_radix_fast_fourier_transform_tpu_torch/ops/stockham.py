@@ -39,7 +39,8 @@ from ..plan import (
     device_constants,
     get_plan,
 )
-from ..utils.numerics import cmul, matmul_precision
+from ..utils.metrics import tracing
+from ..utils.numerics import check_compilable, cmul, matmul_precision
 from .cuda_fft import maybe_exec_kernel
 
 Tensor = torch.Tensor
@@ -94,7 +95,7 @@ def _einsum_split6(axis: int, x: Tensor, w: Tensor) -> Tensor:
     ws = torch.cat([w1, w2, w1, w3, w2, w1], dim=0)
     if axis == -2:   # z[..., m, k] = Σ_n W[n, m] x[..., n, k]
         xs, ws = ws.transpose(0, 1), xs
-    with matmul_precision("highest"):
+    with matmul_precision("highest", torch.float32):
         return torch.matmul(xs.float(), ws.float())
 
 
@@ -103,7 +104,7 @@ def _dot(axis: int, x: Tensor, w: Tensor, precision: str) -> Tensor:
     :func:`_dft_apply`)."""
     if precision == "split6":
         return _einsum_split6(axis, x, w)
-    with matmul_precision(precision):
+    with matmul_precision(precision, x.dtype):
         return torch.matmul(x, w) if axis == -1 else torch.matmul(w.transpose(0, 1), x)
 
 
@@ -283,17 +284,23 @@ def exec_mixed_radix(
     by the API layer per its ``norm`` argument."""
     if plan.n == 1:
         return xr, xi
-    with matmul_precision(_flags_precision(plan)):
+    with _flags(plan):
         return _exec_level(plan, device_constants(plan, xr.device), 0, xr, xi)
 
 
-def _flags_precision(plan) -> str:
-    """The precision a transform of ``plan`` sets torch's flags to, once for
-    all its products: its first stage's ("highest" for split6, whose
-    products run in IEEE fp32).  A stage at another precision sets its own."""
-    prec = getattr(plan, "inner", plan).precision
+def _flags(plan):
+    """The one precision block of a transform of ``plan``: torch's flags set
+    once for all its products, at its first stage's precision ("highest"
+    for split6, whose products run in IEEE fp32); a stage at another
+    precision sets its own.  Under torch.compile the config's whole setting
+    is checked instead (:func:`check_compilable`: "highest" only)."""
+    # Bluestein and Rader run at their inner plan's precision (isinstance,
+    # not getattr with a default: dynamo cannot guard a hasattr on a plan)
+    prec = (plan.inner if isinstance(plan, (BluesteinPlan, RaderPlan)) else plan).precision
+    if tracing():
+        check_compilable(prec, plan.dtype)
     prec = prec[0] if isinstance(prec, tuple) else prec
-    return "highest" if prec == "split6" else prec
+    return matmul_precision("highest" if prec == "split6" else prec, plan.dtype)
 
 
 def exec_bluestein(plan: BluesteinPlan, xr: Tensor, xi: Tensor) -> Tuple[Tensor, Tensor]:
@@ -341,10 +348,10 @@ def exec_rader(plan: RaderPlan, xr: Tensor, xi: Tensor) -> Tuple[Tensor, Tensor]
 def exec_complex(plan, xr: Tensor, xi: Tensor) -> Tuple[Tensor, Tensor]:
     """Dispatch on plan type."""
     if isinstance(plan, BluesteinPlan):
-        with matmul_precision(_flags_precision(plan)):
+        with _flags(plan):
             return exec_bluestein(plan, xr, xi)
     if isinstance(plan, RaderPlan):
-        with matmul_precision(_flags_precision(plan)):
+        with _flags(plan):
             return exec_rader(plan, xr, xi)
     return exec_mixed_radix(plan, xr, xi)
 

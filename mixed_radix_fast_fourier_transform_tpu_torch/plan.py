@@ -12,13 +12,22 @@ What the port adds is :func:`device_constants`: the tensors of a plan's
 constants on one device, uploaded once per (plan, device) and cached on the
 plan, so that a transform on the GPU does not copy its DFT matrices and
 twiddles from the host on every call.
+
+Under ``torch.compile`` plans are what they are under ``jax.jit``:
+trace-time constants.  :func:`get_plan` and the upload run on the host
+while dynamo traces (``torch.compiler.assume_constant_result``), a cold
+cache included, and the graph holds the uploaded tables; the traced code
+reads a plan's fields and names a plan to the upload by its cache key
+(``plan.key``), because dynamo cannot hand such a host object back to a
+host function.  Reads of the caches take no lock (``dict.get`` is atomic
+in CPython, and dynamo cannot trace a lock); every write is one
+``setdefault``, so two threads that build the same entry keep the first.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-import threading
 from typing import Dict, Tuple
 
 import numpy as np
@@ -60,6 +69,12 @@ def _device_cache():
     return dataclasses.field(default_factory=dict, compare=False, repr=False)
 
 
+def _cache_key():
+    # the plan's key in the plan cache, set by get_plan; () for a plan built
+    # directly (such a plan cannot be traced)
+    return dataclasses.field(default=(), compare=False, repr=False)
+
+
 @dataclasses.dataclass(frozen=True)
 class MixedRadixPlan:
     """Stage schedule for the stage pipeline.
@@ -84,6 +99,7 @@ class MixedRadixPlan:
     tw_re: Tuple[np.ndarray, ...] = ()
     tw_im: Tuple[np.ndarray, ...] = ()
     dtype: torch.dtype = torch.float32
+    key: tuple = _cache_key()
     _device: Dict = _device_cache()
 
 
@@ -102,6 +118,7 @@ class BluesteinPlan:
     spec_re: np.ndarray = None
     spec_im: np.ndarray = None
     dtype: torch.dtype = torch.float32
+    key: tuple = _cache_key()
     _device: Dict = _device_cache()
 
 
@@ -119,6 +136,7 @@ class RaderPlan:
     spec_re: np.ndarray = None
     spec_im: np.ndarray = None
     dtype: torch.dtype = torch.float32
+    key: tuple = _cache_key()
     _device: Dict = _device_cache()
 
 
@@ -138,12 +156,11 @@ class RealPlan:
     q_re: np.ndarray = None
     q_im: np.ndarray = None
     dtype: torch.dtype = torch.float32
+    key: tuple = _cache_key()
     _device: Dict = _device_cache()
 
 
 ComplexPlan = (MixedRadixPlan, BluesteinPlan, RaderPlan)
-
-_DEVICE_LOCK = threading.Lock()
 
 
 def _upload(a: np.ndarray, device: torch.device, dtype) -> torch.Tensor:
@@ -160,10 +177,31 @@ def _upload(a: np.ndarray, device: torch.device, dtype) -> torch.Tensor:
 
 def device_constants(plan, device) -> Dict[str, object]:
     """The plan's array constants as tensors on ``device``, keyed by field
-    name (tuples stay tuples).  Uploaded once per (plan, device)."""
+    name (tuples stay tuples).  Uploaded once per (plan, device); while a
+    tracer runs (``utils.numerics.traced``) the upload is the trace's and
+    is not kept."""
+    from .utils.metrics import tracing
+
     device = torch.device(device)
-    with _DEVICE_LOCK:
-        consts = plan._device.get(device)
+    if tracing():
+        if not plan.key:
+            raise ValueError(
+                f"{type(plan).__name__} n={plan.n} was not made by get_plan: a "
+                f"traced call reaches plan constants through the plan cache")
+        return _traced_constants(plan.key, device)
+    return _constants(plan, device)
+
+
+@torch.compiler.assume_constant_result
+def _traced_constants(key: tuple, device: torch.device) -> Dict[str, object]:
+    # on the host while dynamo traces: the graph holds the result
+    return _constants(_CACHE[key], device)
+
+
+def _constants(plan, device: torch.device) -> Dict[str, object]:
+    from .utils.numerics import traced
+
+    consts = plan._device.get(device)
     if consts is not None:
         return consts
     consts = {}
@@ -174,12 +212,9 @@ def device_constants(plan, device) -> Dict[str, object]:
             consts[f.name] = _upload(v, device, dtype)
         elif isinstance(v, tuple) and v and isinstance(v[0], np.ndarray):
             consts[f.name] = tuple(_upload(a, device, dtype) for a in v)
-    if torch.compiler.is_exporting():
-        # made while torch.export traces, these are the tracer's tensors,
-        # which no later call could use: not kept
+    if any(traced(t) for v in consts.values() for t in (v if isinstance(v, tuple) else (v,))):
         return consts
-    with _DEVICE_LOCK:
-        return plan._device.setdefault(device, consts)
+    return plan._device.setdefault(device, consts)
 
 
 def _host(pair, config: SpectralConfig) -> Tuple[np.ndarray, np.ndarray]:
@@ -346,7 +381,6 @@ def build_real_plan(
 
 # Plan cache, keyed on everything that changes plan structure or constants.
 _CACHE: dict = {}
-_CACHE_LOCK = threading.Lock()
 
 
 def _cfg_key(config: SpectralConfig):
@@ -366,15 +400,30 @@ def get_plan(n: int, sign: int, kind: str = "complex",
              config: SpectralConfig = DEFAULT_CONFIG):
     """Cached plan lookup keyed on (n, sign, kind, config).  ``kind`` is
     "complex", "real", or "kernel" (the fused kernel's schedule, which no
-    config field changes)."""
+    config field changes).  While dynamo traces, the lookup (and a build on
+    a miss) runs on the host and the plan is a constant of the trace, as
+    under ``jax.jit``."""
+    # the config goes to the host as its field values: dynamo hands a host
+    # function a config made inside the traced region with its defaults
+    return _cached_plan(kind, n, sign, _cfg_key(config),
+                        tuple(getattr(config, f) for f in _PLAN_FIELDS))
+
+
+# The config fields a plan depends on (all but use_kernel).
+_PLAN_FIELDS = ("max_stage", "direct_dft_max", "stage_strategy", "dtype", "precision",
+                "pad_mode", "rader", "butterfly")
+
+
+@torch.compiler.assume_constant_result
+def _cached_plan(kind: str, n: int, sign: int, cfg_key: tuple, fields: tuple):
     from .utils.metrics import incr, logger
 
-    key = (kind, n, sign, _cfg_key(config))
-    with _CACHE_LOCK:
-        plan = _CACHE.get(key)
+    key = (kind, n, sign, cfg_key)
+    plan = _CACHE.get(key)
     if plan is not None:
         incr("plan_cache_hits")
         return plan
+    config = SpectralConfig(**dict(zip(_PLAN_FIELDS, fields)))
     if kind == "complex":
         plan = build_complex_plan(n, sign, config)
     elif kind == "real":
@@ -390,8 +439,7 @@ def get_plan(n: int, sign: int, kind: str = "complex",
         "built %s plan n=%d sign=%+d (%s)", kind, n, sign,
         type(plan).__name__,
     )
-    with _CACHE_LOCK:
-        return _CACHE.setdefault(key, plan)
+    return _CACHE.setdefault(key, dataclasses.replace(plan, key=key))
 
 
 def clear_plan_cache() -> None:
@@ -401,7 +449,6 @@ def clear_plan_cache() -> None:
     from .ops import cuda_fft  # ops import this module
     from .utils.numerics import clear_constants
 
-    with _CACHE_LOCK:
-        _CACHE.clear()
-        cuda_fft._READY.clear()
+    _CACHE.clear()
+    cuda_fft._READY.clear()
     clear_constants()

@@ -15,6 +15,7 @@ Usage (on the card unless ``--device cpu``)::
     python -m ....tools.tune kernel 1024 256       # fused kernel vs stage pipeline
     python -m ....tools.tune kernel all            # every length the kernel takes
     python -m ....tools.tune builtin 1024 256      # the default route vs torch.fft
+    python -m ....tools.tune dispatch 4096 8       # host µs a call: kernel, filter
     python -m ....tools.tune split 3600 64 120x30 144x25
     python -m ....tools.tune precision 1024 256    # the matmul precision ladder
     python -m ....tools.tune prec 1024 256 highest,high   # per-stage schemes
@@ -254,6 +255,77 @@ def tune_builtin(n: int, b: int, *, device=None, short=None, rounds=None) -> dic
     print(f"ours: exec_len, the default route at n={n} on {args[0].device.type}: {route}")
     return _compare("builtin", builtin, "ours",
                     lambda a, c: exec_len(DEFAULT_CONFIG, n, -1, a, c), args, short, long, rounds)
+
+
+def tune_dispatch(n: int, b: int, *, device=None, short=None, rounds=None) -> dict:
+    """The host's cost of a call through the fused kernel's binding: wall µs
+    per call of ``short`` back-to-back calls on the same inputs (synchronised
+    at the end), best of ``rounds`` rounds with the variants interleaved in
+    each, and the median µs of one call timed alone (``short / 4`` a round,
+    CUDA events on the card), for ``torch.fft.fft`` on (b, n/2) planes (the
+    control),
+    ``exec_kernel`` on them with and without planes that need a gradient,
+    and the spectral filter's forward and SGD step at (b, n), whose inner
+    transforms are those planes' length.  At a small batch the card ends a
+    call before the host issues the next, so these are host times: run it
+    from two checkouts (parent, change, change, parent) to A/B a change of
+    the binding."""
+    import time
+
+    from ..models import spectral_filter as sf
+
+    short, _, rounds = _knobs(short, rounds, 200, 200)
+    (xr, xi), _ = _planes(n // 2, b, device)
+    gr, gi = (t.clone().requires_grad_(True) for t in (xr, xi))
+    dev = xr.device
+    params = sf.init_params(n, generator=torch.Generator().manual_seed(0), device=dev)
+    x = torch.tensor(np.random.default_rng(1).standard_normal((b, n)), dtype=torch.float32,
+                     device=dev)
+    variants = {
+        "torch.fft.fft": lambda: torch.fft.fft(torch.complex(xr, xi)),
+        "exec_kernel": lambda: cuda_fft.exec_kernel(xr, xi, n // 2, -1),
+        "exec_kernel, planes needing a gradient": lambda: cuda_fft.exec_kernel(
+            gr, gi, n // 2, -1),
+        "filter forward": lambda: sf.apply(params, x),
+        "filter train step": lambda: sf.train_step(params, x, x, lr=1e-3),
+    }
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def one_call(fn) -> float:
+        if dev.type != "cuda":
+            t0 = time.perf_counter()
+            fn()
+            return (time.perf_counter() - t0) * 1e6
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) * 1e3
+
+    best = {name: float("inf") for name in variants}
+    alone = {name: [] for name in variants}
+    for fn in variants.values():
+        fn()
+    for _ in range(rounds):
+        for name, fn in variants.items():
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(short):
+                fn()
+            sync()
+            best[name] = min(best[name], (time.perf_counter() - t0) / short * 1e6)
+            alone[name] += [one_call(fn) for _ in range(max(short // 4, 1))]
+    route = "kernel" if cuda_fft.uses_kernel(DEFAULT_CONFIG, n // 2, xr) else "stage pipeline"
+    out = {"n": n, "batch": b, "device": dev.type, "filter_route": route,
+           "calls": short, "rounds": rounds, "host_us_per_call": best,
+           "one_call_us": {name: float(np.median(v)) for name, v in alone.items()}}
+    print(json.dumps({"dispatch": out}), flush=True)
+    return out
 
 
 def _err_of(plan, args, want) -> float:
@@ -586,7 +658,7 @@ PROBES = {
     "stages": tune_stages, "pad": tune_pad, "kernel": tune_kernel, "builtin": tune_builtin,
     "matmul_form": tune_matmul_form, "rader": tune_rader, "butterfly": tune_butterfly,
     "nufft": tune_nufft, "sht": tune_sht, "precision": tune_precision,
-    "split6": tune_split6,
+    "split6": tune_split6, "dispatch": tune_dispatch,
 }
 
 

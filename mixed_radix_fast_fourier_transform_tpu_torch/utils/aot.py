@@ -3,20 +3,23 @@
 Counterpart of ``mixed_radix_fast_fourier_transform_tpu/utils/aot.py``.  A
 pipeline (any composition of this library's ops) can be
 
-* **set up ahead of time** (:func:`aot_compile`): plans, device tables and
-  the fused kernel's library are built now for the example shapes, and on
-  the card one call is captured in a CUDA graph, so the first real call
-  pays no set-up; or
+* **compiled ahead of time** (:func:`aot_compile`, JAX's
+  ``jit(...).lower().compile()``): ``torch.compile`` of the pipeline for
+  the example shapes, compiled now (plans, device tables and the fused
+  kernel's library are built while it traces), and on the card one call
+  captured in a CUDA graph, so the first real call pays no set-up; or
 * **exported** (:func:`export_transform` / :func:`load_transform`):
-  ``torch.export`` of the pipeline saved to bytes, which reload and run
-  without this library: the exported graph holds the plan constants as
-  tensors, and no plan cache, factorization or Python of the port is left
-  in the serving path.
+  ``torch.export`` of the pipeline saved to bytes.  Plans are trace-time
+  constants: the exported graph holds the plan constants as tensors, and
+  no plan cache or factorization is left in the serving path.
 
-The fused kernel is a ctypes launch that no exported program can hold, so
-an export traces the stage pipeline (``use_kernel=False``; see
-``ops/cuda_fft.py::maybe_exec_kernel``).  The outputs of the two routes
-agree within 2e-5.
+An export takes the route the config and the device take live.  On the
+stage pipeline (a CPU tensor by default, or ``use_kernel=False``) the
+program is aten ops alone and reloads without this library.  At a length
+the fused kernel takes on the card (or with ``use_kernel=True``) the graph
+holds the kernel's operator, ``mixed_radix_fft::stockham_fft``, which must
+be registered where it reloads: :func:`load_transform` imports
+``ops/cuda_fft.py``, which needs no card to import.
 """
 
 from __future__ import annotations
@@ -31,15 +34,30 @@ from .numerics import as_tensor
 
 
 class _Prepared:
-    """A pipeline set up for fixed argument shapes; calls replay the CUDA
+    """A pipeline compiled for fixed argument shapes; calls replay the CUDA
     graph captured at set-up where the arguments live on the card."""
 
     def __init__(self, fn: Callable, args, kwargs):
-        self._fn, self._kwargs = fn, kwargs
         self._static = [a.clone() for a in args]
+        on_card = all(a.device.type == "cuda" for a in self._static)
+        # Inductor on the card; on the CPU, which is no target of the port,
+        # AOTAutograd's graph runs as it is (Inductor's C++ build there costs
+        # tens of seconds a shape)
+        name = getattr(fn, "__name__", "fn")
+        fn = torch.compile(fn, fullgraph=True, dynamic=False,
+                           backend="inductor" if on_card else "aot_eager")
+        self._fn, self._kwargs = fn, kwargs
         self._graph = None
-        out = fn(*self._static, **kwargs)          # plans, tables, the library
-        if all(a.device.type == "cuda" for a in self._static):
+        try:
+            out = fn(*self._static, **kwargs)      # compiles: plans, tables, the library
+        except torch._dynamo.exc.TorchDynamoException as e:
+            raise ValueError(
+                f"aot_compile compiles {name} whole "
+                f"(torch.compile, fullgraph=True), and it does not trace: the "
+                f"port's compiled path covers fft, ifft, rfft, irfft, fft_convolve, "
+                f"the spectral filter and the FNO so far (ROADMAP.md lists the "
+                f"rest). {str(e).splitlines()[0]}") from e
+        if on_card:
             stream = torch.cuda.Stream()
             stream.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(stream):
@@ -66,14 +84,15 @@ class _Prepared:
 
 
 def aot_compile(fn: Callable, *example_args: Any, **fn_kwargs):
-    """Set ``fn`` up for the shapes and devices of ``example_args``
-    (tensors; numpy arrays go to the card): one call now builds every plan,
-    device table and the kernel library it needs, and on the card a second
-    call is captured in a CUDA graph.  Returns a callable for arguments of
-    those shapes, dtypes and devices (``fn_kwargs`` are passed on every
-    call).  The JAX executable's ``.cost_analysis()`` and
-    ``.memory_analysis()`` have no counterpart: no compiler holds a view of
-    an eager pipeline."""
+    """Compile ``fn`` for the shapes and devices of ``example_args``
+    (tensors; numpy arrays go to the card): ``torch.compile(fn,
+    fullgraph=True, dynamic=False)`` (Inductor; ``aot_eager`` for CPU
+    tensors) called once now, which builds every plan, device table and the
+    kernel library it needs while it traces, and on the card a second call
+    captured in a CUDA graph; a ``fn`` that does not trace whole raises
+    ValueError.  Returns a callable for arguments of those shapes, dtypes and devices
+    (``fn_kwargs`` are passed on every call).  The JAX executable's
+    ``.cost_analysis()`` and ``.memory_analysis()`` have no counterpart."""
     return _Prepared(fn, [as_tensor(a) for a in example_args], fn_kwargs)
 
 
@@ -107,5 +126,9 @@ def export_transform(
 
 def load_transform(blob: bytes) -> Callable:
     """Reload a serialized transform (from :func:`export_transform`) as a
-    callable module, checked against the export-time argument shapes."""
+    callable module, checked against the export-time argument shapes.  The
+    fused kernel's operator is registered first, for a program that holds
+    it."""
+    from ..ops import cuda_fft  # noqa: F401  (registers mixed_radix_fft::stockham_fft)
+
     return torch.export.load(io.BytesIO(blob)).module()

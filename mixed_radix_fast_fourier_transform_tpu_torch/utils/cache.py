@@ -22,7 +22,7 @@ from typing import Iterable, Optional, Tuple
 
 import numpy as np
 
-from ..plan import _CACHE, _CACHE_LOCK, get_plan
+from ..plan import _CACHE, get_plan
 from .config import DEFAULT_CONFIG, SpectralConfig
 
 DEFAULT_CACHE_DIR = os.path.expanduser("~/.cache/mixed_radix_fft_torch/build")
@@ -67,8 +67,7 @@ def warm_plans(
 def save_plans(path: str) -> int:
     """Write the manifest of every cached plan to ``path`` (.npz): rows of
     (kind id, n, sign).  Returns the plan count."""
-    with _CACHE_LOCK:
-        keys = list(_CACHE.keys())
+    keys = list(_CACHE.copy())   # dict.copy is atomic; the cache takes no lock
     rows = np.asarray(
         [[_KIND_IDS[kind], n, sign] for kind, n, sign, _ in keys], dtype=np.int64,
     ).reshape(-1, 3)

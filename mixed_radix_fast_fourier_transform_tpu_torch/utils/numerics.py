@@ -8,6 +8,7 @@ the compensated SHT recurrence build on.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Dict, Hashable, Optional, Tuple
 
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 from .config import DTYPE, PRECISIONS
-from .metrics import incr
+from .metrics import incr, tracing
 
 Tensor = torch.Tensor
 
@@ -36,8 +37,19 @@ def as_tensor(x, device=None) -> Tensor:
     return torch.as_tensor(x, device=resolve_device(device))
 
 
+# Reads take no lock (dict.get is atomic in CPython, and torch.compile
+# cannot trace a lock); a write is one setdefault, so two threads that
+# upload the same table keep the first.
 _TABLES: Dict[tuple, Tensor] = {}
-_TABLES_LOCK = threading.Lock()
+
+
+def traced(t: Tensor) -> bool:
+    """Is ``t`` made while a tracer runs (torch.compile, torch.export, an
+    AOTAutograd trace)?  Such a tensor is the tracer's (a fake or
+    functional tensor, or dynamo's view of one) and is never kept in a
+    cache that outlives the trace: only plain tensors made outside any
+    trace are."""
+    return tracing() or type(t) is not torch.Tensor
 
 
 def _upload(values, device: torch.device, dtype) -> Tensor:
@@ -59,22 +71,22 @@ def constant(values, like: Tensor, dtype=DTYPE, *, key: Optional[Hashable] = Non
     counters ``constant_uploads`` / ``constant_hits`` of ``utils.metrics``
     say which happened.  ``values`` may then be a function of no arguments,
     called only when the table is missing.  Without a key (a table built
-    from a caller's array) it is uploaded on every call."""
+    from a caller's array) it is uploaded on every call.  While a tracer
+    runs (:func:`traced`) a missing table is made for the trace and not
+    kept."""
     device = like.device
     if key is None:
         return _upload(values() if callable(values) else values, device, dtype)
     slot = (key, device, dtype)
-    with _TABLES_LOCK:
-        t = _TABLES.get(slot)
+    t = _TABLES.get(slot)
     if t is not None:
         incr("constant_hits")
         return t
     t = _upload(values() if callable(values) else values, device, dtype)
     incr("constant_uploads")
-    if torch.compiler.is_exporting():
-        return t   # the tracer's tensor while torch.export traces: not kept
-    with _TABLES_LOCK:
-        return _TABLES.setdefault(slot, t)
+    if traced(t):
+        return t
+    return _TABLES.setdefault(slot, t)
 
 
 def content_key(name: str, a: np.ndarray) -> tuple:
@@ -87,8 +99,7 @@ def content_key(name: str, a: np.ndarray) -> tuple:
 
 def clear_constants() -> None:
     """Drop every kept device table."""
-    with _TABLES_LOCK:
-        _TABLES.clear()
+    _TABLES.clear()
 
 
 def to_host(x, dtype=None) -> np.ndarray:
@@ -201,46 +212,115 @@ def median(x: Tensor, dim: int = -1, keepdim: bool = False) -> Tensor:
     return out if keepdim else out.squeeze(dim)
 
 
-class matmul_precision:
-    """Matrix products and convolutions inside the block at ``precision``,
+def matmul_precision(precision: str = "highest", dtype: Optional[torch.dtype] = None):
+    """A block whose matrix products and convolutions run at ``precision``,
     as ``jax.lax.Precision`` defines it on a GPU, whatever the caller's
     flags: "highest" is IEEE fp32 (TF32 off), "high" and "default" let fp32
     products on a CUDA tensor run in TF32 (``torch.backends.cuda.matmul.
     allow_tf32`` and ``torch.backends.cudnn.allow_tf32`` on).  Products of
     2-byte operands accumulate in fp32 either way (cuBLAS's reduced-precision
-    reductions off), as XLA's ``preferred_element_type`` asks.  On the CPU
-    every setting computes in fp32: torch's CPU products ignore the flags.
-    The flags are restored on leaving.
+    reductions off), as XLA's ``preferred_element_type`` asks; ``dtype`` is
+    the operands' dtype where the caller knows it, and fp32 or float64
+    operands leave those two flags as they are (None: unknown, all four are
+    set eagerly, and a trace checks them only for a known 2-byte dtype).
+    On the CPU every setting computes in fp32: torch's CPU products ignore
+    the flags.  The flags are restored on leaving.
 
     The block writes only the flags that differ, and a block nested in one
     of the same precision on the same thread reads none, so a transform
     sets them once for all its stage products.  The flags are torch's and
     process-wide: while a "high" block runs, fp32 products that other
-    threads launch may run in TF32 too."""
+    threads launch may run in TF32 too.
 
-    __slots__ = ("precision", "outer", "saved")
+    Under ``torch.compile`` or ``torch.export`` no flag is written (a traced
+    region cannot change them, and the compiled graph runs at the flags of
+    its caller): the block checks that the caller's flags already give
+    ``precision`` (:func:`check_compilable`) and is otherwise empty."""
+    if precision not in PRECISIONS:
+        raise ValueError(
+            f"precision must be 'highest', 'high' or 'default', got {precision!r}"
+        )
+    if tracing():
+        check_compilable(precision, dtype)
+        return contextlib.nullcontext()
+    return _Flags(precision, dtype)
 
-    def __init__(self, precision: str = "highest"):
-        if precision not in PRECISIONS:
-            raise ValueError(
-                f"precision must be 'highest', 'high' or 'default', got {precision!r}"
-            )
+
+@torch.compiler.assume_constant_result
+def check_compilable(precision, dtype: Optional[torch.dtype] = None) -> bool:
+    """Raise ValueError unless a traced call at ``precision`` (a config's
+    setting: a name, "split6" or a per-stage tuple) on ``dtype`` operands
+    computes as eager would at the caller's flags, which a compiled graph
+    cannot change: "highest" with cuBLAS's TF32 off
+    (``torch.backends.cuda.matmul.allow_tf32`` False and
+    ``torch.get_float32_matmul_precision()`` "highest", torch's defaults)
+    and, for ``dtype`` bf16 or fp16, its reduced-precision reductions off
+    too (a site that may see 2-byte operands passes their dtype; None is
+    taken as fp32, the port's working dtype).  The other precisions wait for
+    a later slice.  Runs on the host while dynamo traces
+    (``assume_constant_result``), never in the graph; under
+    torch.compile torch reports the ValueError in its own
+    ``InternalTorchDynamoError``, whose message begins "ValueError:"."""
+    if precision != "highest":
+        raise ValueError(
+            f"SpectralConfig.precision={precision!r} cannot be compiled yet: a "
+            f"compiled graph runs at the caller's matmul flags, so only "
+            f"'highest' (TF32 off) is supported under torch.compile and torch.export")
+    mm = torch.backends.cuda.matmul
+    if mm.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise ValueError(
+            "SpectralConfig.precision='highest' needs IEEE fp32 products, but the "
+            "process's flags let fp32 matmuls run in TF32 "
+            "(torch.backends.cuda.matmul.allow_tf32 or "
+            "torch.set_float32_matmul_precision); a compiled graph cannot change "
+            "them: turn TF32 off before compiling")
+    if dtype in (torch.bfloat16, torch.float16) and (
+            mm.allow_bf16_reduced_precision_reduction
+            or mm.allow_fp16_reduced_precision_reduction):
+        raise ValueError(
+            f"SpectralConfig.dtype={dtype} accumulates its products in fp32, but "
+            f"the process's flags allow cuBLAS's reduced-precision reductions "
+            f"(torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction "
+            f"/ allow_fp16_reduced_precision_reduction); a compiled graph cannot "
+            f"change them: turn them off before compiling")
+    return True
+
+
+class _Flags:
+    """The eager block of :func:`matmul_precision`."""
+
+    __slots__ = ("precision", "reductions", "outer", "saved")
+
+    def __init__(self, precision: str, dtype: Optional[torch.dtype]):
         self.precision = precision
+        self.reductions = dtype not in (torch.float32, torch.float64)
+
+    def _flags(self):
+        mm, dnn = torch.backends.cuda.matmul, torch.backends.cudnn
+        flags = (mm.allow_tf32, dnn.allow_tf32)
+        if self.reductions:
+            flags += (mm.allow_bf16_reduced_precision_reduction,
+                      mm.allow_fp16_reduced_precision_reduction)
+        return flags
+
+    def _set(self, flags) -> None:
+        mm, dnn = torch.backends.cuda.matmul, torch.backends.cudnn
+        mm.allow_tf32, dnn.allow_tf32 = flags[:2]
+        if self.reductions:
+            (mm.allow_bf16_reduced_precision_reduction,
+             mm.allow_fp16_reduced_precision_reduction) = flags[2:]
 
     def __enter__(self):
         self.outer = getattr(_PRECISION, "active", None)
         self.saved = None
         if self.outer == self.precision:
             return self
-        mm, dnn = torch.backends.cuda.matmul, torch.backends.cudnn
-        saved = (mm.allow_tf32, dnn.allow_tf32, mm.allow_bf16_reduced_precision_reduction,
-                 mm.allow_fp16_reduced_precision_reduction)
+        saved = self._flags()
         tf32 = self.precision != "highest"
-        if saved != (tf32, tf32, False, False):
+        want = (tf32, tf32, False, False)[:len(saved)]
+        if saved != want:
             self.saved = saved
-            mm.allow_tf32 = dnn.allow_tf32 = tf32
-            mm.allow_bf16_reduced_precision_reduction = False
-            mm.allow_fp16_reduced_precision_reduction = False
+            self._set(want)
         _PRECISION.active = self.precision
         return self
 
@@ -248,9 +328,7 @@ class matmul_precision:
         if self.outer == self.precision:
             return
         if self.saved is not None:
-            mm, dnn = torch.backends.cuda.matmul, torch.backends.cudnn
-            (mm.allow_tf32, dnn.allow_tf32, mm.allow_bf16_reduced_precision_reduction,
-             mm.allow_fp16_reduced_precision_reduction) = self.saved
+            self._set(self.saved)
         _PRECISION.active = self.outer
 
 
@@ -264,7 +342,9 @@ _PRECISION = threading.local()
 # one kernel, so no compiler can contract a product and a sum into a fused
 # multiply-add or reassociate them, and the results are bit-equal to the JAX
 # functions'.  Do not rewrite them with addcmul/addcdiv, ``alpha=`` or
-# torch.compile.  Dtype-polymorphic; the splitter constants target fp32.
+# torch.compile: each is marked ``torch.compiler.disable``, so a compiled
+# caller runs it eagerly (and ``fullgraph=True`` refuses it).
+# Dtype-polymorphic; the splitter constants target fp32.
 # ---------------------------------------------------------------------------
 
 # 2^12 + 1: Dekker splitter for fp32 (balanced 12/12-bit halves, two_prod)
@@ -274,6 +354,7 @@ DW_SPLIT = 4097.0
 VELTKAMP_SPLIT = 65537.0
 
 
+@torch.compiler.disable
 def two_sum(a, b):
     """Error-free addition: (s, e) with s + e == a + b exactly (Knuth)."""
     s = a + b
@@ -281,12 +362,14 @@ def two_sum(a, b):
     return s, (a - (s - bb)) + (b - bb)
 
 
+@torch.compiler.disable
 def fast_two_sum(a, b):
     """Error-free addition assuming |a| >= |b| (or a == 0): Dekker."""
     s = a + b
     return s, b - (s - a)
 
 
+@torch.compiler.disable
 def two_prod(a, b):
     """Error-free product: (p, e) with p + e == a·b exactly (Dekker split)."""
     p = a * b
@@ -299,6 +382,7 @@ def two_prod(a, b):
     return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
 
 
+@torch.compiler.disable
 def veltkamp(v):
     """Exact fp32 split into an 8-bit-mantissa head and a tail."""
     c = VELTKAMP_SPLIT * v
@@ -306,12 +390,14 @@ def veltkamp(v):
     return hi, v - hi
 
 
+@torch.compiler.disable
 def dw_mul(ah, al, bh, bl):
     """Double-word × double-word product, renormalized (hi, lo)."""
     ph, pe = two_prod(ah, bh)
     return fast_two_sum(ph, pe + (ah * bl + al * bh))
 
 
+@torch.compiler.disable
 def dw_add(ah, al, bh, bl):
     """Double-word + double-word sum, renormalized (hi, lo)."""
     sh, se = two_sum(ah, bh)

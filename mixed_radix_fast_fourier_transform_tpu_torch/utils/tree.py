@@ -2,12 +2,14 @@
 
 The JAX package keeps a model's parameters in a pytree and steps them with
 ``jax.tree_util.tree_map``; these few functions do the same for the port's
-functional models, and carry the one SGD step they all share.
+functional models, and carry the one SGD step they all share, eager
+(:func:`sgd_step`) or compiled (:func:`compile_sgd_step`, the counterpart
+of ``jax.jit`` of a model's ``train_step``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import Callable, List, Sequence
 
 import numpy as np
 import torch
@@ -68,3 +70,37 @@ def sgd_step(loss_fn: Callable, params, *args, lr: float, **kwargs):
     with torch.no_grad():
         stepped = tree_map(lambda p: p - lr * next(grads), leaves)
     return stepped, loss.detach()
+
+
+def _sgd_update(leaves: Sequence[Tensor], grads: Sequence[Tensor], lr) -> List[Tensor]:
+    return [p - lr * g for p, g in zip(leaves, grads)]
+
+
+def compile_sgd_step(loss_fn: Callable, **options) -> Callable:
+    """:func:`sgd_step` on ``loss_fn`` compiled, as ``jax.jit`` compiles a
+    model's ``train_step``: returns ``step(params, *args, lr, **kwargs)`` with
+    :func:`sgd_step`'s arguments and results.
+
+    The loss is compiled whole (``torch.compile(loss_fn, fullgraph=True,
+    dynamic=False, **options)``; AOTAutograd compiles its backward with it,
+    the fused kernel's backward as its operator at the opposite sign), the
+    gradients are taken by ``torch.autograd.grad`` outside the traced region
+    (dynamo cannot trace it under ``fullgraph``), and the update ``p − lr·g``
+    over all leaves is compiled too.  ``options`` go to both
+    ``torch.compile`` calls (``backend="aot_eager"`` for a CPU without a
+    compiler; Inductor by default).  Each new argument shape compiles once,
+    as under ``jax.jit``; hold on to the returned function."""
+    opts = dict(fullgraph=True, dynamic=False, **options)
+    loss_c = torch.compile(loss_fn, **opts)
+    update_c = torch.compile(_sgd_update, **opts)
+
+    def step(params, *args, lr: float, **kwargs):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        flat = tree_leaves(leaves)
+        loss = loss_c(leaves, *args, **kwargs)
+        grads = torch.autograd.grad(loss, flat)
+        with torch.no_grad():
+            stepped = iter(update_c([p.detach() for p in flat], grads, lr))
+        return tree_map(lambda _: next(stepped), leaves), loss.detach()
+
+    return step

@@ -1,8 +1,9 @@
-"""PyTorch port: the fused kernel's autograd Function on the CPU.
+"""PyTorch port: the fused kernel's operator and its gradient on the CPU.
 
-On a CPU tensor the Function's forward is the kernel's plain version, and
-its backward is the Function itself at the opposite sign, exactly as on the
-card, so the gradient formula is checked here.
+On a CPU tensor the operator (``torch.ops.mixed_radix_fft.stockham_fft``,
+reached through ``exec_kernel``) runs the kernel's plain version, and its
+registered backward is the operator itself at the opposite sign, exactly as
+on the card, so the gradient formula is checked here.
 """
 
 import numpy as np
@@ -97,7 +98,7 @@ def test_unused_outputs_and_no_grad_inputs():
 
 
 def test_double_backward():
-    """The backward is the Function again, so a second derivative exists:
+    """The backward is the operator again, so a second derivative exists:
     for L = Σ|F x|², dL/dx = 2n·x, and d/dx ⟨dL/dx, v⟩ = 2n·v."""
     n = 90
     xr, xi = _planes((2, n), 11, requires_grad=True)

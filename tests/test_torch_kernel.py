@@ -249,6 +249,33 @@ def test_wrapper_refuses_other_devices():
         cuda_fft.exec_kernel(x, x, 64, -1)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_the_wrapper_is_the_registered_operator(dtype, launches):
+    """``exec_kernel`` is the operator ``mixed_radix_fft::stockham_fft``:
+    the same planes through either, a CPU tensor through the plain version
+    with no launch, and a second derivative taken through the operator
+    called directly (its backward is itself at the opposite sign):
+    L = Σ|F x|² has dL/dx = 2n·x and d/dx ⟨dL/dx, v⟩ = 2n·v."""
+    n = 90
+    _, xr, xi = _inputs(n, 3, 21)
+    tr, ti = (torch.from_numpy(a).to(dtype).requires_grad_(True) for a in (xr, xi))
+    op = torch.ops.mixed_radix_fft.stockham_fft
+    yr, yi = op(tr, ti, n, -1)
+    kr, ki = cuda_fft.exec_kernel(tr, ti, n, -1)
+    assert torch.equal(yr, kr) and torch.equal(yi, ki) and yr.dtype == dtype
+    wr, wi = cuda_fft.exec_kernel_reference(tr.detach(), ti.detach(), n, -1)
+    assert torch.equal(yr.detach(), wr) and torch.equal(yi.detach(), wi)
+    gr, gi = torch.autograd.grad((yr.float() ** 2 + yi.float() ** 2).sum(), [tr, ti],
+                                 create_graph=True)
+    vr, vi = (torch.from_numpy(a) for a in _inputs(n, 3, 22)[1:])
+    hr, hi = torch.autograd.grad((gr.float() * vr + gi.float() * vi).sum(), [tr, ti])
+    unit = {torch.float32: KERNEL_TOL, torch.bfloat16: 2.0 ** -6, torch.float16: 2.0 ** -9}[dtype]
+    assert _rel(gr.detach().float().numpy(), 2 * n * tr.detach().float().numpy()) <= unit
+    assert _rel(hr.float().numpy(), 2 * n * vr.numpy()) <= unit
+    assert _rel(hi.float().numpy(), 2 * n * vi.numpy()) <= unit
+    assert cuda_fft.LAUNCHES == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,batch", [(8, 3), (90, 3), (360, 3), (2048, 8), (2048, 1024),
                                      (5040, 3), (12005, 3), (12288, 3), (16384, 3)])

@@ -1,6 +1,6 @@
 """PyTorch port: the spectral filter's loss, gradients and SGD step against
 the JAX package, through the kernel route (its plain version and its
-autograd Function on the CPU) and through the stage pipeline."""
+registered gradient on the CPU) and through the stage pipeline."""
 
 import jax
 import numpy as np

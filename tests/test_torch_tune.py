@@ -48,6 +48,21 @@ def test_every_probe_runs_on_cpu_tensors(probe, capsys):
     assert "median ratio" in text
 
 
+def test_dispatch_probe_times_every_variant(capsys):
+    """The binding's host-cost probe times each variant on CPU tensors (the
+    operator's CPU implementation and the filter on the stage pipeline) and
+    prints its JSON line; no number here is a card's."""
+    res = tune.PROBES["dispatch"](N, B, **KNOBS)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["dispatch"]
+    assert line == res and res["device"] == "cpu" and res["filter_route"] == "stage pipeline"
+    assert set(res["host_us_per_call"]) == {
+        "torch.fft.fft", "exec_kernel", "exec_kernel, planes needing a gradient",
+        "filter forward", "filter train step"}
+    assert set(res["one_call_us"]) == set(res["host_us_per_call"])
+    assert all(0 < us < float("inf") for part in ("host_us_per_call", "one_call_us")
+               for us in res[part].values())
+
+
 @pytest.mark.parametrize("probe", ["stages", "butterfly"])
 def test_stage_probes_compare_where_the_plan_has_stages(probe):
     with redirect_stdout(io.StringIO()):
