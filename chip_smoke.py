@@ -188,11 +188,14 @@ Phases, each of which raises on failure:
     the kernel's operator and launches it) and on the stage pipeline (no
     launch);
 27. the nine example programs (``examples/``), each ``main`` on the card at
-    the JAX example's own sizes with its asserts, then ``mri_recon`` at 256²
-    with 402 spokes of 512 points and the advection at lmax 255 (160 RK4
+    the JAX example's own sizes with its asserts (``pde_spectral``'s two time
+    steps and ``sphere_advection``'s RK4 step compiled, their default on a
+    card, as the JAX examples jit them), then ``mri_recon`` at 256²
+    with 402 spokes of 512 points and the advection at lmax 255 eagerly (160 RK4
     steps, its error against the exact rotation bounded): per run the
     kernel's launches, the kernel against its plain version on the first
-    two and the last plane pairs it was handed, back-to-back wall ms of a
+    two and the last plane pairs it was handed (for the two compiled
+    examples, by an eager run of the same example), back-to-back wall ms of a
     warm run and the profiler's device ms;
 28. ``tools/tune.py kernel all``: the kernel, the stage pipeline and
     ``torch.fft.fft`` at every length the kernel takes (399, 2^22 complex
@@ -208,7 +211,19 @@ Phases, each of which raises on failure:
     operator is a node of the graphs), compiled against eager (2e-5) and
     the filter against float64 (1e-5), compile seconds, device µs by graph
     replay and profiler, kernels a call, back-to-back time, idle share, and
-    the host's events of a compiled call.
+    the host's events of a compiled call;
+30. every model family compiled (Inductor, as the JAX package's tests jit
+    them) at the widths of its eager phase: S4D, FNet-Base, the FourCastNet
+    AFNO, the SFNO, the PCEN front end and the Koopman autoencoder, each
+    forward and ``compile_sgd_step`` beside eager on the same weights: zero
+    graph breaks, no recompile, K1's launches equal to eager's, compiled
+    against eager (the forward 2e-5; the step's loss 1e-5 and its new
+    parameters at the family's eager tolerance, the AFNO's in the 2-norm),
+    compile seconds, device and back-to-back times and idle share; the SFNO's
+    compile adds less device memory than its kept Legendre tables.  Depths
+    are cut to COMPILED_DEPTH in the whole run; ``python3 chip_smoke.py
+    compile`` runs the published depths and the front end's compiled loss
+    with an input gradient (K1 twice).
 
 ``python3 chip_smoke.py precision`` runs phases 1, 2 and 4b alone,
 ``python3 chip_smoke.py audio`` phases 1, 2 and 15-17,
@@ -218,11 +233,12 @@ Phases, each of which raises on failure:
 ``python3 chip_smoke.py parallel`` phases 1, 2, 25 and 26,
 ``python3 chip_smoke.py examples`` phases 1, 2 and 27, and
 ``python3 chip_smoke.py tune`` phases 1, 2 and 28, and
-``python3 chip_smoke.py compile`` phases 1, 2 and 29 (for development;
+``python3 chip_smoke.py compile`` phases 1, 2, 29 and 30, phase 30 at the families'
+published depths (for development;
 they print no result line).
 
 The last lines are one JSON line about the kernels (launches of phases 4, 4b, 8,
-9, 12, 13, 15, 16, 18, 19, 21, 22, 23, 24, 25, 26, 27 and 29; error over the plane pairs those launches were handed:
+9, 12, 13, 15, 16, 18, 19, 21, 22, 23, 24, 25, 26, 27, 29 and 30; error over the plane pairs those launches were handed:
 every pair of phases 4, 9, 12, 13, 15, 16, 19, 21, 22, 23 and 24, the first rows of phase 25's, three of each run of phase 27's, and in phase 8 the first step's three, every
 later backward's and the four of the step with an input gradient; times on
 the main path's batch-1024 planes), the card, then ``{"ok": true, "device":
@@ -265,7 +281,7 @@ from mixed_radix_fast_fourier_transform_tpu_torch.ops.stockham import exec_compl
 from mixed_radix_fast_fourier_transform_tpu_torch.utils.numerics import traced
 from mixed_radix_fast_fourier_transform_tpu_torch.utils.profiling import graph_time
 from mixed_radix_fast_fourier_transform_tpu_torch.utils.tree import (
-    tree_leaves, tree_map, tree_map_with_path,
+    compile_sgd_step, sgd_step, tree_leaves, tree_map, tree_map_with_path,
 )
 
 SEED = 0
@@ -2932,15 +2948,22 @@ def sh_coefficients(rng, L: int, batch: int, real: bool, orders: np.ndarray) -> 
 
 def sh_synthesis64(a: np.ndarray, L: int, orders: np.ndarray, real: bool) -> np.ndarray:
     """Σ_lm a_lm Y_lm on the (L, 2L) Gauss grid in float64, Y from scipy's
-    ``sph_harm_y``, over the packed rows of ``orders`` (both signs)."""
+    ``sph_harm_y``, over the packed rows of ``orders`` (both signs).  The
+    tables Y_lm(θ, 0) are made once per order, in threads (scipy's ufunc
+    leaves the interpreter lock), and Y_l,-m(θ, 0) = (-1)^m Y_lm(θ, 0)."""
     from scipy.special import sph_harm_y
     theta, phi, _ = tp.sht_grid(L - 1)
+
+    def table(m):                                                          # (l, lat)
+        return sph_harm_y(np.arange(m, L)[:, None], m, theta[None, :], 0.0)
+
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        tables = dict(zip(orders.tolist(), pool.map(table, orders.tolist())))
     out = np.zeros(a.shape[:-2] + (L, 2 * L), np.complex128)
-    for m in orders:
+    for m in orders.tolist():
         for mm, r in ([(m, m), (-m, 2 * L - 1 - m)] if m else [(0, 0)]):
-            ls = np.arange(abs(mm), L)
-            Y = sph_harm_y(ls[:, None], mm, theta[None, :], 0.0)           # (l, lat)
-            g = a[..., r, abs(mm):] @ Y                                    # (…, lat)
+            Y = tables[m] if mm >= 0 else (-1) ** m * tables[m]
+            g = a[..., r, m:] @ Y                                          # (…, lat)
             out += g[..., :, None] * np.exp(1j * mm * phi)[None, :]
     return out.real if real else out
 
@@ -4275,8 +4298,13 @@ EXAMPLE_RUNS = (
     ("sphere_advection", {}), ("mri_recon", {}), ("radar_array", {}),
     ("audio_features", {}), ("signal_toolbox", {}), ("demo", {}),
     ("mri_recon", dict(n=256, spokes=402, per_spoke=512)),
-    ("sphere_advection", dict(lmax=255, steps=160)),
+    ("sphere_advection", dict(lmax=255, steps=160, compile=False)),
 )
+# the examples whose steps compile by default on a card, as the JAX examples
+# jit them; the advection at lmax 255 runs eagerly, so that its row stays
+# comparable with earlier runs' (a compile of its step took 62-108 s on the
+# card, which the run's time limit does not leave)
+COMPILED_EXAMPLES = ("pde_spectral", "sphere_advection")
 # fno_train's final evaluation loss against the predict-zero baseline (the
 # JAX example reads 1e-5 against 0.058 on a CPU)
 FNO_TRAIN_GAIN = 0.1
@@ -4306,7 +4334,10 @@ def examples(rng, card: str):
     check; per run the kernel's launches (counted from 0 just before it), the
     kernel against its plain version on the first two and the latest plane
     pairs it was handed (relative errors, logged: the planes are
-    unnormalised, so their absolute errors stay off the kernels line),
+    unnormalised, so their absolute errors stay off the kernels line; a
+    compiled example's pairs come from one more run of it, eager, after its
+    first: a step traced under the recorder would compile again once the
+    recorder is gone, and its launches are not counted),
     back-to-back wall ms of a second, warm run, the profiler's device ms of a
     third, and the idle share.  ``fno_train`` runs eagerly here, so that
     its row stays comparable across runs (phase 29 times its compiled
@@ -4323,12 +4354,20 @@ def examples(rng, card: str):
         label = name + ("" if not kw else " " + " ".join(f"{k}={v}" for k, v in kw.items()))
         t0 = time.perf_counter()
         cuda_fft.LAUNCHES = 0
-        with recorded_launches(keep=2) as seen:
+        # a compiled step traced under the recorder would guard on it and
+        # compile again once it is gone: a compiled example's first run is
+        # unrecorded, and an eager run of it after that notes the planes
+        compiles = name in COMPILED_EXAMPLES and kw.get("compile", True)
+        with contextlib.nullcontext([]) if compiles else recorded_launches(keep=2) as seen:
             out = mod.main(device=CARD, **kw)
             torch.cuda.synchronize()
         launches = cuda_fft.LAUNCHES
         first_s = time.perf_counter() - t0
         total += launches
+        if compiles:
+            with recorded_launches(keep=2) as seen, contextlib.redirect_stdout(None):
+                mod.main(device=CARD, **kw, compile=False)
+                torch.cuda.synchronize()
         for pair in seen:   # each logs its relative error, the quantity held to KERNEL_TOL
             kernel_error(*pair, label)
         del seen
@@ -4336,7 +4375,7 @@ def examples(rng, card: str):
             require(out["final_eval_loss"] < FNO_TRAIN_GAIN * out["baseline"],
                     f"fno_train: final eval loss {out['final_eval_loss']:.3e} against the "
                     f"baseline {out['baseline']:.3e}")
-        if name == "sphere_advection" and kw:
+        if name == "sphere_advection" and "lmax" in kw:
             require(out["err"] <= ADVECTION_255_TOL,
                     f"advection at lmax {kw['lmax']}: error {out['err']:.3e}")
         torch.cuda.synchronize()
@@ -4500,7 +4539,6 @@ def compile_path(rng, card: str) -> int:
     eager's.  Returns the launches of the counted calls (from 0 at the
     phase's start; explain, compiles and timings add none to it)."""
     from mixed_radix_fast_fourier_transform_tpu_torch.examples import fno_train
-    from mixed_radix_fast_fourier_transform_tpu_torch.utils.tree import compile_sgd_step
 
     rows, counted = [], 0
     rows_n, n = COMPILE_FFT_SHAPE
@@ -4637,6 +4675,244 @@ def compile_path(rng, card: str) -> int:
     return counted
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: every model family compiled, as the JAX package's tests jit them
+# ---------------------------------------------------------------------------
+
+# Layers of a compiled family's rows in the whole run: Inductor's compile
+# grows with the layers (at full depth phase 30 read 1,072 s on the card,
+# S4D 116 s, FNet 113 s, AFNO 483 s, SFNO 156 s of it), so the depth is cut
+# to fit the run's time limit; the width never is (PERF.md §4).
+# ``python3 chip_smoke.py compile`` runs the published depths
+COMPILED_DEPTH = {"s4d": 1, "fnet": 1, "afno": 1, "sfno": 1}
+# calls a timing row averages (device and back-to-back time)
+COMPILED_CALLS = 3
+
+
+def compiled_timing(name: str, eager, comp) -> dict:
+    """Eager and compiled forms of one family call side by side, as
+    phase 14 reads a family: device µs by CUDA-graph replay (one call
+    captured, replayed COMPILED_CALLS times) and by the profiler, device
+    kernels a call, back-to-back µs and the idle share 1 − graph-replay µs /
+    back-to-back µs."""
+    row = {"call": name}
+    for label, fn in (("eager", eager), ("compiled", comp)):
+        t = device_and_wall_us(fn, calls=COMPILED_CALLS)
+        graph_us = 1e6 * graph_time(fn, launches=1, replays=COMPILED_CALLS)
+        row[label] = {"device_us_graph_replay": graph_us,
+                      "device_us_profiler": t["device_us"],
+                      "device_kernels_per_call": t["kernels"], "k1_us": t["k1_us"],
+                      "back_to_back_us": t["wall_us"],
+                      "idle_share": 1.0 - graph_us / t["wall_us"]}
+        r = row[label]
+        log(f"{name} {label}: {r['device_us_graph_replay']:.2f} us device (graph replay), "
+            f"{r['device_us_profiler']} us (profiler), {r['device_kernels_per_call']} "
+            f"kernels a call, K1 {r['k1_us']:.2f} us, back to back "
+            f"{r['back_to_back_us']:.2f} us, idle share {r['idle_share']:.3f}")
+    return row
+
+
+def counted(fn):
+    """``fn()`` and the fused kernel's launches it made."""
+    before = cuda_fft.LAUNCHES
+    out = fn()
+    torch.cuda.synchronize()
+    return out, cuda_fft.LAUNCHES - before
+
+
+def compiled_family(name, apply, loss_fn, step, params, x, target, forward_launches,
+                    step_launches, err_of=rel_err, step_tol: float = ROUTES_TOL,
+                    tables=None):
+    """One family under torch.compile (Inductor) beside eager on the same
+    weights and inputs: zero graph breaks (``torch._dynamo.explain`` of the
+    loss, which runs the forward; it also resets dynamo's caches), the
+    compiled forward with no recompile on its second call, its K1 launches
+    (equal to eager's), against eager (COMPILE_TOL), and the device memory
+    its compile leaves allocated (below ``tables``, the bytes of the device
+    tables its graph reads, where given: they are held, not copied);
+    ``compile_sgd_step`` of the loss (``step`` None: the loss's gradient
+    eagerly, as the Koopman autoencoder's JAX test jits it), its launches
+    equal to eager's, its loss (ORACLE_TOL) and new parameters
+    (``step_tol`` by ``err_of``) against the eager step; compile seconds;
+    device and back-to-back times and idle share beside eager's.  Returns
+    the rows and the launches of the counted compiled calls."""
+    breaks = graph_breaks(loss_fn, params, x, target)
+    require(breaks == 0, f"{name}: {breaks} graph breaks in the loss")
+    with torch.no_grad():
+        want, eager_fwd = counted(lambda: apply(params, x))
+        fwd = compiled(apply)
+        before = torch.cuda.memory_allocated()
+        out, fwd_s = first_call(f"{name} forward", fwd, params, x)
+        del out
+        added = torch.cuda.memory_allocated() - before
+        got, fwd_launches = counted(lambda: fwd(params, x))
+    log(f"{name}: the compiled forward's first calls leave {added / 2**20:.1f} MiB allocated"
+        + ("" if tables is None else f" beside {tables / 2**20:.1f} MiB of kept tables"))
+    require(tables is None or added < tables,
+            f"{name}: a compile left {added} bytes allocated beside {tables} of tables")
+    require(fwd_launches == eager_fwd == forward_launches,
+            f"{name}: {fwd_launches} K1 launches a compiled forward, {eager_fwd} eager, "
+            f"{forward_launches} expected")
+    err = rel_err(got.cpu().numpy(), want.cpu().numpy())
+    log(f"{name} compiled forward {tuple(got.shape)}: 0 graph breaks, {fwd_launches} K1 "
+        f"launches (eager {eager_fwd}), rel err {err:.3e} vs eager")
+    require(err <= COMPILE_TOL, f"{name} compiled forward vs eager {err:.3e}")
+    del got, want
+
+    comp_step = compile_sgd_step(loss_fn)
+    lr = 1e-3
+    if step is None:
+        step = functools.partial(sgd_step, loss_fn)
+    _, step_s = first_call(f"{name} train step", lambda: comp_step(params, x, target, lr=lr))
+    (new, loss), launched = counted(lambda: comp_step(params, x, target, lr=lr))
+    (new_e, loss_e), eager_launched = counted(lambda: step(params, x, target, lr=lr))
+    require(launched == eager_launched == step_launches,
+            f"{name}: {launched} K1 launches a compiled step, {eager_launched} eager, "
+            f"{step_launches} expected")
+    loss_err = abs(float(loss) - float(loss_e)) / abs(float(loss_e))
+    errs = [err_of(a.cpu().numpy(), b.cpu().numpy())
+            for a, b in zip(tree_leaves(new), tree_leaves(new_e))]
+    log(f"{name} compiled train step: {launched} K1 launches (eager {eager_launched}), loss "
+        f"rel err {loss_err:.3e}, new parameters {err_of.__name__} {max(errs):.3e} (worst "
+        f"leaf) vs eager")
+    require(loss_err <= ORACLE_TOL and max(errs) <= step_tol,
+            f"{name} compiled step vs eager: loss {loss_err:.3e}, parameters {max(errs):.3e}")
+    del new, new_e
+
+    def eager_forward():
+        with torch.no_grad():
+            return apply(params, x)
+
+    def compiled_forward():
+        with torch.no_grad():
+            return fwd(params, x)
+
+    rows = [
+        {"call": f"{name} forward", "compile_s": fwd_s, "graph_breaks": breaks,
+         "k1_launches": fwd_launches, "k1_launches_eager": eager_fwd, "rel_err_vs_eager": err,
+         "compile_allocated_mib": added / 2**20,
+         **compiled_timing(f"{name} forward", eager_forward, compiled_forward)},
+        {"call": f"{name} train step", "compile_s": step_s, "k1_launches": launched,
+         "k1_launches_eager": eager_launched, "loss_rel_err_vs_eager": loss_err,
+         f"params_{err_of.__name__}_vs_eager": max(errs),
+         **compiled_timing(f"{name} train step", lambda: step(params, x, target, lr=lr),
+                           lambda: comp_step(params, x, target, lr=lr))},
+    ]
+    torch.cuda.empty_cache()
+    return rows, fwd_launches + launched
+
+
+def compiled_families(rng, card: str, full: bool = False) -> int:
+    """Phase 30: S4D, FNet-Base, the FourCastNet AFNO, the SFNO, the PCEN
+    front end and the Koopman autoencoder at the widths of their eager
+    phases (12-15, 22), each under torch.compile (Inductor,
+    ``fullgraph=True, dynamic=False``) beside eager (:func:`compiled_family`),
+    and the SFNO's compiled forward keeps its Legendre tables where they
+    are (the device memory a compile adds stays below their size).  With
+    ``full`` (``python3 chip_smoke.py compile``) every family at its
+    published depth and the front end's compiled loss with an input gradient
+    too (2 launches); without, the depths of COMPILED_DEPTH and no input
+    gradient, to fit the whole run's time limit.  Rows are added to
+    chiprun_out/compile_path.json.  Returns the launches of the counted
+    compiled calls."""
+    gen = torch.Generator().manual_seed(SEED)
+    rows, total = [], 0
+
+    def depth(name, layers):
+        return layers if full else COMPILED_DEPTH.get(name, layers)
+
+    def run(name, *args, **kw):
+        nonlocal total
+        got, launched = compiled_family(name, *args, **kw)
+        rows.extend(got)
+        total += launched
+
+    n = depth("s4d", S4D["n_layers"])
+    run(f"s4d {S4D['hidden']} x {n}, L={S4D_LENGTH}, b={S4D_BATCH}", s4d.apply_s4d, s4d.loss_fn,
+        s4d.train_step, s4d.init_s4d_model(**{**S4D, "n_layers": n}, generator=gen, device=CARD),
+        cuda32(rng.standard_normal((S4D_BATCH, S4D_LENGTH, S4D["in_dim"]))),
+        cuda32(rng.standard_normal((S4D_BATCH, S4D["out_dim"]))), 3 * n, 6 * n)
+
+    n = depth("fnet", FNET["n_layers"])
+    run(f"fnet-base {FNET['hidden']} x {n}, seq {FNET_SEQ}, b={FNET_BATCH}", fnet.apply,
+        fnet.loss_fn, fnet.train_step,
+        fnet.init_fnet(**{**FNET, "n_layers": n}, generator=gen, device=CARD),
+        cuda32(rng.standard_normal((FNET_BATCH, FNET_SEQ, FNET["hidden"]))),
+        cuda32(rng.standard_normal((FNET_BATCH, FNET_SEQ, FNET["hidden"]))),
+        2 * n, 2 * n + 2 * (n - 1))
+
+    n = depth("afno", AFNO["n_layers"])
+    run(f"afno {AFNO['dim']} x {n}, {AFNO_GRID[0] // 8} x {AFNO_GRID[1] // 8} tokens",
+        functools.partial(afno.apply, **AFNO_RUN), functools.partial(afno.loss_fn, **AFNO_RUN),
+        functools.partial(afno.train_step, **AFNO_RUN),
+        afno.init_afno(**{**AFNO, "n_layers": n}, generator=gen, device=CARD),
+        cuda32(rng.standard_normal((1, *AFNO_GRID, AFNO["in_channels"]))),
+        cuda32(rng.standard_normal((1, *AFNO_GRID, AFNO["out_channels"]))),
+        4 * n, 8 * n, l2_err, AFNO_GRAD_TOL)
+
+    # the SFNO: its Legendre chunks (tens of MB at L = 256) are kept on the
+    # card once; a compiled graph holds those tensors, it copies none
+    n = depth("sfno", SFNO["n_layers"])
+    L = SFNO["lmax"] + 1
+    params = sfno.init_sfno(**{**SFNO, "n_layers": n}, generator=gen, device=CARD)
+    x = cuda32(rng.standard_normal((SFNO_BATCH, SFNO["in_channels"], L, 2 * L)))
+    target = cuda32(rng.standard_normal((SFNO_BATCH, SFNO["out_channels"], L, 2 * L)))
+    with torch.no_grad():
+        sfno.apply(params, x)
+    tables = sum(t.numel() * t.element_size() for key, t in tp.utils.numerics._TABLES.items()
+                 if key[0][:3] == ("sht_chunk", "sht_legendre", L))
+    require(tables > 0, "sfno: no Legendre chunk kept on the card")
+    run(f"sfno L={L} hidden {SFNO['hidden']} x {n}, batch {SFNO_BATCH}", sfno.apply,
+        sfno.loss_fn, sfno.train_step, params, x, target, 2 * n, 4 * n, tables=tables)
+    del params, x, target
+
+    # the PCEN front end: the waveform needs no gradient, so a step's backward
+    # launches nothing; with an input gradient it launches once more
+    sr, n_fft = AUDIO["sr"], AUDIO["n_fft"]
+    params = audio_frontend.init_params(AUDIO["n_mels"], AUDIO["n_classes"], generator=gen,
+                                        device=CARD)
+    x = cuda32(0.1 * rng.standard_normal((AUDIO_BATCH, AUDIO_SAMPLES)))
+    labels = torch.tensor(rng.integers(0, AUDIO["n_classes"], AUDIO_BATCH), device=CARD)
+    run(f"pcen front end {AUDIO['n_mels']} bands, {AUDIO_BATCH} x {AUDIO_SAMPLES}",
+        functools.partial(audio_frontend.apply, sr=sr, n_fft=n_fft),
+        functools.partial(audio_frontend.loss_fn, sr=sr, n_fft=n_fft),
+        functools.partial(audio_frontend.train_step, sr=sr, n_fft=n_fft), params, x, labels, 1, 1)
+    if full:
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        xg = x.clone().requires_grad_(True)
+        loss_c = compiled(functools.partial(audio_frontend.loss_fn, sr=sr, n_fft=n_fft))
+        grads, launched = counted(lambda: torch.autograd.grad(loss_c(leaves, xg, labels),
+                                                              tree_leaves(leaves) + [xg]))
+        want = torch.autograd.grad(audio_frontend.loss_fn(leaves, xg, labels, sr, n_fft),
+                                   tree_leaves(leaves) + [xg])
+        err = max(rel_err(g.cpu().numpy(), w.cpu().numpy()) for g, w in zip(grads, want))
+        log(f"pcen front end compiled loss with an input gradient: {launched} K1 launches, "
+            f"gradients rel err {err:.3e} vs eager (worst leaf)")
+        require(launched == 2 and err <= ROUTES_TOL,
+                f"front end with an input gradient: {launched} launches, {err:.3e}")
+        total += launched
+    del params, x
+
+    # Koopman as in phase 14: no transform; the loss and its gradient compiled
+    kp = koopman.init_koopman(8, latent_dim=16, hidden=64, depth=2, generator=gen, device=CARD)
+    trajs = cuda32(rng.standard_normal((256, 64, 8)))
+    run("koopman 8 -> 16, hidden 64, 256 x 64 steps",
+        lambda p, t: koopman.koopman_rollout(p, t[:, 0], 16),
+        lambda p, t, _: koopman.koopman_loss(p, t), None, kp, trajs, None, 0, 0)
+
+    os.makedirs("chiprun_out", exist_ok=True)
+    path = os.path.join("chiprun_out", "compile_path.json")
+    record = {"card": card, "torch": torch.__version__, "rows": []}
+    if os.path.exists(path):
+        with open(path) as fh:
+            record = json.load(fh)
+    record["family_rows"] = rows
+    with open(path, "w") as fh:
+        json.dump(record, fh, indent=1)
+    log(json.dumps({"compiled_families": {"card": card, "rows": rows}}))
+    return total
+
+
 def timed(phase, *args):
     """Runs one phase and logs its wall time (the whole run has a time limit)."""
     t0 = time.perf_counter()
@@ -4682,8 +4958,9 @@ def main(argv) -> int:
     if argv == ["precision"]:   # development: phase 4b alone
         timed(precision_path, rng, card)
         return 0
-    if argv == ["compile"]:   # development: phase 29 alone
+    if argv == ["compile"]:   # development: phases 29-30 alone, at the published depths
         timed(compile_path, rng, card)
+        timed(compiled_families, rng, card, True)
         return 0
     if argv == ["parallel-timings"]:   # phase 25's device times, a process of their own
         timed(parallel_timings, card)
@@ -4718,6 +4995,7 @@ def main(argv) -> int:
     example_launches = timed(examples, rng, card)
     timed(tune_phase, card)
     compile_launches = timed(compile_path, rng, card)
+    compile_launches += timed(compiled_families, rng, card)
     log(f"kernel launches by path: filter forward {launches}, "
         f"reduced precision {precision_launches}, training {train_launches}, "
         f"fno {fno_launches}, s4d + fnet + afno {family_launches}, ops tail {ops_launches}, "

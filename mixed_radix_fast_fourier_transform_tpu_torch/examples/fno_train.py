@@ -15,14 +15,13 @@ Run: python -m mixed_radix_fast_fourier_transform_tpu_torch.examples.fno_train
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from ..models import fno
 from ..utils.numerics import resolve_device
 from ..utils.tree import tree_leaves, tree_map
+from . import jitted
 
 
 def heat_solution(u0: np.ndarray, nu: float = 0.05, t: float = 1.0) -> np.ndarray:
@@ -42,13 +41,6 @@ def make_batch(rng: np.random.Generator, batch: int, n: int):
     return u0[:, None, :], heat_solution(u0)[:, None, :]  # (b, 1, n)
 
 
-@functools.lru_cache(maxsize=None)
-def _compiled_loss():
-    # one compiled loss for the process: each torch.compile wrapper would
-    # trace anew
-    return torch.compile(fno.loss_fn, fullgraph=True, dynamic=False)
-
-
 def main(*, device=None, steps: int = 300, n: int = 256, batch: int = 32,
          params=None, compile: bool | None = None) -> dict:
     """Trains from ``params`` (a parameter tree: tensors, or numpy arrays such
@@ -60,7 +52,7 @@ def main(*, device=None, steps: int = 300, n: int = 256, batch: int = 32,
     dev = resolve_device(device)
     if compile is None:
         compile = dev.type == "cuda"
-    loss_fn = _compiled_loss() if compile else fno.loss_fn
+    loss_fn = jitted(fno.loss_fn, compile)
     rng = np.random.default_rng(0)
     if params is None:
         params = fno.init_fno(1, 16, 1, n_layers=2, modes=24,

@@ -30,7 +30,9 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
-from ..utils.numerics import as_tensor, constant, matmul_precision, median, pad_last, working
+from ..utils.numerics import (
+    as_tensor, constant, host_table, matmul_precision, median, pad_last, working,
+)
 from ..utils.scan import linear_recurrence
 from .dct import dct as _dct, idct as _idct
 from .rfft import irfft as _irfft, rfft as _rfft
@@ -134,13 +136,16 @@ def mel_filterbank(
     return fb.astype(dtype)
 
 
+def _filterbank64(sr, n_fft, n_mels, fmin, fmax, htk, norm) -> np.ndarray:
+    return mel_filterbank(sr, n_fft, n_mels, fmin, fmax, htk, norm, dtype=np.float64)
+
+
 def _filterbank_on(like: Tensor, sr, n_fft, n_mels, fmin, fmax, htk, norm) -> Tensor:
-    """The (n_mels, bins) filterbank beside ``like``, uploaded once."""
+    """The (n_mels, bins) filterbank beside ``like``, uploaded once (built
+    on the host also while dynamo traces)."""
     fmax_key = None if fmax is None else float(fmax)
-    return constant(
-        lambda: mel_filterbank(sr, n_fft, n_mels, fmin, fmax, htk, norm, dtype=np.float64),
-        like, key=("mel.filterbank", float(sr), int(n_fft), int(n_mels), float(fmin),
-                   fmax_key, bool(htk), norm))
+    return host_table("mel.filterbank", _filterbank64, float(sr), int(n_fft), int(n_mels),
+                      float(fmin), fmax_key, bool(htk), norm, like=like)
 
 
 def melspectrogram(
@@ -717,8 +722,11 @@ def pcen(
             raise ValueError("need time_constant > 0 and hop >= 1")
         t_frames = time_constant * sr / float(hop)
         # librosa: b from the equivalent-width of the one-pole smoother
-        b = (np.sqrt(1.0 + 4.0 * t_frames**2) - 1.0) / (2.0 * t_frames**2)
-    per_band = isinstance(b, torch.Tensor) or np.ndim(b) > 0
+        b = (math.sqrt(1.0 + 4.0 * t_frames**2) - 1.0) / (2.0 * t_frames**2)
+    # a Python number stays one (no numpy), so a traced call's smoother is a
+    # host coefficient whose tables the host builds
+    per_band = isinstance(b, torch.Tensor) or (
+        not isinstance(b, (int, float)) and np.ndim(b) > 0)
     bd = as_tensor(b, S.device).to(S.dtype) if per_band else float(b)
     steps = torch.movedim(S, -2, 0)
     # m <- (1 − b)·m + b·s over frames: a blocked scan, a few kernels per

@@ -44,9 +44,9 @@ from ..utils.numerics import (
     as_tensor,
     as_tensors,
     constant,
-    content_key,
     dw_add as _dw_add,
     dw_mul as _dw_mul,
+    host_table,
     matmul_precision,
 )
 from .fft import fft, ifft
@@ -182,7 +182,7 @@ def _fold_neg_last(Fsel: Tensor, L: int) -> Tensor:
     with the (-1)^m' parity; row m'=0 is zero."""
     half = torch.flip(Fsel[..., L:], (-1,))
     z = Fsel.new_zeros(Fsel.shape[:-1] + (1,))
-    sign = constant(_neg_signs(L), Fsel, key=("sht_neg_signs", L))
+    sign = host_table("sht_neg_signs", _neg_signs, L, like=Fsel)
     return torch.cat([z, half], dim=-1) * sign
 
 
@@ -196,27 +196,63 @@ def _bmm_planes(P: Tensor, X: Tensor, precision: str) -> Tensor:
     return torch.complex(y[..., :n], y[..., n:])
 
 
-def _weights_on(weights: np.ndarray, like: Tensor) -> Tensor:
-    return constant(weights, like, key=content_key("sht_weights", weights))
+# The host tables are reached by hashable keys: the tables of one (L, grid)
+# are built on the host once (lru_cache) and kept on the device
+# (``host_table``), also while dynamo traces a call, whose graph then holds
+# the kept tensors: no table is traced, copied or uploaded per call.
 
 
-def _analyze(chunks, Fsel: Tensor, weights: np.ndarray, L: int, config=DEFAULT_CONFIG,
-             hermitian: bool = False, name: str = "sht_legendre", grid: str = None) -> Tensor:
+def _chunk(kind: str, L: int, grid: str, m0: int, band) -> np.ndarray:
+    chunks = (_legendre_chunks if kind == "sht_legendre" else _legendre_deriv_chunks)(L, grid)
+    P = chunks[m0 // _M_TILE][1]
+    return P if band is None else np.ascontiguousarray(P[..., band[0]: band[1]])
+
+
+def _chunk_on(kind: str, L: int, grid: str, m0: int, like: Tensor, band=None) -> Tensor:
+    """The (t, L − m0, nlat) chunk of ``kind``'s triangular tables
+    ("sht_legendre", "sht_dlegendre") that starts at order m0, beside
+    ``like``; ``band``, a (start, stop) pair, cuts its latitudes (a rank's
+    band of the sharded transforms)."""
+    return host_table("sht_chunk", _chunk, kind, L, grid, m0, band, like=like)
+
+
+def _grid_table(name: str, L: int, grid: str) -> np.ndarray:
+    _, w, theta = _grid_arrays(L, grid)
+    if name == "sht_sin":
+        return np.sin(theta)
+    dphi = 2.0 * math.pi / (2 * L)
+    return w * dphi if name == "sht_weights" else (w / np.sin(theta)) * dphi
+
+
+def _grid_on(name: str, L: int, grid: str, like: Tensor) -> Tensor:
+    """A latitude table of the (L, grid) sphere grid beside ``like``: the
+    quadrature weights times dφ ("sht_weights"), the same over sin θ
+    ("sht_weights_sin"), or sin θ ("sht_sin")."""
+    return host_table("sht_grid", _grid_table, name, L, grid, like=like)
+
+
+def _chunk_starts(L: int) -> range:
+    return range(0, L, _M_TILE)
+
+
+def _analyze(kind: str, Fsel: Tensor, weights: Tensor, L: int, config=DEFAULT_CONFIG,
+             hermitian: bool = False, grid: str = "gauss", band=None) -> Tensor:
     """Latitude contraction of analysis: a[…, q, l] = Σ_i P̄[m, l, i] ·
     weights[i] · F[…, i, q] over the packed q axis, chunk by chunk over m
     (negative orders through the coefficient-side parity fold).
     ``hermitian=True`` is the real-field path: ``Fsel`` carries only the
     m >= 0 bins (…, i, L) of an rfft, and a_{l,-m} = (-1)^m conj(a_{lm}).
-    ``name``/``grid`` key the chunks kept on the device (unkeyed tables are
-    uploaded per call)."""
-    Fw = Fsel.to(_CDTYPE) * _weights_on(np.asarray(weights, np.float64), Fsel)[:, None]
+    ``kind`` names the tables ("sht_legendre", "sht_dlegendre") of
+    (L, ``grid``), cut to the latitudes ``band`` where given
+    (:func:`_chunk_on`); ``weights`` are the (nlat,) quadrature weights."""
+    Fw = Fsel.to(_CDTYPE) * weights[:, None]
     fpos = Fw[..., :L]
     srcs = [fpos] if hermitian else [fpos, _fold_neg_last(Fw, L)]
     lead = Fsel.shape[:-2]
     nlat = Fsel.shape[-2]
     parts = [[] for _ in srcs]
-    for m0, P in chunks:
-        Pj = constant(P, Fsel, key=None if grid is None else (name, L, grid, m0))
+    for m0 in _chunk_starts(L):
+        Pj = _chunk_on(kind, L, grid, m0, Fsel, band)
         t = Pj.shape[0]
         for src, out in zip(srcs, parts):
             X = src[..., m0: m0 + t].reshape(-1, nlat, t).permute(2, 1, 0)  # (t, i, B)
@@ -225,7 +261,7 @@ def _analyze(chunks, Fsel: Tensor, weights: np.ndarray, L: int, config=DEFAULT_C
             out.append(torch.nn.functional.pad(y, (m0, 0)))
     apos = torch.cat(parts[0], dim=-2)  # (…, L, L) m-major
     if hermitian:
-        sign = constant(_neg_signs(L), apos, key=("sht_neg_signs", L))
+        sign = host_table("sht_neg_signs", _neg_signs, L, like=apos)
         aneg = torch.conj(apos) * sign[:, None]
     else:
         aneg = torch.cat(parts[1], dim=-2)
@@ -262,15 +298,14 @@ def sht(f, *, grid: str = "gauss", config: SpectralConfig = DEFAULT_CONFIG) -> T
                 f"(got L={L}); the O(L^2)-memory recurrence path is Gauss-grid "
                 "only — resample to the Gauss grid for larger band limits")
         return sht_recurrence(f, config=config)
-    _, w, _ = _grid_arrays(L, grid)
-    dphi = 2.0 * math.pi / (2 * L)
-    chunks = _legendre_chunks(L, grid)
     if not f.is_complex():
         # real field: rfft bins 0..L cover every order by a_{l,-m} = (-1)^m conj(a_{lm})
         Fpos = rfft(f.to(DTYPE), config=config)[..., :L]
-        return _analyze(chunks, Fpos, w * dphi, L, config, hermitian=True, grid=grid)
+        return _analyze("sht_legendre", Fpos, _grid_on("sht_weights", L, grid, Fpos), L,
+                        config, hermitian=True, grid=grid)
     Fsel = _select_packed_m(fft(f, config=config), L)
-    return _analyze(chunks, Fsel, w * dphi, L, config, grid=grid)
+    return _analyze("sht_legendre", Fsel, _grid_on("sht_weights", L, grid, Fsel), L, config,
+                    grid=grid)
 
 
 def _check_alm(alm: Tensor) -> int:
@@ -300,12 +335,17 @@ def isht(alm, *, real_output: bool = False, grid: str = "gauss",
                 f"(got L={L}); the O(L^2)-memory recurrence path is Gauss-grid "
                 "only — synthesize on the Gauss grid for larger band limits")
         return isht_recurrence(alm, real_output=real_output, config=config)
-    return _synthesize(_legendre_chunks(L, grid), alm, config, hermitian=real_output,
-                       grid=grid)
+    return _synthesize("sht_legendre", alm, config, hermitian=real_output, grid=grid)
 
 
-def _degree_scale(values: np.ndarray, like: Tensor, name: str) -> Tensor:
-    return constant(values, like, key=(name, values.shape[0]))
+def _degree_scale(values, L: int, like: Tensor, *args) -> Tensor:
+    """The per-degree table ``values(L, *args)`` beside ``like``."""
+    return host_table(values.__name__, values, L, *args, like=like)
+
+
+def _laplacian(L: int) -> np.ndarray:
+    l = np.arange(L, dtype=np.float64)
+    return -(l * (l + 1.0))
 
 
 def _inv_laplacian(L: int) -> np.ndarray:
@@ -320,9 +360,7 @@ def sphere_laplacian(f, *, grid: str = "gauss", config: SpectralConfig = DEFAULT
     -l(l+1), isht."""
     f = as_tensor(f)
     a = sht(f, grid=grid, config=config)
-    L = a.shape[-1]
-    l = np.arange(L, dtype=np.float64)
-    a = a * _degree_scale(-(l * (l + 1.0)), a, "sht_laplacian")
+    a = a * _degree_scale(_laplacian, a.shape[-1], a)
     return isht(a, real_output=not f.is_complex(), grid=grid, config=config)
 
 
@@ -332,7 +370,7 @@ def poisson_solve_sphere(f, *, grid: str = "gauss",
     divided by -l(l+1), the l = 0 mode projected out."""
     f = as_tensor(f)
     a = sht(f, grid=grid, config=config)
-    ai = a * _degree_scale(_inv_laplacian(a.shape[-1]), a, "sht_inv_laplacian")
+    ai = a * _degree_scale(_inv_laplacian, a.shape[-1], a)
     return isht(ai, real_output=not f.is_complex(), grid=grid, config=config)
 
 
@@ -369,12 +407,13 @@ def _legendre_deriv_chunks(L: int, grid: str = "gauss"):
     return _fill_chunks(L, planes(), len(mu))
 
 
-def _synthesize(chunks, alm: Tensor, config=DEFAULT_CONFIG, hermitian: bool = False,
-                name: str = "sht_legendre", grid: str = None) -> Tensor:
+def _synthesize(kind: str, alm: Tensor, config=DEFAULT_CONFIG, hermitian: bool = False,
+                grid: str = "gauss", band=None) -> Tensor:
     """Synthesis core: contract the triangular m-chunked tables against
     (…, 2L-1, L) coefficients, place the m bins, inverse-FFT longitude.
     ``hermitian=True``: only the m >= 0 bins, longitude by irfft (real
-    grid).  ``name``/``grid`` key the chunks kept on the device."""
+    grid).  ``kind``, ``grid`` and ``band`` name the tables as in
+    :func:`_analyze`."""
     alm = alm.to(_CDTYPE)
     L = alm.shape[-1]
     lead = alm.shape[:-2]
@@ -384,11 +423,11 @@ def _synthesize(chunks, alm: Tensor, config=DEFAULT_CONFIG, hermitian: bool = Fa
     else:
         half = torch.flip(alm[..., L:, :], (-2,))
         z = alm.new_zeros(lead + (1, L))
-        sign = constant(_neg_signs(L), alm, key=("sht_neg_signs", L))
+        sign = host_table("sht_neg_signs", _neg_signs, L, like=alm)
         srcs = [apos, torch.cat([z, half], dim=-2) * sign[:, None]]
     parts = [[] for _ in srcs]
-    for m0, P in chunks:
-        Pj = constant(P, alm, key=None if grid is None else (name, L, grid, m0))
+    for m0 in _chunk_starts(L):
+        Pj = _chunk_on(kind, L, grid, m0, alm, band)
         t, _, nlat = Pj.shape
         PT = Pj.transpose(1, 2)                                    # (t, i, l)
         for src, out in zip(srcs, parts):
@@ -405,15 +444,15 @@ def _synthesize(chunks, alm: Tensor, config=DEFAULT_CONFIG, hermitian: bool = Fa
     return ifft(bins, config=config) * nlon
 
 
-def _msigned(L: int) -> np.ndarray:
-    return np.concatenate([np.arange(L), -np.arange(L - 1, 0, -1)]).astype(np.float64)
+def _msigned(L: int, sign: float) -> np.ndarray:
+    return sign * np.concatenate([np.arange(L), -np.arange(L - 1, 0, -1)]).astype(np.float64)
 
 
-def _im_factor(values: np.ndarray, like: Tensor, name: str) -> Tensor:
-    """i·values as a complex64 column kept on ``like``'s device."""
-    re = constant(np.zeros_like(values), like, key=(name, "re", values.shape[0]))
-    im = constant(values, like, key=(name, "im", values.shape[0]))
-    return torch.complex(re, im)[:, None]
+def _im_factor(sign: float, L: int, like: Tensor) -> Tensor:
+    """i·sign·m over the packed m axis as a complex64 column kept on
+    ``like``'s device."""
+    im = host_table("sht_im", _msigned, L, sign, like=like)
+    return torch.complex(torch.zeros_like(im), im)[:, None]
 
 
 def sphere_grad(f, *, grid: str = "gauss", config: SpectralConfig = DEFAULT_CONFIG):
@@ -469,13 +508,11 @@ def _div_coef(u_theta: Tensor, u_phi: Tensor, config=DEFAULT_CONFIG,
               grid: str = "gauss") -> Tensor:
     """Divergence in coefficient space (the weak-form adjoint quadrature)."""
     L, Ut, Up = _vector_analysis(u_theta, u_phi, config, grid)
-    _, w, theta = _grid_arrays(L, grid)
-    dphi = 2.0 * math.pi / (2 * L)
-    s = np.sin(theta)
-    t1 = _analyze(_legendre_deriv_chunks(L, grid), Ut, w * dphi, L, config,
-                  name="sht_dlegendre", grid=grid)
-    t2 = _analyze(_legendre_chunks(L, grid), Up, (w / s) * dphi, L, config, grid=grid)
-    t2 = t2 * _im_factor(-_msigned(L), t2, "sht_minus_im")
+    t1 = _analyze("sht_dlegendre", Ut, _grid_on("sht_weights", L, grid, Ut), L, config,
+                  grid=grid)
+    t2 = _analyze("sht_legendre", Up, _grid_on("sht_weights_sin", L, grid, Up), L, config,
+                  grid=grid)
+    t2 = t2 * _im_factor(-1.0, L, t2)
     return -(t1 + t2)
 
 
@@ -496,7 +533,7 @@ def sphere_helmholtz(u_theta, u_phi, *, grid: str = "gauss",
     real_in = _is_real(u_theta, u_phi)
     d = _div_coef(u_theta, u_phi, config, grid)
     z = _div_coef(u_phi, -u_theta, config, grid)
-    inv = _degree_scale(_inv_laplacian(d.shape[-1]), d, "sht_inv_laplacian")
+    inv = _degree_scale(_inv_laplacian, d.shape[-1], d)
     phi = isht(d * inv, real_output=real_in, grid=grid, config=config)
     psi = isht(z * inv, real_output=real_in, grid=grid, config=config)
     return phi, psi
@@ -506,12 +543,10 @@ def _grad_synth(alm: Tensor, L: int, config=DEFAULT_CONFIG, grid: str = "gauss")
     """Grid components of Σ_lm alm·∇Y_lm: (∂θ part, (1/sinθ)∂φ part);
     real coefficients are promoted to complex first."""
     alm = alm.to(_CDTYPE)
-    _, _, theta = _grid_arrays(L, grid)
-    g_theta = _synthesize(_legendre_deriv_chunks(L, grid), alm, config,
-                          name="sht_dlegendre", grid=grid)
-    g_phi = _synthesize(_legendre_chunks(L, grid), alm * _im_factor(_msigned(L), alm, "sht_im"),
-                        config, grid=grid)
-    g_phi = g_phi / constant(np.sin(theta), alm, key=("sht_sin", L, grid))[:, None]
+    g_theta = _synthesize("sht_dlegendre", alm, config, grid=grid)
+    g_phi = _synthesize("sht_legendre", alm * _im_factor(1.0, L, alm), config,
+                        grid=grid)
+    g_phi = g_phi / _grid_on("sht_sin", L, grid, alm)[:, None]
     return g_theta, g_phi
 
 
@@ -530,7 +565,7 @@ def vsht(u_theta, u_phi, *, grid: str = "gauss", config: SpectralConfig = DEFAUL
     _check_tangent_shape(u_theta, u_phi, grid)
     d = _div_coef(u_theta, u_phi, config, grid)
     z = _div_coef(u_phi, -u_theta, config, grid)
-    inv = _degree_scale(_inv_sqrt_degree(d.shape[-1], -1.0), d, "vsht_scale")
+    inv = _degree_scale(_inv_sqrt_degree, d.shape[-1], d, -1.0)
     return d * inv, z * inv
 
 
@@ -542,7 +577,7 @@ def ivsht(s_lm, t_lm, *, grid: str = "gauss", config: SpectralConfig = DEFAULT_C
     if s_lm.shape != t_lm.shape or s_lm.ndim < 2 or s_lm.shape[-2] != 2 * s_lm.shape[-1] - 1:
         raise ValueError("coefficients must share a (…, 2L-1, L) packed shape")
     L = s_lm.shape[-1]
-    inv = _degree_scale(_inv_sqrt_degree(L, 1.0), s_lm, "ivsht_scale")
+    inv = _degree_scale(_inv_sqrt_degree, L, s_lm, 1.0)
     gt_s, gp_s = _grad_synth(s_lm * inv, L, config, grid)
     gt_t, gp_t = _grad_synth(t_lm * inv, L, config, grid)
     # r̂×∇Y = (-(1/sin)∂φY, ∂θY) in (θ, φ) components
@@ -739,7 +774,7 @@ def _rec_pack(acc: Tensor, L: int, hermitian: bool) -> Tensor:
     a = acc.transpose(-1, -2)  # (s, …, m, l)
     apos = a[0]
     if hermitian:
-        sign = constant(_neg_signs(L), apos, key=("sht_neg_signs", L))
+        sign = host_table("sht_neg_signs", _neg_signs, L, like=apos)
         aneg = torch.conj(apos) * sign[:, None]
     else:
         aneg = a[1]

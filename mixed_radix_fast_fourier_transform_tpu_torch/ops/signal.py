@@ -27,8 +27,8 @@ import torch
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.numerics import (
-    as_tensor, as_tensors, complex_dtype, constant, content_key, matmul_precision, median,
-    pad_last, resolve_device, working,
+    as_tensor, as_tensors, complex_dtype, constant, content_key, host_table,
+    matmul_precision, median, pad_last, resolve_device, working,
 )
 from .fft import fft, fft2, fftshift, ifft, ifft2, rfftfreq
 from .rfft import irfft, rfft
@@ -48,6 +48,15 @@ def _real_last(x, axis: int, what: str, dtype):
     return torch.movedim(x, axis, -1).to(dtype), axis
 
 
+def _diff_multiplier(n: int, order: int, period: float) -> np.ndarray:
+    """(i·k)^order over the rfft bins of length n on a domain of ``period``."""
+    k = 2.0 * np.pi * np.arange(n // 2 + 1, dtype=np.float64) / period
+    m = (1j * k) ** order
+    if order % 2 == 1 and n % 2 == 0:
+        m[-1] = 0.0  # odd derivative of the Nyquist mode is ill-defined
+    return m
+
+
 def spectral_diff(
     x,
     order: int = 1,
@@ -65,16 +74,8 @@ def spectral_diff(
     xm, axis = _real_last(x, axis, "spectral_diff expects a real signal", config.dtype)
     n = xm.shape[-1]
     spec = rfft(xm, config=config)
-
-    def mult() -> np.ndarray:
-        k = 2.0 * np.pi * np.arange(n // 2 + 1, dtype=np.float64) / period
-        m = (1j * k) ** order
-        if order % 2 == 1 and n % 2 == 0:
-            m[-1] = 0.0  # odd derivative of the Nyquist mode is ill-defined
-        return m
-
-    multd = constant(mult, xm, complex_dtype(xm.dtype),
-                     key=("spectral_diff", n, order, float(period)))
+    multd = host_table("spectral_diff", _diff_multiplier, n, order, float(period), like=xm,
+                       dtype=complex_dtype(xm.dtype))
     out = irfft(spec * multd, n=n, config=config)
     return torch.movedim(out, -1, axis)
 

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.config import DEFAULT_CONFIG, SpectralConfig
-from ..utils.numerics import as_tensor, constant, pad_last
+from ..utils.numerics import as_tensor, constant, host_table, pad_last
 from .rfft import irfft, rfft
 
 Tensor = torch.Tensor
@@ -223,12 +223,17 @@ def _as_real(x, what: str, dtype) -> Tensor:
     return x.to(dtype)
 
 
+def _window64(window, nperseg: int) -> np.ndarray:
+    return get_window(window, nperseg, np.float64)
+
+
 def _window_on(window, nperseg: int, like: Tensor) -> Tensor:
     """The window at the dtype of ``like`` (the working dtype) beside it: a
-    named window is kept on the device, a caller's array is uploaded on
-    every call."""
-    key = ("stft.window", window, nperseg) if isinstance(window, (str, tuple)) else None
-    return constant(lambda: get_window(window, nperseg, np.float64), like, like.dtype, key=key)
+    named window is kept on the device (built on the host also while dynamo
+    traces), a caller's array is uploaded on every call."""
+    if isinstance(window, (str, tuple)):
+        return host_table("stft.window", _window64, window, nperseg, like=like, dtype=like.dtype)
+    return constant(_window64(window, nperseg), like, like.dtype)
 
 
 def _frame(x: Tensor, nperseg: int, hop: int) -> Tensor:

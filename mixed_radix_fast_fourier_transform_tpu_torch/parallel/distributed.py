@@ -1408,12 +1408,6 @@ def _band(mesh: DeviceMesh, axis_name: str, nlat: int) -> Tuple[slice, int, int]
     return slice(r * b, (r + 1) * b), r, parts
 
 
-def _band_chunks(chunks, band: slice):
-    """The Legendre chunks' latitude band, cut on the host only when the
-    device copy is missing."""
-    return tuple((m0, (lambda P=P: np.ascontiguousarray(P[..., band]))) for m0, P in chunks)
-
-
 def sht_sharded(
     f,
     mesh: DeviceMesh,
@@ -1428,7 +1422,7 @@ def sht_sharded(
     equiangular)."""
     from ..ops.fft import fft
     from ..ops.rfft import rfft
-    from ..ops.sht import _analyze, _grid_arrays, _legendre_chunks, _select_packed_m
+    from ..ops.sht import _analyze, _grid_on, _select_packed_m
 
     f = _input(f, mesh)
     shape = tuple(f.shape)
@@ -1444,9 +1438,7 @@ def sht_sharded(
     if shape[-2] % parts != 0:
         raise ValueError(
             f"mesh axis size {parts} must divide the latitude count {shape[-2]}")
-    band, r, parts = _band(mesh, axis_name, shape[-2])
-    _, w, _ = _grid_arrays(L, grid)
-    wdphi = (w * (2.0 * math.pi / (2 * L)))[band]
+    band, _, _ = _band(mesh, axis_name, shape[-2])
     fl = _local(f, mesh, (None,) * (len(shape) - 2) + (axis_name, None))
     hermitian = not fl.is_complex()
     # a real field rides the Hermitian path (rfft, half the Legendre work):
@@ -1455,8 +1447,9 @@ def sht_sharded(
         fsel = rfft(fl.to(DTYPE), config=config)[..., :L]
     else:
         fsel = _select_packed_m(fft(fl, config=config), L)
-    part = _analyze(_band_chunks(_legendre_chunks(L, grid), band), fsel, wdphi, L, config,
-                    hermitian=hermitian, name=("sht_legendre_band", r, parts), grid=grid)
+    wdphi = _grid_on("sht_weights", L, grid, fsel)[band]
+    part = _analyze("sht_legendre", fsel, wdphi, L, config, hermitian=hermitian, grid=grid,
+                    band=(band.start, band.stop))
     out = _psum(part, mesh, axis_name)
     return _wrap(out, mesh, (None,) * out.ndim, out.shape)
 
@@ -1473,7 +1466,7 @@ def isht_sharded(
     ``axis_name``: replicated (…, 2L-1, L) coefficients -> grid values
     ((…, L, 2L) gauss, (…, 2L, 2L) equiangular) sharded on latitude.  No
     collectives (each rank evaluates its band)."""
-    from ..ops.sht import _legendre_chunks, _synthesize
+    from ..ops.sht import _synthesize
 
     alm = _full(alm, mesh)
     if alm.ndim < 2 or alm.shape[-1] < 1 or alm.shape[-2] != 2 * alm.shape[-1] - 1:
@@ -1483,9 +1476,8 @@ def isht_sharded(
     nlat = L if grid == "gauss" else 2 * L
     if nlat % parts != 0:
         raise ValueError(f"mesh axis size {parts} must divide the latitude count {nlat}")
-    band, r, parts = _band(mesh, axis_name, nlat)
-    out = _synthesize(_band_chunks(_legendre_chunks(L, grid), band), alm, config,
-                      name=("sht_legendre_band", r, parts), grid=grid)
+    band, _, _ = _band(mesh, axis_name, nlat)
+    out = _synthesize("sht_legendre", alm, config, grid=grid, band=(band.start, band.stop))
     return _wrap(out, mesh, (None,) * (alm.ndim - 2) + (axis_name, None),
                  alm.shape[:-2] + (nlat, 2 * L))
 

@@ -55,8 +55,10 @@ class _Prepared:
                 f"aot_compile compiles {name} whole "
                 f"(torch.compile, fullgraph=True), and it does not trace: the "
                 f"port's compiled path covers fft, ifft, rfft, irfft, fft_convolve, "
-                f"the spectral filter and the FNO so far (ROADMAP.md lists the "
-                f"rest). {str(e).splitlines()[0]}") from e
+                f"sht, isht, sphere_grad, melspectrogram, pcen, linear_recurrence, "
+                f"and the spectral filter, FNO, S4D, FNet, AFNO, SFNO, PCEN front "
+                f"end and Koopman models so far (ROADMAP.md lists the rest). "
+                f"{str(e).splitlines()[0]}") from e
         if on_card:
             stream = torch.cuda.Stream()
             stream.wait_stream(torch.cuda.current_stream())

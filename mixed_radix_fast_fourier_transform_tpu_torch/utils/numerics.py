@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Hashable, Optional, Tuple
+from typing import Callable, Dict, Hashable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,10 +73,49 @@ def constant(values, like: Tensor, dtype=DTYPE, *, key: Optional[Hashable] = Non
     called only when the table is missing.  Without a key (a table built
     from a caller's array) it is uploaded on every call.  While a tracer
     runs (:func:`traced`) a missing table is made for the trace and not
-    kept."""
+    kept.  While dynamo traces, the key is looked up on the host, so a kept
+    table is held by the graph as it is; a missing one is built in the
+    trace, since a closure cannot go to the host: :func:`host_table` is the
+    form whose build runs on the host too."""
     device = like.device
     if key is None:
         return _upload(values() if callable(values) else values, device, dtype)
+    if torch.compiler.is_dynamo_compiling():
+        t = _on_host(None, (), key, device, dtype)[0]
+        if t is not None:
+            return t
+    return _kept(values, key, device, dtype)
+
+
+def host_table(name: str, build: Callable, *args: Hashable, like: Tensor,
+               dtype=DTYPE) -> Tensor:
+    """:func:`constant` of the host table ``build(*args)``, kept under the
+    key ``(name, *args)``: ``build`` is a module-level function and
+    ``args`` are hashable values (lengths, names, keys), so the table is
+    named by them alone.  While dynamo traces, the lookup and the build on
+    a miss both run on the host: the graph holds the kept tensor, and no
+    host work is traced into it, nor is the table copied or uploaded per
+    call."""
+    key = (name,) + args
+    if torch.compiler.is_dynamo_compiling():
+        return _on_host(build, args, key, like.device, dtype)[0]
+    return _kept(lambda: build(*args), key, like.device, dtype)
+
+
+@torch.compiler.assume_constant_result
+def _on_host(build: Optional[Callable], args: tuple, key: Hashable, device: torch.device,
+             dtype) -> Tuple[Optional[Tensor]]:
+    # on the host while dynamo traces, as plan.get_plan's lookup is: the
+    # graph holds the result.  ``build`` None looks the key up only (None on
+    # a miss).  In a tuple, because dynamo names a bare tensor result by
+    # this function's name alone, and two tables of one graph would then
+    # share a source
+    if build is None:
+        return (_TABLES.get((key, device, dtype)),)
+    return (_kept(lambda: build(*args), key, device, dtype),)
+
+
+def _kept(values, key: Hashable, device: torch.device, dtype) -> Tensor:
     slot = (key, device, dtype)
     t = _TABLES.get(slot)
     if t is not None:

@@ -26,12 +26,13 @@ over a tuple of tensors, for combine functions that are not affine maps
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable, Sequence, Union
 
 import numpy as np
 import torch
 
-from .numerics import constant, content_key, matmul_precision
+from .numerics import host_table, matmul_precision
 
 Tensor = torch.Tensor
 
@@ -41,14 +42,34 @@ def _block_len(p: int) -> int:
     return max(2, 128 // p)
 
 
+def _matrix_key(A, p: int) -> tuple:
+    """The hashable name of the host (p, p) matrix ``A``: its float64
+    entries.  A Python number (p = 1) is read without numpy, so a call that
+    dynamo traces (PCEN's fixed smoother) names it and the host builds its
+    tables."""
+    if isinstance(A, (int, float)) and p == 1:
+        return ("matrix", 1, (float(A),))
+    return ("matrix", p, tuple(np.asarray(A, np.float64).reshape(p, p).ravel().tolist()))
+
+
+@functools.lru_cache(maxsize=256)
+def _host_matrix(key: tuple) -> np.ndarray:
+    """The float64 matrix that ``key`` names: its entries, or ("power",
+    base, L), A^L of the matrix ``base`` names (the block-end recurrence's
+    coefficient, the last power of ``base``'s table)."""
+    if key[0] == "power":
+        return _host_operators(key[1], key[2])[2]
+    return np.asarray(key[2], np.float64).reshape(key[1], key[1])
+
+
 @functools.lru_cache(maxsize=256)
 def _host_operators(key: tuple, L: int):
-    """(T, P, A^L) for the host matrix A that ``key`` (``content_key``)
-    holds: T the (L·p, L·p) block operator with block (i, j) = A^(i−j) for
-    j <= i; P the powers A^(i+1), (L, p, p).  Built once per (A, L): a
-    filter applied to many signals reuses them."""
-    p = key[2][0]
-    A = np.frombuffer(key[3], np.float64).reshape(p, p)
+    """(T, P, A^L) for the host matrix A that ``key`` names: T the
+    (L·p, L·p) block operator with block (i, j) = A^(i−j) for j <= i; P the
+    powers A^(i+1), (L, p, p).  Built once per (A, L): a filter applied to
+    many signals reuses them."""
+    A = _host_matrix(key)
+    p = A.shape[0]
     pw = [np.eye(p)]
     for _ in range(L):
         pw.append(A @ pw[-1])
@@ -58,15 +79,19 @@ def _host_operators(key: tuple, L: int):
     return T.transpose(0, 2, 1, 3).reshape(L * p, L * p), pw[1:], pw[L]
 
 
-def _scan_host(A: np.ndarray, c: Tensor, s0: Tensor) -> Tensor:
-    """c (n, R, p), s0 (R, p); A a float64 (p, p) array."""
+def _operator(key: tuple, L: int, i: int) -> np.ndarray:
+    return _host_operators(key, L)[i]
+
+
+def _scan_host(key: tuple, c: Tensor, s0: Tensor) -> Tensor:
+    """c (n, R, p), s0 (R, p); ``key`` names the float64 (p, p) matrix A
+    (:func:`_host_matrix`).  The tables are built on the host by key, also
+    while dynamo traces (``utils.numerics.host_table``)."""
     n, R, p = c.shape
     L = min(_block_len(p), n)
     nb = -(-n // L)
-    key = content_key("linear_recurrence", A)
-    T, P, AL = _host_operators(key, L)
-    Td = constant(T, c, c.dtype, key=key + (L, "T"))
-    Pd = constant(P, c, c.dtype, key=key + (L, "P"))
+    Td = host_table("linear_recurrence", _operator, key, L, 0, like=c, dtype=c.dtype)   # T
+    Pd = host_table("linear_recurrence", _operator, key, L, 1, like=c, dtype=c.dtype)   # P
     if nb * L > n:
         c = torch.cat([c, c.new_zeros(nb * L - n, R, p)])
     blocks = c.reshape(nb, L, R, p).permute(1, 3, 0, 2).reshape(L * p, nb * R)
@@ -75,7 +100,7 @@ def _scan_host(A: np.ndarray, c: Tensor, s0: Tensor) -> Tensor:
         if nb == 1:
             start = s0[None]
         else:
-            ends = _scan_host(AL, inner[:, -1], s0)                       # (nb, R, p)
+            ends = _scan_host(("power", key, L), inner[:, -1], s0)        # (nb, R, p)
             start = torch.cat([s0[None], ends[:-1]])
         carried = torch.einsum("ipq,nrq->nirp", Pd, start)
     return (inner + carried).reshape(nb * L, R, p)[:n]
@@ -122,7 +147,8 @@ def linear_recurrence(A: Union[np.ndarray, float, Tensor], c: Tensor, s0: Tensor
 
     ``c``: (n, …, p) drive terms on the device; ``s0``: (…, p), broadcast
     against c's middle axes.  ``A`` is a (p, p) host matrix (numpy, float64
-    as designed; a scalar when p = 1), or, for p = 1, a tensor of
+    as designed; a scalar when p = 1, which also compiles whole), or, for
+    p = 1, a tensor of
     per-channel coefficients broadcast against c's middle axes, which may
     need a gradient.  Returns the (n, …, p) states after each step, as the
     JAX package's ``iir._recurrence_scan`` does.  Products are fp32 with
@@ -130,11 +156,11 @@ def linear_recurrence(A: Union[np.ndarray, float, Tensor], c: Tensor, s0: Tensor
     n, mid, p = c.shape[0], tuple(c.shape[1:-1]), c.shape[-1]
     s0 = s0.to(c.dtype).expand(*mid, p)
     if not isinstance(A, Tensor):
-        A = np.asarray(A, np.float64).reshape(p, p)
+        key = _matrix_key(A, p)
         if n == 0:
             return c
-        R = int(np.prod(mid, dtype=np.int64))
-        return _scan_host(A, c.reshape(n, R, p), s0.reshape(R, p)).reshape(c.shape)
+        R = math.prod(mid)
+        return _scan_host(key, c.reshape(n, R, p), s0.reshape(R, p)).reshape(c.shape)
     if p != 1:
         raise ValueError(f"a tensor A is a diagonal (p = 1) coefficient; the state has p = {p}")
     a = A.to(c.dtype)
@@ -148,8 +174,8 @@ def linear_recurrence(A: Union[np.ndarray, float, Tensor], c: Tensor, s0: Tensor
     a = a.expand(mid)
     rest = [d for d in range(len(mid)) if d not in varying]
     order = rest + varying
-    R = int(np.prod([mid[d] for d in rest], dtype=np.int64))
-    G = int(np.prod([mid[d] for d in varying], dtype=np.int64))
+    R = math.prod([mid[d] for d in rest])
+    G = math.prod([mid[d] for d in varying])
     cm = c[..., 0].permute(0, *(d + 1 for d in order)).reshape(n, R, G)
     s0m = s0[..., 0].permute(tuple(order)).reshape(R, G)
     am = a.permute(tuple(order)).reshape(R, G)[0]

@@ -1,5 +1,6 @@
 """PyTorch port, on the card only: the fused kernel at the shapes the model
-families hand it, and its backward on their non-contiguous cotangents.
+families hand it, its backward on their non-contiguous cotangents, and each
+family's forward compiled with Inductor against eager.
 
     python -m pytest tests/test_torch_cuda_families.py -m cuda --noconftest -p no:cacheprovider
 
@@ -10,7 +11,9 @@ import pytest
 import torch
 
 import mixed_radix_fast_fourier_transform_tpu_torch as tp
-from mixed_radix_fast_fourier_transform_tpu_torch.models import fnet
+from mixed_radix_fast_fourier_transform_tpu_torch.models import (
+    afno, audio_frontend, fnet, koopman, s4d, sfno,
+)
 from mixed_radix_fast_fourier_transform_tpu_torch.ops import cuda_fft
 
 KERNEL_TOL = 2e-5   # kernel vs its plain version
@@ -94,3 +97,47 @@ def test_afno_transform_cotangents():
     kernel, pipeline, launches = _input_gradients(mixer, x, w)
     assert launches == 8   # rfft, fft, ifft, irfft forward, and each backward
     assert _rel(kernel, pipeline) <= ROUTES_TOL
+
+
+def _family(name, gen):
+    """(forward, parameters, input, K1 launches a forward) of one family at
+    a width whose Inductor compile takes seconds."""
+    f32 = lambda *shape: torch.randn(*shape, generator=gen).cuda()  # noqa: E731
+    if name == "s4d":
+        return (s4d.apply_s4d, s4d.init_s4d_model(64, 2, 16, 3, 10, generator=gen, device="cuda"),
+                f32(4, 256, 3), 6)
+    if name == "fnet":
+        return fnet.apply, fnet.init_fnet(64, 128, 2, generator=gen, device="cuda"), f32(4, 64, 64), 4
+    if name == "afno":
+        return ((lambda p, x: afno.apply(p, x, patch=8, n_blocks=4)),
+                afno.init_afno(4, 64, 4, patch=8, n_layers=2, n_blocks=4, generator=gen,
+                               device="cuda"), f32(1, 128, 256, 4), 8)
+    if name == "sfno":
+        return (sfno.apply, sfno.init_sfno(3, 16, 3, 31, n_layers=2, generator=gen, device="cuda"),
+                f32(2, 3, 32, 64), 4)
+    if name == "frontend":
+        return (audio_frontend.apply, audio_frontend.init_params(40, 35, generator=gen, device="cuda"),
+                0.1 * f32(8, 16000), 1)
+    return ((lambda p, x: koopman.koopman_rollout(p, x[:, 0], 16)),
+            koopman.init_koopman(8, 16, 64, generator=gen, device="cuda"), f32(32, 64, 8), 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["s4d", "fnet", "afno", "sfno", "frontend", "koopman"])
+def test_compiled_family_forward_on_the_card(name):
+    """``torch.compile(fullgraph=True, dynamic=False)`` with Inductor: the
+    compiled forward launches K1 as often as eager (its operator is a node
+    of the graph) and matches the eager forward to ROUTES_TOL."""
+    _need_card()
+    fn, params, x, launches = _family(name, torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        cuda_fft.LAUNCHES = 0
+        want = fn(params, x)
+        assert cuda_fft.LAUNCHES == launches
+        comp = torch.compile(fn, fullgraph=True, dynamic=False)
+        comp(params, x)
+        cuda_fft.LAUNCHES = 0
+        got = comp(params, x)
+        torch.cuda.synchronize()
+        assert cuda_fft.LAUNCHES == launches
+    assert _rel(got, want) <= ROUTES_TOL
