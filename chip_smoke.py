@@ -207,7 +207,8 @@ Phases, each of which raises on failure:
     ``fft``/``rfft``/``irfft`` at 2048 x 1024, the spectral filter's
     forward and SGD step (``utils.tree.compile_sgd_step``) at n = 4096,
     batch 8 and 1024, and ``fno_train`` at the JAX sizes, each beside the
-    same call eager: zero graph breaks, no recompile, K1's launches (its
+    same call eager (phase 27's eager ``fno_train``): zero graph breaks, no
+    recompile, K1's launches (its
     operator is a node of the graphs), compiled against eager (2e-5) and
     the filter against float64 (1e-5), compile seconds, device µs by graph
     replay and profiler, kernels a call, back-to-back time, idle share, and
@@ -223,7 +224,18 @@ Phases, each of which raises on failure:
     compile adds less device memory than its kept Legendre tables.  Depths
     are cut to COMPILED_DEPTH in the whole run; ``python3 chip_smoke.py
     compile`` runs the published depths and the front end's compiled loss
-    with an input gradient (K1 twice).
+    with an input gradient (K1 twice);
+31. the ops that the JAX package's tests jit, compiled whole at their eager
+    phases' shapes (``sosfilt``/``sosfiltfilt``/``lfilter``/``filtfilt``,
+    ``pfb_analysis`` with a caller's prototype, ``radon``/``iradon``,
+    ``multitaper``, ``griffinlim``, the TFR ops, a ``dwt`` loss and its
+    gradient, ``cqt``/``icqt``) with ``backend="aot_eager"`` on CUDA
+    tensors, and ``ssq_stft(sosfilt(x))`` with Inductor: zero graph breaks,
+    no recompile on a second call with new data, K1's launches equal to
+    eager's, compiled against eager (2e-5; the squeezed and reassigned
+    planes by their bin sums), against float64 where the eager phase checks
+    float64, and K1 against its plain version on the planes the calls hand
+    it.
 
 ``python3 chip_smoke.py precision`` runs phases 1, 2 and 4b alone,
 ``python3 chip_smoke.py audio`` phases 1, 2 and 15-17,
@@ -234,12 +246,14 @@ Phases, each of which raises on failure:
 ``python3 chip_smoke.py examples`` phases 1, 2 and 27, and
 ``python3 chip_smoke.py tune`` phases 1, 2 and 28, and
 ``python3 chip_smoke.py compile`` phases 1, 2, 29 and 30, phase 30 at the families'
-published depths (for development;
+published depths, and
+``python3 chip_smoke.py compile-ops`` phases 1, 2 and 31 with Inductor for every
+op, each timed beside eager (for development;
 they print no result line).
 
 The last lines are one JSON line about the kernels (launches of phases 4, 4b, 8,
-9, 12, 13, 15, 16, 18, 19, 21, 22, 23, 24, 25, 26, 27, 29 and 30; error over the plane pairs those launches were handed:
-every pair of phases 4, 9, 12, 13, 15, 16, 19, 21, 22, 23 and 24, the first rows of phase 25's, three of each run of phase 27's, and in phase 8 the first step's three, every
+9, 12, 13, 15, 16, 18, 19, 21, 22, 23, 24, 25, 26, 27, 29, 30 and 31; error over the plane pairs those launches were handed:
+every pair of phases 4, 9, 12, 13, 15, 16, 19, 21, 22, 23 and 24, the first rows of phase 25's, three of each run of phase 27's, the first rows of three of each op's eager run in phase 31, and in phase 8 the first step's three, every
 later backward's and the four of the step with an input gradient; times on
 the main path's batch-1024 planes), the card, then ``{"ok": true, "device":
 {...}}``.
@@ -2807,6 +2821,36 @@ def peak_gib(fn):
     return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 30
 
 
+def radon64(img: np.ndarray, theta: np.ndarray) -> np.ndarray:
+    """The Radon transform of the N x N ``img`` at the angles ``theta`` by
+    its definition in float64: the image spectrum on each polar slice, by
+    direct sums, then the slice's centered inverse transform."""
+    N = img.shape[-1]
+    om = 2.0 * np.pi * (np.arange(N) - N // 2) / N
+    off = np.arange(N) - N // 2
+    ex = np.exp(-1j * np.outer(off, np.outer(np.cos(theta), om).ravel()))   # (x, points)
+    ey = np.exp(-1j * np.outer(off, np.outer(np.sin(theta), om).ravel()))   # (y, points)
+    G = np.sum(ey * (img @ ex), axis=0).reshape(len(theta), N)
+    return np.fft.fftshift(np.fft.ifft(np.fft.ifftshift(G, axes=-1)), axes=-1).real
+
+
+def iradon64(sino: np.ndarray, theta: np.ndarray, px: np.ndarray) -> np.ndarray:
+    """The ramp-filtered backprojection of ``sino`` at the (row, col) pixels
+    ``px`` by its definition in float64 (direct sums over every polar
+    point, with the polar quadrature weights)."""
+    T, N = sino.shape
+    om = 2.0 * np.pi * (np.arange(N) - N // 2) / N
+    off = np.arange(N) - N // 2
+    s64 = sino.astype(np.float64)
+    slices = np.fft.fftshift(np.fft.fft(np.fft.ifftshift(s64, axes=-1)), axes=-1) * np.abs(om)
+    strengths = (slices * (np.pi / T) * (2.0 * np.pi / N) / (4.0 * np.pi ** 2)).ravel()
+    ox = np.outer(np.cos(theta), om).ravel()
+    oy = np.outer(np.sin(theta), om).ravel()
+    py, pxx = off[px[:, 0]].astype(np.float64), off[px[:, 1]].astype(np.float64)
+    return direct_sum(lambda a, b: np.outer(py, oy[a:b]) + np.outer(pxx, ox[a:b]), strengths,
+                      1.0).real
+
+
 def nufft_tomography(rng, card: str):
     """Phase 21: the non-uniform FFTs at cuFINUFFT's single-precision sizes
     and the Radon pair of a 400 x 400 phantom, from numpy input without a
@@ -2888,30 +2932,14 @@ def nufft_tomography(rng, card: str):
     theta = np.linspace(0.0, np.pi, T, endpoint=False)
     sino = run("radon", tp.radon, img.astype(np.float32), theta)
     rows_t = np.linspace(0, T - 1, TOMO_ORACLE_ANGLES).astype(int)
-    th = theta[rows_t]
-    om = 2.0 * np.pi * (np.arange(N) - N // 2) / N
-    off = np.arange(N) - N // 2
-    wx = np.outer(np.cos(th), om).ravel()
-    wy = np.outer(np.sin(th), om).ravel()
-    ex = np.exp(-1j * np.outer(off, wx))                 # (x, points)
-    ey = np.exp(-1j * np.outer(off, wy))                 # (y, points)
-    G = np.sum(ey * (img @ ex), axis=0).reshape(TOMO_ORACLE_ANGLES, N)
-    want = np.fft.fftshift(np.fft.ifft(np.fft.ifftshift(G, axes=-1)), axes=-1).real
     tol_t = NUFFT_TOL + F7_PHASE * N
     check(f"radon {N} x {N} Shepp-Logan at {T} angles -> {tuple(sino.shape)} "
           f"({TOMO_ORACLE_ANGLES} angles vs the float64 definition; bound {tol_t:.2e})",
-          sino[rows_t], want, tol_t)
+          sino[rows_t], radon64(img, theta[rows_t]), tol_t)
     back = run("iradon", tp.iradon, sino, theta)
-    s64 = sino.cpu().numpy().astype(np.float64)
-    slices = np.fft.fftshift(np.fft.fft(np.fft.ifftshift(s64, axes=-1)), axes=-1) * np.abs(om)
-    strengths = (slices * (np.pi / T) * (2.0 * np.pi / N) / (4.0 * np.pi ** 2)).ravel()
     px = rng.integers(0, N, (TOMO_ORACLE_PIXELS, 2))
-    ox = np.outer(np.cos(theta), om).ravel()
-    oy = np.outer(np.sin(theta), om).ravel()
-    py, pxx = off[px[:, 0]].astype(np.float64), off[px[:, 1]].astype(np.float64)
-    want = direct_sum(lambda a, b: np.outer(py, oy[a:b]) + np.outer(pxx, ox[a:b]), strengths, 1.0).real
     check(f"iradon -> {tuple(back.shape)} ({TOMO_ORACLE_PIXELS} pixels vs the float64 definition)",
-          back[px[:, 0], px[:, 1]], want, tol_t)
+          back[px[:, 0], px[:, 1]], iradon64(sino.cpu().numpy(), theta, px), tol_t)
     worst.append(kernel_errors(ops.seen, "tomography planes"))
     ops.seen.clear()
     imgt, sinot = cuda32(img), sino
@@ -4300,6 +4328,9 @@ EXAMPLE_RUNS = (
     ("mri_recon", dict(n=256, spokes=402, per_spoke=512)),
     ("sphere_advection", dict(lmax=255, steps=160, compile=False)),
 )
+# phase 27's eager fno_train run (its output and times), which phase 29
+# reads beside its compiled run instead of running it again
+FNO_EAGER: dict = {}
 # the examples whose steps compile by default on a card, as the JAX examples
 # jit them; the advection at lmax 255 runs eagerly, so that its row stays
 # comparable with earlier runs' (a compile of its step took 62-108 s on the
@@ -4393,6 +4424,8 @@ def examples(rng, card: str):
                "back_to_back_ms": wall_ms, "device_ms_profiler": device_ms,
                "idle_share": 1.0 - device_ms / wall_ms, "profiled_run_s": profiled_s}
         rows.append(row)
+        if name == "fno_train":
+            FNO_EAGER.update(out=out, row=row)
         log(f"example {label}: {launches} K1 launches, back to back {wall_ms:.1f} ms, "
             f"device {device_ms:.1f} ms (profiler), idle share {row['idle_share']:.3f}, "
             f"first run {first_s:.1f} s, profiled run {profiled_s:.1f} s")
@@ -4403,13 +4436,13 @@ def examples(rng, card: str):
 
 def tune_phase(card: str) -> None:
     """Phase 28: ``tools/tune.py kernel all`` on the card (every length the
-    kernel takes, 2^22 complex values a call, graph_time of 4 launches and 3
-    replays per route), then ``torch.fft.fft`` and the kernel at 256 x
-    1,048,576 rows.  The sweep's lines are written to
-    chiprun_out/tune_sweep.jsonl as well."""
+    kernel takes, 2^22 complex values a call, graph_time of 2 launches and 2
+    replays per route: 4 and 3 until phase 31 needed the time), then
+    ``torch.fft.fft`` and the kernel at 256 x 1,048,576 rows (4 and 3).  The
+    sweep's lines are written to chiprun_out/tune_sweep.jsonl as well."""
     from mixed_radix_fast_fourier_transform_tpu_torch.tools import tune
 
-    rows, summary = tune.tune_kernel_all(device=CARD, launches=4, replays=3)
+    rows, summary = tune.tune_kernel_all(device=CARD, launches=2, replays=2)
     require(summary["lengths"] == len(tune.sweep_lengths()) == 399,
             f"sweep covered {summary['lengths']} lengths")
     require(summary["max_kernel_err"] <= ORACLE_TOL,
@@ -4458,24 +4491,24 @@ def compiled(fn):
 
 def first_call(name: str, fn, *args):
     """The first call of a compiled ``fn`` (it compiles: set-up seconds),
-    then a second under ``fail_on_recompile``; zero graph breaks by
-    ``torch._dynamo.explain`` of the same function.  Returns the second
-    call's output and the compile seconds."""
+    zero graph breaks by dynamo's counters over that compile, then a second
+    call under ``fail_on_recompile``.  Returns the second call's output and
+    the compile seconds."""
+    counters = torch._dynamo.utils.counters
+    counters.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn(*args)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    breaks = sum(counters["graph_break"].values())
+    require(breaks == 0, f"{name}: {breaks} graph breaks")
     with torch.compiler.set_stance("fail_on_recompile"):
         out = fn(*args)
     torch.cuda.synchronize()
-    log(f"compiled {name}: first call (compile) {secs:.2f} s, no recompile on the second")
+    log(f"compiled {name}: first call (compile) {secs:.2f} s, 0 graph breaks, no recompile "
+        f"on the second")
     return out, secs
-
-
-def graph_breaks(fn, *args) -> int:
-    explained = torch._dynamo.explain(fn)(*args)
-    return explained.graph_break_count
 
 
 def step_oracle64(params, x: np.ndarray, target: np.ndarray, lr: float):
@@ -4532,12 +4565,13 @@ def compile_path(rng, card: str) -> int:
     ``jax.jit``.  ``fft``/``rfft``/``irfft`` at 2048 x 1024; the spectral
     filter's forward and SGD step (``utils.tree.compile_sgd_step``) at
     n = 4096, batch 8 and 1024; ``fno_train`` at the JAX sizes compiled
-    beside eager.  Each: zero graph breaks, no recompile on the second call,
+    beside eager (phase 27's eager run where the whole run made one).  Each:
+    zero graph breaks (dynamo's counters), no recompile on the second call,
     the fused kernel's launches (the compiled graph holds its operator),
     compiled against eager (2e-5) and the filter against float64 (1e-5),
     compile seconds, and device / back-to-back times and idle share beside
     eager's.  Returns the launches of the counted calls (from 0 at the
-    phase's start; explain, compiles and timings add none to it)."""
+    phase's start; compiles and timings add none to it)."""
     from mixed_radix_fast_fourier_transform_tpu_torch.examples import fno_train
 
     rows, counted = [], 0
@@ -4549,8 +4583,7 @@ def compile_path(rng, card: str) -> int:
     for name, fn, arg in (("fft", lambda v: tp.fft(v), x), ("rfft", lambda v: tp.rfft(v), xr),
                           ("irfft", lambda v: tp.irfft(v, n=n), spec)):
         label = f"{name} {n} x {rows_n}"
-        breaks = graph_breaks(fn, arg)
-        require(breaks == 0, f"{label}: {breaks} graph breaks")
+        torch._dynamo.reset()   # each call compiles from empty caches
         comp = compiled(fn)
         _, secs = first_call(label, comp, arg)
         before = cuda_fft.LAUNCHES
@@ -4562,7 +4595,7 @@ def compile_path(rng, card: str) -> int:
         err = rel_err(got.cpu().numpy(), fn(arg).cpu().numpy())
         log(f"{label} compiled: 0 graph breaks, {launched} K1 launch, rel err {err:.3e} vs eager")
         require(err <= COMPILE_TOL, f"{label} compiled vs eager {err:.3e}")
-        rows.append({"call": label, "compile_s": secs, "graph_breaks": breaks,
+        rows.append({"call": label, "compile_s": secs, "graph_breaks": 0,
                      "k1_launches": launched, "rel_err_vs_eager": err,
                      **timing_pair(label, lambda: fn(arg), lambda: comp(arg), 20, 20)})
         if name == "fft":   # the same four device kernels: what the compiled call adds on the host
@@ -4580,8 +4613,7 @@ def compile_path(rng, card: str) -> int:
         label = f"spectral filter n={FILTER_N} b={b}"
 
         # the forward
-        breaks = graph_breaks(tp.models.apply, tparams, xt)
-        require(breaks == 0, f"{label} forward: {breaks} graph breaks")
+        torch._dynamo.reset()
         fwd = compiled(tp.models.apply)
         _, fwd_s = first_call(f"{label} forward", fwd, tparams, xt)
         before = cuda_fft.LAUNCHES
@@ -4618,7 +4650,7 @@ def compile_path(rng, card: str) -> int:
             f"vs eager, {max(errs64):.3e} vs float64; {step_launches} K1 launches")
         require(max(errs) <= COMPILE_TOL and max(errs64) <= ORACLE_TOL,
                 f"{label} compiled step: {max(errs):.3e} vs eager, {max(errs64):.3e} vs float64")
-        rows.append({"call": f"{label} forward", "compile_s": fwd_s, "graph_breaks": breaks,
+        rows.append({"call": f"{label} forward", "compile_s": fwd_s, "graph_breaks": 0,
                      "k1_launches": fwd_launches, "rel_err_vs_eager": err,
                      "rel_err_vs_float64": err64,
                      **timing_pair(f"{label} forward", lambda: tp.models.apply(tparams, xt),
@@ -4635,10 +4667,20 @@ def compile_path(rng, card: str) -> int:
         torch.cuda.empty_cache()
 
     # fno_train at the JAX sizes: the loss compiled (the default on a card)
-    # beside the eager loop
+    # beside the eager loop (phase 27's run of it where the whole run made one)
     runs = {}
     for mode in (False, True):
         label = f"fno_train {'compiled' if mode else 'eager'}"
+        if not mode and FNO_EAGER:
+            r = FNO_EAGER["row"]
+            runs[mode] = FNO_EAGER["out"]
+            rows.append({"call": label + " (phase 27's run)", "k1_launches": r["k1_launches"],
+                         "first_run_s": r["first_run_s"], "back_to_back_ms": r["back_to_back_ms"],
+                         "device_ms_profiler": r["device_ms_profiler"],
+                         "idle_share": r["idle_share"]})
+            log(f"{label}: phase 27's run, back to back {r['back_to_back_ms']:.1f} ms, device "
+                f"{r['device_ms_profiler']:.1f} ms (profiler)")
+            continue
         t0 = time.perf_counter()
         before = cuda_fft.LAUNCHES
         with contextlib.redirect_stdout(None):
@@ -4724,9 +4766,10 @@ def compiled_family(name, apply, loss_fn, step, params, x, target, forward_launc
                     step_launches, err_of=rel_err, step_tol: float = ROUTES_TOL,
                     tables=None):
     """One family under torch.compile (Inductor) beside eager on the same
-    weights and inputs: zero graph breaks (``torch._dynamo.explain`` of the
-    loss, which runs the forward; it also resets dynamo's caches), the
-    compiled forward with no recompile on its second call, its K1 launches
+    weights and inputs: zero graph breaks in the compiled forward and in the
+    step's compiled loss and update (dynamo's counters over their first
+    calls, from dynamo's caches emptied), the compiled forward with no
+    recompile on its second call, its K1 launches
     (equal to eager's), against eager (COMPILE_TOL), and the device memory
     its compile leaves allocated (below ``tables``, the bytes of the device
     tables its graph reads, where given: they are held, not copied);
@@ -4736,8 +4779,7 @@ def compiled_family(name, apply, loss_fn, step, params, x, target, forward_launc
     (``step_tol`` by ``err_of``) against the eager step; compile seconds;
     device and back-to-back times and idle share beside eager's.  Returns
     the rows and the launches of the counted compiled calls."""
-    breaks = graph_breaks(loss_fn, params, x, target)
-    require(breaks == 0, f"{name}: {breaks} graph breaks in the loss")
+    torch._dynamo.reset()
     with torch.no_grad():
         want, eager_fwd = counted(lambda: apply(params, x))
         fwd = compiled(apply)
@@ -4788,7 +4830,7 @@ def compiled_family(name, apply, loss_fn, step, params, x, target, forward_launc
             return fwd(params, x)
 
     rows = [
-        {"call": f"{name} forward", "compile_s": fwd_s, "graph_breaks": breaks,
+        {"call": f"{name} forward", "compile_s": fwd_s, "graph_breaks": 0,
          "k1_launches": fwd_launches, "k1_launches_eager": eager_fwd, "rel_err_vs_eager": err,
          "compile_allocated_mib": added / 2**20,
          **compiled_timing(f"{name} forward", eager_forward, compiled_forward)},
@@ -4913,6 +4955,298 @@ def compiled_families(rng, card: str, full: bool = False) -> int:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: the ops that the JAX package's tests jit, compiled
+# ---------------------------------------------------------------------------
+
+# compiled against eager: the same fp32 ops (aot_eager), or fused and
+# reordered by Inductor a few ulps apart
+COMPILE_OPS_TOL = ROUTES_TOL
+# multitaper has no eager phase: the recurrences' shape, the JAX test's call
+MULTITAPER_SHAPE = RECURRENCE_SHAPE
+# griffinlim as phase 13 runs it: 2^16 samples, nperseg 1024, hop 256, 8 rounds
+GRIFFIN_SAMPLES, GRIFFIN_NPERSEG, GRIFFIN_HOP, GRIFFIN_ITERS = 2 ** 16, 1024, 256, 8
+# the compiled dwt loss at phase 24's wavedec shape (Whisper's clips)
+DWT_LOSS_SHAPE = (16, 480_000)
+# rows of each recorded plane pair held against the plain K1 (every row runs
+# the same schedule; the eager phases hold whole planes of these shapes)
+OPS_KERNEL_ROWS = 1024
+
+
+def compare(got, want, bins=None) -> float:
+    """Outputs (tensors or host arrays) against ``want``: elementwise, or for
+    a squeezed or reassigned plane (the first output, with ``bins`` its bin
+    axes) by its bin sums, which a bin flip under another reduction order
+    leaves alone (ROADMAP F2); its grid exactly."""
+    errs = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = g.detach().cpu().numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+        w = w.detach().cpu().numpy() if isinstance(w, torch.Tensor) else np.asarray(w)
+        require(g.shape == w.shape, f"shape {g.shape} != {w.shape}")
+        if i == 0 and bins is not None:
+            g, w = g.sum(bins), w.sum(bins)
+        errs.append(rel_err(g, w))
+    return max(errs)
+
+
+def compiled_op(name: str, fn, args, args2, backend: str, bins=None):
+    """One op of phase 31.  Eager on ``args`` (its K1 launches and output),
+    then ``fn`` under ``torch.compile(backend=backend, fullgraph=True,
+    dynamic=False)`` on the same tensors: compile seconds, graph breaks by
+    dynamo's counters (0, in one graph), its K1 launches (the compiled
+    graph's operator node: equal to eager's), against eager
+    (COMPILE_OPS_TOL; through the bin sums over ``bins``), then a second
+    call on ``args2`` under ``fail_on_recompile``, against eager there.
+    Where the op reaches K1, the kernel is held against its plain version on
+    the first OPS_KERNEL_ROWS rows of the first two and the last plane pairs
+    the eager call hands it (the compiled graph calls the operator itself,
+    so its planes are those).  Returns the row, the compiled
+    output, the compiled function and its counted launches."""
+    with recorded_launches(keep=2) as seen:
+        out_e, eager_launches = counted(lambda: fn(*args))
+    counters = torch._dynamo.utils.counters
+    counters.clear()
+    comp = torch.compile(fn, backend=backend, fullgraph=True, dynamic=False)
+    t0 = time.perf_counter()
+    out_c, launches = counted(lambda: comp(*args))
+    secs = time.perf_counter() - t0
+    breaks = sum(counters["graph_break"].values())
+    graphs = counters["stats"]["unique_graphs"]
+    wrap = lambda o: o if isinstance(o, tuple) else (o,)  # noqa: E731
+    err = compare(wrap(out_c), wrap(out_e), bins)
+    with torch.compiler.set_stance("fail_on_recompile"):
+        out2 = comp(*args2)
+    err2 = compare(wrap(out2), wrap(fn(*args2)), bins)
+    torch.cuda.synchronize()
+    k1 = None
+    if eager_launches:
+        k1 = kernel_errors(sampled(seen, OPS_KERNEL_ROWS),
+                           f"{name}, the compiled call's planes")
+    del seen
+    log(f"compiled op {name} ({backend}): compile {secs:.2f} s, {breaks} graph breaks, "
+        f"{graphs} graph, K1 launches {launches} (eager {eager_launches}), rel err vs eager "
+        f"{err:.3e}{' (bin sums)' if bins is not None else ''}, second call (no recompile) "
+        f"{err2:.3e}")
+    require(breaks == 0 and graphs == 1, f"{name}: {breaks} graph breaks, {graphs} graphs")
+    require(launches == eager_launches, f"{name}: {launches} K1 launches, eager {eager_launches}")
+    require(max(err, err2) <= COMPILE_OPS_TOL, f"{name}: {err:.3e}, {err2:.3e} vs eager")
+    row = {"call": name, "backend": backend, "compile_s": secs, "graph_breaks": breaks,
+           "k1_launches": launches, "k1_launches_eager": eager_launches,
+           "rel_err_vs_eager": err, "second_call_rel_err_vs_eager": err2,
+           "k1_vs_plain_abs_err": k1}
+    return row, out_c, comp, launches
+
+
+def check64(row: dict, name: str, got, want, tol: float) -> None:
+    """A compiled result against float64 where its eager phase holds it there
+    (none where Inductor could not compile the op)."""
+    if "inductor_error" in row:
+        return
+    got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    err = rel_err(got, want)
+    log(f"compiled op {name} vs float64: rel err {err:.3e} (tolerance {tol:.0e})")
+    require(err <= tol, f"compiled {name}: {err:.3e} vs float64")
+    row["rel_err_vs_float64"] = err
+
+
+def compiled_ops(rng, card: str, inductor: bool = False) -> int:
+    """Phase 31: the ops that the JAX package's tests run under ``jax.jit``
+    (groups 1, 3, 4 and 6 of ROADMAP's compile queue), compiled whole at
+    their eager phases' shapes: ``sosfilt``/``sosfiltfilt``/``lfilter``/
+    ``filtfilt`` at 8 x 65,536, ``pfb_analysis`` with a caller's prototype at
+    4,096 channels x 4 taps on 2 x 2^25, ``iradon(radon(.))`` at 400 x 400
+    with 400 angles, ``multitaper``, ``griffinlim`` (the ``seed`` form), the
+    TFR ops at 8 x 4096, a ``dwt`` loss and its gradient at 16 x 480,000
+    (db4), ``cqt`` of 8 clips of 30 s and ``icqt`` with five Landweber
+    rounds.  Each through :func:`compiled_op` (backend ``aot_eager``: a
+    full-graph capture with CUDA fake tensors and K1's node, seconds a
+    call), against float64 where its eager phase checks float64; then one
+    chain, ``ssq_stft(sosfilt(x))``, under Inductor.  With ``inductor``
+    (``python3 chip_smoke.py compile-ops``) every op compiles with Inductor,
+    and each row gets device µs by graph replay, kernels a call,
+    back-to-back µs and idle share beside eager's (rows in
+    ``chiprun_out/compile_ops.json``).  Returns the launches of the counted
+    compiled calls and K1's worst abs error against its plain version."""
+    backend = "inductor" if inductor else "aot_eager"
+    rows, total = [], 0
+    sub = np.asarray(ORACLE_ROWS)
+    os.makedirs("chiprun_out", exist_ok=True)
+    path = os.path.join("chiprun_out", "compile_ops.json")
+
+    def record():
+        with open(path, "w") as fh:
+            json.dump({"card": card, "torch": torch.__version__, "inductor": inductor,
+                       "rows": rows}, fh, indent=1)
+
+    def run(name, fn, args, args2, bins=None, timing=True):
+        nonlocal total
+        t0 = time.perf_counter()
+        try:
+            row, out, comp, launched = compiled_op(name, fn, args, args2, backend, bins)
+        except torch._inductor.exc.InductorError as e:
+            if not inductor:
+                raise
+            # compile-ops records what Inductor cannot compile and goes on
+            # (the later ops read this one's eager output)
+            log(f"compiled op {name}: Inductor failed: {str(e).splitlines()[0]}")
+            rows.append({"call": name, "backend": backend,
+                         "inductor_error": str(e).splitlines()[0]})
+            record()
+            return rows[-1], fn(*args)
+        row["op_s"] = time.perf_counter() - t0
+        total += launched
+        rows.append(row)
+        if inductor and timing:
+            row.update(timing_pair(name, lambda: fn(*args), lambda: comp(*args), 3, 1))
+        record()
+        return row, out
+
+    # the IIR filters: designed on the host, keyed by their coefficients
+    x, x2 = (cuda32(rng.standard_normal(RECURRENCE_SHAPE)) for _ in range(2))
+    x64 = x.cpu().numpy().astype(np.float64)
+    sos, (b, a) = tp.butter(6, 0.2, output="sos"), tp.butter(4, 0.2)
+    for name, fn, want, tol in (
+            ("sosfilt", lambda v: tp.sosfilt(sos, v), scipy.signal.sosfilt, SOSFILT_TOL),
+            ("sosfiltfilt", lambda v: tp.sosfiltfilt(sos, v), scipy.signal.sosfiltfilt,
+             SOSFILTFILT_TOL),
+            ("lfilter", lambda v: tp.lfilter(b, a, v), scipy.signal.lfilter, LFILTER_TOL),
+            ("filtfilt", lambda v: tp.filtfilt(b, a, v), scipy.signal.filtfilt, FILTFILT_TOL)):
+        row, out = run(f"{name} {RECURRENCE_SHAPE}", fn, (x,), (x2,))
+        design = (sos,) if name.startswith("sos") else (b, a)
+        check64(row, name, out, want(*design, x64, axis=-1), tol)
+    del x, x2, x64
+
+    # the channelizer with a caller's prototype (the JAX test's form)
+    K, P = PFB["n_channels"], PFB["taps_per_branch"]
+    h = tp.pfb_prototype(K, P, PFB["window"])
+    xp, xp2 = (cuda32(0.1 * rng.standard_normal((PFB_POLS, PFB_SAMPLES), dtype=np.float32))
+               for _ in range(2))
+    row, y = run(f"pfb_analysis h= {K} ch x {P} taps, {PFB_POLS} x 2^25",
+                 lambda v: tp.pfb_analysis(v, K, h=h), (xp,), (xp2,))
+    frames = y.shape[-2]
+    pick = np.sort(rng.choice(frames, PFB_ORACLE_FRAMES, replace=False))
+    idx = pick[:, None] * K + np.arange(P * K)[None, :]
+    v = (xp.cpu().numpy()[:, idx].astype(np.float64) * h).reshape(
+        PFB_POLS, PFB_ORACLE_FRAMES, P, K).sum(-2)
+    check64(row, "pfb_analysis", y[:, pick], np.fft.fft(v, axis=-1), ORACLE_TOL)
+    del xp, xp2, y, v, idx
+    torch.cuda.empty_cache()
+
+    # tomography: the angles keyed on the host
+    N, T = TOMO_N, TOMO_ANGLES
+    theta = np.linspace(0.0, np.pi, T, endpoint=False)
+    img, img2 = cuda32(shepp_logan(N)), cuda32(rng.uniform(0.0, 1.0, (N, N)))
+    row, sino = run(f"radon {N} x {N}, {T} angles", lambda v: tp.radon(v, theta), (img,), (img2,))
+    rows_t = np.linspace(0, T - 1, TOMO_ORACLE_ANGLES).astype(int)
+    tol_t = NUFFT_TOL + F7_PHASE * N
+    check64(row, "radon", sino[rows_t], radon64(shepp_logan(N), theta[rows_t]), tol_t)
+    sino = sino.contiguous()
+    row, back = run(f"iradon {T} x {N}", lambda v: tp.iradon(v, theta), (sino,),
+                    (sino.flip(-1).contiguous(),))
+    px = rng.integers(0, N, (TOMO_ORACLE_PIXELS, 2))
+    check64(row, "iradon", back[px[:, 0], px[:, 1]], iradon64(sino.cpu().numpy(), theta, px),
+            tol_t)
+    del img, img2, sino, back
+
+    # multitaper (the DPSS tapers a host build) and griffinlim's seed form
+    xm, xm2 = (cuda32(rng.standard_normal(MULTITAPER_SHAPE)) for _ in range(2))
+    run(f"multitaper unity k=4 {MULTITAPER_SHAPE}",
+        lambda v: tp.multitaper(v, fs=10.0, weighting="unity", k=4), (xm,), (xm2,))
+    del xm, xm2
+    # phase 13's tone pair, and another for the second call: a bin whose
+    # magnitude all but vanishes (noise) carries rounding noise through every
+    # round's renormalisation, in eager and compiled alike
+    tone = np.arange(GRIFFIN_SAMPLES) / 16384.0
+    over = GRIFFIN_NPERSEG - GRIFFIN_HOP
+    mag, mag2 = (torch.abs(tp.stft(cuda32(np.sin(2 * np.pi * f0 * tone)
+                                          + 0.5 * np.sin(2 * np.pi * f1 * tone)),
+                                   GRIFFIN_NPERSEG, over)) for f0, f1 in ((440, 1250), (330, 990)))
+    run(f"griffinlim {GRIFFIN_ITERS} rounds, 2^16 samples, nperseg {GRIFFIN_NPERSEG}",
+        lambda m: tp.griffinlim(m, GRIFFIN_ITERS, GRIFFIN_NPERSEG, over, seed=SEED), (mag,), (mag2,))
+    del mag, mag2
+
+    # the time-frequency group at 8 x 4096 (phase 19's signals)
+    rows_f, Tf = TFR_SHAPE
+    tt = np.arange(Tf)
+
+    def tfr_signal():
+        return (np.cos(2 * np.pi * rng.uniform(0.02, 0.2, (rows_f, 1)) * tt)
+                + 0.7 * np.cos(2 * np.pi * (0.05 * tt + 0.15 * tt ** 2 / (2 * Tf))))
+
+    xf64, xf2 = tfr_signal(), tfr_signal()
+    xf, xf2 = cuda32(xf64), cuda32(xf2)
+    row, W = run(f"wigner_ville {TFR_SHAPE}", tp.wigner_ville, (xf,), (xf2,))
+    check64(row, "wigner_ville", W[sub], wigner_ville_oracle(xf64[sub], 257), ORACLE_TOL)
+    row, (St, _) = run(f"stockwell {TFR_SHAPE}", tp.stockwell, (xf,), (xf2,))
+    check64(row, "stockwell", St[sub], stockwell_oracle(xf64[sub]), ORACLE_TOL)
+    del W, St
+    run(f"ssq_stft {TFR_SHAPE}", tp.ssq_stft, (xf,), (xf2,), bins=-1)
+    run(f"ssq_cwt {TFR_SHAPE}", tp.ssq_cwt, (xf,), (xf2,), bins=-2)
+    run(f"reassigned_spectrogram {TFR_SHAPE}", tp.reassigned_spectrogram, (xf,), (xf2,),
+        bins=(-2, -1))
+
+    # the compiled loss of a dwt and its gradient, as compile_sgd_step takes it
+    clips, clips2 = (cuda32(0.1 * rng.standard_normal(DWT_LOSS_SHAPE)) for _ in range(2))
+
+    def dwt_grad(v):
+        leaf = v.detach().requires_grad_(True)
+        return torch.autograd.grad(dwt_loss(leaf), leaf)[0]
+
+    def dwt_loss(v):
+        return torch.sum(tp.dwt(v, "db4")[1] ** 2)
+
+    row, loss = run(f"dwt db4 loss {DWT_LOSS_SHAPE}", dwt_loss, (clips,), (clips2,), timing=False)
+    comp_loss = torch.compile(dwt_loss, backend=backend, fullgraph=True, dynamic=False)
+    leaf = clips.detach().requires_grad_(True)
+    g = torch.autograd.grad(comp_loss(leaf), leaf)[0]
+    geager = dwt_grad(clips)
+    gerr = rel_err(g.cpu().numpy(), geager.cpu().numpy())
+    # float64: the gradient of Σ d² is 2·Wᵀd, on two clips
+    from mixed_radix_fast_fourier_transform_tpu_torch.ops import dwt as dwt_ops
+
+    hi = dwt_ops._banks("db4")[1]
+    c64 = torch.tensor(clips.cpu().numpy()[sub], dtype=torch.float64, requires_grad=True)
+    n = c64.shape[-1]
+    widx = torch.tensor((2 * np.arange(n // 2)[:, None] + np.arange(len(hi))[None, :]) % n)
+    d64 = c64[..., widx] @ torch.tensor(hi)
+    g64 = torch.autograd.grad(torch.sum(d64 ** 2), c64)[0].numpy()
+    log(f"compiled dwt loss gradient: rel err {gerr:.3e} vs eager")
+    require(gerr <= COMPILE_OPS_TOL, f"compiled dwt gradient: {gerr:.3e} vs eager")
+    row["gradient_rel_err_vs_eager"] = gerr
+    check64(row, "dwt loss gradient", g[sub], g64, ORACLE_TOL)
+    del clips, clips2, leaf, g, geager, c64, d64, widx
+
+    # the CQT of phase 19's clips and the inverse with five Landweber rounds
+    fs = CQT["fs"]
+    t = np.arange(CLIP_SAMPLES) / fs
+
+    def clip_batch():
+        notes = 110.0 * 2.0 ** (rng.integers(0, 36, (CLIP_BATCH, 2)) / 12.0)
+        return (0.1 * rng.standard_normal((CLIP_BATCH, CLIP_SAMPLES))
+                + np.sin(2 * np.pi * notes[:, :1] * t) + 0.5 * np.sin(2 * np.pi * notes[:, 1:] * t))
+
+    c64, c2 = clip_batch(), clip_batch()
+    row, C = run(f"cqt {CLIP_BATCH} x 30 s, 84 bins", tp.cqt, (cuda32(c64),), (cuda32(c2),))
+    check64(row, "cqt", C[:1], cqt_oracle(c64[0], **CQT)[None], CQT_TOL)
+    C2 = tp.cqt(cuda32(c2))
+    run(f"icqt {CLIP_BATCH} x 30 s, 5 rounds", lambda c: tp.icqt(c, length=CLIP_SAMPLES, n_iter=5),
+        (C,), (C2,))
+    del C, C2, c64, c2
+    torch.cuda.empty_cache()
+
+    # one chain of an IIR op and a K1 op, under Inductor in the whole run too
+    backend = "inductor"
+    run(f"ssq_stft(sosfilt(x)) {TFR_SHAPE}", lambda v: tp.ssq_stft(tp.sosfilt(sos, v)),
+        (xf,), (xf2,), bins=-1)
+    del xf, xf2
+
+    record()
+    log(json.dumps({"compiled_ops": {"card": card, "rows": rows}}))
+    worst = max((r["k1_vs_plain_abs_err"] for r in rows if r.get("k1_vs_plain_abs_err") is not None),
+                default=0.0)
+    return total, worst
+
+
 def timed(phase, *args):
     """Runs one phase and logs its wall time (the whole run has a time limit)."""
     t0 = time.perf_counter()
@@ -4962,6 +5296,9 @@ def main(argv) -> int:
         timed(compile_path, rng, card)
         timed(compiled_families, rng, card, True)
         return 0
+    if argv == ["compile-ops"]:   # development: phase 31 with Inductor for every op, timed
+        timed(compiled_ops, rng, card, True)
+        return 0
     if argv == ["parallel-timings"]:   # phase 25's device times, a process of their own
         timed(parallel_timings, card)
         return 0
@@ -4996,6 +5333,7 @@ def main(argv) -> int:
     timed(tune_phase, card)
     compile_launches = timed(compile_path, rng, card)
     compile_launches += timed(compiled_families, rng, card)
+    ops_compiled_launches, ops_compiled_abs = timed(compiled_ops, rng, card)
     log(f"kernel launches by path: filter forward {launches}, "
         f"reduced precision {precision_launches}, training {train_launches}, "
         f"fno {fno_launches}, s4d + fnet + afno {family_launches}, ops tail {ops_launches}, "
@@ -5004,13 +5342,16 @@ def main(argv) -> int:
         f"nufft + tomography {nufft_launches}, sht + sfno {sphere_launches}, "
         f"radar + radio {radar_launches}, wavelets + leaves {leaves_launches}, "
         f"parallel main path {parallel_launches}, parallel rest {rest_launches}, "
-        f"examples {example_launches}, compiled {compile_launches}")
+        f"examples {example_launches}, compiled {compile_launches}, "
+        f"compiled ops {ops_compiled_launches}")
     launches += (precision_launches + train_launches + fno_launches + family_launches + ops_launches
                  + frontend_launches + audio_launches + recurrence_launches + remainder_launches
                  + nufft_launches + sphere_launches + radar_launches + leaves_launches
-                 + parallel_launches + rest_launches + example_launches + compile_launches)
+                 + parallel_launches + rest_launches + example_launches + compile_launches
+                 + ops_compiled_launches)
     max_abs = max(max_abs, train_abs, fno_abs, family_abs, ops_abs, frontend_abs, audio_abs,
-                  remainder_abs, nufft_abs, sphere_abs, radar_abs, leaves_abs, parallel_abs)
+                  remainder_abs, nufft_abs, sphere_abs, radar_abs, leaves_abs, parallel_abs,
+                  ops_compiled_abs)
     # the kernel line's times are on the same planes as its error: the
     # forward transform of the batch-1024 filter call.  ms, plain_ms and
     # library_ms are medians of single timed calls, dispatch included

@@ -26,7 +26,8 @@ import torch
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.factorize import next_pow2
 from ..utils.numerics import (
-    as_tensor, complex_dtype, constant, content_key, matmul_precision, pad_last,
+    as_tensor, complex_dtype, content_key, host_table, key_array, matmul_precision, on_host,
+    pad_last,
 )
 from .fft import fft, ifft
 from .stft import _frame, get_window
@@ -117,12 +118,54 @@ def _cqt_spectral_kernel(
     return np.conj(np.fft.fft(K, axis=-1)) / nf, nf
 
 
-def _ladder_key(name: str, fs, fmin, n_bins, bins_per_octave, window, filter_scale, n_fft):
-    """Key of a device table built from a band ladder; an array window is
-    keyed by its contents."""
+def _ladder_key(fs, fmin, n_bins, bins_per_octave, window, filter_scale, n_fft) -> tuple:
+    """The band ladder as hashable values, the name of its device tables;
+    an array window is keyed by its contents (:func:`_ladder_args` gives
+    the arguments back)."""
     wkey = window if isinstance(window, (str, tuple)) else content_key("window", np.asarray(window))
-    return (name, float(fs), float(fmin), int(n_bins), int(bins_per_octave), wkey,
+    return (float(fs), float(fmin), int(n_bins), int(bins_per_octave), wkey,
             float(filter_scale), None if n_fft is None else int(n_fft))
+
+
+def _ladder_args(ladder: tuple) -> tuple:
+    """The arguments of :func:`_cqt_spectral_kernel` that ``ladder`` names."""
+    wkey = ladder[4]
+    array = isinstance(wkey, tuple) and len(wkey) == 4 and wkey[0] == "window" \
+        and isinstance(wkey[3], bytes)
+    return ladder[:4] + (key_array(wkey) if array else wkey,) + ladder[5:]
+
+
+def _cqt_plan(fs, fmin, n_bins, bins_per_octave, window, filter_scale, n_fft,
+              message: str) -> tuple:
+    """Host prologue (``utils.numerics.on_host``): the ladder checked to lie
+    below Nyquist (``message`` otherwise), (its frame length, its key)."""
+    freqs = cqt_frequencies(n_bins, fmin, bins_per_octave)
+    if freqs[-1] >= fs / 2.0:
+        raise ValueError(message.format(top=freqs[-1], nyquist=fs / 2.0))
+    nf = _frame_len(fs, fmin, n_bins, bins_per_octave, filter_scale, n_fft)
+    return nf, _ladder_key(fs, fmin, n_bins, bins_per_octave, window, filter_scale, n_fft)
+
+
+def _kernel_table(ladder: tuple) -> np.ndarray:
+    """The conjugated spectral kernel, transposed for the product: (nf, n_bins)."""
+    return _cqt_spectral_kernel(*_ladder_args(ladder))[0].T
+
+
+def _dual_table(ladder: tuple, reg: float) -> np.ndarray:
+    """The dual kernel, transposed for the product: (n_bins, nf)."""
+    return _icqt_dual_kernel(*_ladder_args(ladder), reg)[0].T
+
+
+def _ola_table(nf: int, hop: int, n_frames: int, which: int) -> np.ndarray:
+    """The rectangular overlap-add's sample index of every frame sample
+    (``which`` 0), or the inverse of each sample's coverage (1)."""
+    starts = np.arange(n_frames) * hop
+    if which == 0:
+        return (starts[:, None] + np.arange(nf)[None, :]).reshape(-1)
+    cover = np.zeros(nf + (n_frames - 1) * hop)
+    for s in starts:
+        cover[s : s + nf] += 1.0
+    return 1.0 / np.maximum(cover, 1.0)
 
 
 def cqt(
@@ -155,21 +198,11 @@ def cqt(
         raise ValueError(f"hop must be >= 1, got {hop}")
     if fs <= 0:
         raise ValueError(f"fs must be > 0, got {fs}")
-    freqs = cqt_frequencies(n_bins, fmin, bins_per_octave)
-    if freqs[-1] >= fs / 2.0:
-        raise ValueError(
-            f"highest band {freqs[-1]:.2f} Hz reaches Nyquist ({fs/2:.2f} "
-            "Hz) — lower n_bins or raise fs"
-        )
-    nf = _frame_len(fs, fmin, n_bins, bins_per_octave, filter_scale, n_fft)
+    nf, ladder = on_host(_cqt_plan, fs, fmin, n_bins, bins_per_octave, window, filter_scale,
+                         n_fft, "highest band {top:.2f} Hz reaches Nyquist ({nyquist:.2f} "
+                         "Hz) — lower n_bins or raise fs")
     x = x.to(complex_dtype(config.dtype)) if x.is_complex() else x.to(config.dtype)
-    # the conjugated spectral kernel, transposed for the product: (nf, n_bins)
-    key = _ladder_key("cqt.kernel", fs, fmin, n_bins, bins_per_octave, window,
-                      filter_scale, n_fft)
-    Kt = constant(lambda: _cqt_spectral_kernel(
-        float(fs), float(fmin), int(n_bins), int(bins_per_octave), window,
-        float(filter_scale), None if n_fft is None else int(n_fft))[0].T,
-        x, complex_dtype(config.dtype), key=key)
+    Kt = host_table("cqt.kernel", _kernel_table, ladder, like=x, dtype=complex_dtype(config.dtype))
     if center:
         x = pad_last(x, nf // 2, nf // 2)
     t = x.shape[-1]
@@ -241,40 +274,23 @@ def icqt(
         raise ValueError(f"C has {C.shape[-1]} bins, expected {nb}")
     if hop < 1:
         raise ValueError(f"hop must be >= 1, got {hop}")
-    freqs = cqt_frequencies(nb, fmin, bins_per_octave)
-    if freqs[-1] >= fs / 2.0:
-        raise ValueError("band ladder reaches Nyquist — see cqt()")
     if not isinstance(window, (str, tuple)):
         raise ValueError("icqt needs a hashable window spec (str or tuple)")
-    nf = _frame_len(fs, fmin, nb, bins_per_octave, filter_scale, n_fft)
+    nf, ladder = on_host(_cqt_plan, fs, fmin, nb, bins_per_octave, window, filter_scale, n_fft,
+                         "band ladder reaches Nyquist — see cqt()")
     C = C.to(_CDTYPE)
-    key = _ladder_key("icqt.dual", fs, fmin, nb, bins_per_octave, window,
-                      filter_scale, n_fft) + (float(reg),)
-    Pt = constant(lambda: _icqt_dual_kernel(
-        float(fs), float(fmin), int(nb), int(bins_per_octave), window,
-        float(filter_scale), None if n_fft is None else int(n_fft),
-        float(reg))[0].T, C, _CDTYPE, key=key)
+    Pt = host_table("icqt.dual", _dual_table, ladder, float(reg), like=C, dtype=_CDTYPE)
     n_frames = C.shape[-2]
     with matmul_precision(config.op_precision):
         spec = C @ Pt  # (…, n_frames, nf) analytic spectra
     frames = 2.0 * torch.real(ifft(spec, config=config))  # Hermitian half implied
     # rectangular overlap-add, averaged by per-sample coverage
     t_padded = nf + (n_frames - 1) * hop
-    starts = np.arange(n_frames) * hop
-    ola = ("icqt.ola", nf, hop, n_frames)
-    idx = constant(lambda: (starts[:, None] + np.arange(nf)[None, :]).reshape(-1),
-                   frames, torch.int64, key=ola + ("index",))
-
-    def inverse_cover() -> np.ndarray:
-        cover = np.zeros(t_padded)
-        for s in starts:
-            cover[s : s + nf] += 1.0
-        return 1.0 / np.maximum(cover, 1.0)
-
+    idx = host_table("icqt.ola", _ola_table, nf, hop, n_frames, 0, like=frames, dtype=torch.int64)
     batch = frames.shape[:-2]
     out = frames.new_zeros((*batch, t_padded))
     out = out.index_add(-1, idx, frames.reshape(*batch, -1))
-    out = out * constant(inverse_cover, frames, DTYPE, key=ola + ("cover",))
+    out = out * host_table("icqt.ola", _ola_table, nf, hop, n_frames, 1, like=frames, dtype=DTYPE)
     out = out[..., nf // 2 : t_padded - nf // 2]  # undo cqt's center pad
     if length is not None:
         out = out[..., : int(length)]

@@ -45,7 +45,8 @@ import torch.nn.functional as F
 
 from ..utils.config import DEFAULT_CONFIG, SpectralConfig
 from ..utils.numerics import (
-    as_tensor, as_tensors, constant, content_key, matmul_precision, median, pad_last,
+    as_tensor, as_tensors, content_key, host_table, key_array, matmul_precision, median,
+    on_host, pad_last, real_dtype,
 )
 
 Tensor = torch.Tensor
@@ -356,17 +357,19 @@ def _extend_idx(n: int, pad: int, mode: str) -> "np.ndarray | None":
 # ---------------------------------------------------------------------------
 
 
-def _weights(w: np.ndarray, like: Tensor) -> Tensor:
-    """A (C_out, C_in, F) filter-bank weight on ``like``'s device."""
-    dtype = like.real.dtype if like.is_complex() else like.dtype
-    return constant(w, like, dtype, key=content_key("dwt.w", w))
+def _weights(w, like: Tensor) -> Tensor:
+    """A (C_out, C_in, F) filter-bank weight on ``like``'s device, kept by
+    its contents (``w`` a host array or its content key)."""
+    wkey = w if isinstance(w, tuple) else content_key("dwt.w", w)
+    return host_table("dwt.w", key_array, wkey, like=like, dtype=real_dtype(like.dtype))
 
 
-def _conv(x: Tensor, w: np.ndarray, stride: int = 1, dilation: int = 1,
+def _conv(x: Tensor, w, stride: int = 1, dilation: int = 1,
           precision: str = "highest") -> Tensor:
-    """(…, C_in, L) correlated with the real bank ``w`` (C_out, C_in, F):
-    (…, C_out, L_out), at ``precision`` (the config's ``op_precision``);
-    complex data as its real and imaginary parts."""
+    """(…, C_in, L) correlated with the real bank ``w`` (C_out, C_in, F; a
+    host array, or its content key, which a traced call names without
+    numpy): (…, C_out, L_out), at ``precision`` (the config's
+    ``op_precision``); complex data as its real and imaginary parts."""
     if x.is_complex():
         return torch.complex(_conv(x.real, w, stride, dilation, precision),
                              _conv(x.imag, w, stride, dilation, precision))
@@ -382,67 +385,89 @@ def _inexact(x: Tensor) -> Tensor:
     return x if (x.is_floating_point() or x.is_complex()) else x.to(torch.float32)
 
 
+def _analysis_weight(wavelet: str):
+    """Host prologue (``utils.numerics.on_host``): the content key of the
+    (2, 1, F) analysis weight of ``wavelet`` (lowpass, highpass) and its
+    ``extra`` boundary windows."""
+    dec_lo, dec_hi, _, _, extra = _banks(wavelet)
+    return content_key("dwt.w", np.stack([dec_lo, dec_hi])[:, None, :]), extra
+
+
+def _synthesis_weight(wavelet: str) -> tuple:
+    """Host prologue: the content key of ``wavelet``'s (2, 2, F/2)
+    periodized synthesis weight (:func:`_polyphase_weight`)."""
+    _, _, syn_lo, syn_hi, _ = _banks(wavelet)
+    return content_key("dwt.w", _polyphase_weight(syn_lo, syn_hi))
+
+
 def _dwt_linear(x: Tensor, wavelet: str, mode: str, config: SpectralConfig):
     """Extension-mode analysis: windows at odd offsets of the padded signal
     (pywt-convention lengths (n + F - 1)//2, plus ``extra`` boundary
     windows per side for biorthogonal banks)."""
-    dec_lo, dec_hi, _, _, extra = _banks(wavelet)
-    f = len(dec_lo)
+    wkey, extra = on_host(_analysis_weight, wavelet)
+    f = wkey[2][-1]
     n = x.shape[-1]
     pad = f - 1 + 2 * extra
-    emap = _extend_idx(n, pad, mode)
-    if emap is None:
+    if mode == "zero":
         xe = F.pad(x, (pad, pad))
     else:
-        xe = x[..., constant(emap, x, torch.int64, key=("dwt.extend", n, pad, mode))]
-    out = _conv(xe[..., None, 1:], np.stack([dec_lo, dec_hi])[:, None, :], stride=2,
-                precision=config.op_precision)
+        xe = x[..., host_table("dwt.extend", _extend_idx, n, pad, mode, like=x, dtype=torch.int64)]
+    out = _conv(xe[..., None, 1:], wkey, stride=2, precision=config.op_precision)
     return out[..., 0, :], out[..., 1, :]
 
 
-def _idwt_linear(a: Tensor, d: Tensor, wavelet: str, config: SpectralConfig):
-    """Extension-mode synthesis: out[m] = sum_s syn[s]·coef[(m + F - 2 +
-    2·extra - s)/2] over parity-matching taps — the zero-extended polyphase
-    gather; returns the pywt-canonical 2·(La - 2·extra) - F + 2 samples."""
-    dec_lo, _, syn_lo, syn_hi, extra = _banks(wavelet)
+def _idwt_geometry(wavelet: str, la: int) -> tuple:
+    """Host prologue (``utils.numerics.on_host``) of the extension-mode
+    synthesis of ``la`` coefficients: (n_out, t_hi, padl, padr)."""
+    dec_lo, _, syn_lo, _, extra = _banks(wavelet)
     f = len(dec_lo)
-    fs = len(syn_lo)
-    la = a.shape[-1]
     n_out = 2 * (la - 2 * extra) - f + 2
     if n_out < 1:
         raise ValueError(
             f"coefficient length {la} too short for wavelet {wavelet!r}"
         )
     c = f - 2 + 2 * extra
-    u = (fs + 1) // 2
-    # out[2t+p] = sum_u syn[2u + par_p]·coef[t + k0_p - u]
-    lo = np.zeros((2, u))
-    hi = np.zeros((2, u))
+    u = (len(syn_lo) + 1) // 2
+    k0 = [(p + c - (p + c) % 2) // 2 for p in (0, 1)]
+    return n_out, (n_out + 1) // 2, u, max(k0) + 1
+
+
+def _idwt_table(wavelet: str, la: int, which: int) -> np.ndarray:
+    """The extension-mode synthesis tables: the (2, U) polyphase taps of the
+    lowpass (``which`` 0) and highpass (1) filters, out[2t+p] =
+    sum_u syn[2u + par_p]·coef[t + k0_p - u], and (2) the (2, T, U) gather
+    t + k0_p - u + padl, clipped into the pad zeros."""
+    dec_lo, _, syn_lo, syn_hi, extra = _banks(wavelet)
+    c = len(dec_lo) - 2 + 2 * extra
+    u = (len(syn_lo) + 1) // 2
+    n_out, t_hi, padl, padr = _idwt_geometry(wavelet, la)
+    taps = np.zeros((2, 2, u))
     k0 = [0, 0]
     for p in (0, 1):
         par = (p + c) % 2
         k0[p] = (p + c - par) // 2
-        taps = syn_lo[par::2]
-        lo[p, : len(taps)] = taps
-        taps = syn_hi[par::2]
-        hi[p, : len(taps)] = taps
-    t_hi = (n_out + 1) // 2
-    padl = u
-    padr = max(k0) + 1
+        for i, syn in enumerate((syn_lo, syn_hi)):
+            taps[i, p, : len(syn[par::2])] = syn[par::2]
+    if which < 2:
+        return taps[which]
+    tt = np.arange(t_hi)[None, :, None]
+    uu = np.arange(u)[None, None, :]
+    kk = np.array(k0)[:, None, None]
+    return np.clip(tt + kk - uu + padl, 0, la + padl + padr - 1)
+
+
+def _idwt_linear(a: Tensor, d: Tensor, wavelet: str, config: SpectralConfig):
+    """Extension-mode synthesis: out[m] = sum_s syn[s]·coef[(m + F - 2 +
+    2·extra - s)/2] over parity-matching taps — the zero-extended polyphase
+    gather; returns the pywt-canonical 2·(La - 2·extra) - F + 2 samples."""
+    la = a.shape[-1]
+    n_out, t_hi, padl, padr = on_host(_idwt_geometry, wavelet, la)
     ap = F.pad(a, (padl, padr))
     dp = F.pad(d, (padl, padr))
-
-    def gather():
-        # (2, T, U): t + k0_p - u + padl, clipped into the pad zeros
-        tt = np.arange(t_hi)[None, :, None]
-        uu = np.arange(u)[None, None, :]
-        kk = np.array(k0)[:, None, None]
-        return np.clip(tt + kk - uu + padl, 0, la + padl + padr - 1)
-
-    gidx = constant(gather, a, torch.int64, key=("dwt.idwt_gather", wavelet, la))
-    dtype = a.real.dtype if a.is_complex() else a.dtype
-    lo_t = constant(lo, a, dtype, key=("dwt.idwt_lo", wavelet))
-    hi_t = constant(hi, a, dtype, key=("dwt.idwt_hi", wavelet))
+    gidx = host_table("dwt.idwt", _idwt_table, wavelet, la, 2, like=a, dtype=torch.int64)
+    dtype = real_dtype(a.dtype)
+    lo_t = host_table("dwt.idwt", _idwt_table, wavelet, la, 0, like=a, dtype=dtype)
+    hi_t = host_table("dwt.idwt", _idwt_table, wavelet, la, 1, like=a, dtype=dtype)
     out = (ap[..., gidx] * lo_t[:, None, :]).sum(-1) + (dp[..., gidx] * hi_t[:, None, :]).sum(-1)
     out = out.transpose(-1, -2).reshape(out.shape[:-2] + (2 * t_hi,))
     return out[..., :n_out]
@@ -477,18 +502,21 @@ def dwt(
         raise ValueError(
             f"mode='periodization' needs an even length >= 2, got {n}"
         )
-    dec_lo, dec_hi, _, _, _ = _banks(wavelet)
-    return periodized_astep(x, np.stack([dec_lo, dec_hi]), config)
+    return periodized_astep(x, on_host(_analysis_weight, wavelet)[0], config)
 
 
-def periodized_astep(x, filt: np.ndarray, config: SpectralConfig):
+def periodized_astep(x, filt, config: SpectralConfig):
     """One periodized analysis level along the last axis with a stacked
-    (2, F) decimating filter bank: (…, N) -> ((…, N/2), (…, N/2)),
+    (2, F) decimating filter bank (a host array, or the content key of its
+    (2, 1, F) weight): (…, N) -> ((…, N/2), (…, N/2)),
     out[c, k] = Σ_f filt[c, f]·x[(2k + f) mod N] — one stride-2 convolution
     of the periodically padded signal.  The analysis step shared by
     ``dwt(mode="periodization")`` and the dual-tree transform
     (:mod:`.dtcwt`)."""
-    out = _conv(pad_last(x, 0, filt.shape[-1] - 1, mode="wrap")[..., None, :], filt[:, None, :],
+    if not isinstance(filt, tuple):
+        filt = filt[:, None, :]
+    f = filt[2][-1] if isinstance(filt, tuple) else filt.shape[-1]
+    out = _conv(pad_last(x, 0, f - 1, mode="wrap")[..., None, :], filt,
                 stride=2, precision=config.op_precision)
     return out[..., 0, :], out[..., 1, :]
 
@@ -517,8 +545,13 @@ def idwt(
     a, d = _inexact(a), _inexact(d)
     if mode != "periodization":
         return _idwt_linear(a, d, wavelet, config)
-    _, _, syn_lo, syn_hi, _ = _banks(wavelet)
-    return periodized_sstep(a, d, syn_lo, syn_hi, config)
+    return _periodized_sstep(a, d, on_host(_synthesis_weight, wavelet), config)
+
+
+def _polyphase_weight(syn_lo: np.ndarray, syn_hi: np.ndarray) -> np.ndarray:
+    """weight[p, c, j'] = syn_c[2(half-1-j') + p]: correlation with the
+    reversed phases is the polyphase convolution."""
+    return np.stack([np.stack([syn_lo[p::2][::-1], syn_hi[p::2][::-1]]) for p in (0, 1)])
 
 
 def periodized_sstep(
@@ -528,11 +561,14 @@ def periodized_sstep(
     polyphase x[2t+p] = sum_j syn[2j+p]·coef[(t-j) mod H] — one convolution
     of the periodically padded (a, d) pair with both phases of both filters.
     Shared by ``idwt(mode="periodization")`` and the dual-tree transform."""
+    return _periodized_sstep(a, d, _polyphase_weight(syn_lo, syn_hi), config)
+
+
+def _periodized_sstep(a, d, w, config: SpectralConfig):
+    """:func:`periodized_sstep` with the (2, 2, F/2) polyphase weight ``w``
+    (a host array or its content key)."""
     h = a.shape[-1]
-    half = len(syn_lo) // 2
-    # weight[p, c, j'] = syn_c[2(half-1-j') + p]: correlation with the
-    # reversed phases is the convolution above
-    w = np.stack([np.stack([syn_lo[p::2][::-1], syn_hi[p::2][::-1]]) for p in (0, 1)])
+    half = w[2][-1] if isinstance(w, tuple) else w.shape[-1]
     ad = pad_last(torch.stack(torch.broadcast_tensors(a, d), dim=-2), half - 1, 0, mode="wrap")
     # (…, 2, H): phase p along the second-to-last axis
     out = _conv(ad, w, precision=config.op_precision)

@@ -22,6 +22,7 @@ case of ``lfilter`` is the direct convolution of ``ops/convolve.py``
 
 from __future__ import annotations
 
+import functools
 import math
 
 from typing import Optional, Tuple, Union
@@ -29,8 +30,10 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..utils.config import DEFAULT_CONFIG, SpectralConfig
-from ..utils.numerics import as_tensor, constant, content_key, pad_last
+from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
+from ..utils.numerics import (
+    as_tensor, content_key, host_table, key_array, on_host, pad_last,
+)
 from ..utils.scan import linear_recurrence
 
 Tensor = torch.Tensor
@@ -1007,21 +1010,38 @@ def _df2t_matrices(b: np.ndarray, a: np.ndarray) -> Tuple[np.ndarray, np.ndarray
     return A, Bv, float(bb[0])
 
 
-def _apply_df2t(x: Tensor, b: np.ndarray, a: np.ndarray,
-                zi: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
-    """Run one DF2T stage over the LAST axis of ``x``; returns (y, zf)."""
+# A DF2T stage as the device side needs it, made on the host: (content key
+# of A, content key of Bv, b0).  Only hashable values, so the host builds it
+# also while dynamo traces (``utils.numerics.on_host``), and the scan and
+# the tables are named by its keys.
+Stage = Tuple[tuple, tuple, float]
+
+
+def _df2t_stage(b: np.ndarray, a: np.ndarray) -> Stage:
     A, Bv, b0 = _df2t_matrices(b, a)
-    p = A.shape[0]
+    return content_key("df2t_A", A), content_key("df2t_B", Bv), b0
+
+
+def _run_df2t(x: Tensor, stage: Stage, zi: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
+    """Run one DF2T stage over the LAST axis of ``x``; returns (y, zf)."""
+    akey, bkey, b0 = stage
+    p = akey[2][0]
     xm = torch.movedim(x, -1, 0)  # (n, ...)
-    c = xm[..., None] * constant(Bv, x, x.dtype, key=content_key("df2t_B", Bv))  # (n, ..., p)
+    c = xm[..., None] * host_table("df2t_B", key_array, bkey, like=x, dtype=x.dtype)  # (n, ..., p)
     if zi is None:
         s0 = x.new_zeros(xm.shape[1:] + (p,))
     else:
         s0 = as_tensor(zi, x.device).to(x.dtype).expand(xm.shape[1:] + (p,))
-    states = _recurrence_scan(A, c, s0)
+    states = linear_recurrence(akey, c, s0)
     prev = torch.cat([s0[None], states[:-1]], dim=0)
     y = torch.movedim(b0 * xm + prev[..., 0], 0, -1)
     return y, states[-1]
+
+
+def _apply_df2t(x: Tensor, b: np.ndarray, a: np.ndarray,
+                zi: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
+    """:func:`_run_df2t` of the normalized host (b, a)."""
+    return _run_df2t(x, _df2t_stage(b, a), zi)
 
 
 def _norm_ba(b, a) -> Tuple[np.ndarray, np.ndarray]:
@@ -1043,6 +1063,64 @@ def _real_signal(x, dtype) -> Tensor:
     return x.to(dtype)
 
 
+# The host prologues of the filters: a caller's coefficients are keyed by
+# their contents, normalised, validated and turned into stages on the host
+# (``utils.numerics.on_host``, so a traced call does no numpy work), once
+# per coefficient set.
+
+def _ba_plan(b, a) -> tuple:
+    """("fir", taps key) or ("iir", stage) for the caller's (b, a)."""
+    return _ba_design(content_key("b", b), content_key("a", a))
+
+
+@functools.lru_cache(maxsize=128)
+def _ba_design(bkey: tuple, akey: tuple) -> tuple:
+    b, a = _norm_ba(key_array(bkey), key_array(akey))
+    if len(a) == 1:
+        return "fir", content_key("lfilter_fir", b[None])
+    if len(a) - 1 > 32:
+        raise ValueError(
+            f"direct-form order {len(a) - 1} > 32 is numerically and "
+            "memory-wise hostile; convert to sos (tf2sos + sosfilt)"
+        )
+    return "iir", _df2t_stage(b, a)
+
+
+def _filtfilt_plan(b, a) -> tuple:
+    """(stage, lfilter_zi key, taps) for the caller's (b, a)."""
+    return _filtfilt_design(content_key("b", b), content_key("a", a))
+
+
+@functools.lru_cache(maxsize=128)
+def _filtfilt_design(bkey: tuple, akey: tuple) -> tuple:
+    b, a = _norm_ba(key_array(bkey), key_array(akey))
+    return (_df2t_stage(b, a), content_key("lfilter_zi", lfilter_zi(b, a)),
+            max(len(b), len(a)))
+
+
+def _sos_plan(sos) -> Tuple[Stage, ...]:
+    """One stage per section of the caller's ``sos``."""
+    return _sos_design(content_key("sos", sos))
+
+
+@functools.lru_cache(maxsize=128)
+def _sos_design(key: tuple) -> Tuple[Stage, ...]:
+    return tuple(_df2t_stage(row[:3], row[3:]) for row in _norm_sos(key_array(key)))
+
+
+def _sosfiltfilt_plan(sos) -> tuple:
+    """(stages, sosfilt_zi key, taps) for the caller's ``sos``."""
+    return _sosfiltfilt_design(content_key("sos", sos))
+
+
+@functools.lru_cache(maxsize=128)
+def _sosfiltfilt_design(key: tuple) -> tuple:
+    sos = _norm_sos(key_array(key))
+    ntaps = 2 * sos.shape[0] + 1
+    ntaps -= min((sos[:, 2] == 0).sum(), (sos[:, 5] == 0).sum())
+    return _sos_design(key), content_key("sosfilt_zi", sosfilt_zi(sos)), int(ntaps)
+
+
 def lfilter(b, a, x, axis: int = -1, zi: Optional[Tensor] = None,
             *, config: SpectralConfig = DEFAULT_CONFIG):
     """Causal IIR/FIR filtering, scipy.signal.lfilter semantics.
@@ -1051,27 +1129,23 @@ def lfilter(b, a, x, axis: int = -1, zi: Optional[Tensor] = None,
     IIR runs the order-p transposed-DF2 recurrence as one blocked scan.
     ``zi`` (shape (..., p)) switches the return to ``(y, zf)``.  Filter
     coefficients must be concrete (host) values: they become keyed device
-    tables."""
-    from .convolve import _direct_convolve_nd
+    tables, designed on the host also under ``torch.compile``."""
+    from .convolve import _conv_real
 
-    b, a = _norm_ba(b, a)
+    kind, design = on_host(_ba_plan, b, a)
     x = _real_signal(x, config.dtype)
     axis = axis % x.ndim
     xm = torch.movedim(x, axis, -1)
-    if len(a) == 1:  # pure FIR: causal convolution, no recurrence
+    if kind == "fir":  # pure FIR: causal convolution, no recurrence
         if zi is not None:
             raise ValueError("zi is only supported for IIR (len(a) > 1)")
         n = xm.shape[-1]
         flat = xm.reshape(-1, n)
-        taps = constant(b[None], xm, xm.dtype, key=content_key("lfilter_fir", b))
-        y = _direct_convolve_nd(flat, taps, (-1,))[:, :n].reshape(xm.shape)
+        taps = host_table("lfilter_fir", key_array, design, like=xm, dtype=xm.dtype)
+        # the real 1-D case of the direct convolution, in fp32 as it computes
+        y = _conv_real(flat.to(DTYPE), taps.to(DTYPE), 1)[:, :n].reshape(xm.shape)
         return torch.movedim(y, -1, axis)
-    if len(a) - 1 > 32:
-        raise ValueError(
-            f"direct-form order {len(a) - 1} > 32 is numerically and "
-            "memory-wise hostile; convert to sos (tf2sos + sosfilt)"
-        )
-    y, zf = _apply_df2t(xm, b, a, zi)
+    y, zf = _run_df2t(xm, design, zi)
     y = torch.movedim(y, -1, axis)
     return y if zi is None else (y, zf)
 
@@ -1090,14 +1164,14 @@ def sosfilt(sos, x, axis: int = -1, zi: Optional[Tensor] = None,
     """Cascaded-biquad filtering (scipy.signal.sosfilt semantics), each
     section one 2-state blocked scan.  ``zi`` has shape
     (n_sections, ..., 2); providing it returns ``(y, zf)``."""
-    sos = _norm_sos(sos)
+    stages = on_host(_sos_plan, sos)
     x = _real_signal(x, config.dtype)
     axis = axis % x.ndim
     y = torch.movedim(x, axis, -1)
     zf = []
-    for i, row in enumerate(sos):
+    for i, stage in enumerate(stages):
         zi_i = None if zi is None else zi[i]
-        y, zf_i = _apply_df2t(y, row[:3], row[3:], zi_i)
+        y, zf_i = _run_df2t(y, stage, zi_i)
         zf.append(zf_i)
     y = torch.movedim(y, -1, axis)
     return y if zi is None else (y, torch.stack(zf))
@@ -1158,16 +1232,15 @@ def filtfilt(b, a, x, axis: int = -1, padtype: Optional[str] = "odd",
              *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     """Zero-phase forward-backward filtering (scipy.signal.filtfilt,
     method='pad' with odd extension and lfilter_zi edge matching)."""
-    b_n, a_n = _norm_ba(b, a)
-    x, edge = _zero_phase_setup(x, max(len(b_n), len(a_n)), padtype, padlen, config.dtype)
+    stage, zkey, ntaps = on_host(_filtfilt_plan, b, a)
+    x, edge = _zero_phase_setup(x, ntaps, padtype, padlen, config.dtype)
     axis = axis % x.ndim
     ext = _odd_ext(x, edge, axis=axis) if edge else x
     xm = torch.movedim(ext, axis, -1)
-    zi = lfilter_zi(b_n, a_n)
-    zid = constant(zi, xm, xm.dtype, key=content_key("lfilter_zi", zi))
-    y, _ = _apply_df2t(xm, b_n, a_n, zid * xm[..., :1])
+    zid = host_table("lfilter_zi", key_array, zkey, like=xm, dtype=xm.dtype)
+    y, _ = _run_df2t(xm, stage, zid * xm[..., :1])
     y = torch.flip(y, (-1,))
-    y, _ = _apply_df2t(y, b_n, a_n, zid * y[..., :1])
+    y, _ = _run_df2t(y, stage, zid * y[..., :1])
     y = torch.flip(y, (-1,))
     if edge:
         y = y[..., edge:-edge]
@@ -1178,16 +1251,12 @@ def sosfiltfilt(sos, x, axis: int = -1, padtype: Optional[str] = "odd",
                 padlen: Optional[int] = None,
                 *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     """Zero-phase cascaded-biquad filtering (scipy.signal.sosfiltfilt)."""
-    sos_n = _norm_sos(sos)
-    n_sections = sos_n.shape[0]
-    ntaps = 2 * n_sections + 1
-    ntaps -= min((sos_n[:, 2] == 0).sum(), (sos_n[:, 5] == 0).sum())
+    stages, zkey, ntaps = on_host(_sosfiltfilt_plan, sos)
     x, edge = _zero_phase_setup(x, ntaps, padtype, padlen, config.dtype)
     axis = axis % x.ndim
     ext = _odd_ext(x, edge, axis=axis) if edge else x
     xm = torch.movedim(ext, axis, -1)
-    zi = sosfilt_zi(sos_n)  # (S, 2)
-    zid = constant(zi, xm, xm.dtype, key=content_key("sosfilt_zi", zi))
+    zid = host_table("sosfilt_zi", key_array, zkey, like=xm, dtype=xm.dtype)  # (S, 2)
 
     def run(v):
         # every section's zi scales with the CASCADE input's first sample:
@@ -1195,8 +1264,8 @@ def sosfiltfilt(sos, x, axis: int = -1, padtype: Optional[str] = "odd",
         # before it (scaling by each section's own input would double-count)
         x0 = v[..., :1]
         out = v
-        for i, row in enumerate(sos_n):
-            out, _ = _apply_df2t(out, row[:3], row[3:], zid[i] * x0)
+        for i, stage in enumerate(stages):
+            out, _ = _run_df2t(out, stage, zid[i] * x0)
         return out
 
     y = torch.flip(run(xm), (-1,))

@@ -52,7 +52,7 @@ from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.factorize import next_pow2
 from ..utils.numerics import (
     as_tensors,
-    constant,
+    host_table,
     matmul_precision,
     two_sum as _twosum,
     veltkamp as _veltkamp,
@@ -108,9 +108,15 @@ def _planes(v: Tensor):
 
 
 def _unit_frac(x: Tensor):
-    """frac(x / 2pi) as a head+tail fp32 pair accurate to ~2^-40: x split
-    twice (Veltkamp) and 1/2pi in three host pieces make every significant
-    product exact; a TwoSum chain keeps the head+tail sum error-free."""
+    """frac(x / 2pi) as a head+tail fp32 pair accurate to ~2^-40, through
+    the operator ``mixed_radix_nufft::unit_frac`` (:func:`_unit_frac_chain`)."""
+    return torch.ops.mixed_radix_nufft.unit_frac(x)
+
+
+def _unit_frac_chain(x: Tensor):
+    """The reduction op by op: x split twice (Veltkamp) and 1/2pi in three
+    host pieces make every significant product exact; a TwoSum chain keeps
+    the head+tail sum error-free."""
     xh, r1 = _veltkamp(x)
     xm, xl = _veltkamp(r1)
     small = (xh * _C_LO + xm * _C_MID) + (xm * _C_LO + xl * _INV2PI32)
@@ -122,6 +128,28 @@ def _unit_frac(x: Tensor):
     return u_hi - w, u_lo
 
 
+# The phase reduction is one operator (``torch.library``, as the fused
+# kernel's is): a graph that dynamo or ``torch.export`` captures holds it as
+# one opaque node, whose CPU and CUDA implementations run the error-free
+# chain op by op, so no compiler contracts a product and a sum of it into a
+# fused multiply-add or reorders it, and a compiled NUFFT computes the
+# phases bit-equal to eager.  Its gradient is the chain's: d(u_hi)/dx =
+# C_HI + C_MID, d(u_lo)/dx = C_LO (the split and TwoSum tails are flat).
+_LIB = torch.library.Library("mixed_radix_nufft", "DEF")
+_LIB.define("unit_frac(Tensor x) -> (Tensor, Tensor)")
+_LIB.impl("unit_frac", _unit_frac_chain, "CPU")
+_LIB.impl("unit_frac", _unit_frac_chain, "CUDA")
+torch.library.register_fake("mixed_radix_nufft::unit_frac",
+                            lambda x: (torch.empty_like(x), torch.empty_like(x)), lib=_LIB)
+
+
+def _unit_frac_backward(ctx, g_hi: Tensor, g_lo: Tensor):
+    return g_hi * (_C_HI + _C_MID) + g_lo * _C_LO
+
+
+torch.library.register_autograd("mixed_radix_nufft::unit_frac", _unit_frac_backward, lib=_LIB)
+
+
 def _phase_trig(k: np.ndarray, x: Tensor, isign: int):
     """(cos, sin) of isign·k·x via exact integer phase reduction: the head
     of u = frac(x/2pi) is split at 1/4096 so k·round(u·4096) reduces exactly
@@ -130,12 +158,24 @@ def _phase_trig(k: np.ndarray, x: Tensor, isign: int):
     Returns tensors of shape (len(k),) + x.shape."""
     if np.abs(k).max(initial=0) >= 1 << 16:
         raise ValueError("dense NUFFT phase reduction supports |k| < 65536")
+    return _reduced_trig(torch.from_numpy(k.astype(np.int32)).to(x.device), x, isign)
+
+
+def _modes_trig(n: int, x: Tensor, isign: int):
+    """:func:`_phase_trig` of the ``n`` centered modes, whose table is kept
+    on the device (and built on the host while dynamo traces)."""
+    if n // 2 >= 1 << 16:
+        raise ValueError("dense NUFFT phase reduction supports |k| < 65536")
+    k = host_table("nufft_modes", _centered_modes, n, like=x, dtype=torch.int32)
+    return _reduced_trig(k, x, isign)
+
+
+def _reduced_trig(k: Tensor, x: Tensor, isign: int):
     u_hi, u_lo = _unit_frac(x)
     m = torch.round(u_hi * _SPLIT)          # half to even, as jnp.round
     lo = (u_hi - m / _SPLIT) + u_lo
     mi = m.to(torch.int32)
-    kshape = (-1,) + (1,) * u_hi.ndim
-    kj = torch.from_numpy(k.astype(np.int32)).to(x.device).reshape(kshape)
+    kj = k.reshape((-1,) + (1,) * u_hi.ndim)
     km = torch.remainder(kj * mi[None], _SPLIT)
     theta = _TWO_PI * (km.to(u_hi.dtype) / _SPLIT + kj.to(u_hi.dtype) * lo)
     if isign < 0:
@@ -165,7 +205,7 @@ def nudft1(x, c, n_modes: int, *, isign: int = -1,
             f"strengths last axis {c.shape[-1]} != number of points {x.shape[0]}")
     if n_modes < 1:
         raise ValueError(f"n_modes must be >= 1, got {n_modes}")
-    cos, sin = _phase_trig(_centered_modes(n_modes), x, isign)  # (N, M)
+    cos, sin = _modes_trig(n_modes, x, isign)  # (N, M)
     return _dense_apply(cos, sin, *_planes(c), config.op_precision)
 
 
@@ -178,7 +218,7 @@ def nudft2(x, f, *, isign: int = +1,
         raise ValueError("x must be a non-empty 1-D point array")
     if f.shape[-1] < 1:
         raise ValueError("f must be non-empty along the mode axis")
-    cos, sin = _phase_trig(_centered_modes(f.shape[-1]), x, isign)  # (N, M)
+    cos, sin = _modes_trig(f.shape[-1], x, isign)  # (N, M)
     return _dense_apply(cos.T, sin.T, *_planes(f), config.op_precision)
 
 
@@ -250,15 +290,17 @@ def _deconv(n_modes: int, mr: int, tau: float) -> np.ndarray:
     return (_TWO_PI / mr / (2.0 * math.sqrt(math.pi * tau))) * np.exp(k * k * tau)
 
 
+def _deconv_grid(*axes) -> np.ndarray:
+    """The outer product of the per-axis diagonals (n, mr, tau)."""
+    out = np.ones(())
+    for n, mr, tau in axes:
+        out = np.multiply.outer(out, _deconv(n, mr, tau))
+    return out
+
+
 def _deconv_on(like: Tensor, *axes) -> Tensor:
-    """The outer product of the per-axis diagonals (n, mr, tau), kept on the
-    device of ``like``."""
-    def build():
-        out = np.ones(())
-        for n, mr, tau in axes:
-            out = np.multiply.outer(out, _deconv(n, mr, tau))
-        return out
-    return constant(build, like, key=("nufft_deconv",) + tuple(axes))
+    """:func:`_deconv_grid`, kept on the device of ``like``."""
+    return host_table("nufft_deconv", _deconv_grid, *axes, like=like)
 
 
 def _scatter(flat_idx: Tensor, vals: Tensor, size: int) -> Tensor:
@@ -676,8 +718,8 @@ def nudft1_2d(x, y, c, n_modes, *, isign: int = -1,
     n1, n2 = int(n_modes[0]), int(n_modes[1])
     if n1 < 1 or n2 < 1:
         raise ValueError(f"n_modes must be positive, got {n_modes}")
-    cos1, sin1 = _phase_trig(_centered_modes(n1), x, isign)  # (n1, M)
-    cos2, sin2 = _phase_trig(_centered_modes(n2), y, isign)  # (n2, M)
+    cos1, sin1 = _modes_trig(n1, x, isign)  # (n1, M)
+    cos2, sin2 = _modes_trig(n2, y, isign)  # (n2, M)
     cr, ci = _planes(c)
     # t = e^{isign·i·k2·y} * c, per mode row: (…, n2, M) planes
     tr = cos2 * cr[..., None, :] - sin2 * ci[..., None, :]
@@ -697,8 +739,8 @@ def nudft2_2d(x, y, f, *, isign: int = +1,
     if f.ndim < 2 or f.shape[-1] < 1 or f.shape[-2] < 1:
         raise ValueError("f must be (…, n1, n2) with non-empty mode axes")
     n1, n2 = f.shape[-2], f.shape[-1]
-    cos1, sin1 = _phase_trig(_centered_modes(n1), x, isign)  # (n1, M)
-    cos2, sin2 = _phase_trig(_centered_modes(n2), y, isign)  # (n2, M)
+    cos1, sin1 = _modes_trig(n1, x, isign)  # (n1, M)
+    cos2, sin2 = _modes_trig(n2, y, isign)  # (n2, M)
     fr, fi = _planes(f)
     # k1 first: t[…, k2, m] = sum_k1 f[…, k1, k2] e^{isign·i·k1·x_m}
     with matmul_precision(config.op_precision):
@@ -903,7 +945,7 @@ def _check_points_3d(x, y, z, c):
 
 
 def _phase_matrix(n: int, x: Tensor, isign: int) -> Tensor:
-    return torch.complex(*_phase_trig(_centered_modes(n), x, isign))
+    return torch.complex(*_modes_trig(n, x, isign))
 
 
 def _phase_tensor_3d(x, y, z, ns, isign) -> Tensor:

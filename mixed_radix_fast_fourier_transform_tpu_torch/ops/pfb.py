@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.config import DEFAULT_CONFIG, SpectralConfig
-from ..utils.numerics import as_tensor, constant, content_key
+from ..utils.numerics import as_tensor, content_key, host_table, key_array, on_host
 from .fft import fft, ifft
 from .stft import get_window
 
@@ -62,6 +62,35 @@ def _check_prototype(h, K: int, P: int, window: str) -> np.ndarray:
     return h
 
 
+def _prototype_key(h, K: int, P: int, window: str) -> tuple:
+    """Host prologue: the content key of the prototype (the caller's ``h``,
+    checked, or :func:`pfb_prototype`'s), made on the host also while dynamo
+    traces (``utils.numerics.on_host``)."""
+    return content_key("pfb.h", _check_prototype(h, K, P, window))
+
+
+def _branch_taps(hkey: tuple, K: int) -> np.ndarray:
+    """The prototype as (P, K) branch taps."""
+    return key_array(hkey).reshape(-1, K)
+
+
+def _baseband_ramp(K: int, M: int) -> np.ndarray:
+    """e^{-2πi k (m·hop mod K)/K} over one period K/gcd(M, K) of frames."""
+    period = K // gcd(M, K)
+    mM = (np.arange(period, dtype=np.int64) * M) % K
+    return np.exp(-2j * np.pi * np.outer(mM, np.arange(K)) / K)
+
+
+def _branch_inverse(hkey: tuple, K: int, Fr: int, eps: float) -> np.ndarray:
+    """The Tikhonov-floored inverse of the flipped branch filters' length-F
+    spectra, (F, K)."""
+    P = key_array(hkey).size // K
+    hb = key_array(hkey).reshape(P, K)[::-1]  # h̃_r[p] = h_r[P−1−p]
+    Hf = np.fft.fft(np.concatenate([hb, np.zeros((Fr - P, K))]), axis=0)
+    mag2 = np.abs(Hf) ** 2
+    return np.conj(Hf) / (mag2 + eps * mag2.max(axis=0, keepdims=True))
+
+
 def pfb_analysis(
     x,
     n_channels: int,
@@ -94,8 +123,8 @@ def pfb_analysis(
     """
     x = as_tensor(x)
     K, P = int(n_channels), int(taps_per_branch)
-    h = _check_prototype(h, K, P, window)
-    P = h.size // K
+    hkey = on_host(_prototype_key, h, K, P, window)
+    P = hkey[2][0] // K
     M = K if hop is None else int(hop)
     if not 1 <= M <= P * K:
         raise ValueError(f"hop must be in [1, {P * K}], got {M}")
@@ -116,7 +145,7 @@ def pfb_analysis(
     frames = x.unfold(-1, P * K, M)  # (…, frames, P·K), no copy
     frames = frames.reshape(frames.shape[:-1] + (P, K))
     real_dtype = x.real.dtype if x.is_complex() else x.dtype
-    hw = constant(lambda: h.reshape(P, K), x, real_dtype, key=content_key("pfb.h", h))
+    hw = host_table("pfb.h", _branch_taps, hkey, K, like=x, dtype=real_dtype)
     v = frames[..., 0, :] * hw[0]
     for p in range(1, P):
         v = v + frames[..., p, :] * hw[p]
@@ -128,12 +157,7 @@ def pfb_analysis(
         # table goes to the device; full frame blocks broadcast against it
         # and a remainder slice covers the tail.
         period = K // gcd(M, K)
-
-        def ramp():
-            mM = (np.arange(period, dtype=np.int64) * M) % K
-            return np.exp(-2j * np.pi * np.outer(mM, np.arange(K)) / K)
-
-        tab = constant(ramp, y, y.dtype, key=("pfb.ramp", K, M))
+        tab = host_table("pfb.ramp", _baseband_ramp, K, M, like=y, dtype=y.dtype)
         q, r = divmod(n_frames, period)
         parts = []
         if q:
@@ -180,21 +204,14 @@ def pfb_synthesis(
         raise ValueError("pfb_synthesis needs (…, frames, K) channels")
     K = y.shape[-1]
     P = int(taps_per_branch)
-    h = _check_prototype(h, K, P, window)
-    P = h.size // K
+    hkey = on_host(_prototype_key, h, K, P, window)
+    P = hkey[2][0] // K
     Fr = y.shape[-2]
     if Fr < P:
         raise ValueError(f"need at least P={P} frames, got {Fr}")
     v = ifft(y, config=config)  # (…, F, K) branch outputs
-
-    def inverse():
-        hb = h.reshape(P, K)[::-1]  # h̃_r[p] = h_r[P−1−p]
-        Hf = np.fft.fft(np.concatenate([hb, np.zeros((Fr - P, K))]), axis=0)
-        mag2 = np.abs(Hf) ** 2
-        return np.conj(Hf) / (mag2 + eps * mag2.max(axis=0, keepdims=True))
-
     Vf = fft(v, axis=-2, config=config)
-    Hinv = constant(inverse, Vf, Vf.dtype, key=content_key(f"pfb.inv.{Fr}.{eps!r}", h))
+    Hinv = host_table("pfb.inv", _branch_inverse, hkey, K, Fr, float(eps), like=Vf, dtype=Vf.dtype)
     xr = ifft(Vf * Hinv, axis=-2, config=config)
     # x_r occupies blocks 0..F−P; the last P−1 blocks are the pad tail
     xr = xr[..., : Fr - P + 1, :]

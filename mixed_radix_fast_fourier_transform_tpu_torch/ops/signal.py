@@ -27,7 +27,7 @@ import torch
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.numerics import (
-    as_tensor, as_tensors, complex_dtype, constant, content_key, host_table,
+    as_tensor, as_tensors, complex_dtype, constant, content_key, host_table, on_host,
     matmul_precision, median, pad_last, resolve_device, working,
 )
 from .fft import fft, fft2, fftshift, ifft, ifft2, rfftfreq
@@ -99,7 +99,7 @@ def hilbert(x, n: Optional[int] = None, axis: int = -1,
     xm, axis = _real_last(x, axis, "hilbert requires a real signal", config.dtype)
     n = int(n) if n is not None else xm.shape[-1]
     spec = fft(xm, n=n, config=config)
-    h = constant(lambda: _analytic_step(n, True), xm, xm.dtype, key=("hilbert", n))
+    h = host_table("hilbert", _analytic_step, n, True, like=xm, dtype=xm.dtype)
     out = ifft(spec * h, config=config)
     return torch.movedim(out, -1, axis)
 
@@ -130,16 +130,17 @@ def hilbert2(x, n=None, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     return ifft2(spec * h2d, config=config)
 
 
+def _doubling(nfft: int) -> np.ndarray:
+    m = np.full(nfft // 2 + 1, 2.0)
+    m[0] = 1.0
+    if nfft % 2 == 0:
+        m[-1] = 1.0
+    return m
+
+
 def _onesided_doubling(nfft: int, like: Tensor) -> Tensor:
     """One-sided PSD factor: 2 everywhere but DC (and Nyquist for even nfft)."""
-    def mult() -> np.ndarray:
-        m = np.full(nfft // 2 + 1, 2.0)
-        m[0] = 1.0
-        if nfft % 2 == 0:
-            m[-1] = 1.0
-        return m
-
-    return constant(mult, like, like.dtype, key=("onesided2", nfft))
+    return host_table("onesided2", _doubling, nfft, like=like, dtype=like.dtype)
 
 
 def periodogram(
@@ -195,6 +196,15 @@ def _cap_nperseg(t: int, nperseg: int, noverlap: Optional[int]):
     return nperseg, noverlap
 
 
+def _centered_ramp(n: int) -> np.ndarray:
+    return np.arange(n, dtype=np.float64) - (n - 1) / 2.0
+
+
+def _ramp_energy(n: int) -> float:
+    tt = _centered_ramp(n)
+    return float(np.sum(tt * tt)) or 1.0
+
+
 def _detrend_frames(frames: Tensor, detrend) -> Tensor:
     """Per-segment detrend (scipy conventions): 'constant' removes the
     mean, 'linear' the least-squares line, False/None nothing."""
@@ -205,9 +215,9 @@ def _detrend_frames(frames: Tensor, detrend) -> Tensor:
         return frames - mean
     if detrend == "linear":
         n = frames.shape[-1]
-        tt = np.arange(n, dtype=np.float64) - (n - 1) / 2.0  # centered
-        ttd = constant(tt, frames, frames.dtype, key=("signal.centered_ramp", n))
-        denom = float(np.sum(tt * tt)) or 1.0
+        ttd = host_table("signal.centered_ramp", _centered_ramp, n, like=frames,
+                         dtype=frames.dtype)
+        denom = on_host(_ramp_energy, n)
         slope = torch.sum(frames * ttd, dim=-1, keepdim=True) / denom
         return frames - mean - slope * ttd
     raise ValueError(
@@ -461,6 +471,18 @@ def resample(
     return torch.movedim(out, -1, axis)
 
 
+def _taper_bank(n: int, nw: float, k: int) -> np.ndarray:
+    return dpss(n, nw, k, dtype=np.float64)
+
+
+def _taper_weights(weighting: str, n: int, nw: float, k: int) -> np.ndarray:
+    """The eigenspectra's weights: concentration ratios ("eigen") or 1/k."""
+    if weighting == "unity":
+        return np.full(k, 1.0 / k)
+    ratios = dpss(n, nw, k, return_ratios=True, dtype=np.float64)[1]
+    return ratios / ratios.sum()
+
+
 def multitaper(
     x,
     fs: float = 1.0,
@@ -496,8 +518,6 @@ def multitaper(
             f"weighting must be 'eigen' or 'unity', got {weighting!r}"
         )
     xm = _detrend_frames(xm, detrend)
-    tapers, ratios = dpss(n, float(nw), int(k), return_ratios=True,
-                          dtype=np.float64)
     nfft = int(nfft) if nfft is not None else n
     if nfft < n:
         raise ValueError(
@@ -505,16 +525,12 @@ def multitaper(
             "breaks the tapers' orthonormality (zero-padding nfft > n is fine)"
         )
     key = (n, float(nw), int(k))
-    tap = constant(tapers, xm, xm.dtype, key=("multitaper.tapers",) + key)  # (k, n)
+    tap = host_table("multitaper.tapers", _taper_bank, *key, like=xm, dtype=xm.dtype)  # (k, n)
     spec = rfft(xm[..., None, :] * tap, n=nfft, config=config)  # (…, k, bins)
     p = spec.real ** 2 + spec.imag ** 2
-    if weighting == "eigen":
-        wk = ratios / ratios.sum()
-    else:
-        wk = np.full(k, 1.0 / k)
+    wk = host_table("multitaper.weights", _taper_weights, weighting, *key, like=p, dtype=p.dtype)
     with matmul_precision(config.op_precision):
-        p = torch.einsum("...kf,k->...f", p,
-                         constant(wk, p, p.dtype, key=("multitaper.weights", weighting) + key))
+        p = torch.einsum("...kf,k->...f", p, wk)
     # tapers are unit-energy: density scale is 1/fs
     if scaling != "density":
         raise ValueError(

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.config import DEFAULT_CONFIG, SpectralConfig
-from ..utils.numerics import as_tensor, constant, host_table, pad_last
+from ..utils.numerics import as_tensor, constant, host_table, on_host, pad_last
 from .rfft import irfft, rfft
 
 Tensor = torch.Tensor
@@ -275,6 +275,22 @@ def stft(
     return rfft(frames, config=config)
 
 
+def _ola_index(n_frames: int, nperseg: int, hop: int) -> np.ndarray:
+    """The signal sample of every frame sample, frame by frame."""
+    return (np.arange(n_frames)[:, None] * hop + np.arange(nperseg)[None, :]).reshape(-1)
+
+
+def _nola(window, nperseg: int, hop: int, n_frames: int) -> np.ndarray:
+    """NOLA normalization: the inverse of the sum of squared windows at each
+    sample (0 where it vanishes), on the host."""
+    wsq = np.zeros(nperseg + (n_frames - 1) * hop, dtype=np.float64)
+    w_np = get_window(window, nperseg, np.float64) ** 2
+    for s in range(0, n_frames * hop, hop):
+        wsq[s : s + nperseg] += w_np
+    safe = np.where(wsq > 1e-10, wsq, 1.0)
+    return np.where(wsq > 1e-10, 1.0 / safe, 0.0)
+
+
 def istft(
     spec,
     nperseg: int = 256,
@@ -296,25 +312,17 @@ def istft(
     frames = frames * _window_on(window, nperseg, frames)
 
     # overlap-add: out[f*hop + i] += frames[f, i]
-    idx = constant(
-        lambda: (np.arange(n_frames)[:, None] * hop + np.arange(nperseg)[None, :]).reshape(-1),
-        frames, torch.long, key=("stft.ola_index", n_frames, nperseg, hop))
+    idx = host_table("stft.ola_index", _ola_index, n_frames, nperseg, hop, like=frames,
+                     dtype=torch.long)
     batch = frames.shape[:-2]
     out = frames.new_zeros(*batch, t_padded)
     out = out.index_add(-1, idx, frames.reshape(*batch, n_frames * nperseg))
-
-    # NOLA normalization: sum of squared windows at each sample, on the host
-    def nola() -> np.ndarray:
-        wsq = np.zeros(t_padded, dtype=np.float64)
-        w_np = get_window(window, nperseg, np.float64) ** 2
-        for s in range(0, n_frames * hop, hop):
-            wsq[s : s + nperseg] += w_np
-        safe = np.where(wsq > 1e-10, wsq, 1.0)
-        return np.where(wsq > 1e-10, 1.0 / safe, 0.0)
-
-    named = isinstance(window, (str, tuple))
-    out = out * constant(
-        nola, out, out.dtype, key=("stft.nola", window, nperseg, hop, n_frames) if named else None)
+    if isinstance(window, (str, tuple)):
+        inv = host_table("stft.nola", _nola, window, nperseg, hop, n_frames, like=out,
+                         dtype=out.dtype)
+    else:
+        inv = constant(_nola(window, nperseg, hop, n_frames), out, out.dtype)
+    out = out * inv
 
     if center:
         out = out[..., nperseg // 2 : t_padded - nperseg // 2]
@@ -431,6 +439,20 @@ def _griffinlim_loop(mag: Tensor, spec0: Tensor, n_iter: int, momentum: float, p
     return spec
 
 
+def _seeded_draws(seed: int, shape: tuple, dtype: torch.dtype) -> np.ndarray:
+    """The uniform draws of a CPU generator seeded with ``seed`` (float64
+    holds every draw of ``dtype`` exactly)."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand(shape, generator=g, dtype=dtype).double().numpy()
+
+
+def _refuse_generator() -> None:
+    raise ValueError(
+        "griffinlim(generator=...) cannot be compiled: a generator's state "
+        "cannot enter a graph; pass seed= (its draws are a host table) or "
+        "call griffinlim eagerly")
+
+
 def griffinlim(
     mag,
     n_iter: int = 32,
@@ -452,7 +474,11 @@ def griffinlim(
     default).  Every round is one irfft and one rfft of the engine.
 
     The initial phase is uniform, drawn from ``generator`` (default: a CPU
-    generator seeded with ``seed``), so a call is deterministic.  Returns
+    generator seeded with ``seed``), so a call is deterministic.  Under
+    ``torch.compile`` the ``seed`` form compiles (its draws are made on the
+    host and kept on the device per seed, shape and dtype, the values an
+    eager call draws); ``generator=`` raises ValueError there, since a
+    generator's state cannot enter a graph, and stays an eager form.  Returns
     the time signal (length inferred from the frame count, or ``length``)."""
     mag = as_tensor(mag)
     if mag.is_complex():
@@ -506,9 +532,14 @@ def griffinlim(
                     config=config)[..., :n_frames, :]
 
     if generator is None:
-        generator = torch.Generator().manual_seed(seed)
-    ph = (2.0 * math.pi) * torch.rand(mag.shape, generator=generator, dtype=mag.dtype,
-                                       device=generator.device).to(mag.device)
+        draws = host_table("griffinlim.draws", _seeded_draws, int(seed), tuple(mag.shape),
+                           mag.dtype, like=mag, dtype=mag.dtype)
+    else:
+        if torch.compiler.is_compiling():
+            on_host(_refuse_generator)
+        draws = torch.rand(mag.shape, generator=generator, dtype=mag.dtype,
+                           device=generator.device).to(mag.device)
+    ph = (2.0 * math.pi) * draws
     spec0 = torch.complex(mag * torch.cos(ph), mag * torch.sin(ph))
     return invert(_griffinlim_loop(mag, spec0, n_iter, momentum, project))
 

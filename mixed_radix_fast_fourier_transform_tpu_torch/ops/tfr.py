@@ -28,7 +28,9 @@ import numpy as np
 import torch
 
 from ..utils.config import DEFAULT_CONFIG, SpectralConfig
-from ..utils.numerics import as_tensor, complex_dtype, constant, pad_last
+from ..utils.numerics import (
+    as_tensor, complex_dtype, constant, host_table, on_host, pad_last, real_dtype,
+)
 from .fft import fft, fftshift, ifft
 from .signal import hilbert
 from .stft import get_window
@@ -99,6 +101,12 @@ def _lag_tables(T: int, nperseg: int, hop: int):
     return np.clip(ip, 0, T - 1), np.clip(im, 0, T - 1), valid.astype(np.float64)
 
 
+def _lag_table(T: int, nperseg: int, hop: int, i: int, transposed: bool) -> np.ndarray:
+    """Table ``i`` of :func:`_lag_tables`, as (lags × times) if ``transposed``."""
+    t = _lag_tables(T, nperseg, hop)[i]
+    return t.T.copy() if transposed else t
+
+
 def _lag_products(z: Tensor, T: int, nperseg: int, hop: int,
                   w: Optional[Tensor] = None) -> Tensor:
     """Instantaneous (cross-)correlation R[t, τ] = z[t+τ]·conj(w[t−τ]) over
@@ -106,27 +114,26 @@ def _lag_products(z: Tensor, T: int, nperseg: int, hop: int,
     defaults to ``z`` — the auto case)."""
     if w is None:
         w = z
-    key = ("tfr.lags", T, nperseg, hop)
-    tables = lambda i: lambda: _lag_tables(T, nperseg, hop)[i]
-    ip = constant(tables(0), z, torch.int64, key=key + ("ip",))
-    im = constant(tables(1), z, torch.int64, key=key + ("im",))
-    valid = constant(tables(2), z, z.dtype.to_real(), key=key + ("valid",))
+    ip = host_table("tfr.lags", _lag_table, T, nperseg, hop, 0, False, like=z, dtype=torch.int64)
+    im = host_table("tfr.lags", _lag_table, T, nperseg, hop, 1, False, like=z, dtype=torch.int64)
+    valid = host_table("tfr.lags", _lag_table, T, nperseg, hop, 2, False, like=z,
+                       dtype=real_dtype(z.dtype))
     return z[..., ip] * torch.conj(w[..., im]) * valid
+
+
+def _lag_window(window, nperseg: int) -> np.ndarray:
+    """The symmetric lag window, centered at lag 0, with lag 0 first."""
+    w = get_window(window, nperseg - 1, np.float64)
+    h = np.concatenate([w, w[:1]])  # symmetric, centered at lag 0
+    return np.fft.ifftshift(h)  # index 0 is lag 0 after the roll
 
 
 def _windowed_lag_roll(prod: Tensor, nperseg: int, window) -> Tensor:
     """Apply the symmetric lag window and reorder lags [0..half, −half..−1]
     so the final FFT sees lag 0 first."""
     half = nperseg // 2
-
-    def lag_window() -> np.ndarray:
-        w = get_window(window, nperseg - 1, np.float64)
-        h = np.concatenate([w, w[:1]])  # symmetric, centered at lag 0
-        return np.fft.ifftshift(h)  # index 0 is lag 0 after the roll
-
-    key = (("tfr.lag_window", window, nperseg) if isinstance(window, (str, tuple))
-           else None)
-    h = constant(lag_window, prod, prod.dtype.to_real(), key=key)
+    h = _window_table(_lag_window, window, nperseg, "tfr.lag_window", prod,
+                      real_dtype(prod.dtype))
     return torch.roll(prod, -half, dims=-1) * h
 
 
@@ -156,6 +163,20 @@ def xwigner_ville(
 
 
 _COHEN_KERNELS = ("wigner", "choi-williams", "born-jordan")
+
+
+def _doppler_kernel(kernel: str, sigma: float, T: int, nperseg: int) -> np.ndarray:
+    """The ambiguity-domain kernel Φ over (lags, doppler)."""
+    half = nperseg // 2
+    ell = 2.0 * np.arange(-half, half + 1)          # true lag, samples
+    theta = 2.0 * np.pi * np.fft.fftfreq(T)          # doppler, rad/sample
+    if kernel == "choi-williams":
+        phi = np.exp(-(theta[:, None] * ell[None, :]) ** 2
+                     / max(sigma, 1e-12))
+    else:  # born-jordan
+        arg = theta[:, None] * ell[None, :] / 2.0
+        phi = np.sinc(arg / np.pi)  # sin(arg)/arg
+    return phi.T
 
 
 def cohen_class(
@@ -195,19 +216,8 @@ def cohen_class(
     # the doppler filter needs the FULL time axis; subsample AFTER filtering
     prod = _lag_products(z, T, nperseg, 1)  # (..., T, nperseg)
 
-    def doppler() -> np.ndarray:
-        half = nperseg // 2
-        ell = 2.0 * np.arange(-half, half + 1)          # true lag, samples
-        theta = 2.0 * np.pi * np.fft.fftfreq(T)          # doppler, rad/sample
-        if kernel == "choi-williams":
-            phi = np.exp(-(theta[:, None] * ell[None, :]) ** 2
-                         / max(sigma, 1e-12))
-        else:  # born-jordan
-            arg = theta[:, None] * ell[None, :] / 2.0
-            phi = np.sinc(arg / np.pi)  # sin(arg)/arg
-        return phi.T
-
-    phi = constant(doppler, prod, _CDTYPE, key=("tfr.cohen", kernel, float(sigma), T, nperseg))
+    phi = host_table("tfr.cohen", _doppler_kernel, kernel, float(sigma), T, nperseg, like=prod,
+                     dtype=_CDTYPE)
     A = fft(torch.movedim(prod, -1, -2), config=config)  # over time
     prod = torch.movedim(ifft(A * phi, config=config), -2, -1)
     if hop > 1:
@@ -230,6 +240,24 @@ def _morlet_hat(xi: np.ndarray, w: float) -> np.ndarray:
     """Analytic Morlet in frequency: pi^{-1/4}·exp(-(xi-w)²/2) for xi > 0."""
     out = np.pi ** -0.25 * np.exp(-0.5 * (xi - w) ** 2)
     return np.where(xi > 0, out, 0.0)
+
+
+def _morlet_bank(T: int, n_scales: int, fmin: float, fmax: float, w: float,
+                 i: int) -> np.ndarray:
+    """i·ξ (``i`` 0), the rad/sample frequencies times i, or the (S, T)
+    Morlet bank in frequency (``i`` 1) on the log-spaced scale ladder."""
+    xi = 2.0 * np.pi * np.fft.fftfreq(T)  # rad/sample
+    if i == 0:
+        return 1j * xi
+    # scales: wavelet peak at a·xi = w  ->  a_j = w / (2π f_j)
+    f_sc = np.exp(np.linspace(np.log(fmin), np.log(fmax), n_scales))
+    scales = w / (2.0 * np.pi * f_sc)
+    return np.stack([_morlet_hat(a * xi, w) for a in scales])  # (S, T) real
+
+
+def _log_ladder(fmin: float, fmax: float, n_freqs: int):
+    """(log fmin, the log step) of the squeeze's frequency bins."""
+    return float(np.log(fmin)), float((np.log(fmax) - np.log(fmin)) / (n_freqs - 1))
 
 
 def _squeeze(values: Tensor, idx: Tensor, keep: Tensor, n_bins: int, dim: int) -> Tensor:
@@ -288,16 +316,9 @@ def ssq_cwt(
     z = x.to(_CDTYPE) if x.is_complex() else hilbert(x, config=config)
     X = fft(z, config=config)  # (…, T)
 
-    def bank():
-        xi = 2.0 * np.pi * np.fft.fftfreq(T)  # rad/sample
-        # scales: wavelet peak at a·xi = w  ->  a_j = w / (2π f_j)
-        f_sc = np.exp(np.linspace(np.log(fmin), np.log(fmax), n_scales))
-        scales = w / (2.0 * np.pi * f_sc)
-        return xi, np.stack([_morlet_hat(a * xi, w) for a in scales])  # (S, T) real
-
-    key = ("tfr.ssq_cwt", T, n_scales, float(fmin), float(fmax), float(w))
-    psid = constant(lambda: bank()[1], X, X.dtype.to_real(), key=key + ("psi",))
-    dxi = constant(lambda: 1j * bank()[0], X, X.dtype, key=key + ("i·xi",))
+    key = (T, n_scales, float(fmin), float(fmax), float(w))
+    psid = host_table("tfr.ssq_cwt", _morlet_bank, *key, 1, like=X, dtype=real_dtype(X.dtype))
+    dxi = host_table("tfr.ssq_cwt", _morlet_bank, *key, 0, like=X, dtype=X.dtype)
     Wf = X[..., None, :] * psid  # (…, S, T) spectra (psi real: cheap)
     Wt = ifft(Wf, config=config)  # CWT rows
     dWt = ifft(Wf * dxi, config=config)
@@ -309,12 +330,12 @@ def ssq_cwt(
     thresh = gamma * torch.sqrt(torch.amax(mag2, dim=(-2, -1), keepdim=True))
     alive = mag2 > thresh * thresh
     # nearest log-frequency bin
-    fbins = np.exp(np.linspace(np.log(fmin), np.log(fmax), n_freqs))
-    dlf = (np.log(fmax) - np.log(fmin)) / (n_freqs - 1)
+    log_fmin, dlf = on_host(_log_ladder, float(fmin), float(fmax), n_freqs)
     pos = torch.log(torch.clamp(omega, min=1e-30))
-    idx = torch.round((pos - float(np.log(fmin))) / dlf)
+    idx = torch.round((pos - log_fmin) / dlf)
     in_range = (idx >= 0) & (idx <= n_freqs - 1) & alive & (omega > 0)
     idx = torch.clamp(idx, 0, n_freqs - 1)
+    fbins = np.exp(np.linspace(np.log(fmin), np.log(fmax), n_freqs))
     return _squeeze(Wt, idx, in_range, n_freqs, -2), fbins
 
 
@@ -340,16 +361,35 @@ def _centered_frames(x: Tensor, nperseg: int, hop: int, n_frames: int,
     return _frame(xm, nperseg, hop)[..., :n_frames, :]
 
 
+def _center_phase(nperseg: int) -> np.ndarray:
+    return np.exp(2j * np.pi * np.arange(nperseg // 2 + 1) * (nperseg // 2) / nperseg)
+
+
 def _frame_center_phase(nperseg: int, like: Tensor) -> Tensor:
     """e^{2πik·c/n}, c = nperseg//2: references bins to the frame center."""
-    return constant(
-        lambda: np.exp(2j * np.pi * np.arange(nperseg // 2 + 1) * (nperseg // 2) / nperseg),
-        like, like.dtype, key=("tfr.center_phase", nperseg))
+    return host_table("tfr.center_phase", _center_phase, nperseg, like=like, dtype=like.dtype)
 
 
-def _window_table(values, window, nperseg: int, name: str, like: Tensor) -> Tensor:
-    key = (name, window, nperseg) if isinstance(window, (str, tuple)) else None
-    return constant(values, like, like.dtype, key=key)
+def _window_table(build, window, nperseg: int, name: str, like: Tensor, dtype=None) -> Tensor:
+    """``build(window, nperseg)`` beside ``like`` (at ``dtype``, default
+    like's): kept by name for a named window (built on the host also while
+    dynamo traces), uploaded per call for a caller's array."""
+    dtype = like.dtype if dtype is None else dtype
+    if isinstance(window, (str, tuple)):
+        return host_table(name, build, window, nperseg, like=like, dtype=dtype)
+    return constant(build(window, nperseg), like, dtype)
+
+
+def _derivative_window(window, nperseg: int) -> np.ndarray:
+    return _window_derivative(get_window(window, nperseg, np.float64))
+
+
+def _time_window(window, nperseg: int) -> np.ndarray:
+    return (np.arange(nperseg) - nperseg // 2) * get_window(window, nperseg, np.float64)
+
+
+def _rfft_grid(nperseg: int) -> np.ndarray:
+    return np.fft.rfftfreq(nperseg)
 
 
 def ssq_stft(
@@ -386,8 +426,7 @@ def ssq_stft(
     hop = nperseg - noverlap
     frames = _centered_frames(x, nperseg, hop, S.shape[-2], config)
     # derivative-window STFT: d/dt of the periodic window, host fp64
-    wd = _window_table(lambda: _window_derivative(get_window(window, nperseg, np.float64)),
-                       window, nperseg, "tfr.window_derivative", frames)
+    wd = _window_table(_derivative_window, window, nperseg, "tfr.window_derivative", frames)
     Sd = _rfft(frames * wd, config=config)
     # reference phases to the frame center (modified STFT): bin-sum
     # reconstruction then needs no per-bin phase factor (see issq_stft)
@@ -398,15 +437,14 @@ def ssq_stft(
     dr, di = Sd.real, Sd.imag
     mag2 = sr * sr + si * si
     nb = S.shape[-1]
-    fgrid = np.fft.rfftfreq(nperseg)  # cycles/sample
-    fg = constant(fgrid, S, S.dtype.to_real(), key=("tfr.rfftfreq", nperseg))
+    fg = host_table("tfr.rfftfreq", _rfft_grid, nperseg, like=S, dtype=real_dtype(S.dtype))
     omega = fg - (di * sr - dr * si) / (2.0 * np.pi * torch.clamp(mag2, min=1e-30))
     thresh = gamma * torch.sqrt(torch.amax(mag2, dim=(-2, -1), keepdim=True))
     alive = mag2 > thresh * thresh
-    idx = torch.round(omega / fgrid[1])
+    idx = torch.round(omega / (1.0 / nperseg))       # the grid's step, rfftfreq(nperseg)[1]
     in_range = (idx >= 0) & (idx <= nb - 1) & alive
     idx = torch.clamp(idx, 0, nb - 1)
-    return _squeeze(S, idx, in_range, nb, -1), fgrid
+    return _squeeze(S, idx, in_range, nb, -1), np.fft.rfftfreq(nperseg)
 
 
 def issq_cwt(
@@ -516,10 +554,8 @@ def reassigned_spectrogram(
     nb = S.shape[-1]
     c = nperseg // 2
     frames = _centered_frames(x, nperseg, hop, n_frames, config)
-    wd = _window_table(lambda: _window_derivative(get_window(window, nperseg, np.float64)),
-                       window, nperseg, "tfr.window_derivative", frames)
-    wt = _window_table(lambda: (np.arange(nperseg) - c) * get_window(window, nperseg, np.float64),
-                       window, nperseg, "tfr.window_time", frames)
+    wd = _window_table(_derivative_window, window, nperseg, "tfr.window_derivative", frames)
+    wt = _window_table(_time_window, window, nperseg, "tfr.window_time", frames)
     Sd = _rfft(frames * wd, config=config)
     St = _rfft(frames * wt, config=config)
     sr, si = S.real, S.imag
@@ -527,17 +563,16 @@ def reassigned_spectrogram(
     tr, ti = St.real, St.imag
     mag2 = sr * sr + si * si
     denom = torch.clamp(mag2, min=1e-30)
-    fgrid = np.fft.rfftfreq(nperseg)
-    fg = constant(fgrid, S, S.dtype.to_real(), key=("tfr.rfftfreq", nperseg))
+    fg = host_table("tfr.rfftfreq", _rfft_grid, nperseg, like=S, dtype=real_dtype(S.dtype))
     omega = fg - (di * sr - dr * si) / (2.0 * np.pi * denom)
     dt = (tr * sr + ti * si) / denom  # Re(St/S), samples
     thresh = gamma * torch.sqrt(torch.amax(mag2, dim=(-2, -1), keepdim=True))
     alive = mag2 > thresh * thresh
-    fidx = torch.round(omega / fgrid[1])
+    fidx = torch.round(omega / (1.0 / nperseg))      # the grid's step
     f_ok = (fidx >= 0) & (fidx <= nb - 1) & alive
     fidx = torch.clamp(fidx, 0, nb - 1)
     off = torch.round(dt / hop)  # frame offset of the reassigned time
-    max_off = int(np.ceil(c / hop))
+    max_off = -(-c // hop)
     keep = f_ok & (off.abs() <= max_off)
     # target cell in a (n_frames + 2·max_off, nb) plane, flattened
     t = torch.arange(n_frames, device=S.device, dtype=off.dtype)[:, None]
@@ -546,7 +581,19 @@ def reassigned_spectrogram(
     flat = _squeeze(mag2.reshape(*lead, -1), target.reshape(*lead, -1),
                     keep.reshape(*lead, -1), (n_frames + 2 * max_off) * nb, -1)
     total = flat.reshape(*lead, n_frames + 2 * max_off, nb)
-    return total[..., max_off: max_off + n_frames, :], fgrid
+    return total[..., max_off: max_off + n_frames, :], np.fft.rfftfreq(nperseg)
+
+
+def _voice_table(T: int, fmin: int, fmax: int, gamma: float, i: int) -> np.ndarray:
+    """The voice windows in frequency, Gaussians of width k/γ (``i`` 0), or
+    the spectrum rows each voice reads (``i`` 1)."""
+    ks = np.arange(fmin, fmax + 1)
+    idx = np.arange(T)
+    j = np.where(idx < (T + 1) // 2, idx, idx - T)  # signed bin offsets
+    if i == 1:
+        return (j[None, :] + ks[:, None]) % T
+    return np.exp(-2.0 * (np.pi * gamma * j[None, :].astype(np.float64)) ** 2
+                  / np.maximum(ks[:, None], 1) ** 2)
 
 
 def stockwell(
@@ -592,23 +639,18 @@ def stockwell(
         raise ValueError(f"gamma must be > 0, got {gamma}")
     z = x.to(config.dtype)
     X = fft(z.to(complex_dtype(z.dtype)), config=config)
-    ks = np.arange(fmin, fmax + 1)
-    idx = np.arange(T)
-    j = np.where(idx < (T + 1) // 2, idx, idx - T)  # signed bin offsets
-    key = ("tfr.stockwell", T, int(fmin), int(fmax), float(gamma))
-    # voice windows in frequency: Gaussian of width k/γ
-    G = constant(lambda: np.exp(
-        -2.0 * (np.pi * gamma * j[None, :].astype(np.float64)) ** 2
-        / np.maximum(ks[:, None], 1) ** 2), X, X.dtype.to_real(), key=key + ("G",))
-    rows = constant(lambda: (j[None, :] + ks[:, None]) % T, X, torch.int64, key=key + ("rows",))
+    key = (T, int(fmin), int(fmax), float(gamma))
+    G = host_table("tfr.stockwell", _voice_table, *key, 0, like=X, dtype=real_dtype(X.dtype))
+    rows = host_table("tfr.stockwell", _voice_table, *key, 1, like=X, dtype=torch.int64)
     S = ifft(X[..., rows] * G, config=config)
     if fmin == 0:
         # k=0 voice: the literature keeps the plain mean, not a window
         mean_row = torch.mean(z, dim=-1, keepdim=True)[..., None, :]
         mean_row = mean_row.expand(*S.shape[:-2], 1, T).to(S.dtype)
         S = torch.cat([mean_row, S[..., 1:, :]], dim=-2)
-    freqs = ks / T
-    return S, freqs
+    # the voices' frequencies k/T as rfftfreq's, which Inductor leaves to an
+    # aten call: a division it would build as a C++ kernel for the host
+    return S, np.fft.rfftfreq(T)[fmin: fmax + 1]
 
 
 def istockwell(
@@ -662,11 +704,11 @@ def ambiguity(
         raise ValueError(f"need 1 <= max_lag <= {(T - 1) // 2}, got {max_lag}")
     z = _analytic(x, analytic, config)
     # the (lags × times) grid is the WVD's (times × lags) one transposed
-    key = ("tfr.lags", T, 2 * max_lag + 1, 1)
-    tables = lambda i: lambda: _lag_tables(T, 2 * max_lag + 1, 1)[i].T.copy()
-    ip = constant(tables(0), z, torch.int64, key=key + ("ip.T",))
-    im = constant(tables(1), z, torch.int64, key=key + ("im.T",))
-    valid = constant(tables(2), z, z.dtype.to_real(), key=key + ("valid.T",))
+    lags = 2 * max_lag + 1
+    ip = host_table("tfr.lags", _lag_table, T, lags, 1, 0, True, like=z, dtype=torch.int64)
+    im = host_table("tfr.lags", _lag_table, T, lags, 1, 1, True, like=z, dtype=torch.int64)
+    valid = host_table("tfr.lags", _lag_table, T, lags, 1, 2, True, like=z,
+                       dtype=real_dtype(z.dtype))
     prod = z[..., ip] * torch.conj(z[..., im]) * valid
     A = fft(prod, config=config)  # doppler transform along time
     return fftshift(A, axes=-1)

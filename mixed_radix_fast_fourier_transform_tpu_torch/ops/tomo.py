@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
-from ..utils.numerics import as_tensor, constant
+from ..utils.numerics import as_tensor, content_key, host_table, key_array, on_host
 from .fft import fft, fftshift, ifft, ifftshift
 from .nufft import nufft1_2d, nufft2_2d
 
@@ -38,17 +38,48 @@ def _polar_points(n: int, theta: np.ndarray):
     return omega, xs.ravel(), ys.ravel()
 
 
-def _polar_on(like: Tensor, n: int, theta: np.ndarray):
+def _polar_axis(n: int, tkey: tuple, axis: int) -> np.ndarray:
+    """ys (``axis`` 0) or xs (1) of the polar points of the angles ``tkey``
+    names."""
+    return _polar_points(n, key_array(tkey))[2 - axis]
+
+
+def _polar_on(like: Tensor, n: int, tkey: tuple):
     """The polar points (ys, xs) as fp32 tensors kept on ``like``'s device."""
-    key = ("tomo_polar", n, theta.tobytes())
-    _, xs, ys = _polar_points(n, theta)
-    return (constant(ys, like, key=key + ("y",)), constant(xs, like, key=key + ("x",)))
+    return tuple(host_table("tomo_polar", _polar_axis, n, tkey, axis, like=like)
+                 for axis in (0, 1))
 
 
 def _angles(theta, default: int) -> np.ndarray:
     if theta is None:
         theta = np.linspace(0.0, np.pi, default, endpoint=False)
     return np.atleast_1d(np.asarray(theta, np.float64))
+
+
+def _angle_key(theta, default: int, count) -> tuple:
+    """Host prologue (``utils.numerics.on_host``): the content key of the
+    angles, ``default`` of them over [0, π) for None, checked to be 1-D,
+    non-empty and ``count`` long where that is given."""
+    theta = _angles(theta, default)
+    if count is None:
+        if theta.ndim != 1 or theta.size == 0:
+            raise ValueError("theta must be a non-empty 1-D angle array")
+    elif theta.ndim != 1 or theta.size != count:
+        raise ValueError(f"theta must be 1-D with {count} angles, got shape {theta.shape}")
+    return content_key("tomo.theta", theta)
+
+
+def _projection_filter(n: int, filter_name: str) -> np.ndarray:
+    """The ramp |ω| of the centered slice frequencies, apodized by
+    ``filter_name``."""
+    omega = _polar_points(n, np.zeros(1))[0]
+    absw = np.abs(omega)
+    if filter_name == "ramp":
+        return absw
+    if filter_name == "hann":
+        return absw * (0.5 + 0.5 * np.cos(omega))
+    wnz = np.where(omega == 0.0, 1.0, omega)       # "shepp-logan"
+    return absw * np.where(omega == 0.0, 1.0, np.sin(wnz / 2) / (wnz / 2))
 
 
 def radon(image, theta=None, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
@@ -62,11 +93,9 @@ def radon(image, theta=None, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tens
     n = image.shape[-1]
     if n < 4:
         raise ValueError(f"image too small (N={n})")
-    theta = _angles(theta, 180)
-    if theta.ndim != 1 or theta.size == 0:
-        raise ValueError("theta must be a non-empty 1-D angle array")
-    nt = theta.size
-    ys, xs = _polar_on(image, n, theta)
+    tkey = on_host(_angle_key, theta, 180, None)
+    nt = tkey[2][0]
+    ys, xs = _polar_on(image, n, tkey)
     # pixel (row=y, col=x) offsets are the "mode" indices: evaluate
     # G(ω) = Σ g[y, x] e^{-i(ω_x·x + ω_y·y)} at the polar points
     g = image.to(torch.complex64) if image.is_complex() else image.to(DTYPE)
@@ -87,27 +116,16 @@ def iradon(sinogram, theta=None, filter_name: str = "ramp", *,
     if sino.ndim < 2:
         raise ValueError("sinogram must be (…, n_theta, N)")
     nt, n = sino.shape[-2], sino.shape[-1]
-    theta = _angles(theta, nt)
-    if theta.ndim != 1 or theta.size != nt:
-        raise ValueError(f"theta must be 1-D with {nt} angles, got shape {theta.shape}")
-    omega, _, _ = _polar_points(n, theta)
-    absw = np.abs(omega)
-    if filter_name == "ramp":
-        filt = absw
-    elif filter_name == "hann":
-        filt = absw * (0.5 + 0.5 * np.cos(omega))
-    elif filter_name == "shepp-logan":
-        wnz = np.where(omega == 0.0, 1.0, omega)
-        filt = absw * np.where(omega == 0.0, 1.0, np.sin(wnz / 2) / (wnz / 2))
-    else:
+    tkey = on_host(_angle_key, theta, nt, nt)
+    if filter_name not in ("ramp", "hann", "shepp-logan"):
         raise ValueError(f"unknown filter {filter_name!r}")
     s = sino.to(torch.complex64)
     slices = fftshift(fft(ifftshift(s, axes=-1), config=config), axes=-1)
-    slices = slices * constant(filt, sino, key=("tomo_filter", n, filter_name))
+    slices = slices * host_table("tomo_filter", _projection_filter, n, filter_name, like=sino)
     # polar quadrature: Δθ = π/n_theta, Δω = 2π/N, measure 1/(4π²)
     scale = (np.pi / nt) * (2.0 * np.pi / n) / (4.0 * np.pi**2)
     strengths = (slices * scale).reshape(slices.shape[:-2] + (nt * n,))
-    ys, xs = _polar_on(sino, n, theta)
+    ys, xs = _polar_on(sino, n, tkey)
     # adjoint synthesis: the type-1 sum with isign=+1 gives the pixel values
     out = nufft1_2d(ys, xs, strengths, (n, n), isign=+1, config=config)
     return out if sino.is_complex() else out.real

@@ -56,6 +56,9 @@ class _Prepared:
                 f"(torch.compile, fullgraph=True), and it does not trace: the "
                 f"port's compiled path covers fft, ifft, rfft, irfft, fft_convolve, "
                 f"sht, isht, sphere_grad, melspectrogram, pcen, linear_recurrence, "
+                f"lfilter, sosfilt, filtfilt, sosfiltfilt, pfb_analysis, radon, iradon, "
+                f"multitaper, griffinlim (seed=), wigner_ville, ssq_cwt, ssq_stft, "
+                f"reassigned_spectrogram, stockwell, dwt, idwt, cqt, icqt, "
                 f"and the spectral filter, FNO, S4D, FNet, AFNO, SFNO, PCEN front "
                 f"end and Koopman models so far (ROADMAP.md lists the rest). "
                 f"{str(e).splitlines()[0]}") from e

@@ -93,9 +93,9 @@ def host_table(name: str, build: Callable, *args: Hashable, like: Tensor,
     key ``(name, *args)``: ``build`` is a module-level function and
     ``args`` are hashable values (lengths, names, keys), so the table is
     named by them alone.  While dynamo traces, the lookup and the build on
-    a miss both run on the host: the graph holds the kept tensor, and no
-    host work is traced into it, nor is the table copied or uploaded per
-    call."""
+    a miss both run on the host: the table is kept as an eager call keeps
+    it, the graph holds the kept tensor, and no host work is traced into
+    it, nor is the table copied or uploaded per call."""
     key = (name,) + args
     if torch.compiler.is_dynamo_compiling():
         return _on_host(build, args, key, like.device, dtype)[0]
@@ -112,10 +112,13 @@ def _on_host(build: Optional[Callable], args: tuple, key: Hashable, device: torc
     # share a source
     if build is None:
         return (_TABLES.get((key, device, dtype)),)
-    return (_kept(lambda: build(*args), key, device, dtype),)
+    return (_kept(lambda: build(*args), key, device, dtype, host=True),)
 
 
-def _kept(values, key: Hashable, device: torch.device, dtype) -> Tensor:
+def _kept(values, key: Hashable, device: torch.device, dtype, host: bool = False) -> Tensor:
+    """The kept table of ``key``, made from ``values`` on a miss and kept
+    unless a tracer made it; ``host``: made on the host while dynamo traces
+    (:func:`_on_host`), a plain tensor that is kept."""
     slot = (key, device, dtype)
     t = _TABLES.get(slot)
     if t is not None:
@@ -123,17 +126,60 @@ def _kept(values, key: Hashable, device: torch.device, dtype) -> Tensor:
         return t
     t = _upload(values() if callable(values) else values, device, dtype)
     incr("constant_uploads")
-    if traced(t):
+    if type(t) is not torch.Tensor if host else traced(t):
         return t
     return _TABLES.setdefault(slot, t)
 
 
-def content_key(name: str, a: np.ndarray) -> tuple:
+def content_key(name: str, a) -> tuple:
     """Key of a small device table made from an array the caller owns (a
     window, filter taps, a scale ladder): its contents, so a changed array is
-    a new table."""
+    a new table.  ``a`` is anything ``np.asarray`` takes, a CPU tensor too
+    (dynamo hands a caller's array to a host function as one);
+    :func:`key_array` gives the array back."""
     a = np.ascontiguousarray(a)
     return (name, a.dtype.str, a.shape, a.tobytes())
+
+
+def key_array(key: tuple) -> np.ndarray:
+    """The array that the :func:`content_key` ``key`` names (a copy)."""
+    _, dtype, shape, data = key
+    return np.frombuffer(data, dtype).reshape(shape).copy()
+
+
+def on_host(fn: Callable, *args):
+    """``fn(*args)`` on the host, also while dynamo traces: ``fn`` is a
+    module-level function whose arguments are hashable values (numbers,
+    strings, tuples, content keys) or a caller's host arrays (numpy arrays,
+    lists), and whose result is made of such values, never of arrays.  It is
+    the host prologue of a traced op: normalising, validating and keying the
+    caller's coefficients, angles or taps.  While dynamo traces the call runs
+    on the host (``assume_constant_result``; a ValueError it raises reaches
+    the caller inside dynamo's own exception) and the graph holds its
+    result.  A numpy argument is then guarded by identity, so a compiled
+    call over another array traces anew, as ``jax.jit`` of another closure
+    does; an array changed in place after a compile is not seen, as
+    ``jax.jit`` bakes it too.  A tensor argument is refused there (a
+    ValueError): no guard would tell its values apart."""
+    if torch.compiler.is_dynamo_compiling():
+        for a in args:
+            if isinstance(a, np.ndarray):
+                id(a)        # dynamo installs an identity guard on the array
+            elif isinstance(a, torch.Tensor):
+                _host_call(_refuse_tensor)
+        return _host_call(fn, *args)
+    return fn(*args)
+
+
+def _refuse_tensor() -> None:
+    raise ValueError(
+        "a traced call designs its tables from host values (numpy arrays, lists, "
+        "numbers); a tensor's values cannot be guarded: pass them as a numpy array")
+
+
+@torch.compiler.assume_constant_result
+def _host_call(fn: Callable, *args):
+    return fn(*args)
 
 
 def clear_constants() -> None:
@@ -164,6 +210,13 @@ def complex_dtype(dtype) -> torch.dtype:
     """The complex dtype of results at working dtype ``dtype``: complex128
     for float64, complex64 otherwise (2-byte planes widen to it)."""
     return torch.complex128 if dtype == torch.float64 else torch.complex64
+
+
+def real_dtype(dtype) -> torch.dtype:
+    """The dtype of the parts of ``dtype`` (a real dtype is its own):
+    ``torch.dtype.to_real`` in a form that dynamo traces."""
+    return {torch.complex64: torch.float32, torch.complex128: torch.float64,
+            torch.complex32: torch.float16}.get(dtype, dtype)
 
 
 def as_tensors(*xs) -> Tuple[Tensor, ...]:

@@ -32,7 +32,7 @@ from typing import Callable, Sequence, Union
 import numpy as np
 import torch
 
-from .numerics import host_table, matmul_precision
+from .numerics import host_table, key_array, matmul_precision
 
 Tensor = torch.Tensor
 
@@ -44,9 +44,13 @@ def _block_len(p: int) -> int:
 
 def _matrix_key(A, p: int) -> tuple:
     """The hashable name of the host (p, p) matrix ``A``: its float64
-    entries.  A Python number (p = 1) is read without numpy, so a call that
-    dynamo traces (PCEN's fixed smoother) names it and the host builds its
-    tables."""
+    entries, or ``A`` itself where it is a content key
+    (``utils.numerics.content_key``) of the matrix.  A Python number (p = 1)
+    and a content key are read without numpy, so a call that dynamo traces
+    (PCEN's fixed smoother, an IIR filter's state matrix keyed on the host)
+    names A and the host builds its tables."""
+    if isinstance(A, tuple):
+        return A
     if isinstance(A, (int, float)) and p == 1:
         return ("matrix", 1, (float(A),))
     return ("matrix", p, tuple(np.asarray(A, np.float64).reshape(p, p).ravel().tolist()))
@@ -54,12 +58,15 @@ def _matrix_key(A, p: int) -> tuple:
 
 @functools.lru_cache(maxsize=256)
 def _host_matrix(key: tuple) -> np.ndarray:
-    """The float64 matrix that ``key`` names: its entries, or ("power",
-    base, L), A^L of the matrix ``base`` names (the block-end recurrence's
-    coefficient, the last power of ``base``'s table)."""
+    """The float64 matrix that ``key`` names: its entries, ("power", base,
+    L), A^L of the matrix ``base`` names (the block-end recurrence's
+    coefficient, the last power of ``base``'s table), or a content key's
+    array."""
     if key[0] == "power":
         return _host_operators(key[1], key[2])[2]
-    return np.asarray(key[2], np.float64).reshape(key[1], key[1])
+    if key[0] == "matrix":
+        return np.asarray(key[2], np.float64).reshape(key[1], key[1])
+    return key_array(key).astype(np.float64)
 
 
 @functools.lru_cache(maxsize=256)
@@ -142,15 +149,15 @@ def _scan_device(a: Tensor, c: Tensor, s0: Tensor) -> Tensor:
     return (inner + carried).reshape(nb * L, R, G)[:n]
 
 
-def linear_recurrence(A: Union[np.ndarray, float, Tensor], c: Tensor, s0: Tensor) -> Tensor:
+def linear_recurrence(A: Union[np.ndarray, float, tuple, Tensor], c: Tensor, s0: Tensor) -> Tensor:
     """All states of s[n] = A·s[n−1] + c[n], s[−1] = ``s0``.
 
     ``c``: (n, …, p) drive terms on the device; ``s0``: (…, p), broadcast
     against c's middle axes.  ``A`` is a (p, p) host matrix (numpy, float64
-    as designed; a scalar when p = 1, which also compiles whole), or, for
-    p = 1, a tensor of
-    per-channel coefficients broadcast against c's middle axes, which may
-    need a gradient.  Returns the (n, …, p) states after each step, as the
+    as designed; a scalar when p = 1), or the ``utils.numerics.content_key``
+    of one (the two forms that compile whole: their tables are built on the
+    host), or, for p = 1, a tensor of per-channel coefficients broadcast
+    against c's middle axes, which may need a gradient.  Returns the (n, …, p) states after each step, as the
     JAX package's ``iir._recurrence_scan`` does.  Products are fp32 with
     TF32 off, whatever the caller's setting."""
     n, mid, p = c.shape[0], tuple(c.shape[1:-1]), c.shape[-1]

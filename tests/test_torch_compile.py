@@ -242,6 +242,18 @@ def test_aot_compile_runs_an_op_outside_the_slice_that_traces():
     assert _rel(fn(x).detach().numpy(), afno.apply(params, x).detach().numpy()) <= EAGER_TOL
 
 
+def test_aot_compile_compiles_a_jax_jitted_op():
+    """``sosfiltfilt``, one of the ops the JAX package's tests jit, traces
+    whole (its design made on the host): ``aot_compile`` compiles it, and
+    its calls match the eager op."""
+    import scipy.signal
+
+    sos = scipy.signal.ellip(8, 0.5, 60, [0.2, 0.6], "bandpass", output="sos")
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((2, 1024)).astype(np.float32))
+    fn = aot.aot_compile(lambda v: tp.sosfiltfilt(sos, v), x)
+    assert _rel(fn(x).numpy(), tp.sosfiltfilt(sos, x).numpy()) <= EAGER_TOL
+
+
 def test_aot_compile_names_the_slice_for_an_op_that_does_not_trace():
     """The direct convolution does not trace whole yet: ``aot_compile``
     raises a ValueError that says what the compiled path covers."""
