@@ -222,8 +222,9 @@ Phases, each of which raises on failure:
     parameters at the family's eager tolerance, the AFNO's in the 2-norm),
     compile seconds, device and back-to-back times and idle share; the SFNO's
     compile adds less device memory than its kept Legendre tables.  Depths
-    are cut to COMPILED_DEPTH in the whole run; ``python3 chip_smoke.py
-    compile`` runs the published depths and the front end's compiled loss
+    are cut to COMPILED_DEPTH in the whole run, and there the steps compile
+    with ``aot_eager``; ``python3 chip_smoke.py compile`` runs the published
+    depths, every step with Inductor, and the front end's compiled loss
     with an input gradient (K1 twice);
 31. the ops that the JAX package's tests jit, compiled whole at their eager
     phases' shapes (``sosfilt``/``sosfiltfilt``/``lfilter``/``filtfilt``,
@@ -235,7 +236,19 @@ Phases, each of which raises on failure:
     eager's, compiled against eager (2e-5; the squeezed and reassigned
     planes by their bin sums), against float64 where the eager phase checks
     float64, and K1 against its plain version on the planes the calls hand
-    it.
+    it;
+32. the main path's configurations compiled with ``aot_eager`` on CUDA
+    tensors at torch's default flags (set for the phase, restored after):
+    ``exec_complex`` or ``fft`` with ``rfft`` at 10007 x 16, 1009 x 64 and
+    32768 x 16 under "highest", "high" and "split6" (not at 1009); ``fft`` and the
+    spectral filter's forward in bf16 and fp16 through K1 on 2-byte planes;
+    the direct convolution of phase 13: zero graph breaks, no recompile on
+    new data, compiled against eager (2e-5), against float64 at phase 4b's
+    bounds, the compiled "high" error at least 10x the compiled "highest"
+    one (TF32 ran), cuDNN's TF32 flag off at each convolution call, the four
+    flags unchanged by the phase, K1's launches equal to eager's and K1
+    against its plain version on the calls' planes; the ladder's device
+    times by graph replay at 10007 and 32768.
 
 ``python3 chip_smoke.py precision`` runs phases 1, 2 and 4b alone,
 ``python3 chip_smoke.py audio`` phases 1, 2 and 15-17,
@@ -248,12 +261,13 @@ Phases, each of which raises on failure:
 ``python3 chip_smoke.py compile`` phases 1, 2, 29 and 30, phase 30 at the families'
 published depths, and
 ``python3 chip_smoke.py compile-ops`` phases 1, 2 and 31 with Inductor for every
-op, each timed beside eager (for development;
+op, each timed beside eager, and
+``python3 chip_smoke.py compile-precision`` phases 1, 2 and 32 (for development;
 they print no result line).
 
 The last lines are one JSON line about the kernels (launches of phases 4, 4b, 8,
-9, 12, 13, 15, 16, 18, 19, 21, 22, 23, 24, 25, 26, 27, 29, 30 and 31; error over the plane pairs those launches were handed:
-every pair of phases 4, 9, 12, 13, 15, 16, 19, 21, 22, 23 and 24, the first rows of phase 25's, three of each run of phase 27's, the first rows of three of each op's eager run in phase 31, and in phase 8 the first step's three, every
+9, 12, 13, 15, 16, 18, 19, 21, 22, 23, 24, 25, 26, 27, 29, 30, 31 and 32; error over the plane pairs those launches were handed:
+every pair of phases 4, 9, 12, 13, 15, 16, 19, 21, 22, 23 and 24, the first rows of phase 25's, three of each run of phase 27's, the first rows of three of each op's eager run in phase 31 and of each fp32 call's in phase 32, and in phase 8 the first step's three, every
 later backward's and the four of the step with an input gradient; times on
 the main path's batch-1024 planes), the card, then ``{"ok": true, "device":
 {...}}``.
@@ -292,6 +306,7 @@ from mixed_radix_fast_fourier_transform_tpu_torch.ops import cqt as cqt_ops
 from mixed_radix_fast_fourier_transform_tpu_torch.ops import feature as feature_ops
 from mixed_radix_fast_fourier_transform_tpu_torch.ops import scattering as scattering_ops
 from mixed_radix_fast_fourier_transform_tpu_torch.ops.stockham import exec_complex, exec_len
+from mixed_radix_fast_fourier_transform_tpu_torch.utils import aot
 from mixed_radix_fast_fourier_transform_tpu_torch.utils.numerics import traced
 from mixed_radix_fast_fourier_transform_tpu_torch.utils.profiling import graph_time
 from mixed_radix_fast_fourier_transform_tpu_torch.utils.tree import (
@@ -4344,6 +4359,9 @@ FNO_TRAIN_GAIN = 0.1
 # (stage pipeline); five times that
 ADVECTION_255_TOL = 1e-5
 TUNE_BIG = (256, 1 << 20)        # the four-step's K1 shape at config 5 (phase 25)
+# the whole run times every third length of the sweep (85.6 s for all 399 in
+# a whole run before phase 32 took the time); ``tune`` times them all
+TUNE_STRIDE = 3
 
 
 def profiled_device_ms(fn) -> float:
@@ -4434,19 +4452,35 @@ def examples(rng, card: str):
     return total
 
 
-def tune_phase(card: str) -> None:
-    """Phase 28: ``tools/tune.py kernel all`` on the card (every length the
-    kernel takes, 2^22 complex values a call, graph_time of 2 launches and 2
-    replays per route: 4 and 3 until phase 31 needed the time), then
-    ``torch.fft.fft`` and the kernel at 256 x 1,048,576 rows (4 and 3).  The
-    sweep's lines are written to chiprun_out/tune_sweep.jsonl as well."""
+def tune_phase(card: str, stride: int = TUNE_STRIDE) -> None:
+    """Phase 28: ``tools/tune.py kernel all`` on the card at every
+    ``stride``-th length the kernel takes (2^22 complex values a call,
+    graph_time of 2 launches and 2 replays per route: 4 and 3 until phase 31
+    needed the time; every length until phase 32 did: ``python3
+    chip_smoke.py tune`` sweeps them all), every length's kernel against
+    float64 on 8 rows, then ``torch.fft.fft`` and the kernel at 256 x
+    1,048,576 rows (4 and 3).  The sweep's lines are written to
+    chiprun_out/tune_sweep.jsonl as well."""
     from mixed_radix_fast_fourier_transform_tpu_torch.tools import tune
 
-    rows, summary = tune.tune_kernel_all(device=CARD, launches=2, replays=2)
-    require(summary["lengths"] == len(tune.sweep_lengths()) == 399,
-            f"sweep covered {summary['lengths']} lengths")
-    require(summary["max_kernel_err"] <= ORACLE_TOL,
-            f"kernel error {summary['max_kernel_err']:.3e} against float64 in the sweep")
+    lengths = tune.sweep_lengths()
+    require(len(lengths) == 399, f"the kernel takes {len(lengths)} lengths")
+    timed = lengths[::stride]
+    rows, summary = tune.tune_kernel_all(device=CARD, lengths=timed, launches=2, replays=2)
+    require(summary["lengths"] == len(timed), f"sweep covered {summary['lengths']} lengths")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    untimed_err = 0.0
+    for n in sorted(set(lengths) - set(timed)):
+        xr, xi = (torch.randn(8, n, device="cuda", generator=gen) for _ in range(2))
+        zr, zi = cuda_fft.exec_kernel(xr, xi, n, -1)
+        want = np.fft.fft(torch.complex(xr, xi).cpu().numpy().astype(np.complex128))
+        untimed_err = max(untimed_err, rel_err(torch.complex(zr, zi).cpu().numpy(), want))
+    log(f"kernel sweep: {len(timed)} of {len(lengths)} lengths timed; the kernel against "
+        f"float64 on 8 rows: {summary['max_kernel_err']:.3e} at the timed lengths, "
+        f"{untimed_err:.3e} at the others")
+    require(max(summary["max_kernel_err"], untimed_err) <= ORACLE_TOL,
+            f"kernel error {summary['max_kernel_err']:.3e} / {untimed_err:.3e} against "
+            f"float64 in the sweep")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "tune_sweep.jsonl"), "w") as fh:
         fh.write(json.dumps({"card": card}) + "\n")
@@ -4764,8 +4798,9 @@ def counted(fn):
 
 def compiled_family(name, apply, loss_fn, step, params, x, target, forward_launches,
                     step_launches, err_of=rel_err, step_tol: float = ROUTES_TOL,
-                    tables=None):
-    """One family under torch.compile (Inductor) beside eager on the same
+                    tables=None, step_backend: str = "inductor"):
+    """One family under torch.compile (Inductor; the step's loss and update
+    with ``step_backend``) beside eager on the same
     weights and inputs: zero graph breaks in the compiled forward and in the
     step's compiled loss and update (dynamo's counters over their first
     calls, from dynamo's caches emptied), the compiled forward with no
@@ -4801,7 +4836,7 @@ def compiled_family(name, apply, loss_fn, step, params, x, target, forward_launc
     require(err <= COMPILE_TOL, f"{name} compiled forward vs eager {err:.3e}")
     del got, want
 
-    comp_step = compile_sgd_step(loss_fn)
+    comp_step = compile_sgd_step(loss_fn, backend=step_backend)
     lr = 1e-3
     if step is None:
         step = functools.partial(sgd_step, loss_fn)
@@ -4853,8 +4888,11 @@ def compiled_families(rng, card: str, full: bool = False) -> int:
     are (the device memory a compile adds stays below their size).  With
     ``full`` (``python3 chip_smoke.py compile``) every family at its
     published depth and the front end's compiled loss with an input gradient
-    too (2 launches); without, the depths of COMPILED_DEPTH and no input
-    gradient, to fit the whole run's time limit.  Rows are added to
+    too (2 launches); without, the depths of COMPILED_DEPTH, no input
+    gradient and each train step's loss and update compiled with
+    ``aot_eager`` (the forwards with Inductor), to fit the whole run's time
+    limit: Inductor's compiles of the six steps read 165-190 s of the whole
+    run (PERF.md).  Rows are added to
     chiprun_out/compile_path.json.  Returns the launches of the counted
     compiled calls."""
     gen = torch.Generator().manual_seed(SEED)
@@ -4865,7 +4903,8 @@ def compiled_families(rng, card: str, full: bool = False) -> int:
 
     def run(name, *args, **kw):
         nonlocal total
-        got, launched = compiled_family(name, *args, **kw)
+        got, launched = compiled_family(name, *args, **kw,
+                                        step_backend="inductor" if full else "aot_eager")
         rows.extend(got)
         total += launched
 
@@ -4978,10 +5017,15 @@ def compare(got, want, bins=None) -> float:
     a squeezed or reassigned plane (the first output, with ``bins`` its bin
     axes) by its bin sums, which a bin flip under another reduction order
     leaves alone (ROADMAP F2); its grid exactly."""
+    def host(t):
+        if not isinstance(t, torch.Tensor):
+            return np.asarray(t)
+        t = t.detach()
+        return (t.float() if t.dtype in (torch.bfloat16, torch.float16) else t).cpu().numpy()
+
     errs = []
     for i, (g, w) in enumerate(zip(got, want)):
-        g = g.detach().cpu().numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
-        w = w.detach().cpu().numpy() if isinstance(w, torch.Tensor) else np.asarray(w)
+        g, w = host(g), host(w)
         require(g.shape == w.shape, f"shape {g.shape} != {w.shape}")
         if i == 0 and bins is not None:
             g, w = g.sum(bins), w.sum(bins)
@@ -4989,14 +5033,17 @@ def compare(got, want, bins=None) -> float:
     return max(errs)
 
 
-def compiled_op(name: str, fn, args, args2, backend: str, bins=None):
+def compiled_op(name: str, fn, args, args2, backend: str, bins=None, tol=COMPILE_OPS_TOL):
     """One op of phase 31.  Eager on ``args`` (its K1 launches and output),
     then ``fn`` under ``torch.compile(backend=backend, fullgraph=True,
     dynamic=False)`` on the same tensors: compile seconds, graph breaks by
     dynamo's counters (0, in one graph), its K1 launches (the compiled
     graph's operator node: equal to eager's), against eager
     (COMPILE_OPS_TOL; through the bin sums over ``bins``), then a second
-    call on ``args2`` under ``fail_on_recompile``, against eager there.
+    call on ``args2`` under ``fail_on_recompile``, against eager there
+    (``tol``: a TF32 or 2-byte call compiled by Inductor, whose operands may
+    round otherwise than eager's before a TF32 or 2-byte product, is held
+    to that mode's own bound).
     Where the op reaches K1, the kernel is held against its plain version on
     the first OPS_KERNEL_ROWS rows of the first two and the last plane pairs
     the eager call hands it (the compiled graph calls the operator itself,
@@ -5029,7 +5076,7 @@ def compiled_op(name: str, fn, args, args2, backend: str, bins=None):
         f"{err2:.3e}")
     require(breaks == 0 and graphs == 1, f"{name}: {breaks} graph breaks, {graphs} graphs")
     require(launches == eager_launches, f"{name}: {launches} K1 launches, eager {eager_launches}")
-    require(max(err, err2) <= COMPILE_OPS_TOL, f"{name}: {err:.3e}, {err2:.3e} vs eager")
+    require(max(err, err2) <= tol, f"{name}: {err:.3e}, {err2:.3e} vs eager")
     row = {"call": name, "backend": backend, "compile_s": secs, "graph_breaks": breaks,
            "k1_launches": launches, "k1_launches_eager": eager_launches,
            "rel_err_vs_eager": err, "second_call_rel_err_vs_eager": err2,
@@ -5078,11 +5125,11 @@ def compiled_ops(rng, card: str, inductor: bool = False) -> int:
             json.dump({"card": card, "torch": torch.__version__, "inductor": inductor,
                        "rows": rows}, fh, indent=1)
 
-    def run(name, fn, args, args2, bins=None, timing=True):
+    def run(name, fn, args, args2, bins=None, timing=True, tol=COMPILE_OPS_TOL):
         nonlocal total
         t0 = time.perf_counter()
         try:
-            row, out, comp, launched = compiled_op(name, fn, args, args2, backend, bins)
+            row, out, comp, launched = compiled_op(name, fn, args, args2, backend, bins, tol)
         except torch._inductor.exc.InductorError as e:
             if not inductor:
                 raise
@@ -5234,6 +5281,46 @@ def compiled_ops(rng, card: str, inductor: bool = False) -> int:
     del C, C2, c64, c2
     torch.cuda.empty_cache()
 
+    if inductor:
+        # the main path's configurations with Inductor (phase 32 holds them
+        # with aot_eager in the whole run): "highest" and "high" at phase
+        # 32's first shape, TF32 shown by the error ratio, and aot_compile's
+        # CUDA graph of the "high" call; fft and the filter forward on bf16
+        # planes at torch's default reduced-precision flags
+        n, b = PRECISION_COMPILE_SHAPES[0]
+        x, x2 = (rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))
+                 for _ in range(2))
+        xt, x2t = (torch.tensor(v, dtype=torch.complex64, device=CARD) for v in (x, x2))
+        errs = {}
+        for prec in ("highest", "high"):
+            cfg = tp.SpectralConfig(precision=prec)
+            row, out = run(f"fft {n} x {b} {prec}", lambda v, cfg=cfg: tp.fft(v, config=cfg),
+                           (xt,), (x2t,), tol=PRECISION_COMPILE_BOUND[prec])
+            errs[prec] = rel_err(out.cpu().numpy(), np.fft.fft(x))
+            check64(row, f"fft {prec}", out, np.fft.fft(x), PRECISION_COMPILE_BOUND[prec])
+        ready = aot.aot_compile(lambda v: tp.fft(v, config=tp.SpectralConfig(precision="high")),
+                                xt)
+        err = rel_err(ready(x2t).cpu().numpy(), np.fft.fft(x2))
+        log(f"aot_compile fft {n} x {b} high (CUDA graph): rel err {err:.3e} vs float64; "
+            f"compiled high {errs['high'] / errs['highest']:.1f}x highest's error")
+        require(errs["high"] >= TF32_PROOF * errs["highest"] and err <= TF32_TOL
+                and err >= TF32_PROOF * errs["highest"],
+                f"no TF32 in the compiled 'high' fft: {errs}, aot_compile {err:.3e}")
+        rows.append({"call": f"aot_compile fft {n} x {b} high", "rel_err_vs_float64": err})
+        del xt, x2t, ready
+        fparams = tp.models.spectral_filter.init_params(
+            FILTER_N, torch.Generator(device=CARD).manual_seed(SEED), CARD)
+        bf16 = tp.SpectralConfig(dtype=torch.bfloat16)
+        r, r2 = (cuda32(rng.standard_normal((HALF_COMPILE_BATCH, FILTER_N))) for _ in range(2))
+        gain = (fparams["gain_re"] + 1j * fparams["gain_im"]).cpu().numpy()
+        row, y = run(f"filter forward {FILTER_N} x {HALF_COMPILE_BATCH} bfloat16",
+                     lambda u: tp.models.spectral_filter.apply(fparams, u, config=bf16), (r,),
+                     (r2,), tol=HALF_TRIP_TOL)
+        check64(row, "filter forward bfloat16", y.float(),
+                np.fft.irfft(np.fft.rfft(r.cpu().numpy().astype(np.float64)) * gain, n=FILTER_N)
+                + float(fparams["bias"]), HALF_TRIP_TOL)
+        del r, r2
+
     # one chain of an IIR op and a K1 op, under Inductor in the whole run too
     backend = "inductor"
     run(f"ssq_stft(sosfilt(x)) {TFR_SHAPE}", lambda v: tp.ssq_stft(tp.sosfilt(sos, v)),
@@ -5244,6 +5331,210 @@ def compiled_ops(rng, card: str, inductor: bool = False) -> int:
     log(json.dumps({"compiled_ops": {"card": card, "rows": rows}}))
     worst = max((r["k1_vs_plain_abs_err"] for r in rows if r.get("k1_vs_plain_abs_err") is not None),
                 default=0.0)
+    return total, worst
+
+
+# ---------------------------------------------------------------------------
+# Phase 32: the main path's configurations compiled
+
+# (n, rows) the stage pipeline carries: Bluestein (10007, inner 20,736; 1009)
+# and a length past K1's 16,384
+PRECISION_COMPILE_SHAPES = ((10007, 16), (1009, 64), (32768, 16))
+PRECISION_COMPILE_LADDER = ("highest", "high", "split6")
+PRECISION_COMPILE_BOUND = {"highest": HIGHEST_TOL, "high": TF32_TOL, "split6": SPLIT6_TOL}
+# TF32 ran in the compiled "high" call where its error against float64 is at
+# least this many times the compiled "highest" one's on the same input
+TF32_PROOF = 10.0
+# the shapes whose compiled ladder is timed by graph replay
+PRECISION_TIMED = (10007, 32768)
+# split6 at 1009 is held at 10007 and 32768: its compile read 5.2-13.8 s
+PRECISION_COMPILE_SKIPPED = ((1009, "split6"),)
+# K1 on 2-byte planes: fft at 2048 x 1024, the filter forward at n = 4096,
+# batch 1024 (K1 at 2048 x 1024 both ways)
+HALF_COMPILE_FFT, HALF_COMPILE_BATCH = (1024, 2048), 1024
+# the direct convolution as phase 13 runs it: 64 rows of 4000, 15 taps, same
+DIRECT_SHAPE, DIRECT_TAPS = (64, 4000), 15
+
+
+def backend_flags():
+    """torch's four flags that the precision lever sets: matmul and cuDNN
+    TF32, cuBLAS's bf16 and fp16 reduced-precision reductions."""
+    mm = torch.backends.cuda.matmul
+    return (mm.allow_tf32, torch.backends.cudnn.allow_tf32,
+            mm.allow_bf16_reduced_precision_reduction, mm.allow_fp16_reduced_precision_reduction)
+
+
+def set_backend_flags(flags) -> None:
+    mm = torch.backends.cuda.matmul
+    (mm.allow_tf32, torch.backends.cudnn.allow_tf32, mm.allow_bf16_reduced_precision_reduction,
+     mm.allow_fp16_reduced_precision_reduction) = flags
+
+
+# torch's defaults: matmul TF32 off, cuDNN TF32 on, both reductions on
+TORCH_DEFAULT_FLAGS = (False, True, True, True)
+
+
+def compiled_precisions(rng, card: str) -> tuple:
+    """Phase 32: the main path's configurations under ``torch.compile``
+    (``backend="aot_eager"`` on CUDA tensors, ``fullgraph=True,
+    dynamic=False``) at torch's default flags, as the JAX package jits
+    them: ``exec_complex`` (10007) or ``fft`` (1009, 32768), with ``rfft``
+    but at 1009, in one function at PRECISION_COMPILE_SHAPES under
+    "highest", "high" and "split6" (split6 not at 1009); ``fft``
+    and the spectral filter's forward at bf16 and fp16 (K1 on 2-byte
+    planes); the direct convolution at phase 13's shape.  Each through
+    :func:`compiled_op`: zero graph breaks, one graph, no recompile on a
+    second call with new data, K1's launches equal to eager's, compiled
+    against eager (COMPILE_OPS_TOL), K1 against its plain version on the
+    planes the calls hand it.  Then against float64 at phase 4b's bounds; the
+    proof that TF32 ran (the compiled "high" error at least TF32_PROOF times
+    the compiled "highest" one on the same input); cuDNN's TF32 flag off at
+    the moment the compiled convolution runs; the process's four flags
+    unchanged by the phase; and the compiled ladder's device µs by graph
+    replay at PRECISION_TIMED (printed, not gated).  Returns the launches of
+    the counted compiled calls and K1's worst abs error against its plain
+    version on fp32 planes (2-byte planes are held to one unit in the last
+    place of the largest value and stay off the kernels line, as in phase
+    4b)."""
+    saved = backend_flags()
+    set_backend_flags(TORCH_DEFAULT_FLAGS)
+    before = backend_flags()
+    rows, total, worst = [], 0, 0.0
+
+    def run(name, fn, args, args2, on_line=True):
+        nonlocal total, worst
+        row, out, comp, launched = compiled_op(name, fn, args, args2, "aot_eager")
+        total += launched
+        if on_line:
+            worst = max(worst, row["k1_vs_plain_abs_err"] or 0.0)
+        rows.append(row)
+        return row, out, comp
+
+    def engine_call(n, plan, cfg):
+        # exec_complex at 10007 and fft at the other lengths, and rfft of the
+        # real parts but at 1009, whose inner 2048 runs radix-16 butterflies
+        # (hundreds of elementwise ops a trace: its compiles took 8-14 s)
+        def call(v):
+            if n == PRECISION_COMPILE_SHAPES[0][0]:
+                zr, zi = exec_complex(plan, v.real.contiguous(), v.imag.contiguous())
+                z = torch.complex(zr, zi)
+            else:
+                z = tp.fft(v, config=cfg)
+            if n == PRECISION_COMPILE_SHAPES[1][0]:
+                return (z,)
+            return z, tp.rfft(v.real.contiguous(), config=cfg)
+        return call
+
+    try:
+        for n, b in PRECISION_COMPILE_SHAPES:
+            # one code object compiles once per precision and shape: dynamo's
+            # recompile limit counts them all, so each shape starts afresh
+            torch._dynamo.reset()
+            x, x2 = (rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))
+                     for _ in range(2))
+            xt, x2t = (torch.tensor(v, dtype=torch.complex64, device=CARD) for v in (x, x2))
+            want = (np.fft.fft(x), np.fft.rfft(x.real))   # zip stops at the outputs
+            errs, comps = {}, {}
+            for prec in PRECISION_COMPILE_LADDER:
+                if (n, prec) in PRECISION_COMPILE_SKIPPED:
+                    continue
+                cfg = tp.SpectralConfig(precision=prec)
+                plan = tp.get_plan(n, -1, "complex", cfg)
+                first = "exec_complex" if n == PRECISION_COMPILE_SHAPES[0][0] else "fft"
+                rfft = "" if n == PRECISION_COMPILE_SHAPES[1][0] else "+rfft"
+                row, out, comps[prec] = run(f"{first}{rfft} {n} x {b} {prec}",
+                                            engine_call(n, plan, cfg), (xt,), (x2t,))
+                errs[prec] = max(rel_err(o.cpu().numpy(), w) for o, w in zip(out, want))
+                row["rel_err_vs_float64"] = errs[prec]
+                log(f"compiled {prec} {n} x {b} vs float64: rel err {errs[prec]:.3e} "
+                    f"(tolerance {PRECISION_COMPILE_BOUND[prec]:.2e})")
+                require(errs[prec] <= PRECISION_COMPILE_BOUND[prec],
+                        f"compiled {prec} at {n}: {errs[prec]:.3e} vs float64")
+            ratio = errs["high"] / errs["highest"]
+            log(f"compiled high against highest at {n} x {b}: {ratio:.1f}x the error (TF32 "
+                f"ran where it is at least {TF32_PROOF:g}x)")
+            require(ratio >= TF32_PROOF, f"compiled 'high' at {n} ran no TF32 product: its "
+                    f"error {errs['high']:.3e} is {ratio:.1f}x the 'highest' one's")
+            if n in PRECISION_TIMED:
+                times = {p: 1e6 * graph_time(lambda: comps[p](xt), launches=5, replays=5)
+                         for p in PRECISION_COMPILE_LADDER}
+                log(f"compiled {n} x {b} device us (graph replay): " + ", ".join(
+                    f"{p} {t:.2f}" for p, t in times.items()))
+                rows.append({"call": f"ladder {n} x {b}", "device_us_graph_replay": times,
+                             "high_over_highest_err": ratio})
+            del xt, x2t, comps
+        # K1 on 2-byte planes, at torch's default reduced-precision flags
+        fparams = tp.models.spectral_filter.init_params(
+            FILTER_N, torch.Generator(device=CARD).manual_seed(SEED), CARD)
+        gain = (fparams["gain_re"] + 1j * fparams["gain_im"]).cpu().numpy()
+        bias = float(fparams["bias"])
+        rows_f, n_f = HALF_COMPILE_FFT
+        x, x2 = (rng.standard_normal((rows_f, n_f)) + 1j * rng.standard_normal((rows_f, n_f))
+                 for _ in range(2))
+        r, r2 = (rng.standard_normal((HALF_COMPILE_BATCH, FILTER_N)) for _ in range(2))
+        args = (torch.tensor(x, dtype=torch.complex64, device=CARD), cuda32(r))
+        args2 = (torch.tensor(x2, dtype=torch.complex64, device=CARD), cuda32(r2))
+        want_f = np.fft.fft(x)
+        want_y = np.fft.irfft(np.fft.rfft(r) * gain, n=FILTER_N) + bias
+        for name, dtype in HALF_DTYPES.items():
+            cfg = tp.SpectralConfig(dtype=dtype)
+            row, (f, y), _ = run(
+                f"fft {n_f} x {rows_f} + filter forward {FILTER_N} x {HALF_COMPILE_BATCH} {name}",
+                lambda v, u, cfg=cfg: (tp.fft(v, config=cfg),
+                                       tp.models.spectral_filter.apply(fparams, u, config=cfg)),
+                args, args2, on_line=False)
+            err_f = rel_err(f.cpu().numpy(), want_f)
+            err_y = rel_err(y.float().cpu().numpy(), want_y)
+            row["rel_err_vs_float64"] = {"fft": err_f, "filter": err_y}
+            log(f"compiled {name}: fft rel err {err_f:.3e}, filter forward {err_y:.3e} vs "
+                f"float64, K1 launches {row['k1_launches']}")
+            require(row["k1_launches"] == 3, f"compiled {name}: {row['k1_launches']} K1 "
+                    f"launches, expected 3 (fft, the filter's rfft and irfft)")
+            require(err_f <= HALF_FFT_TOL and err_y <= HALF_TRIP_TOL,
+                    f"compiled {name}: fft {err_f:.3e}, filter {err_y:.3e} vs float64")
+        del args, args2
+        # the direct convolution: cuDNN's TF32 flag is on by default, and the
+        # compiled graph's convolution node must turn it off around its call
+        sig, sig2 = (cuda32(rng.standard_normal(DIRECT_SHAPE)) for _ in range(2))
+        taps = cuda32(rng.standard_normal((1, DIRECT_TAPS)))
+        flag_at_call = []
+        functional = torch.nn.functional
+        convs = functional.conv1d, functional.conv2d
+
+        def noting(conv):
+            def call(*a, **kw):
+                if not traced(a[0]):    # not the fake run of a trace: a launch
+                    flag_at_call.append(torch.backends.cudnn.allow_tf32)
+                return conv(*a, **kw)
+            return call
+
+        functional.conv1d, functional.conv2d = (noting(c) for c in convs)
+        try:
+            row, out, _ = run(f"convolve direct {DIRECT_SHAPE[1]}x{DIRECT_TAPS} same "
+                              f"b{DIRECT_SHAPE[0]}",
+                              lambda u, k: tp.convolve(u, k, "same", "direct"),
+                              (sig, taps), (sig2, taps))
+        finally:
+            functional.conv1d, functional.conv2d = convs
+        sig64, taps64 = sig.cpu().numpy().astype(np.float64), taps.cpu().numpy()[0]
+        err = rel_err(out.cpu().numpy(),
+                      np.stack([np.convolve(v, taps64, mode="same") for v in sig64]))
+        row["rel_err_vs_float64"] = err
+        log(f"compiled direct convolution vs float64: rel err {err:.3e}; cudnn.allow_tf32 at "
+            f"its {len(flag_at_call)} convolution calls: {flag_at_call}")
+        require(err <= ORACLE_TOL, f"compiled direct convolution: {err:.3e} vs float64")
+        require(flag_at_call and not any(flag_at_call),
+                "a convolution ran with cuDNN's TF32 allowed")
+        after = backend_flags()
+        log(f"flags before phase 32 {before}, after {after}")
+        require(after == before, f"phase 32 left the flags {after}, found {before}")
+    finally:
+        set_backend_flags(saved)
+    os.makedirs("chiprun_out", exist_ok=True)
+    line = json.dumps({"compiled_precisions": {"card": card, "rows": rows, "launches": total}})
+    with open(os.path.join("chiprun_out", "compiled_precisions.json"), "w") as fh:
+        fh.write(line + "\n")
+    log(line)
     return total, worst
 
 
@@ -5283,8 +5574,8 @@ def main(argv) -> int:
     if argv == ["examples"]:   # development: phase 27 alone
         timed(examples, rng, card)
         return 0
-    if argv == ["tune"]:   # development: phase 28 alone
-        timed(tune_phase, card)
+    if argv == ["tune"]:   # development: phase 28 alone, every length timed
+        timed(tune_phase, card, 1)
         return 0
     if argv == ["float64"]:   # development: phase 4a alone
         timed(float64_path, rng, card)
@@ -5298,6 +5589,9 @@ def main(argv) -> int:
         return 0
     if argv == ["compile-ops"]:   # development: phase 31 with Inductor for every op, timed
         timed(compiled_ops, rng, card, True)
+        return 0
+    if argv == ["compile-precision"]:   # development: phase 32 alone
+        timed(compiled_precisions, rng, card)
         return 0
     if argv == ["parallel-timings"]:   # phase 25's device times, a process of their own
         timed(parallel_timings, card)
@@ -5334,6 +5628,7 @@ def main(argv) -> int:
     compile_launches = timed(compile_path, rng, card)
     compile_launches += timed(compiled_families, rng, card)
     ops_compiled_launches, ops_compiled_abs = timed(compiled_ops, rng, card)
+    precision_compiled_launches, precision_compiled_abs = timed(compiled_precisions, rng, card)
     log(f"kernel launches by path: filter forward {launches}, "
         f"reduced precision {precision_launches}, training {train_launches}, "
         f"fno {fno_launches}, s4d + fnet + afno {family_launches}, ops tail {ops_launches}, "
@@ -5343,15 +5638,16 @@ def main(argv) -> int:
         f"radar + radio {radar_launches}, wavelets + leaves {leaves_launches}, "
         f"parallel main path {parallel_launches}, parallel rest {rest_launches}, "
         f"examples {example_launches}, compiled {compile_launches}, "
-        f"compiled ops {ops_compiled_launches}")
+        f"compiled ops {ops_compiled_launches}, "
+        f"compiled precisions {precision_compiled_launches}")
     launches += (precision_launches + train_launches + fno_launches + family_launches + ops_launches
                  + frontend_launches + audio_launches + recurrence_launches + remainder_launches
                  + nufft_launches + sphere_launches + radar_launches + leaves_launches
                  + parallel_launches + rest_launches + example_launches + compile_launches
-                 + ops_compiled_launches)
+                 + ops_compiled_launches + precision_compiled_launches)
     max_abs = max(max_abs, train_abs, fno_abs, family_abs, ops_abs, frontend_abs, audio_abs,
                   remainder_abs, nufft_abs, sphere_abs, radar_abs, leaves_abs, parallel_abs,
-                  ops_compiled_abs)
+                  ops_compiled_abs, precision_compiled_abs)
     # the kernel line's times are on the same planes as its error: the
     # forward transform of the batch-1024 filter call.  ms, plain_ms and
     # library_ms are medians of single timed calls, dispatch included

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.factorize import next_fast_len, next_pow2
-from ..utils.numerics import as_tensors, matmul_precision
+from ..utils.numerics import as_tensors, convolution
 from .fft import fft, ifft
 from .rfft import irfft, rfft
 
@@ -274,9 +274,7 @@ def _conv_real(x: Tensor, k: Tensor, nd: int) -> Tensor:
     spatial = tuple(range(1, 1 + nd))
     weight = torch.flip(k, spatial)[:, None]             # (kb, 1, *taps)
     x = x[:, None] if kb == 1 else x[None]               # (B, 1, …) or (1, B, …)
-    conv = (F.conv1d, F.conv2d, F.conv3d)[nd - 1]
-    with matmul_precision():
-        out = conv(x, weight, padding=tuple(t - 1 for t in k.shape[1:]), groups=kb)
+    out = convolution(x, weight, padding=[t - 1 for t in k.shape[1:]], groups=kb)
     return out.reshape(b, *out.shape[2:])
 
 
@@ -308,7 +306,10 @@ def _direct_convolve_nd(in1: Tensor, in2: Tensor, axes, dtype=DTYPE) -> Tensor:
     else:
         out = _conv_real(x.to(dtype), k.to(dtype), nd)
     out = out.reshape(bshape + tuple(out.shape[1:]))
-    return out.permute(tuple(int(i) for i in np.argsort(order)))
+    inverse = [0] * len(order)
+    for i, d in enumerate(order):
+        inverse[d] = i
+    return out.permute(inverse)
 
 
 def convolve(
@@ -458,13 +459,19 @@ def correlate2d(
                       fillvalue=fillvalue, config=config)
 
 
+def _last_len(a) -> int:
+    """The length of the last axis of an array or tensor (1 for a scalar),
+    read without numpy so that a traced tensor gives its static shape."""
+    shape = a.shape if isinstance(a, torch.Tensor) else np.shape(a)
+    return shape[-1] if len(shape) else 1
+
+
 def choose_conv_method(in1, in2, mode: str = "full") -> str:
     """'fft' or 'direct' (scipy.signal.choose_conv_method semantics, sans
     timing): direct convolution scales as n·k and the padded-FFT path as
     n·log n, so direct is chosen for small tap counts only.  The crossover
     is the JAX package's; it has not been measured on a GPU."""
-    s1 = np.shape(in1)[-1] if np.ndim(in1) else 1
-    s2 = np.shape(in2)[-1] if np.ndim(in2) else 1
+    s1, s2 = _last_len(in1), _last_len(in2)
     if mode not in _MODES:
         raise ValueError(f"mode must be full/same/valid, got {mode!r}")
     return "direct" if min(s1, s2) <= 16 else "fft"

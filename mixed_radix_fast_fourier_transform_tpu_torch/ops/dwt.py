@@ -45,7 +45,7 @@ import torch.nn.functional as F
 
 from ..utils.config import DEFAULT_CONFIG, SpectralConfig
 from ..utils.numerics import (
-    as_tensor, as_tensors, content_key, host_table, key_array, matmul_precision, median,
+    as_tensor, as_tensors, content_key, convolution, host_table, key_array, median,
     on_host, pad_last, real_dtype,
 )
 
@@ -375,8 +375,7 @@ def _conv(x: Tensor, w, stride: int = 1, dilation: int = 1,
                              _conv(x.imag, w, stride, dilation, precision))
     lead = x.shape[:-2]
     xb = x.reshape((-1,) + tuple(x.shape[-2:]))
-    with matmul_precision(precision):
-        out = F.conv1d(xb, _weights(w, x), stride=stride, dilation=dilation)
+    out = convolution(xb, _weights(w, x), stride=stride, dilation=dilation, precision=precision)
     return out.reshape(lead + out.shape[-2:])
 
 

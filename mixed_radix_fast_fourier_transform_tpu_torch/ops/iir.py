@@ -32,7 +32,7 @@ import torch
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.numerics import (
-    as_tensor, content_key, host_table, key_array, on_host, pad_last,
+    as_tensor, content_key, host_table, key_array, on_host,
 )
 from ..utils.scan import linear_recurrence
 
@@ -1212,7 +1212,22 @@ def _odd_ext(x: Tensor, n: int, axis: int = -1) -> Tensor:
             "along the filter axis"
         )
     xm = torch.movedim(x, axis, -1)
-    return torch.movedim(pad_last(xm, n, n, "odd"), -1, axis)
+    # one gather by a kept host index table (a flipped slice there made
+    # Inductor of torch 2.11 fail to tile the sosfilt scan that follows)
+    idx = host_table("iir.odd_ext", _odd_ext_index, xm.shape[-1], n, like=xm, dtype=torch.int64)
+    src, edge = xm[..., idx[0]], xm[..., idx[1]]
+    return torch.movedim(torch.where(idx[0] != idx[1], 2 * edge - src, src), -1, axis)
+
+
+def _odd_ext_index(length: int, n: int) -> np.ndarray:
+    """(2, length + 2n) indices of the odd extension by ``n`` < ``length``
+    samples: row 0 the sample each position reflects (itself in the
+    middle), row 1 the edge it reflects about (itself in the middle), so
+    the extension is 2·x[edge] − x[src] where they differ and x[src]."""
+    j = np.arange(-n, length + n)
+    src = np.where(j < 0, -j, np.where(j >= length, 2 * (length - 1) - j, j))
+    edge = np.where(j < 0, 0, np.where(j >= length, length - 1, j))
+    return np.stack([src, edge]).astype(np.int64)
 
 
 def _zero_phase_setup(x, n_taps: int, padtype, padlen, dtype):

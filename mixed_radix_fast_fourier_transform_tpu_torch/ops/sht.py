@@ -642,6 +642,52 @@ def _recurrence_coeffs_dw(L: int):
     )
 
 
+def _dw_step_chain(a: Tensor, a_lo: Tensor, mu: Tensor, mu_lo: Tensor, p1: Tensor,
+                   p1_lo: Tensor, b: Tensor, b_lo: Tensor, p2: Tensor, p2_lo: Tensor):
+    """One degree step of the compensated recurrence, op by op:
+    (A·mu)·p1 − B·p2 with every operand and result a double-word (hi, lo)
+    fp32 pair, as the JAX module's ``_dw_mul``/``_dw_add`` chain."""
+    ch, cl = _dw_mul(a, a_lo, mu, mu_lo)
+    t1h, t1l = _dw_mul(ch, cl, p1, p1_lo)
+    t2h, t2l = _dw_mul(b, b_lo, p2, p2_lo)
+    return _dw_add(t1h, t1l, -t2h, -t2l)
+
+
+# The compensated degree step is one operator (``torch.library``, as the
+# NUFFT's phase reduction is): a graph that dynamo or ``torch.export``
+# captures holds it as one opaque node, whose CPU and CUDA implementations
+# run the error-free chain op by op, so no compiler contracts a product and
+# a sum of it into a fused multiply-add, and a compiled recurrence is
+# bit-equal to eager.  Its operands are the kept coefficient tables and the
+# carried planes, none of which takes a gradient.
+_LIB = torch.library.Library("mixed_radix_sht", "DEF")
+_LIB.define("dw_step(Tensor a, Tensor a_lo, Tensor mu, Tensor mu_lo, Tensor p1, Tensor p1_lo, "
+            "Tensor b, Tensor b_lo, Tensor p2, Tensor p2_lo) -> (Tensor, Tensor)")
+_LIB.impl("dw_step", _dw_step_chain, "CPU")
+_LIB.impl("dw_step", _dw_step_chain, "CUDA")
+
+
+def _dw_step_fake(*planes: Tensor):
+    shape = torch.broadcast_shapes(*(t.shape for t in planes))
+    return planes[4].new_empty(shape), planes[4].new_empty(shape)
+
+
+torch.library.register_fake("mixed_radix_sht::dw_step", _dw_step_fake, lib=_LIB)
+
+
+def _recurrence_table(L: int, name: str) -> np.ndarray:
+    """One host table of the recurrence at band limit ``L`` by its name: the
+    arrays of :func:`_recurrence_coeffs` ("A", "B", "mant", "k0", "mu"),
+    their low words (:func:`_recurrence_coeffs_dw`: "A_lo", "B_lo",
+    "mant_lo", "mu_lo") and the (L, L) identity ("eye") that marks the
+    sectoral seeds."""
+    if name == "eye":
+        return np.eye(L, dtype=bool)
+    if name.endswith("_lo"):
+        return dict(zip(("A_lo", "B_lo", "mant_lo", "mu_lo"), _recurrence_coeffs_dw(L)))[name]
+    return dict(zip(("A", "B", "mant", "k0", "mu"), _recurrence_coeffs(L)))[name]
+
+
 def _legendre_scan(L: int, accumulate, acc0, xs_extra, lat=None, compensated=False,
                    like: Tensor = None):
     """Loop l = 0..L-1 carrying the rescaled (m, i) Legendre plane; at each
@@ -652,26 +698,24 @@ def _legendre_scan(L: int, accumulate, acc0, xs_extra, lat=None, compensated=Fal
     ``compensated`` carries the plane as a double-word (hi, lo) fp32 pair
     with double-word constants: fp32-exact at any L for ~5x the work.
     The tables go to the device of ``like``."""
-    A, B, mant, k0, mu = _recurrence_coeffs(L)
-    lo = _recurrence_coeffs_dw(L) if compensated else None
-    mu_lo = mant_lo = None
-    if compensated:
-        _, _, mant_lo, mu_lo = lo
-    if lat is not None:
-        mu, mant, k0 = lat[:3]
-        if compensated:
-            mu_lo, mant_lo = lat[3], lat[4]
-    key = ("sht_recurrence", L) if lat is None else None
+    if lat is None:
+        # kept tables, built on the host also while dynamo traces
+        def dev(name, dtype=DTYPE):
+            return host_table("sht_recurrence", _recurrence_table, L, name, like=like,
+                              dtype=dtype)
+    else:
+        band = dict(zip(("mu", "mant", "k0", "mu_lo", "mant_lo"), lat))
 
-    def dev(values, name, dtype=DTYPE):
-        return constant(values, like, dtype, key=None if key is None else key + (name,))
+        def dev(name, dtype=DTYPE):
+            values = band[name] if name in band else _recurrence_table(L, name)
+            return constant(values, like, dtype)
 
-    Aj, Bj, mantj, muj = dev(A, "A"), dev(B, "B"), dev(mant, "mant"), dev(mu, "mu")[None, :]
-    k0j = dev(k0, "k0", torch.int32)
-    eye = dev(np.eye(L, dtype=bool), "eye", torch.bool)
+    Aj, Bj, mantj, muj = dev("A"), dev("B"), dev("mant"), dev("mu")[None, :]
+    k0j = dev("k0", torch.int32)
+    eye = dev("eye", torch.bool)
     if compensated:
-        Alj, Blj = dev(lo[0], "A_lo"), dev(lo[1], "B_lo")
-        mantlj, mujl = dev(mant_lo, "mant_lo"), dev(mu_lo, "mu_lo")[None, :]
+        Alj, Blj = dev("A_lo"), dev("B_lo")
+        mantlj, mujl = dev("mant_lo"), dev("mu_lo")[None, :]
 
     def renorm(k, planes):
         # exact power-of-two renorms: up for headroom while tiny, down as the
@@ -694,10 +738,9 @@ def _legendre_scan(L: int, accumulate, acc0, xs_extra, lat=None, compensated=Fal
     for l in range(L):
         sm = eye[l][:, None]
         if compensated:
-            ch, cl = _dw_mul(Aj[l][:, None], Alj[l][:, None], muj, mujl)
-            t1h, t1l = _dw_mul(ch, cl, p1, p1l)
-            t2h, t2l = _dw_mul(Bj[l][:, None], Blj[l][:, None], p2, p2l)
-            p, plo = _dw_add(t1h, t1l, -t2h, -t2l)
+            p, plo = torch.ops.mixed_radix_sht.dw_step(
+                Aj[l][:, None], Alj[l][:, None], muj, mujl, p1, p1l,
+                Bj[l][:, None], Blj[l][:, None], p2, p2l)
             p = torch.where(sm, mantj[l][None, :], p)
             plo = torch.where(sm, mantlj[l][None, :], plo)
             k = torch.where(sm, k0j[l][None, :], k)
@@ -724,6 +767,13 @@ def _from_planes_last(y: Tensor) -> Tensor:
     return torch.complex(y[..., :n], y[..., n:])
 
 
+def _rec_weights(L: int) -> np.ndarray:
+    """The Gauss weights times the longitude step, fp32: the analysis
+    quadrature of the recurrence."""
+    _, w, _ = _gauss_grid(L)
+    return (w * (2.0 * math.pi / (2 * L))).astype(np.float32)
+
+
 def sht_recurrence(f, *, compensated: bool = False,
                    config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     """Spherical harmonic analysis through the Legendre recurrence: O(L²)
@@ -735,9 +785,7 @@ def sht_recurrence(f, *, compensated: bool = False,
     if f.ndim < 2 or f.shape[-2] < 1 or f.shape[-1] != 2 * f.shape[-2]:
         raise ValueError("f must be (…, L, 2L) on the sht_grid")
     L = f.shape[-2]
-    _, w, _ = _gauss_grid(L)
-    dphi = 2.0 * math.pi / (2 * L)
-    wj = constant((w * dphi).astype(np.float32), f, key=("sht_rec_weights", L))
+    wj = host_table("sht_rec_weights", _rec_weights, L, like=f)
     hermitian = not f.is_complex()
     if hermitian:
         Fw = rfft(f.to(DTYPE), config=config)[..., :L] * wj[:, None]  # (…, i, m)
@@ -816,7 +864,7 @@ def isht_recurrence(alm, *, real_output: bool = False, compensated: bool = False
     else:
         half = torch.flip(alm[..., L:, :], (-2,))
         z = alm.new_zeros(alm.shape[:-2] + (1, L))
-        sign = constant(_neg_signs(L), alm, key=("sht_neg_signs", L))
+        sign = host_table("sht_neg_signs", _neg_signs, L, like=alm)
         srcs = torch.stack([apos, torch.cat([z, half], dim=-2) * sign[:, None]])
     g = _rec_synth_core(srcs, L, config, compensated=compensated)
     gpos = g[0]

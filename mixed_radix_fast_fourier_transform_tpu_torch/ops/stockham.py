@@ -14,7 +14,11 @@ and a rounded output, as XLA's ``preferred_element_type`` does.
 
 Each product runs at the plan's precision for its stage (see
 ``SpectralConfig.precision``): "highest" in IEEE fp32, "high"/"default" in
-TF32 on a CUDA tensor, "split6" as :func:`_einsum_split6`.  The stage forms
+TF32 on a CUDA tensor, "split6" as :func:`_einsum_split6`.  Under
+``torch.compile`` and ``torch.export`` a product carries its precision as
+an operator node (``utils.numerics.product``), so every precision and
+working dtype compiles at the caller's flags; the fp32 "highest" products
+stay plain matmuls.  The stage forms
 and their crossover mirror the JAX package so that outputs compare stage
 for stage; which forms suit the GPU is for a measurement to decide.
 
@@ -25,6 +29,7 @@ pipeline.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Tuple
 
@@ -40,7 +45,7 @@ from ..plan import (
     get_plan,
 )
 from ..utils.metrics import tracing
-from ..utils.numerics import check_compilable, cmul, matmul_precision
+from ..utils.numerics import cmul, matmul_precision, product
 from .cuda_fft import maybe_exec_kernel
 
 Tensor = torch.Tensor
@@ -84,7 +89,9 @@ def _einsum_split6(axis: int, x: Tensor, w: Tensor) -> Tensor:
     product runs in IEEE fp32 (TF32 off): both tensor-core forms of it (TF32
     products of the chunks; bf16 chunks with an fp32 output) summed the
     6K-deep product less exactly and missed split6's 5e-6 bound (PERF.md §6,
-    ``tools/tune.py split6``)."""
+    ``tools/tune.py split6``).  Under a trace the product is the operator
+    node of ``utils.numerics.product`` at "highest" whatever the caller's
+    flags (``carried``)."""
     if x.dtype != torch.float32 or w.dtype != torch.float32:
         raise ValueError(
             f"precision 'split6' needs fp32 planes, got dtype {x.dtype}: its "
@@ -95,8 +102,7 @@ def _einsum_split6(axis: int, x: Tensor, w: Tensor) -> Tensor:
     ws = torch.cat([w1, w2, w1, w3, w2, w1], dim=0)
     if axis == -2:   # z[..., m, k] = Σ_n W[n, m] x[..., n, k]
         xs, ws = ws.transpose(0, 1), xs
-    with matmul_precision("highest", torch.float32):
-        return torch.matmul(xs.float(), ws.float())
+    return product(xs.float(), ws.float(), "highest", carried=True)
 
 
 def _dot(axis: int, x: Tensor, w: Tensor, precision: str) -> Tensor:
@@ -104,8 +110,9 @@ def _dot(axis: int, x: Tensor, w: Tensor, precision: str) -> Tensor:
     :func:`_dft_apply`)."""
     if precision == "split6":
         return _einsum_split6(axis, x, w)
-    with matmul_precision(precision, x.dtype):
-        return torch.matmul(x, w) if axis == -1 else torch.matmul(w.transpose(0, 1), x)
+    if axis == -1:
+        return product(x, w, precision)
+    return product(w.transpose(0, 1), x, precision)
 
 
 def _dft_apply(
@@ -292,13 +299,13 @@ def _flags(plan):
     """The one precision block of a transform of ``plan``: torch's flags set
     once for all its products, at its first stage's precision ("highest"
     for split6, whose products run in IEEE fp32); a stage at another
-    precision sets its own.  Under torch.compile the config's whole setting
-    is checked instead (:func:`check_compilable`: "highest" only)."""
+    precision sets its own.  Under torch.compile no block: each product
+    carries its own precision or is checked (``utils.numerics.product``)."""
+    if tracing():
+        return contextlib.nullcontext()
     # Bluestein and Rader run at their inner plan's precision (isinstance,
     # not getattr with a default: dynamo cannot guard a hasattr on a plan)
     prec = (plan.inner if isinstance(plan, (BluesteinPlan, RaderPlan)) else plan).precision
-    if tracing():
-        check_compilable(prec, plan.dtype)
     prec = prec[0] if isinstance(prec, tuple) else prec
     return matmul_precision("highest" if prec == "split6" else prec, plan.dtype)
 

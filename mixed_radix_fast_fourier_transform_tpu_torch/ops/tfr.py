@@ -290,7 +290,9 @@ def ssq_cwt(
 ):
     """Synchrosqueezed continuous wavelet transform: (…, T) ->
     ``(S, freqs)`` with S complex (…, n_freqs, T) and ``freqs`` the
-    log-spaced bin centers in cycles/sample (host numpy).
+    log-spaced bin centers in cycles/sample (host numpy, float64; under
+    ``torch.compile`` the same values, a view of a table the library keeps:
+    read it, do not write it).
 
     The Morlet CWT and its exact time derivative are computed in the
     frequency domain (one batched engine FFT + 2·n_scales ifft rows); the
@@ -335,8 +337,24 @@ def ssq_cwt(
     idx = torch.round((pos - log_fmin) / dlf)
     in_range = (idx >= 0) & (idx <= n_freqs - 1) & alive & (omega > 0)
     idx = torch.clamp(idx, 0, n_freqs - 1)
-    fbins = np.exp(np.linspace(np.log(fmin), np.log(fmax), n_freqs))
-    return _squeeze(Wt, idx, in_range, n_freqs, -2), fbins
+    return _squeeze(Wt, idx, in_range, n_freqs, -2), _bin_centres(float(fmin), float(fmax), n_freqs)
+
+
+def _log_bins(fmin: float, fmax: float, n_freqs: int) -> np.ndarray:
+    """The squeeze's log-spaced bin centers in cycles/sample (host fp64)."""
+    return np.exp(np.linspace(np.log(fmin), np.log(fmax), n_freqs))
+
+
+def _bin_centres(fmin: float, fmax: float, n_freqs: int) -> np.ndarray:
+    """:func:`_log_bins` as a new host array.  While dynamo traces, the
+    kept host table of the same values on the CPU, which the graph hands
+    back as it is: built in the graph, the array would need a kernel for
+    the host (which Inductor could not build on every machine) and would
+    round otherwise than numpy's."""
+    if torch.compiler.is_dynamo_compiling():
+        return host_table("tfr.ssq_cwt_bins", _log_bins, fmin, fmax, n_freqs,
+                          like=torch.device("cpu"), dtype=torch.float64).numpy()
+    return _log_bins(fmin, fmax, n_freqs)
 
 
 def _window_derivative(w: np.ndarray) -> np.ndarray:

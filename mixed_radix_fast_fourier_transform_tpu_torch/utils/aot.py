@@ -14,12 +14,15 @@ pipeline (any composition of this library's ops) can be
   no plan cache or factorization is left in the serving path.
 
 An export takes the route the config and the device take live.  On the
-stage pipeline (a CPU tensor by default, or ``use_kernel=False``) the
-program is aten ops alone and reloads without this library.  At a length
-the fused kernel takes on the card (or with ``use_kernel=True``) the graph
-holds the kernel's operator, ``mixed_radix_fft::stockham_fft``, which must
+stage pipeline (a CPU tensor by default, or ``use_kernel=False``) at fp32
+"highest" the program is aten ops alone and reloads without this library.
+At a length the fused kernel takes on the card (or with
+``use_kernel=True``) the graph holds the kernel's operator,
+``mixed_radix_fft::stockham_fft``, and at another precision or on 2-byte
+planes the products' operator ``mixed_radix_precision::matmul``; each must
 be registered where it reloads: :func:`load_transform` imports
-``ops/cuda_fft.py``, which needs no card to import.
+``ops/cuda_fft.py`` (and with it the package), which needs no card to
+import.
 """
 
 from __future__ import annotations
@@ -54,13 +57,19 @@ class _Prepared:
             raise ValueError(
                 f"aot_compile compiles {name} whole "
                 f"(torch.compile, fullgraph=True), and it does not trace: the "
-                f"port's compiled path covers fft, ifft, rfft, irfft, fft_convolve, "
-                f"sht, isht, sphere_grad, melspectrogram, pcen, linear_recurrence, "
+                f"port's compiled path covers fft, ifft, rfft, irfft, fft_convolve "
+                f"and the engine under them at every SpectralConfig.precision and "
+                f"working dtype, convolve and correlate (direct too), sht, isht, "
+                f"sphere_grad, sht_recurrence and isht_recurrence (compensated too), "
+                f"melspectrogram, pcen, linear_recurrence, "
                 f"lfilter, sosfilt, filtfilt, sosfiltfilt, pfb_analysis, radon, iradon, "
                 f"multitaper, griffinlim (seed=), wigner_ville, ssq_cwt, ssq_stft, "
                 f"reassigned_spectrogram, stockwell, dwt, idwt, cqt, icqt, "
                 f"and the spectral filter, FNO, S4D, FNet, AFNO, SFNO, PCEN front "
-                f"end and Koopman models so far (ROADMAP.md lists the rest). "
+                f"end and Koopman models so far, the ops other than the engine and "
+                f"the convolutions at precision 'highest' only; a host array made "
+                f"inside the function (np.linspace as theta, a design as sos or h) "
+                f"must be made outside it (ROADMAP.md lists the rest). "
                 f"{str(e).splitlines()[0]}") from e
         if on_card:
             stream = torch.cuda.Stream()
@@ -94,7 +103,9 @@ def aot_compile(fn: Callable, *example_args: Any, **fn_kwargs):
     fullgraph=True, dynamic=False)`` (Inductor; ``aot_eager`` for CPU
     tensors) called once now, which builds every plan, device table and the
     kernel library it needs while it traces, and on the card a second call
-    captured in a CUDA graph; a ``fn`` that does not trace whole raises
+    captured in a CUDA graph (with the products of a precision other than
+    "highest", which set their own flags inside the graph: TF32 runs where
+    the config asks for it); a ``fn`` that does not trace whole raises
     ValueError.  Returns a callable for arguments of those shapes, dtypes and devices
     (``fn_kwargs`` are passed on every call).  The JAX executable's
     ``.cost_analysis()`` and ``.memory_analysis()`` have no counterpart."""

@@ -3,7 +3,10 @@
 Counterpart of ``mixed_radix_fast_fourier_transform_tpu/utils/numerics.py``:
 the plane helpers (the engine works on separate contiguous fp32 (re, im)
 planes) and the error-free transforms that the NUFFT's phase reduction and
-the compensated SHT recurrence build on.
+the compensated SHT recurrence build on; with the port's own device-table
+cache, the precision blocks that set torch's matmul flags, and the
+operators that carry a product's or a convolution's precision into a
+compiled graph.
 """
 
 from __future__ import annotations
@@ -87,19 +90,21 @@ def constant(values, like: Tensor, dtype=DTYPE, *, key: Optional[Hashable] = Non
     return _kept(values, key, device, dtype)
 
 
-def host_table(name: str, build: Callable, *args: Hashable, like: Tensor,
+def host_table(name: str, build: Callable, *args: Hashable, like,
                dtype=DTYPE) -> Tensor:
     """:func:`constant` of the host table ``build(*args)``, kept under the
-    key ``(name, *args)``: ``build`` is a module-level function and
-    ``args`` are hashable values (lengths, names, keys), so the table is
-    named by them alone.  While dynamo traces, the lookup and the build on
-    a miss both run on the host: the table is kept as an eager call keeps
-    it, the graph holds the kept tensor, and no host work is traced into
-    it, nor is the table copied or uploaded per call."""
+    key ``(name, *args)`` on the device of ``like`` (a tensor, or a
+    ``torch.device``): ``build`` is a module-level function and ``args``
+    are hashable values (lengths, names, keys), so the table is named by
+    them alone.  While dynamo traces, the lookup and the build on a miss
+    both run on the host: the table is kept as an eager call keeps it, the
+    graph holds the kept tensor, and no host work is traced into it, nor is
+    the table copied or uploaded per call."""
     key = (name,) + args
+    device = like if isinstance(like, torch.device) else like.device
     if torch.compiler.is_dynamo_compiling():
-        return _on_host(build, args, key, like.device, dtype)[0]
-    return _kept(lambda: build(*args), key, like.device, dtype)
+        return _on_host(build, args, key, device, dtype)[0]
+    return _kept(lambda: build(*args), key, device, dtype)
 
 
 @torch.compiler.assume_constant_result
@@ -327,7 +332,12 @@ def matmul_precision(precision: str = "highest", dtype: Optional[torch.dtype] = 
     Under ``torch.compile`` or ``torch.export`` no flag is written (a traced
     region cannot change them, and the compiled graph runs at the flags of
     its caller): the block checks that the caller's flags already give
-    ``precision`` (:func:`check_compilable`) and is otherwise empty."""
+    ``precision`` (:func:`check_compilable`: "highest" only) and is
+    otherwise empty.  A product that must compile at another precision or
+    on 2-byte operands goes through :func:`product` or :func:`convolution`
+    instead, which carry their precision into the graph (the stage
+    products of the engine, the direct convolution and ``dwt``'s filter
+    banks do)."""
     if precision not in PRECISIONS:
         raise ValueError(
             f"precision must be 'highest', 'high' or 'default', got {precision!r}"
@@ -348,16 +358,27 @@ def check_compilable(precision, dtype: Optional[torch.dtype] = None) -> bool:
     ``torch.get_float32_matmul_precision()`` "highest", torch's defaults)
     and, for ``dtype`` bf16 or fp16, its reduced-precision reductions off
     too (a site that may see 2-byte operands passes their dtype; None is
-    taken as fp32, the port's working dtype).  The other precisions wait for
-    a later slice.  Runs on the host while dynamo traces
-    (``assume_constant_result``), never in the graph; under
-    torch.compile torch reports the ValueError in its own
+    taken as fp32, the port's working dtype).
+
+    It holds every :func:`matmul_precision` block that a trace enters, and
+    the fp32 and float64 "highest" products of :func:`product`.  What
+    compiles at every precision and 2-byte dtype, at any caller flags, is
+    what carries its precision as an operator node: the engine's stage
+    products (``exec_complex``, ``exec_mixed_radix``, Bluestein and Rader,
+    so ``fft``/``ifft``/``rfft``/``irfft``, ``fft_convolve`` and the
+    spectral filter over them) through :func:`product`, and the direct
+    convolution and ``dwt`` through :func:`convolution`.  The other sites
+    refuse any precision but "highest" (ROADMAP lists them).  Runs on the
+    host while dynamo traces (``assume_constant_result``), never in the
+    graph; under torch.compile torch reports the ValueError in its own
     ``InternalTorchDynamoError``, whose message begins "ValueError:"."""
     if precision != "highest":
         raise ValueError(
-            f"SpectralConfig.precision={precision!r} cannot be compiled yet: a "
-            f"compiled graph runs at the caller's matmul flags, so only "
-            f"'highest' (TF32 off) is supported under torch.compile and torch.export")
+            f"SpectralConfig.precision={precision!r} cannot be compiled at this "
+            f"site yet: a compiled graph runs at the caller's matmul flags, so only "
+            f"'highest' (TF32 off) is supported here under torch.compile and "
+            f"torch.export (the stage pipeline and the convolutions carry every "
+            f"precision)")
     mm = torch.backends.cuda.matmul
     if mm.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
         raise ValueError(
@@ -366,7 +387,7 @@ def check_compilable(precision, dtype: Optional[torch.dtype] = None) -> bool:
             "(torch.backends.cuda.matmul.allow_tf32 or "
             "torch.set_float32_matmul_precision); a compiled graph cannot change "
             "them: turn TF32 off before compiling")
-    if dtype in (torch.bfloat16, torch.float16) and (
+    if dtype in TWO_BYTE and (
             mm.allow_bf16_reduced_precision_reduction
             or mm.allow_fp16_reduced_precision_reduction):
         raise ValueError(
@@ -376,6 +397,137 @@ def check_compilable(precision, dtype: Optional[torch.dtype] = None) -> bool:
             f"/ allow_fp16_reduced_precision_reduction); a compiled graph cannot "
             f"change them: turn them off before compiling")
     return True
+
+
+TWO_BYTE = (torch.bfloat16, torch.float16)
+
+
+def product(a: Tensor, b: Tensor, precision: str = "highest", *,
+            carried: bool = False) -> Tensor:
+    """``torch.matmul(a, b)`` at ``precision`` (see :func:`matmul_precision`).
+
+    Eagerly the product runs inside a :func:`matmul_precision` block for
+    ``a``'s dtype (nested in a transform's own block, it writes no flag).
+    Under ``torch.compile`` or ``torch.export`` it is the operator node
+    ``mixed_radix_precision::matmul``, which sets torch's flags around its
+    product when the graph runs, as ``jax.lax.Precision`` rides a jitted
+    JAX product: for every precision but "highest", for 2-byte operands at
+    any precision, and for any product with ``carried`` (split6's chunk
+    product, IEEE fp32 whatever the caller's flags).  An fp32 or float64
+    "highest" product stays a plain ``torch.matmul`` in the graph, held by
+    :func:`check_compilable`.  Its gradient is plain products at the
+    caller's flags, as eager's backward runs."""
+    if tracing() and (carried or precision != "highest" or a.dtype in TWO_BYTE):
+        if a.ndim == 1:
+            return torch.ops.mixed_radix_precision.matmul(a[None], b, precision)[0]
+        return torch.ops.mixed_radix_precision.matmul(a, b, precision)
+    with matmul_precision(precision, a.dtype):
+        return torch.matmul(a, b)
+
+
+def _convolve(x: Tensor, w: Tensor, stride, padding, dilation, groups: int) -> Tensor:
+    """``F.conv1d``, ``conv2d`` or ``conv3d`` by ``w``'s rank, looked up at
+    the call."""
+    conv = getattr(torch.nn.functional, f"conv{w.ndim - 2}d")
+    return conv(x, w, stride=stride, padding=padding, dilation=dilation, groups=groups)
+
+
+def convolution(x: Tensor, w: Tensor, *, stride=1, padding=0, dilation=1, groups: int = 1,
+                precision: str = "highest") -> Tensor:
+    """``F.conv1d``/``conv2d``/``conv3d`` (by ``w``'s rank) of ``x`` with
+    ``w`` at ``precision``: eagerly inside a :func:`matmul_precision` block;
+    under ``torch.compile`` or ``torch.export`` always the operator node
+    ``mixed_radix_precision::convolution``, which sets cuDNN's TF32 flag
+    around the convolution when the graph runs (torch turns that flag on by
+    default, so a plain convolution in a graph would run in TF32 on a
+    card even at "highest").  ``stride``, ``padding`` and ``dilation`` are
+    ints or one per spatial axis.  Its gradient is plain convolutions at
+    the caller's flags."""
+    nd = w.ndim - 2
+    stride, padding, dilation = (
+        [int(v)] * nd if isinstance(v, int) else [int(u) for u in v]
+        for v in (stride, padding, dilation))
+    if tracing():
+        return torch.ops.mixed_radix_precision.convolution(
+            x, w, stride, padding, dilation, groups, precision)
+    with matmul_precision(precision, x.dtype):
+        return _convolve(x, w, stride, padding, dilation, groups)
+
+
+# The products that carry their precision are operators (``torch.library``,
+# as the fused kernel's is): a graph that dynamo or ``torch.export``
+# captures holds each as one opaque node, whose implementation runs the
+# product inside the eager flag block when the graph runs, writing only the
+# flags that differ and restoring them on leaving, also when it raises.
+# One implementation serves the CPU and the card (torch's CPU products
+# ignore the flags).
+_LIB = torch.library.Library("mixed_radix_precision", "DEF")
+_LIB.define("matmul(Tensor a, Tensor b, str precision) -> Tensor")
+_LIB.define("convolution(Tensor x, Tensor w, int[] stride, int[] padding, int[] dilation, "
+            "int groups, str precision) -> Tensor")
+
+
+def _check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(
+            f"precision must be 'highest', 'high' or 'default', got {precision!r}")
+
+
+def _matmul_at(a: Tensor, b: Tensor, precision: str) -> Tensor:
+    _check_precision(precision)
+    if a.ndim < 2 or b.ndim < 2:
+        raise ValueError(f"the operator multiplies matrices (rank >= 2), got ranks "
+                         f"{a.ndim} and {b.ndim}")
+    with _Flags(precision, a.dtype):
+        return torch.matmul(a, b)
+
+
+def _convolution_at(x: Tensor, w: Tensor, stride, padding, dilation, groups: int,
+                    precision: str) -> Tensor:
+    _check_precision(precision)
+    with _Flags(precision, x.dtype):
+        return _convolve(x, w, stride, padding, dilation, groups)
+
+
+def _matmul_fake(a: Tensor, b: Tensor, precision: str) -> Tensor:
+    return torch.matmul(a, b)
+
+
+def _convolution_fake(x: Tensor, w: Tensor, stride, padding, dilation, groups: int,
+                      precision: str) -> Tensor:
+    return _convolve(x, w, stride, padding, dilation, groups)
+
+
+def _save_operands(ctx, inputs, output) -> None:
+    ctx.save_for_backward(inputs[0], inputs[1])
+    ctx.args = inputs[2:-1]
+
+
+def _matmul_backward(ctx, g: Tensor):
+    a, b = ctx.saved_tensors
+    ga = torch.matmul(g, b.mT).sum_to_size(a.shape) if ctx.needs_input_grad[0] else None
+    gb = torch.matmul(a.mT, g).sum_to_size(b.shape) if ctx.needs_input_grad[1] else None
+    return ga, gb, None
+
+
+def _convolution_backward(ctx, g: Tensor):
+    x, w = ctx.saved_tensors
+    stride, padding, dilation, groups = ctx.args
+    need = ctx.needs_input_grad
+    gx, gw, _ = torch.ops.aten.convolution_backward(
+        g, x, w, None, stride, padding, dilation, False, [0] * (w.ndim - 2), groups,
+        [need[0], need[1], False])
+    return gx, gw, None, None, None, None, None
+
+
+for _name, _impl, _fake, _backward in (
+        ("matmul", _matmul_at, _matmul_fake, _matmul_backward),
+        ("convolution", _convolution_at, _convolution_fake, _convolution_backward)):
+    _LIB.impl(_name, _impl, "CPU")
+    _LIB.impl(_name, _impl, "CUDA")
+    torch.library.register_fake(f"mixed_radix_precision::{_name}", _fake, lib=_LIB)
+    torch.library.register_autograd(f"mixed_radix_precision::{_name}", _backward,
+                                    setup_context=_save_operands, lib=_LIB)
 
 
 class _Flags:

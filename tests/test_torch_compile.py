@@ -255,12 +255,22 @@ def test_aot_compile_compiles_a_jax_jitted_op():
 
 
 def test_aot_compile_names_the_slice_for_an_op_that_does_not_trace():
-    """The direct convolution does not trace whole yet: ``aot_compile``
-    raises a ValueError that says what the compiled path covers."""
+    """``fht`` does not trace whole yet (it reads a traced value on the
+    host): ``aot_compile`` raises a ValueError that says what the compiled
+    path covers."""
+    a = torch.from_numpy(np.random.default_rng(4).standard_normal(64).astype(np.float32))
+    with pytest.raises(ValueError, match="compiled path covers fft, ifft, rfft"):
+        aot.aot_compile(lambda u: tp.fht(u, 0.1, mu=0.0), a)
+
+
+def test_aot_compile_compiles_the_direct_convolution():
+    """The direct convolution traces whole since its axis order is inverted
+    in Python: ``aot_compile`` compiles it, and its calls match the eager
+    op."""
     rng = np.random.default_rng(4)
     a, k = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in ((4, 200), (4, 31)))
-    with pytest.raises(ValueError, match="compiled path covers fft, ifft, rfft"):
-        aot.aot_compile(lambda u, v: tp.convolve(u, v, method="direct"), a, k)
+    fn = aot.aot_compile(lambda u, v: tp.convolve(u, v, method="direct"), a, k)
+    assert torch.equal(fn(a, k), tp.convolve(a, k, method="direct"))
 
 
 def test_error_free_transforms_stay_eager():
@@ -313,14 +323,38 @@ PRECISIONS_REFUSED = ["high", "default", "split6", ("highest", "high")]
 
 @pytest.mark.parametrize("precision", PRECISIONS_REFUSED, ids=str)
 def test_other_precisions_refuse_to_compile(precision):
-    """A precision whose products need other flags than the caller's stops
-    the trace with the port's ValueError naming the field (dynamo hands it
-    on inside its own exception, whose message begins "ValueError:")."""
+    """The precisions whose products need other flags than the caller's
+    (refused under a trace until their products carried their precision)
+    now compile on the main path at torch's default flags: ``fft`` through
+    Bluestein (n = 1009) and its inner stage pipeline, whose products are
+    operator nodes that set their own flags, one graph, the eager values."""
     config = tp.SpectralConfig(precision=precision, use_kernel=False)
     x = torch.randn(2, 1009, dtype=torch.complex64, generator=torch.Generator().manual_seed(0))
-    with pytest.raises(Exception, match=r"ValueError: SpectralConfig\.precision") as info:
-        compiled(lambda v: tp.fft(v, config=config))(x)
-    assert isinstance(info.value, (ValueError, torch._dynamo.exc.TorchDynamoException))
+    counters = torch._dynamo.utils.counters
+    counters.clear()
+    got = compiled(lambda v: tp.fft(v, config=config))(x)
+    assert sum(counters["graph_break"].values()) == 0
+    assert counters["stats"]["unique_graphs"] == 1
+    assert _rel(got.numpy(), tp.fft(x, config=config).numpy()) <= EAGER_TOL
+
+
+@pytest.mark.parametrize("op", ["sht", "nufft1"])
+def test_a_site_without_the_operator_still_refuses(op):
+    """A product outside the engine and the convolutions (the SHT's Legendre
+    products, the dense NUFFT's) still runs in a plain precision block: under
+    a trace a precision other than "highest" stops it with the port's
+    ValueError naming the field and the site."""
+    config = tp.SpectralConfig(precision="high")
+    g = torch.Generator().manual_seed(7)
+    if op == "sht":
+        args, fn = (torch.randn(2, 8, 16, generator=g),), (lambda f: tp.sht(f, config=config))
+    else:
+        args = (torch.rand(32, generator=g) * 6.0, torch.randn(32, dtype=torch.complex64,
+                                                               generator=g))
+        fn = lambda x, c: tp.nufft1(x, c, 16, config=config)  # noqa: E731
+    with pytest.raises(Exception, match=r"ValueError: SpectralConfig\.precision='high' cannot be "
+                                        r"compiled at this site"):
+        compiled(fn)(*args)
 
 
 def test_flags_are_checked_not_written_while_tracing(monkeypatch):
