@@ -189,8 +189,9 @@ Phases, each of which raises on failure:
     launch);
 27. the nine example programs (``examples/``), each ``main`` on the card at
     the JAX example's own sizes with its asserts (``pde_spectral``'s two time
-    steps and ``sphere_advection``'s RK4 step compiled, their default on a
-    card, as the JAX examples jit them), then ``mri_recon`` at 256²
+    steps and ``sphere_advection``'s RK4 step eagerly in the whole run, and
+    compiled, their default on a card, as the JAX examples jit them, in
+    ``python3 chip_smoke.py examples``), then ``mri_recon`` at 256²
     with 402 spokes of 512 points and the advection at lmax 255 eagerly (160 RK4
     steps, its error against the exact rotation bounded): per run the
     kernel's launches, the kernel against its plain version on the first
@@ -222,9 +223,9 @@ Phases, each of which raises on failure:
     parameters at the family's eager tolerance, the AFNO's in the 2-norm),
     compile seconds, device and back-to-back times and idle share; the SFNO's
     compile adds less device memory than its kept Legendre tables.  Depths
-    are cut to COMPILED_DEPTH in the whole run, and there the steps compile
-    with ``aot_eager``; ``python3 chip_smoke.py compile`` runs the published
-    depths, every step with Inductor, and the front end's compiled loss
+    are cut to COMPILED_DEPTH in the whole run, and there the forwards and
+    steps compile with ``aot_eager``; ``python3 chip_smoke.py compile`` runs
+    the published depths, all with Inductor, and the front end's compiled loss
     with an input gradient (K1 twice);
 31. the ops that the JAX package's tests jit, compiled whole at their eager
     phases' shapes (``sosfilt``/``sosfiltfilt``/``lfilter``/``filtfilt``,
@@ -253,7 +254,8 @@ Phases, each of which raises on failure:
 ``python3 chip_smoke.py precision`` runs phases 1, 2 and 4b alone,
 ``python3 chip_smoke.py audio`` phases 1, 2 and 15-17,
 ``python3 chip_smoke.py recurrence`` phases 1, 2 and 18-20,
-``python3 chip_smoke.py sphere`` phases 1, 2, 21 and 22, and
+``python3 chip_smoke.py sphere`` phases 1, 2, 21 and 22 (with the
+recurrence's timing row at L = 2048), and
 ``python3 chip_smoke.py frontend`` phases 1, 2, 23 and 24, and
 ``python3 chip_smoke.py parallel`` phases 1, 2, 25 and 26,
 ``python3 chip_smoke.py examples`` phases 1, 2 and 27, and
@@ -3015,11 +3017,13 @@ def sht_orders(rng, L: int) -> np.ndarray:
     return np.unique(np.concatenate([[0, 1, L - 1], rng.choice(L, SHT_ORDERS - 3, replace=False)]))
 
 
-def sht_sfno(rng, card: str):
+def sht_sfno(rng, card: str, full: bool = False):
     """Phase 22: ``sht``/``isht`` at L = 256 (batch 16, real and complex),
     the recurrence pair at L = 512 (plain and compensated) against fields
     synthesized in float64 with scipy's spherical harmonics, the recurrence
-    timed at L = 2048; then the SFNO at the shallow-water configuration:
+    finite at L = 2048 and, with ``full`` (``python3 chip_smoke.py sphere``),
+    timed there (the profiler's events of its 65,564 kernels a call do not
+    fit the whole run's time limit); then the SFNO at the shallow-water configuration:
     forward from numpy input against the stage pipeline, one layer's spectral
     mix against float64, three train steps (the first with the kernel held
     against its plain version on every plane pair, its loss and gradients
@@ -3077,8 +3081,9 @@ def sht_sfno(rng, card: str):
         fl = cuda32(rng.standard_normal((1, L, 2 * L)))
         got = tp.sht_recurrence(fl)
         require(bool(torch.isfinite(got).all()), f"sht_recurrence at L={L} is not finite")
-        rows.append(timing_row(f"sht_recurrence plain L={L} batch 1",
-                               lambda: tp.sht_recurrence(fl), 1))
+        if full:
+            rows.append(timing_row(f"sht_recurrence plain L={L} batch 1",
+                                   lambda: tp.sht_recurrence(fl), 1))
     del ft, fl, got
     worst.append(kernel_errors(ops.seen, "recurrence planes"))
     ops.seen.clear()
@@ -4347,9 +4352,11 @@ EXAMPLE_RUNS = (
 # reads beside its compiled run instead of running it again
 FNO_EAGER: dict = {}
 # the examples whose steps compile by default on a card, as the JAX examples
-# jit them; the advection at lmax 255 runs eagerly, so that its row stays
-# comparable with earlier runs' (a compile of its step took 62-108 s on the
-# card, which the run's time limit does not leave)
+# jit them: compiled in ``python3 chip_smoke.py examples``, eagerly in the
+# whole run, whose time limit their Inductor compiles do not leave room
+# for (49-78 s and 67-106 s of first run on the card, more on a busier
+# host); the advection at lmax 255 runs eagerly in both, so that its row
+# stays comparable with earlier runs' (a compile of its step took 62-108 s)
 COMPILED_EXAMPLES = ("pde_spectral", "sphere_advection")
 # fno_train's final evaluation loss against the predict-zero baseline (the
 # JAX example reads 1e-5 against 0.058 on a CPU)
@@ -4359,9 +4366,10 @@ FNO_TRAIN_GAIN = 0.1
 # (stage pipeline); five times that
 ADVECTION_255_TOL = 1e-5
 TUNE_BIG = (256, 1 << 20)        # the four-step's K1 shape at config 5 (phase 25)
-# the whole run times every third length of the sweep (85.6 s for all 399 in
-# a whole run before phase 32 took the time); ``tune`` times them all
-TUNE_STRIDE = 3
+# the whole run times every sixth length of the sweep (85.6 s for all 399 in
+# a whole run before phase 32 took the time, 39.7-47.4 s for every third);
+# ``tune`` times them all
+TUNE_STRIDE = 6
 
 
 def profiled_device_ms(fn) -> float:
@@ -4378,7 +4386,7 @@ def profiled_device_ms(fn) -> float:
                and not e.name().startswith("nccl:")) / 1e6
 
 
-def examples(rng, card: str):
+def examples(rng, card: str, full: bool = False):
     """Phase 27: every example's ``main`` on the card, its asserts the
     check; per run the kernel's launches (counted from 0 just before it), the
     kernel against its plain version on the first two and the latest plane
@@ -4393,12 +4401,15 @@ def examples(rng, card: str):
     loop); ``serving_export``
     exports and compiles in every run, as the JAX example lowers and
     compiles in every run: its traced calls hand no planes to note, its
-    eager ones (the live denoiser) do."""
+    eager ones (the live denoiser) do.  Without ``full`` (the whole run)
+    the COMPILED_EXAMPLES run eagerly."""
     import importlib
 
     del rng   # each example draws from its own seeds
     rows, total = [], 0
     for name, kw in EXAMPLE_RUNS:
+        if not full and name in COMPILED_EXAMPLES:
+            kw = {**kw, "compile": False}
         mod = importlib.import_module(f"mixed_radix_fast_fourier_transform_tpu_torch.examples.{name}")
         label = name + ("" if not kw else " " + " ".join(f"{k}={v}" for k, v in kw.items()))
         t0 = time.perf_counter()
@@ -4456,8 +4467,9 @@ def tune_phase(card: str, stride: int = TUNE_STRIDE) -> None:
     """Phase 28: ``tools/tune.py kernel all`` on the card at every
     ``stride``-th length the kernel takes (2^22 complex values a call,
     graph_time of 2 launches and 2 replays per route: 4 and 3 until phase 31
-    needed the time; every length until phase 32 did: ``python3
-    chip_smoke.py tune`` sweeps them all), every length's kernel against
+    needed the time; every length until phase 32 did, every third until a
+    slower host ran the whole run past its limit: ``python3 chip_smoke.py
+    tune`` sweeps them all), every length's kernel against
     float64 on 8 rows, then ``torch.fft.fft`` and the kernel at 256 x
     1,048,576 rows (4 and 3).  The sweep's lines are written to
     chiprun_out/tune_sweep.jsonl as well."""
@@ -4517,10 +4529,10 @@ FNO_COMPILE_STEPS = 20
 FNO_COMPILE_TOL = 1e-4
 
 
-def compiled(fn):
-    """``fn`` under ``torch.compile(fullgraph=True, dynamic=False)`` on the
-    default (Inductor) backend: the counterpart of ``jax.jit``."""
-    return torch.compile(fn, fullgraph=True, dynamic=False)
+def compiled(fn, backend: str = "inductor"):
+    """``fn`` under ``torch.compile(fullgraph=True, dynamic=False)`` on
+    ``backend`` (default Inductor): the counterpart of ``jax.jit``."""
+    return torch.compile(fn, backend=backend, fullgraph=True, dynamic=False)
 
 
 def first_call(name: str, fn, *args):
@@ -4798,9 +4810,9 @@ def counted(fn):
 
 def compiled_family(name, apply, loss_fn, step, params, x, target, forward_launches,
                     step_launches, err_of=rel_err, step_tol: float = ROUTES_TOL,
-                    tables=None, step_backend: str = "inductor"):
-    """One family under torch.compile (Inductor; the step's loss and update
-    with ``step_backend``) beside eager on the same
+                    tables=None, backend: str = "inductor"):
+    """One family under torch.compile (its forward and the step's loss and
+    update on ``backend``) beside eager on the same
     weights and inputs: zero graph breaks in the compiled forward and in the
     step's compiled loss and update (dynamo's counters over their first
     calls, from dynamo's caches emptied), the compiled forward with no
@@ -4817,7 +4829,7 @@ def compiled_family(name, apply, loss_fn, step, params, x, target, forward_launc
     torch._dynamo.reset()
     with torch.no_grad():
         want, eager_fwd = counted(lambda: apply(params, x))
-        fwd = compiled(apply)
+        fwd = compiled(apply, backend)
         before = torch.cuda.memory_allocated()
         out, fwd_s = first_call(f"{name} forward", fwd, params, x)
         del out
@@ -4836,7 +4848,7 @@ def compiled_family(name, apply, loss_fn, step, params, x, target, forward_launc
     require(err <= COMPILE_TOL, f"{name} compiled forward vs eager {err:.3e}")
     del got, want
 
-    comp_step = compile_sgd_step(loss_fn, backend=step_backend)
+    comp_step = compile_sgd_step(loss_fn, backend=backend)
     lr = 1e-3
     if step is None:
         step = functools.partial(sgd_step, loss_fn)
@@ -4888,11 +4900,11 @@ def compiled_families(rng, card: str, full: bool = False) -> int:
     are (the device memory a compile adds stays below their size).  With
     ``full`` (``python3 chip_smoke.py compile``) every family at its
     published depth and the front end's compiled loss with an input gradient
-    too (2 launches); without, the depths of COMPILED_DEPTH, no input
-    gradient and each train step's loss and update compiled with
-    ``aot_eager`` (the forwards with Inductor), to fit the whole run's time
-    limit: Inductor's compiles of the six steps read 165-190 s of the whole
-    run (PERF.md).  Rows are added to
+    too (2 launches), all with Inductor; without, the depths of
+    COMPILED_DEPTH, no input gradient and each forward and train step
+    compiled with ``aot_eager``, to fit the whole run's time limit:
+    Inductor's compiles of the six steps read 165-190 s of the whole run,
+    of the six forwards 95.4 s on a slower host (PERF.md).  Rows are added to
     chiprun_out/compile_path.json.  Returns the launches of the counted
     compiled calls."""
     gen = torch.Generator().manual_seed(SEED)
@@ -4904,7 +4916,7 @@ def compiled_families(rng, card: str, full: bool = False) -> int:
     def run(name, *args, **kw):
         nonlocal total
         got, launched = compiled_family(name, *args, **kw,
-                                        step_backend="inductor" if full else "aot_eager")
+                                        backend="inductor" if full else "aot_eager")
         rows.extend(got)
         total += launched
 
@@ -5010,6 +5022,30 @@ DWT_LOSS_SHAPE = (16, 480_000)
 # rows of each recorded plane pair held against the plain K1 (every row runs
 # the same schedule; the eager phases hold whole planes of these shapes)
 OPS_KERNEL_ROWS = 1024
+# the transforms of queue 1 at their eager phases' shapes: fht as phase 13
+# calls it, cwt_tc on phase 19's signal shape (TFR_SHAPE) and ladder
+# tc_scales(4096), specaugment on phase 17's Whisper log-mel (16 clips, 3001
+# frames, 80 bands), ewt as phase 24 runs it (EWT_SHAPE, EWT_BANDS)
+FHT_SHAPE, FHT_ARGS = (64, 4096), dict(dln=0.01, mu=1.0, offset=0.1, bias=0.3)
+SPECAUGMENT_SHAPE = (16, 3001, 80)
+# the type-3 NUFFT at phase 21's size: 2^20 points on [0, 2π) and 2^20
+# frequencies on [-1000, 1000), the fast path with static extents (2π about
+# 0: no negative coordinate, so no F7 phase error), whose inner type-1 grid
+# of 8,017 modes is K1's 16,384; NUFFT_SAMPLES outputs against the float64
+# direct sum, within phase 21's bound
+NUFFT3_S = 1000.0
+NUFFT3_EXTENTS = dict(x_extent=2.0 * math.pi, s_extent=NUFFT3_S)
+
+
+def cwt_tc64(x: np.ndarray, scales: np.ndarray, dt: float = 1.0, w0: float = 6.0) -> np.ndarray:
+    """Torrence & Compo's Morlet CWT in float64: the analytic windows
+    π^-1/4·√(2πs/dt)·H(ω)·e^(-(sω − w0)²/2) times the signal's spectrum,
+    inverted along time."""
+    w = 2.0 * np.pi * np.fft.fftfreq(x.shape[-1], dt)
+    pos = w[None, :] > 0
+    psi = (np.pi ** -0.25 * np.sqrt(2.0 * np.pi * scales[:, None] / dt) * pos
+           * np.exp(-0.5 * (scales[:, None] * w[None, :] - w0) ** 2 * pos))
+    return np.fft.ifft(np.fft.fft(x)[..., None, :] * psi, axis=-1)
 
 
 def compare(got, want, bins=None) -> float:
@@ -5034,8 +5070,9 @@ def compare(got, want, bins=None) -> float:
 
 
 def compiled_op(name: str, fn, args, args2, backend: str, bins=None, tol=COMPILE_OPS_TOL):
-    """One op of phase 31.  Eager on ``args`` (its K1 launches and output),
-    then ``fn`` under ``torch.compile(backend=backend, fullgraph=True,
+    """One op of phase 31.  Eager on ``args`` (its K1 launches and output;
+    a second eager call against the first, which differ where the op adds
+    by atomics on the card), then ``fn`` under ``torch.compile(backend=backend, fullgraph=True,
     dynamic=False)`` on the same tensors: compile seconds, graph breaks by
     dynamo's counters (0, in one graph), its K1 launches (the compiled
     graph's operator node: equal to eager's), against eager
@@ -5051,6 +5088,10 @@ def compiled_op(name: str, fn, args, args2, backend: str, bins=None, tol=COMPILE
     output, the compiled function and its counted launches."""
     with recorded_launches(keep=2) as seen:
         out_e, eager_launches = counted(lambda: fn(*args))
+    wrap = lambda o: o if isinstance(o, tuple) else (o,)  # noqa: E731
+    # eager against itself: an op that adds by atomics on the card (index_add,
+    # scatter_add) sums in another order on each call
+    rep = compare(wrap(fn(*args)), wrap(out_e), bins)
     counters = torch._dynamo.utils.counters
     counters.clear()
     comp = torch.compile(fn, backend=backend, fullgraph=True, dynamic=False)
@@ -5059,7 +5100,6 @@ def compiled_op(name: str, fn, args, args2, backend: str, bins=None, tol=COMPILE
     secs = time.perf_counter() - t0
     breaks = sum(counters["graph_break"].values())
     graphs = counters["stats"]["unique_graphs"]
-    wrap = lambda o: o if isinstance(o, tuple) else (o,)  # noqa: E731
     err = compare(wrap(out_c), wrap(out_e), bins)
     with torch.compiler.set_stance("fail_on_recompile"):
         out2 = comp(*args2)
@@ -5073,13 +5113,14 @@ def compiled_op(name: str, fn, args, args2, backend: str, bins=None, tol=COMPILE
     log(f"compiled op {name} ({backend}): compile {secs:.2f} s, {breaks} graph breaks, "
         f"{graphs} graph, K1 launches {launches} (eager {eager_launches}), rel err vs eager "
         f"{err:.3e}{' (bin sums)' if bins is not None else ''}, second call (no recompile) "
-        f"{err2:.3e}")
+        f"{err2:.3e}, eager vs eager {rep:.3e}")
     require(breaks == 0 and graphs == 1, f"{name}: {breaks} graph breaks, {graphs} graphs")
     require(launches == eager_launches, f"{name}: {launches} K1 launches, eager {eager_launches}")
     require(max(err, err2) <= tol, f"{name}: {err:.3e}, {err2:.3e} vs eager")
     row = {"call": name, "backend": backend, "compile_s": secs, "graph_breaks": breaks,
            "k1_launches": launches, "k1_launches_eager": eager_launches,
            "rel_err_vs_eager": err, "second_call_rel_err_vs_eager": err2,
+           "eager_repeat_rel_err": rep,
            "k1_vs_plain_abs_err": k1}
     return row, out_c, comp, launches
 
@@ -5105,7 +5146,12 @@ def compiled_ops(rng, card: str, inductor: bool = False) -> int:
     with 400 angles, ``multitaper``, ``griffinlim`` (the ``seed`` form), the
     TFR ops at 8 x 4096, a ``dwt`` loss and its gradient at 16 x 480,000
     (db4), ``cqt`` of 8 clips of 30 s and ``icqt`` with five Landweber
-    rounds.  Each through :func:`compiled_op` (backend ``aot_eager``: a
+    rounds; ``fht`` at phase 13's call, ``cwt_tc`` at 8 x 4096,
+    ``specaugment(seed=)`` on a 16 x 3001 x 80 log-mel (masks equal to
+    eager's), ``ewt`` with phase 24's boundaries at 16 x 65,536 (its bands
+    summing to the signal) and ``nufft3(method="fast")`` with static extents
+    at 2^20 points and frequencies, with its refusal without extents.  Each
+    through :func:`compiled_op` (backend ``aot_eager``: a
     full-graph capture with CUDA fake tensors and K1's node, seconds a
     call), against float64 where its eager phase checks float64; then one
     chain, ``ssq_stft(sosfilt(x))``, under Inductor.  With ``inductor``
@@ -5280,6 +5326,64 @@ def compiled_ops(rng, card: str, inductor: bool = False) -> int:
         (C,), (C2,))
     del C, C2, c64, c2
     torch.cuda.empty_cache()
+
+    # the transforms of queue 1, their host tables built on the host
+    t0 = time.perf_counter()
+    a64, a2 = (np.abs(rng.standard_normal(FHT_SHAPE)) for _ in range(2))
+    row, out = run(f"fht {FHT_SHAPE} mu=1 bias=0.3", lambda v: tp.fht(v, **FHT_ARGS),
+                   (cuda32(a64),), (cuda32(a2),))
+    check64(row, "fht", out, scipy.fft.fht(a64, **FHT_ARGS), ORACLE_TOL)
+    scales = tp.tc_scales(TFR_SHAPE[1])
+    xc64, xc2 = (rng.standard_normal(TFR_SHAPE) for _ in range(2))
+    row, W = run(f"cwt_tc {TFR_SHAPE}, {len(scales)} scales", lambda v: tp.cwt_tc(v, scales),
+                 (cuda32(xc64),), (cuda32(xc2),))
+    check64(row, "cwt_tc", W[sub], cwt_tc64(xc64[sub], scales), ORACLE_TOL)
+    del out, W
+    mel, mel2 = (cuda32(np.abs(rng.standard_normal(SPECAUGMENT_SHAPE))) for _ in range(2))
+    row, _ = run(f"specaugment seed= {SPECAUGMENT_SHAPE}",
+                 lambda v: tp.specaugment(v, seed=SEED, mask_value=-1.0), (mel,), (mel2,))
+    require(row["rel_err_vs_eager"] == 0 and row["second_call_rel_err_vs_eager"] == 0,
+            "compiled specaugment(seed=) masks other cells than eager's")
+    del mel, mel2
+    k = np.arange(EWT_SHAPE[1])
+    tones = sum(np.sin(2 * np.pi * f * k) for f in (0.02, 0.07, 0.15, 0.27, 0.41))
+    ex, ex2 = ((tones[None] + 0.05 * rng.standard_normal(EWT_SHAPE)).astype(np.float32)
+               for _ in range(2))
+    bounds = tp.ewt_boundaries(ex[0], EWT_BANDS)
+    row, bands = run(f"ewt {EWT_BANDS} bands {EWT_SHAPE}",
+                     lambda v: tp.ewt(v, boundaries=bounds)[0], (cuda32(ex),), (cuda32(ex2),))
+    X = np.fft.rfft(ex[:2].astype(np.float64))
+    bank64 = tp.ops.ewt._partition_bank(X.shape[-1], bounds, 0.2, EWT_SHAPE[1])
+    check64(row, "ewt", bands[:2], np.fft.irfft(X[:, None, :] * bank64, n=EWT_SHAPE[1]),
+            ORACLE_TOL)
+    row["bands_sum_rel_err"] = rel_err(bands.sum(-2).cpu().numpy(), ex)
+    log(f"compiled op ewt: the bands sum to the signal, rel err {row['bands_sum_rel_err']:.3e}")
+    require(row["bands_sum_rel_err"] <= ORACLE_TOL, "compiled ewt: the bands' sum")
+    del bands, X, bank64
+    nufft3_args = [(cuda32(rng.uniform(0.0, 2 * np.pi, NUFFT_POINTS)),
+                    cuda_complex(complex64(rng, NUFFT_POINTS)),
+                    cuda32(rng.uniform(-NUFFT3_S, NUFFT3_S, NUFFT_POINTS))) for _ in range(2)]
+    row, f = run(f"nufft3 fast {NUFFT_POINTS:,} points, {NUFFT_POINTS:,} frequencies",
+                 lambda x, c, s: tp.nufft3(x, c, s, method="fast", eps=NUFFT_EPS,
+                                           **NUFFT3_EXTENTS), *nufft3_args)
+    x64, c64, s64 = (v.cpu().numpy() for v in nufft3_args[0])
+    ks = np.sort(rng.choice(NUFFT_POINTS, NUFFT_SAMPLES, replace=False))
+    check64(row, "nufft3 fast", f[ks],
+            direct_sum(lambda a, b: np.outer(s64[ks].astype(np.float64), x64[a:b]), c64, -1.0),
+            NUFFT_TOL)
+    try:
+        torch.compile(lambda x, c, s: tp.nufft3(x, c, s, method="fast"), backend=backend,
+                      fullgraph=True, dynamic=False)(*nufft3_args[0])
+        refusal = "none"
+    except Exception as e:  # dynamo's exception around the port's ValueError
+        refusal = str(e).splitlines()[0]
+    log(f"compiled nufft3(method='fast') without extents: {refusal}")
+    require(refusal.startswith("ValueError: nufft3(method='fast') under torch.compile"),
+            f"compiled nufft3(method='fast') without extents: {refusal}")
+    rows.append({"call": "nufft3 fast without extents", "backend": backend, "refusal": refusal})
+    del f, nufft3_args, x64, c64, s64
+    torch.cuda.empty_cache()
+    log(f"phase 31, the transforms of queue 1: {time.perf_counter() - t0:.1f} s")
 
     if inductor:
         # the main path's configurations with Inductor (phase 32 holds them
@@ -5559,9 +5663,9 @@ def main(argv) -> int:
         for phase in (recurrences, audio_remainder, recurrence_timings):
             timed(phase, rng, card)
         return 0
-    if argv == ["sphere"]:   # development: phases 21-22 alone
-        for phase in (nufft_tomography, sht_sfno):
-            timed(phase, rng, card)
+    if argv == ["sphere"]:   # development: phases 21-22 alone, 22 with its L = 2048 row
+        timed(nufft_tomography, rng, card)
+        timed(sht_sfno, rng, card, True)
         return 0
     if argv == ["frontend"]:   # development: phases 23-24 alone
         for phase in (radar_radio, wavelets_leaves, slice_yardstick):
@@ -5571,8 +5675,8 @@ def main(argv) -> int:
         timed(parallel_main, rng, card)
         timed(parallel_rest, rng, card)
         return 0
-    if argv == ["examples"]:   # development: phase 27 alone
-        timed(examples, rng, card)
+    if argv == ["examples"]:   # development: phase 27 alone, its examples compiled
+        timed(examples, rng, card, True)
         return 0
     if argv == ["tune"]:   # development: phase 28 alone, every length timed
         timed(tune_phase, card, 1)

@@ -23,7 +23,9 @@ import numpy as np
 import torch
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
-from ..utils.numerics import as_tensor, as_tensors, constant, content_key, matmul_precision
+from ..utils.numerics import (
+    as_tensor, as_tensors, constant, content_key, host_table, key_array, on_host, product,
+)
 from .convolve import fft_convolve
 from .fft import fft, ifft
 
@@ -120,6 +122,29 @@ def tc_scales(n: int, dt: float = 1.0, dj: float = 1.0 / 12.0,
     return s0 * 2.0 ** (dj * np.arange(J + 1))
 
 
+def _tc_plan(scales) -> tuple:
+    """Host prologue of :func:`cwt_tc` (``utils.numerics.on_host``): the
+    caller's scale ladder checked, as its content key."""
+    scales = np.asarray(scales, np.float64)
+    if scales.ndim != 1 or scales.size < 1 or np.any(scales <= 0):
+        raise ValueError("scales must be a non-empty positive 1-D array")
+    return content_key("cwt_tc.scales", scales)
+
+
+def _morlet_windows(n: int, dt: float, w0: float, skey: tuple) -> np.ndarray:
+    """(S, T) analytic Morlet windows of the scales ``skey`` names (host
+    fp64)."""
+    scales = key_array(skey)
+    w = 2.0 * np.pi * np.fft.fftfreq(n, dt)  # angular frequencies
+    return (
+        np.pi ** -0.25
+        * np.sqrt(2.0 * np.pi * scales[:, None] / dt)
+        * (w[None, :] > 0)
+        * np.exp(-0.5 * (scales[:, None] * w[None, :] - w0) ** 2
+                 * (w[None, :] > 0))
+    )
+
+
 def cwt_tc(
     x,
     scales,
@@ -133,30 +158,17 @@ def cwt_tc(
     W(s, t) = Σ_ω x̂(ω)·√(2πs/dt)·π^{-1/4}·H(ω)·e^{-(sω−w0)²/2}·e^{iωt}.
 
     ONE forward FFT of the signal, a broadcast (n_scales, T) spectral
-    window multiply (host fp64 constants, kept on the device), ONE inverse
+    window multiply (host fp64 constants, kept on the device per length
+    and scale ladder, also while ``torch.compile`` traces), ONE inverse
     FFT over the stacked scale axis: no per-scale kernels or convolutions.
     The equivalent Fourier period is λ = 4πs/(w0 + √(2+w0²))."""
     x = as_tensor(x)
-    scales = np.asarray(scales, np.float64)
-    if scales.ndim != 1 or scales.size < 1 or np.any(scales <= 0):
-        raise ValueError("scales must be a non-empty positive 1-D array")
+    skey = on_host(_tc_plan, scales)
     if x.ndim < 1 or x.shape[-1] < 2:
         raise ValueError("x must have a time axis of length >= 2")
     n = x.shape[-1]
-
-    def windows() -> np.ndarray:
-        w = 2.0 * np.pi * np.fft.fftfreq(n, dt)  # angular frequencies, host fp64
-        return (
-            np.pi ** -0.25
-            * np.sqrt(2.0 * np.pi * scales[:, None] / dt)
-            * (w[None, :] > 0)
-            * np.exp(-0.5 * (scales[:, None] * w[None, :] - w0) ** 2
-                     * (w[None, :] > 0))
-        )  # (S, T) analytic Morlet windows
-
     X = fft(x.to(torch.complex64), config=config)  # (…, T)
-    psi = constant(windows, X.real,
-                   key=content_key(f"cwt_tc.psi/{n}/{float(dt)}/{float(w0)}", scales))
+    psi = host_table("cwt_tc.psi", _morlet_windows, n, float(dt), float(w0), skey, like=X.real)
     return ifft(X[..., None, :] * psi, config=config)
 
 
@@ -185,8 +197,8 @@ def _tc_smooth(P: Tensor, scales: np.ndarray, dt: float, dj: float, config) -> T
     sm = ifft(fft(P.to(torch.complex64), config=config)
               * constant(gaussians, like, key=("tc_smooth.filt",) + key), config=config)
     box = constant(boxcar, like, key=("tc_smooth.box",) + key)
-    with matmul_precision(config.op_precision):
-        return torch.complex(box @ sm.real, box @ sm.imag)
+    p = config.op_precision
+    return torch.complex(product(box, sm.real, p), product(box, sm.imag, p))
 
 
 def _tc_pair(x, y, dt, dj, s0, J, w0, config):

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..utils.config import DEFAULT_CONFIG, SpectralConfig
-from ..utils.numerics import as_tensor, constant, content_key, to_host
+from ..utils.numerics import as_tensor, content_key, host_table, key_array, on_host, to_host
 from .rfft import irfft, rfft
 
 Tensor = torch.Tensor
@@ -86,15 +86,38 @@ def _partition_bank(n_bins: int, bounds: np.ndarray,
     return bank
 
 
+def _ewt_boundaries(boundaries) -> tuple:
+    """Host prologue of :func:`ewt` (``utils.numerics.on_host``): the
+    caller's boundaries checked, as their content key."""
+    boundaries = np.atleast_1d(np.asarray(boundaries, np.float64))
+    if np.any(np.diff(boundaries) <= 0) or np.any(
+            (boundaries <= 0) | (boundaries >= 0.5)):
+        raise ValueError("boundaries must be ascending within (0, 0.5)")
+    return content_key("ewt.boundaries", boundaries)
+
+
+def _bank_of(n_bins: int, bkey: tuple, gamma: float, T: int) -> np.ndarray:
+    """:func:`_partition_bank` of the boundaries ``bkey`` names."""
+    return _partition_bank(n_bins, key_array(bkey), gamma, T)
+
+
+def _refuse_adaptive() -> None:
+    raise ValueError(
+        "ewt(n_bands=...) cannot be compiled: its boundaries are found on the "
+        "host from a concrete 1-D signal; pass boundaries= or call ewt eagerly")
+
+
 def ewt(x, n_bands: Optional[int] = None,
         boundaries: Optional[np.ndarray] = None, gamma: float = 0.2, *,
         config: SpectralConfig = DEFAULT_CONFIG) -> Tuple[Tensor, np.ndarray]:
     """Empirical wavelet transform → (bands (..., n_bands, T), boundaries).
 
     Pass ``n_bands`` to detect boundaries from the data (1-D input, on the
-    host), or ``boundaries`` (cycles/sample, ascending, in (0, 0.5))
-    explicitly — the latter keeps the whole transform on the card and
-    batched.  The bands sum to ``x`` exactly (amplitude partition of
+    host; eager only: ValueError under ``torch.compile``), or
+    ``boundaries`` (cycles/sample, ascending, in (0, 0.5)) explicitly —
+    the latter keeps the whole transform on the card and batched, and
+    compiles (the bank is a host table kept per length, gamma and
+    boundaries).  The bands sum to ``x`` exactly (amplitude partition of
     unity)."""
     x = as_tensor(x)
     T = x.shape[-1]
@@ -103,14 +126,17 @@ def ewt(x, n_bands: Optional[int] = None,
     if boundaries is None:
         if n_bands is None:
             raise ValueError("give n_bands (adaptive) or boundaries")
+        if torch.compiler.is_compiling():
+            on_host(_refuse_adaptive)
         boundaries = ewt_boundaries(x, n_bands)
-    boundaries = np.atleast_1d(np.asarray(boundaries, np.float64))
-    if np.any(np.diff(boundaries) <= 0) or np.any(
-            (boundaries <= 0) | (boundaries >= 0.5)):
-        raise ValueError("boundaries must be ascending within (0, 0.5)")
+    bkey = on_host(_ewt_boundaries, boundaries)
     n_bins = T // 2 + 1
     X = rfft(x, axis=-1, config=config)
-    bank = constant(lambda: _partition_bank(n_bins, boundaries, gamma, T), X, X.real.dtype,
-                    key=content_key(f"ewt.bank.{T}.{gamma!r}", boundaries))
+    bank = host_table("ewt.bank", _bank_of, n_bins, bkey, float(gamma), T, like=X,
+                      dtype=X.real.dtype)
     bands = irfft(X[..., None, :] * bank, n=T, axis=-1, config=config)
-    return bands, boundaries
+    if torch.compiler.is_dynamo_compiling():
+        # the kept host copy, which the graph hands back as it is
+        return bands, host_table("ewt.boundaries", key_array, bkey, like=torch.device("cpu"),
+                                 dtype=torch.float64).numpy()
+    return bands, key_array(bkey)

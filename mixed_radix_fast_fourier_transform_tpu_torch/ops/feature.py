@@ -25,7 +25,9 @@ import numpy as np
 import torch
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
-from ..utils.numerics import as_tensor, as_tensors, constant, matmul_precision, pad_last
+from ..utils.numerics import (
+    as_tensor, as_tensors, constant, matmul_precision, on_host, pad_last,
+)
 from .stft import stft as _stft
 
 Tensor = torch.Tensor
@@ -216,6 +218,53 @@ def _specaugment_masks(w: Tensor, s: Tensor, size: int) -> Tensor:
     return ~torch.any(hit, dim=-2)
 
 
+def _draw_masks(generator: torch.Generator, batch: tuple, axes: tuple) -> Tensor:
+    """The widths and starts (…, Σ n_masks, 2) of the bands of ``axes``
+    ((n_masks, width, size) per axis, frequency first), drawn from
+    ``generator`` on its device: a width uniform in [0, width], a start
+    uniform in [0, size − width); an axis without bands draws nothing."""
+    device, rows = generator.device, []
+    for n_masks, width, size in axes:
+        if n_masks == 0 or width == 0:
+            continue
+        w = torch.randint(0, width + 1, batch + (n_masks, 1), generator=generator,
+                          device=device)
+        u = torch.rand(batch + (n_masks, 1), generator=generator, device=device)
+        rows.append(torch.cat([w, (u * torch.clamp(size - w, min=1).to(DTYPE)).to(torch.int64)],
+                              -1))
+    if not rows:
+        return torch.zeros(batch + (0, 2), dtype=torch.int64, device=device)
+    return torch.cat(rows, -2)
+
+
+def _seeded_masks(seed: int, device: str, batch: tuple, axes: tuple) -> tuple:
+    """:func:`_draw_masks` of a generator on ``device`` seeded with ``seed``,
+    flattened to Python ints: the host prologue that hands a compiled
+    ``specaugment`` its draws."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(_draw_masks(g, batch, axes).flatten().tolist())
+
+
+@functools.lru_cache(maxsize=8)
+def _kept_masks(seed: int, device: str, batch: tuple, axes: tuple,
+                on: torch.device) -> Tensor:
+    """:func:`_draw_masks` of a generator on ``device`` seeded with ``seed``,
+    on ``on``: an eager call's draws, kept for the eight latest seeds and
+    shapes only, so a loop that passes a new seed each step keeps no more,
+    and a call that hits needs no copy from the host (a CUDA graph can
+    capture it)."""
+    with torch.inference_mode(False):
+        g = torch.Generator(device=device).manual_seed(seed)
+        return _draw_masks(g, batch, axes).to(on)
+
+
+def _refuse_generator() -> None:
+    raise ValueError(
+        "specaugment(generator=...) cannot be compiled: a generator's state cannot "
+        "enter a graph; pass seed= (its draws are made on the host) or call specaugment "
+        "eagerly")
+
+
 def specaugment(
     S,
     generator: Optional[torch.Generator] = None,
@@ -224,15 +273,29 @@ def specaugment(
     n_time_masks: int = 2,
     time_mask_width: int = 32,
     mask_value: float = 0.0,
+    *,
+    seed: Optional[int] = None,
 ):
     """SpecAugment masking (Park et al. 2019) on a spectrogram
     (…, frames, bins): ``n_freq_masks`` random bands of width up to
     ``freq_mask_width`` set to ``mask_value`` along frequency,
-    ``n_time_masks`` along time.  ``generator`` (a ``torch.Generator`` on
-    the spectrogram's device; default: a fresh one seeded 0) takes the JAX
-    module's PRNG key's place; leading batch dims get independent masks.
+    ``n_time_masks`` along time.  Leading batch dims get independent masks.
     The widths are uniform integers in [0, width], the starts uniform in
-    [0, size − width)."""
+    [0, size − width).
+
+    The draws take the JAX module's PRNG key's place: ``seed`` draws them
+    from a CPU generator seeded with it (``torch.Generator().manual_seed``),
+    whatever the spectrogram's device; ``generator`` (a ``torch.Generator``
+    on the spectrogram's device) from the caller's generator; neither, from
+    a generator on the spectrogram's device seeded 0.  The ``seed`` and
+    default forms compile: the draws are made on the host while dynamo
+    traces and the graph holds them as constants, the values an eager call
+    draws.  The seed is a Python int, so each new seed is a trace of its
+    own (a recompile, within dynamo's recompile limit), unlike the JAX
+    function's traced key.  Eagerly the draws of the eight latest seeds
+    and shapes are kept on the device.  ``generator=`` raises ValueError under ``torch.compile``,
+    since a generator's state cannot enter a graph, and stays an eager
+    form."""
     S = as_tensor(S)
     if S.ndim < 2:
         raise ValueError("S must be (…, frames, bins)")
@@ -240,23 +303,32 @@ def specaugment(
         raise ValueError("mask counts must be >= 0")
     if freq_mask_width < 0 or time_mask_width < 0:
         raise ValueError("mask widths must be >= 0")
-    if generator is None:
-        generator = torch.Generator(device=S.device).manual_seed(0)
+    if seed is not None and generator is not None:
+        raise ValueError("give seed or generator, not both")
     T, F = S.shape[-2], S.shape[-1]
     batch = tuple(S.shape[:-2])
-
-    def axis_mask(n_masks, width, size):
+    axes = ((n_freq_masks, freq_mask_width, F), (n_time_masks, time_mask_width, T))
+    compiling = torch.compiler.is_compiling()
+    if generator is not None and compiling:
+        on_host(_refuse_generator)
+    device = str(S.device) if seed is None else "cpu"
+    seed = 0 if seed is None else int(seed)
+    if compiling:
+        n_bands = sum(n for n, width, _ in axes if n and width)
+        draws = torch.tensor(on_host(_seeded_masks, seed, device, batch, axes),
+                             dtype=torch.int64, device=S.device).reshape(batch + (n_bands, 2))
+    elif generator is None:
+        draws = _kept_masks(seed, device, batch, axes, S.device)
+    else:
+        draws = _draw_masks(generator, batch, axes).to(S.device)
+    keep, start = torch.ones((), dtype=torch.bool, device=S.device), 0
+    for axis, (n_masks, width, size) in enumerate(axes):
         if n_masks == 0 or width == 0:
-            return torch.ones(batch + (size,), dtype=torch.bool, device=S.device)
-        w = torch.randint(0, width + 1, batch + (n_masks, 1), generator=generator,
-                          device=S.device)
-        u = torch.rand(batch + (n_masks, 1), generator=generator, device=S.device)
-        s = (u * torch.clamp(size - w, min=1).to(DTYPE)).to(torch.int64)
-        return _specaugment_masks(w, s, size)
-
-    fmask = axis_mask(n_freq_masks, freq_mask_width, F)
-    tmask = axis_mask(n_time_masks, time_mask_width, T)
-    keep = fmask[..., None, :] & tmask[..., :, None]
+            continue
+        d = draws[..., start:start + n_masks, :]
+        start += n_masks
+        mask = _specaugment_masks(d[..., :1], d[..., 1:], size)
+        keep = keep & (mask[..., None, :] if axis == 0 else mask[..., :, None])
     return torch.where(keep, S, torch.full((), mask_value, dtype=S.dtype, device=S.device))
 
 

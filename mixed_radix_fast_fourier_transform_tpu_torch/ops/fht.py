@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
-from ..utils.numerics import as_tensor, constant as _on, matmul_precision
+from ..utils.numerics import as_tensor, host_table, product
 from .rfft import irfft, rfft
 
 Tensor = torch.Tensor
@@ -141,18 +141,48 @@ def fhtoffset(dln: float, mu: float, initial: float = 0.0, bias: float = 0.0) ->
     return float(lnkr + (arg - np.round(arg)) * dln)
 
 
-
-def _fhtq(a: Tensor, u: np.ndarray, inverse: bool, key, config: SpectralConfig) -> Tensor:
-    """Biased FFTLog core: rfft → coefficient multiply → irfft → flip."""
-    n = a.shape[-1]
-    spec = rfft(a, config=config)
+def _fht_tables(n: int, dln: float, mu: float, offset: float, bias: float,
+                inverse: bool) -> np.ndarray:
+    """The host float64 tables of one FFTLog call, stacked as rows: the
+    coefficient's real and imaginary parts (u, or 1/conj(u) for the
+    inverse; n//2 + 1 each, zero-padded to n), then, for a bias, the
+    input's multiplier and the output's multiplier (its divisor for the
+    inverse), n each."""
+    u = fhtcoeff(n, dln, mu, offset=offset, bias=bias, inverse=inverse)
     if inverse:
         u = 1.0 / np.conj(u)
+    rows = np.zeros((4 if bias != 0 else 2, n))
+    rows[0, :u.size], rows[1, :u.size] = u.real, u.imag
+    if bias != 0:
+        j = np.arange(n, dtype=np.float64) - (n - 1) / 2.0
+        if inverse:
+            rows[2] = np.exp(bias * (j * dln + offset))
+            rows[3] = np.exp(-bias * j * dln)  # a divisor
+        else:
+            rows[2] = np.exp(-bias * j * dln)
+            rows[3] = np.exp(-bias * (j * dln + offset))
+    return rows
+
+
+def _fhtq(a: Tensor, inverse: bool, dln, mu, offset, bias, config: SpectralConfig) -> Tensor:
+    """Biased FFTLog core: pre-multiply → rfft → coefficient multiply →
+    irfft → flip → post-multiply, with the tables kept per (n, parameters)."""
+    n = a.shape[-1]
+    key = (float(dln), float(mu), float(offset), float(bias))
+
+    def tables(like: Tensor, dtype) -> Tensor:
+        return host_table("fht", _fht_tables, n, *key, inverse, like=like, dtype=dtype)
+
+    if key[3] != 0:
+        a = a * tables(a, a.dtype)[2]
+    spec = rfft(a, config=config)
     rdtype = spec.real.dtype
-    ud = torch.complex(_on(u.real, a, rdtype, key=key + ("re",)),
-                       _on(u.imag, a, rdtype, key=key + ("im",)))
-    out = irfft(spec * ud, n=n, config=config)
-    return torch.flip(out, (-1,))
+    u = tables(spec, rdtype)[:2, :n // 2 + 1]
+    out = torch.flip(irfft(spec * torch.complex(u[0], u[1]), n=n, config=config), (-1,))
+    if key[3] != 0:
+        post = tables(out, out.dtype)[3]
+        out = out / post if inverse else out * post
+    return out
 
 
 def _as_real(a, what: str, dtype) -> Tensor:
@@ -172,20 +202,11 @@ def fht(
     config: SpectralConfig = DEFAULT_CONFIG,
 ) -> Tensor:
     """Fast Hankel transform of order ``mu`` on a log-spaced grid
-    (scipy.fft.fht semantics), batched over leading axes."""
+    (scipy.fft.fht semantics), batched over leading axes.  Its coefficient
+    and bias tables are built on the host and kept per length and
+    parameters, also while ``torch.compile`` traces."""
     a = _as_real(a, "fht", config.dtype)
-    n = a.shape[-1]
-    key = ("fht", n, float(dln), float(mu), float(offset), float(bias))
-    if bias != 0:
-        j_c = (n - 1) / 2.0
-        j = np.arange(n, dtype=np.float64)
-        a = a * _on(np.exp(-bias * (j - j_c) * dln), a, a.dtype, key=key + ("pre",))
-    u = fhtcoeff(n, dln, mu, offset=offset, bias=bias)
-    out = _fhtq(a, u, False, key + ("u",), config)
-    if bias != 0:
-        out = out * _on(np.exp(-bias * ((j - j_c) * dln + offset)), out, out.dtype,
-                        key=key + ("post",))
-    return out
+    return _fhtq(a, False, dln, mu, offset, bias, config)
 
 
 def ifht(
@@ -199,17 +220,15 @@ def ifht(
 ) -> Tensor:
     """Inverse fast Hankel transform (scipy.fft.ifht semantics)."""
     A = _as_real(A, "ifht", config.dtype)
-    n = A.shape[-1]
-    key = ("ifht", n, float(dln), float(mu), float(offset), float(bias))
-    if bias != 0:
-        j_c = (n - 1) / 2.0
-        j = np.arange(n, dtype=np.float64)
-        A = A * _on(np.exp(bias * ((j - j_c) * dln + offset)), A, A.dtype, key=key + ("pre",))
-    u = fhtcoeff(n, dln, mu, offset=offset, bias=bias, inverse=True)
-    out = _fhtq(A, u, True, key + ("u",), config)
-    if bias != 0:
-        out = out / _on(np.exp(-bias * (j - j_c) * dln), out, out.dtype, key=key + ("post",))
-    return out
+    return _fhtq(A, True, dln, mu, offset, bias, config)
+
+
+def _hadamard(n: int) -> np.ndarray:
+    """The dense ±1 Hadamard matrix of order n (Sylvester construction)."""
+    H = np.array([[1.0]])
+    while H.shape[0] < n:
+        H = np.block([[H, H], [H, -H]])
+    return H
 
 
 def fwht(x, axis: int = -1, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
@@ -228,13 +247,8 @@ def fwht(x, axis: int = -1, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tenso
         raise ValueError(f"fwht needs a power-of-two length, got {n}")
     xm = torch.movedim(x, axis, -1)
     if n <= 128:
-        # dense ±1 Hadamard product (host-built, Sylvester construction)
-        H = np.array([[1.0]])
-        while H.shape[0] < n:
-            H = np.block([[H, H], [H, -H]])
-        with matmul_precision(config.op_precision):
-            out = torch.matmul(xm, _on(H, xm, xm.dtype, key=("fwht.H", n)))
-        return torch.movedim(out, -1, axis)
+        H = host_table("fwht.H", _hadamard, n, like=xm, dtype=xm.dtype)
+        return torch.movedim(product(xm, H, config.op_precision), -1, axis)
     lead = xm.shape[:-1]
     y = xm
     h = 1

@@ -37,8 +37,10 @@ values, so that ``"auto"`` picks the same strategy in both packages.  They
 were measured on a TPU v5e and are no evidence for the card; the block
 constants set nothing in the scatter form.
 
-Everything is eager torch: type 3's fast path reads the extent of concrete
-points (the JAX module's ``_infer_axis`` returns None under ``jax.jit``).
+Type 3's fast path reads the extent of concrete points; while a tracer runs
+(``torch.compile``, ``torch.export``) the points are not concrete, and, as
+the JAX module's ``_infer_axis`` under ``jax.jit``, "auto" without extents
+falls back to dense and "fast" without extents raises ValueError.
 """
 
 from __future__ import annotations
@@ -50,10 +52,12 @@ import torch
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.factorize import next_pow2
+from ..utils.metrics import tracing
 from ..utils.numerics import (
     as_tensors,
     host_table,
-    matmul_precision,
+    on_host,
+    product,
     two_sum as _twosum,
     veltkamp as _veltkamp,
 )
@@ -187,9 +191,8 @@ def _dense_apply(cos: Tensor, sin: Tensor, vr: Tensor, vi: Tensor,
                  precision: str = "highest") -> Tensor:
     """Σ_m (cos + i·sin)[k, m] · (vr + i·vi)[…, m] as products at
     ``precision`` (the config's ``op_precision``)."""
-    with matmul_precision(precision):
-        fr = vr @ cos.T - vi @ sin.T
-        fi = vr @ sin.T + vi @ cos.T
+    fr = product(vr, cos.T, precision) - product(vi, sin.T, precision)
+    fi = product(vr, sin.T, precision) + product(vi, cos.T, precision)
     return torch.complex(fr, fi)
 
 
@@ -567,9 +570,11 @@ def nufft2(x, f, *, isign: int = +1, eps: float = 1e-6, method: str = "auto",
 
 
 def _infer_axis(pts: Tensor):
-    """(half-width, center) of a point set, read from the concrete points
-    in fp32 as the JAX module reads them (the one copy of the type-3 span
-    inference)."""
+    """(half-width, center) of a concrete point set, read in fp32 as the
+    JAX module reads them, or None while a tracer runs, as the JAX module's
+    is under ``jax.jit`` (the one copy of the type-3 span inference)."""
+    if tracing():
+        return None
     ph = pts.detach().cpu().numpy()
     return (
         max(float((ph.max() - ph.min()) / 2.0), 1e-9),
@@ -577,18 +582,32 @@ def _infer_axis(pts: Tensor):
     )
 
 
-def _type3_extent(pts, ext) -> float:
-    """One half-width for the type-3 auto dispatch: the given extent or the
-    points' span."""
-    return float(ext) if ext is not None else _infer_axis(pts)[0]
+def _type3_extent(pts, ext):
+    """One half-width for the type-3 auto dispatch: the given extent, the
+    points' span, or None while a tracer runs (the caller then takes
+    dense, as the JAX module does under ``jax.jit``)."""
+    if ext is not None:
+        return float(ext)
+    inf = _infer_axis(pts)
+    return None if inf is None else inf[0]
 
 
-def _fast_axis_setup(pts, ext, ctr):
+def _fast_axis_setup(pts, ext, ctr, label: tuple):
     """(half-width, center) of one axis of a type-3 fast path: the given
-    values, else the points' span."""
-    if ext is None:
-        return _infer_axis(pts)
-    return float(ext), float(ctr)
+    values, else the points' span; while a tracer runs a missing extent
+    raises the JAX module's ValueError (the fast grids need static
+    sizes; ``label`` is (the call, the extents it needs))."""
+    if ext is not None:
+        return float(ext), float(ctr)
+    inf = _infer_axis(pts)
+    if inf is None:
+        on_host(_refuse_traced_span, *label)
+    return inf
+
+
+def _refuse_traced_span(call: str, extents: str) -> None:
+    raise ValueError(f"{call} under torch.compile or torch.export needs static extent "
+                     f"half-widths {extents} (about the centers)")
 
 
 def _type3_fast_wins(eps: float, d: int, m: int, k: int, sx) -> bool:
@@ -641,7 +660,8 @@ def nufft3(x, c, s, *, isign: int = -1, eps: float = 1e-6, method: str = "dense"
         raise ValueError(f"isign must be +1 or -1, got {isign}")
     if method == "auto" and x.ndim == 1 and s.ndim == 1:
         ex, es = _type3_extent(x, x_extent), _type3_extent(s, s_extent)
-        method = "fast" if _type3_fast_wins(eps, 1, x.shape[0], s.shape[0], (es * ex,)) else "dense"
+        method = "dense" if ex is None or es is None else (  # traced without extents
+            "fast" if _type3_fast_wins(eps, 1, x.shape[0], s.shape[0], (es * ex,)) else "dense")
     elif method == "auto":
         method = "dense"  # shape errors surface in the dense validation
     if method == "fast":
@@ -669,8 +689,9 @@ def _nufft3_fast(x, c, s, *, isign, eps, x_extent, s_extent, x_center, s_center,
     if s.ndim != 1 or s.shape[0] < 1:
         raise ValueError("s must be a non-empty 1-D frequency array")
     if x_extent is None or s_extent is None:
-        X, x0 = _infer_axis(x)
-        S, s0 = _infer_axis(s)
+        label = ("nufft3(method='fast')", "x_extent and s_extent")
+        X, x0 = _fast_axis_setup(x, None, None, label)
+        S, s0 = _fast_axis_setup(s, None, None, label)
     else:
         x0, s0, X, S = float(x_center), float(s_center), float(x_extent), float(s_extent)
     xc = x - x0 if x0 != 0.0 else x
@@ -724,9 +745,9 @@ def nudft1_2d(x, y, c, n_modes, *, isign: int = -1,
     # t = e^{isign·i·k2·y} * c, per mode row: (…, n2, M) planes
     tr = cos2 * cr[..., None, :] - sin2 * ci[..., None, :]
     ti = sin2 * cr[..., None, :] + cos2 * ci[..., None, :]
-    with matmul_precision(config.op_precision):
-        fr = cos1 @ tr.transpose(-1, -2) - sin1 @ ti.transpose(-1, -2)
-        fi = sin1 @ tr.transpose(-1, -2) + cos1 @ ti.transpose(-1, -2)
+    p, trt, tit = config.op_precision, tr.transpose(-1, -2), ti.transpose(-1, -2)
+    fr = product(cos1, trt, p) - product(sin1, tit, p)
+    fi = product(sin1, trt, p) + product(cos1, tit, p)
     return torch.complex(fr, fi)
 
 
@@ -743,10 +764,9 @@ def nudft2_2d(x, y, f, *, isign: int = +1,
     cos2, sin2 = _modes_trig(n2, y, isign)  # (n2, M)
     fr, fi = _planes(f)
     # k1 first: t[…, k2, m] = sum_k1 f[…, k1, k2] e^{isign·i·k1·x_m}
-    with matmul_precision(config.op_precision):
-        frt, fit = fr.transpose(-1, -2), fi.transpose(-1, -2)
-        tr = frt @ cos1 - fit @ sin1
-        ti = frt @ sin1 + fit @ cos1
+    p, frt, fit = config.op_precision, fr.transpose(-1, -2), fi.transpose(-1, -2)
+    tr = product(frt, cos1, p) - product(fit, sin1, p)
+    ti = product(frt, sin1, p) + product(fit, cos1, p)
     # then k2 with per-point phases
     cr = (cos2 * tr).sum(-2) - (sin2 * ti).sum(-2)
     ci = (sin2 * tr).sum(-2) + (cos2 * ti).sum(-2)
@@ -965,8 +985,7 @@ def nudft1_3d(x, y, z, c, n_modes, *, isign: int = -1,
     if min(ns) < 1:
         raise ValueError(f"n_modes must be positive, got {n_modes}")
     E = _phase_tensor_3d(x, y, z, ns, isign)
-    with matmul_precision(config.op_precision):
-        out = c.to(_CDTYPE) @ E.reshape(-1, x.shape[0]).T
+    out = product(c.to(_CDTYPE), E.reshape(-1, x.shape[0]).T, config.op_precision)
     return out.reshape(c.shape[:-1] + ns)
 
 
@@ -979,8 +998,8 @@ def nudft2_3d(x, y, z, f, *, isign: int = +1,
     if f.ndim < 3 or min(f.shape[-3:]) < 1:
         raise ValueError("f must be (…, n1, n2, n3) with non-empty mode axes")
     E = _phase_tensor_3d(x, y, z, tuple(f.shape[-3:]), isign)
-    with matmul_precision(config.op_precision):
-        return f.to(_CDTYPE).reshape(f.shape[:-3] + (-1,)) @ E.reshape(-1, x.shape[0])
+    return product(f.to(_CDTYPE).reshape(f.shape[:-3] + (-1,)), E.reshape(-1, x.shape[0]),
+                   config.op_precision)
 
 
 def nufft1_3d(x, y, z, c, n_modes, *, isign: int = -1, eps: float = 1e-6,
@@ -1029,12 +1048,12 @@ def nufft2_3d(x, y, z, f, *, isign: int = +1, eps: float = 1e-6,
     return _interp_3d(u, x, y, z, (mr1, mr2, mr3), (tau1, tau2, tau3), msp)
 
 
-def _type3_setup(pts, exts, centers):
+def _type3_setup(pts, exts, centers, label: tuple):
     """Per-axis (half-width, centre) of a type-3 fast path and the centred
     coordinates."""
     X, C0, centred = [], [], []
     for p, e, c0 in zip(pts, exts, centers):
-        half, ctr = _fast_axis_setup(p, e, c0)
+        half, ctr = _fast_axis_setup(p, e, c0, label)
         X.append(half)
         C0.append(ctr)
         centred.append(p - ctr if ctr != 0.0 else p)
@@ -1060,14 +1079,19 @@ def nufft3_2d(x, y, c, s, t, *, isign: int = -1, eps: float = 1e-6, method: str 
         raise ValueError("s and t must be equal-length non-empty 1-D arrays")
     exts = (x_extent, y_extent, s_extent, t_extent)
     if method == "auto":
-        x1, x2, s1, s2 = (_type3_extent(p, e) for p, e in zip((x, y, s, t), exts))
-        method = "fast" if _type3_fast_wins(
-            eps, 2, x.shape[0], s.shape[0], (s1 * x1, s2 * x2)) else "dense"
+        spans = [_type3_extent(p, e) for p, e in zip((x, y, s, t), exts)]
+        if any(e is None for e in spans):  # traced without extents: dense only
+            method = "dense"
+        else:
+            x1, x2, s1, s2 = spans
+            method = "fast" if _type3_fast_wins(
+                eps, 2, x.shape[0], s.shape[0], (s1 * x1, s2 * x2)) else "dense"
     if method == "dense":
         return _dense_type3(s[:, None] * x[None, :] + t[:, None] * y[None, :], isign, c,
                             config.op_precision)
     (X1, X2, S1, S2), (x0, y0, s0, t0), (xc, yc, sc, tc) = _type3_setup(
-        (x, y, s, t), exts, centers)
+        (x, y, s, t), exts, centers,
+        ("nufft3_2d(method='fast')", "x_extent, y_extent, s_extent and t_extent"))
     msp = _msp(eps)
     h1, h2 = math.pi / (2.0 * X1), math.pi / (2.0 * X2)
     rho1, rho2 = msp * h1 * h1 / (3.0 * math.pi), msp * h2 * h2 / (3.0 * math.pi)
@@ -1112,15 +1136,20 @@ def nufft3_3d(x, y, z, c, s, t, u, *, isign: int = -1, eps: float = 1e-6,
         raise ValueError("extents must be a 6-tuple")
     pts = (x, y, z, s, t, u)
     if method == "auto":
-        x1, x2, x3, s1, s2, s3 = (_type3_extent(p, e) for p, e in zip(pts, exts))
-        method = "fast" if _type3_fast_wins(
-            eps, 3, x.shape[0], s.shape[0], (s1 * x1, s2 * x2, s3 * x3)) else "dense"
+        spans = [_type3_extent(p, e) for p, e in zip(pts, exts)]
+        if any(e is None for e in spans):  # traced without extents: dense only
+            method = "dense"
+        else:
+            x1, x2, x3, s1, s2, s3 = spans
+            method = "fast" if _type3_fast_wins(
+                eps, 3, x.shape[0], s.shape[0], (s1 * x1, s2 * x2, s3 * x3)) else "dense"
     if method == "dense":
         theta = s[:, None] * x[None, :] + t[:, None] * y[None, :] + u[:, None] * z[None, :]
         return _dense_type3(theta, isign, c, config.op_precision)
     if len(centers) != 6:
         raise ValueError("extents and centers must be 6-tuples")
-    X, C0, (xc, yc, zc, sc, tc, uc) = _type3_setup(pts, exts, centers)
+    X, C0, (xc, yc, zc, sc, tc, uc) = _type3_setup(
+        pts, exts, centers, ("nufft3_3d(method='fast')", "as the 6-tuple extents"))
     x0, y0, z0, s0, t0, u0 = C0
     msp = _msp(eps)
     hs = [math.pi / (2.0 * Xi) for Xi in X[:3]]

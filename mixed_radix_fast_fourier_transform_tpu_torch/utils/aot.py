@@ -64,10 +64,14 @@ class _Prepared:
                 f"melspectrogram, pcen, linear_recurrence, "
                 f"lfilter, sosfilt, filtfilt, sosfiltfilt, pfb_analysis, radon, iradon, "
                 f"multitaper, griffinlim (seed=), wigner_ville, ssq_cwt, ssq_stft, "
-                f"reassigned_spectrogram, stockwell, dwt, idwt, cqt, icqt, "
+                f"reassigned_spectrogram, stockwell, dwt, idwt, cqt, icqt, fht, ifht, "
+                f"fwht, cwt_tc, ewt (boundaries=), specaugment (seed= or the default "
+                f"draws), the dense NUFFTs and nufft3, nufft3_2d, nufft3_3d ('auto' "
+                f"without extents takes dense; 'fast' needs static extents), "
                 f"and the spectral filter, FNO, S4D, FNet, AFNO, SFNO, PCEN front "
-                f"end and Koopman models so far, the ops other than the engine and "
-                f"the convolutions at precision 'highest' only; a host array made "
+                f"end and Koopman models so far, the ops other than the engine, "
+                f"the convolutions, fwht, wct's smoothing and the dense NUFFTs at "
+                f"precision 'highest' only; a host array made "
                 f"inside the function (np.linspace as theta, a design as sos or h) "
                 f"must be made outside it (ROADMAP.md lists the rest). "
                 f"{str(e).splitlines()[0]}") from e

@@ -504,9 +504,10 @@ def _save_operands(ctx, inputs, output) -> None:
 
 
 def _matmul_backward(ctx, g: Tensor):
+    # conjugate transposes: torch.matmul's own rule, which complex operands need
     a, b = ctx.saved_tensors
-    ga = torch.matmul(g, b.mT).sum_to_size(a.shape) if ctx.needs_input_grad[0] else None
-    gb = torch.matmul(a.mT, g).sum_to_size(b.shape) if ctx.needs_input_grad[1] else None
+    ga = torch.matmul(g, b.mH).sum_to_size(a.shape) if ctx.needs_input_grad[0] else None
+    gb = torch.matmul(a.mH, g).sum_to_size(b.shape) if ctx.needs_input_grad[1] else None
     return ga, gb, None
 
 

@@ -255,12 +255,13 @@ def test_aot_compile_compiles_a_jax_jitted_op():
 
 
 def test_aot_compile_names_the_slice_for_an_op_that_does_not_trace():
-    """``fht`` does not trace whole yet (it reads a traced value on the
-    host): ``aot_compile`` raises a ValueError that says what the compiled
-    path covers."""
+    """``vmd`` does not trace whole yet (it indexes by a traced argmax;
+    ``fht``, once the case here, traces since its tables are host builds):
+    ``aot_compile`` raises a ValueError that says what the compiled path
+    covers."""
     a = torch.from_numpy(np.random.default_rng(4).standard_normal(64).astype(np.float32))
     with pytest.raises(ValueError, match="compiled path covers fft, ifft, rfft"):
-        aot.aot_compile(lambda u: tp.fht(u, 0.1, mu=0.0), a)
+        aot.aot_compile(lambda u: tp.vmd(u, 2, n_iter=3)[0], a)
 
 
 def test_aot_compile_compiles_the_direct_convolution():
@@ -338,20 +339,23 @@ def test_other_precisions_refuse_to_compile(precision):
     assert _rel(got.numpy(), tp.fft(x, config=config).numpy()) <= EAGER_TOL
 
 
-@pytest.mark.parametrize("op", ["sht", "nufft1"])
+@pytest.mark.parametrize("op", ["sht", "melspectrogram"])
 def test_a_site_without_the_operator_still_refuses(op):
-    """A product outside the engine and the convolutions (the SHT's Legendre
-    products, the dense NUFFT's) still runs in a plain precision block: under
-    a trace a precision other than "highest" stops it with the port's
-    ValueError naming the field and the site."""
+    """A product outside the engine, the convolutions and the sites routed
+    through ``utils.numerics.product`` (the SHT's Legendre products, the
+    mel filterbank's) still runs in a plain precision block: under a trace
+    a precision other than "highest" stops it with the port's ValueError
+    naming the field and the site.  (The dense NUFFT's products, once the
+    second case here, carry their precision since they go through
+    ``product``: ``test_torch_compile_ops_transforms.py`` compiles them at
+    "high".)"""
     config = tp.SpectralConfig(precision="high")
     g = torch.Generator().manual_seed(7)
     if op == "sht":
         args, fn = (torch.randn(2, 8, 16, generator=g),), (lambda f: tp.sht(f, config=config))
     else:
-        args = (torch.rand(32, generator=g) * 6.0, torch.randn(32, dtype=torch.complex64,
-                                                               generator=g))
-        fn = lambda x, c: tp.nufft1(x, c, 16, config=config)  # noqa: E731
+        args = (torch.randn(2, 1024, generator=g),)
+        fn = lambda x: tp.melspectrogram(x, 16000.0, 256, n_mels=16, config=config)  # noqa: E731
     with pytest.raises(Exception, match=r"ValueError: SpectralConfig\.precision='high' cannot be "
                                         r"compiled at this site"):
         compiled(fn)(*args)

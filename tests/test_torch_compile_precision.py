@@ -277,7 +277,8 @@ def test_graph_holds_the_operator_where_the_precision_needs_it():
 # The operators
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.complex64],
+                         ids=str)
 def test_operators_pass_opcheck(dtype):
     """The schema, fake, autograd registration and AOTAutograd's view of
     the product (both operand orders the engine uses, a broadcast batch)
@@ -294,6 +295,22 @@ def test_operators_pass_opcheck(dtype):
                                             "highest"))
         torch.library.opcheck(CONVOLUTION, (leaf(1, 2, 12, 10), leaf(2, 1, 3, 4), [2, 1], [0, 0],
                                             [1, 2], 2, "default"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128], ids=str)
+def test_product_gradient_is_the_matmuls(dtype):
+    """The product operator's gradient passes ``gradcheck`` against finite
+    differences (for complex operands the conjugate transposes of
+    torch.matmul's own rule), and equals torch.matmul's on a real loss."""
+    g = torch.Generator().manual_seed(4)
+    a = torch.randn(3, 5, 6, dtype=dtype, generator=g).requires_grad_(True)
+    b = torch.randn(6, 4, dtype=dtype, generator=g).requires_grad_(True)
+    assert torch.autograd.gradcheck(lambda u, v: MATMUL(u, v, "high"), (a, b))
+    w = torch.randn(3, 5, 4, dtype=dtype, generator=g)
+    got, want = (torch.autograd.grad((mm(a, b) * w.conj()).real.sum(), (a, b))
+                 for mm in (lambda u, v: MATMUL(u, v, "high"), torch.matmul))
+    for u, v in zip(got, want):
+        assert torch.allclose(u, v, rtol=1e-12, atol=1e-12)
 
 
 def test_operator_sets_its_flags_and_restores_them(monkeypatch):
