@@ -2548,6 +2548,15 @@ def beat_oracle(env: np.ndarray, bpm: float, sr: float, hop: int, tightness: flo
     return beats
 
 
+def click_track(rng, bpm: float = 120.0) -> np.ndarray:
+    """30 s of Hann-shaped clicks at ``bpm`` from 0.25 s, at 22,050 Hz, in
+    a little noise."""
+    fs = CQT["fs"]
+    clicks = np.zeros(CLIP_SAMPLES)
+    clicks[(np.arange(0.25, 30.0, 60.0 / bpm) * fs).astype(int)] = 1.0
+    return np.convolve(clicks, np.hanning(64), "same") + 0.05 * rng.standard_normal(CLIP_SAMPLES)
+
+
 def audio_remainder(rng, card: str):
     """Phase 19: the CQT, time-frequency, scattering and feature ops from
     numpy input without a device, on the card, against float64 numpy (the
@@ -2616,10 +2625,7 @@ def audio_remainder(rng, card: str):
                       FLATNESS_TOL if name == "spectral_flatness" else ORACLE_TOL)
     kernel_check("feature planes")
     bpm_true = 120.0
-    click_t = np.arange(0.25, 30.0, 60.0 / bpm_true)
-    clicks = np.zeros(CLIP_SAMPLES)
-    clicks[(click_t * fs).astype(int)] = 1.0
-    clicks = np.convolve(clicks, np.hanning(64), "same") + 0.05 * rng.standard_normal(CLIP_SAMPLES)
+    clicks = click_track(rng, bpm_true)
     env = run("onset_strength", tp.onset_strength, clicks, fs, nperseg, fhop)
     S = mel_oracle(clicks[None], fs, nperseg, fhop, 128)[0]
     db = 10.0 * np.log10(np.maximum(S, 1e-10))
@@ -4566,22 +4572,28 @@ def step_oracle64(params, x: np.ndarray, target: np.ndarray, lr: float):
     return {k: (v - lr * g).detach() for (k, v), g in zip(leaves.items(), grads)}, loss.detach()
 
 
-def timing_pair(name: str, eager, comp, calls: int, captured: int) -> dict:
+def timing_pair(name: str, eager, comp, calls: int, captured: int,
+                capture_compiled: bool = True) -> dict:
     """Eager and compiled forms of one call side by side: device µs by
     graph replay, the profiler's device µs and kernels per call,
     back-to-back µs, and the idle share 1 - graph-replay µs / back-to-back
-    µs (late in a whole run the profiler can drop events; replay cannot)."""
+    µs (late in a whole run the profiler can drop events; replay cannot).
+    A compiled loop operator reads its trip condition on the host, which a
+    CUDA graph cannot capture: without ``capture_compiled`` the compiled
+    form's device µs and idle share are the profiler's."""
     row = {"call": name}
     for label, fn in (("eager", eager), ("compiled", comp)):
         t = device_and_wall_us(fn, calls=calls)
-        graph_us = 1e6 * graph_time(fn, launches=captured)
+        capture = label == "eager" or capture_compiled
+        graph_us = 1e6 * graph_time(fn, launches=captured) if capture else None
         row[label] = {"device_us_graph_replay": graph_us,
                       "device_us_profiler": t["device_us"],
                       "device_kernels_per_call": t["kernels"], "k1_us": t["k1_us"],
                       "back_to_back_us": t["wall_us"],
-                      "idle_share": 1.0 - graph_us / t["wall_us"]}
+                      "idle_share": 1.0 - graph_us / t["wall_us"] if capture
+                      else t["idle_share"]}
         r = row[label]
-        log(f"{name} {label}: {r['device_us_graph_replay']:.2f} us device (graph replay), "
+        log(f"{name} {label}: {r['device_us_graph_replay']} us device (graph replay), "
             f"{r['device_us_profiler']} us (profiler), {r['device_kernels_per_call']} "
             f"kernels a call, K1 {r['k1_us']:.2f} us, back to back "
             f"{r['back_to_back_us']:.2f} us, idle share {r['idle_share']}")
@@ -5035,6 +5047,11 @@ SPECAUGMENT_SHAPE = (16, 3001, 80)
 # direct sum, within phase 21's bound
 NUFFT3_S = 1000.0
 NUFFT3_EXTENTS = dict(x_extent=2.0 * math.pi, s_extent=NUFFT3_S)
+# the last ops of queue 1 at their eager phases' shapes: beat_track (tempo
+# inside) on phase 19's 30-s click envelope, scattering1d at SCATTER_SHAPE
+# (J 6, Q 8), vmd at VMD_SHAPE (K 4, 300 sweeps); scattering2d, which no
+# eager phase runs, at its defaults (J 3, L 6) on 8 images of 256 x 256
+SCATTER2D_SHAPE = (8, 256, 256)
 
 
 def cwt_tc64(x: np.ndarray, scales: np.ndarray, dt: float = 1.0, w0: float = 6.0) -> np.ndarray:
@@ -5057,7 +5074,9 @@ def compare(got, want, bins=None) -> float:
         if not isinstance(t, torch.Tensor):
             return np.asarray(t)
         t = t.detach()
-        return (t.float() if t.dtype in (torch.bfloat16, torch.float16) else t).cpu().numpy()
+        # a mask as 0/1: one flipped entry is a relative error of 1
+        return (t.float() if t.dtype in (torch.bfloat16, torch.float16, torch.bool)
+                else t).cpu().numpy()
 
     errs = []
     for i, (g, w) in enumerate(zip(got, want)):
@@ -5150,7 +5169,11 @@ def compiled_ops(rng, card: str, inductor: bool = False) -> int:
     ``specaugment(seed=)`` on a 16 x 3001 x 80 log-mel (masks equal to
     eager's), ``ewt`` with phase 24's boundaries at 16 x 65,536 (its bands
     summing to the signal) and ``nufft3(method="fast")`` with static extents
-    at 2^20 points and frequencies, with its refusal without extents.  Each
+    at 2^20 points and frequencies, with its refusal without extents;
+    :func:`last_of_queue1` (``tempo``, ``beat_track``, ``scattering1d``,
+    ``scattering2d``, ``vmd`` pinned and from the peak pick, their loops
+    loop operators; the compiled loops are timed without graph replay,
+    which cannot capture a loop whose trip condition the host reads).  Each
     through :func:`compiled_op` (backend ``aot_eager``: a
     full-graph capture with CUDA fake tensors and K1's node, seconds a
     call), against float64 where its eager phase checks float64; then one
@@ -5171,7 +5194,7 @@ def compiled_ops(rng, card: str, inductor: bool = False) -> int:
             json.dump({"card": card, "torch": torch.__version__, "inductor": inductor,
                        "rows": rows}, fh, indent=1)
 
-    def run(name, fn, args, args2, bins=None, timing=True, tol=COMPILE_OPS_TOL):
+    def run(name, fn, args, args2, bins=None, timing=True, tol=COMPILE_OPS_TOL, loop=False):
         nonlocal total
         t0 = time.perf_counter()
         try:
@@ -5190,7 +5213,8 @@ def compiled_ops(rng, card: str, inductor: bool = False) -> int:
         total += launched
         rows.append(row)
         if inductor and timing:
-            row.update(timing_pair(name, lambda: fn(*args), lambda: comp(*args), 3, 1))
+            row.update(timing_pair(name, lambda: fn(*args), lambda: comp(*args), 3, 1,
+                                   capture_compiled=not loop))
         record()
         return row, out
 
@@ -5385,6 +5409,8 @@ def compiled_ops(rng, card: str, inductor: bool = False) -> int:
     torch.cuda.empty_cache()
     log(f"phase 31, the transforms of queue 1: {time.perf_counter() - t0:.1f} s")
 
+    last_of_queue1(run, rng)
+
     if inductor:
         # the main path's configurations with Inductor (phase 32 holds them
         # with aot_eager in the whole run): "highest" and "high" at phase
@@ -5436,6 +5462,70 @@ def compiled_ops(rng, card: str, inductor: bool = False) -> int:
     worst = max((r["k1_vs_plain_abs_err"] for r in rows if r.get("k1_vs_plain_abs_err") is not None),
                 default=0.0)
     return total, worst
+
+
+def last_of_queue1(run, rng) -> None:
+    """Phase 31's last ops of queue 1, through ``run`` (``compiled_ops``'):
+    ``tempo`` and ``beat_track`` on phase 19's click envelope (the beats
+    equal to the float64 programme's), ``scattering1d`` at SCATTER_SHAPE
+    (orders 0-2 of ORACLE_ROWS against float64), ``scattering2d`` at
+    SCATTER2D_SHAPE, ``vmd`` at VMD_SHAPE with phase 24's pinned
+    frequencies and with the peak pick (against the float64 sweeps from
+    the same start).  Their loops are loop operators (one node whose body
+    is traced once) and their host work runs on the host."""
+    t0 = time.perf_counter()
+    fs, fhop = CQT["fs"], 512
+    env, env2 = (tp.onset_strength(cuda32(click_track(rng)), fs, 2048, fhop) for _ in range(2))
+    row, bpm = run(f"tempo {env.shape[0]} frames", lambda e: tp.tempo(onset_env=e, sr=fs, hop=fhop),
+                   (env,), (env2,))
+    log(f"compiled tempo {float(bpm):.2f} BPM (clicks at 120)")
+    require(abs(float(bpm) - 120.0) / 120.0 < 0.08, f"compiled tempo {float(bpm)}")
+    row, (bpm, beats) = run(f"beat_track (tempo inside) {env.shape[0]} frames",
+                            lambda e: tp.beat_track(onset_env=e, sr=fs, hop=fhop), (env,), (env2,),
+                            loop=True)
+    want = beat_oracle(env.cpu().numpy().astype(np.float64), float(bpm), fs, fhop)
+    row["beats_differing_from_float64"] = int((beats.cpu().numpy() != want).sum())
+    log(f"compiled beat_track: {int(beats.sum())} beats, {row['beats_differing_from_float64']} "
+        f"frames differ from the float64 programme")
+    require(row["beats_differing_from_float64"] == 0, "compiled beat_track differs from float64")
+    del env, env2
+    x64, xs2 = (rng.standard_normal(SCATTER_SHAPE) for _ in range(2))
+    row, orders = run(f"scattering1d {SCATTER_SHAPE[0]} x 2^16, J 6, Q 8",
+                      lambda v: tp.scattering1d(v)[:3], (cuda32(x64),), (cuda32(xs2),))
+    pairs = list(scattering_ops._layout(6, 8)[1])
+    want = [np.stack(o) for o in zip(*(scattering_oracle(x64[i], 6, 8, pairs) for i in ORACLE_ROWS))]
+    for order, got_o, want_o in zip("012", orders, want):
+        check64(row, f"scattering1d order {order}", got_o[list(ORACLE_ROWS)], want_o, ORACLE_TOL)
+    del orders, x64, xs2
+    im, im2 = (cuda32(rng.standard_normal(SCATTER2D_SHAPE)) for _ in range(2))
+    run(f"scattering2d {SCATTER2D_SHAPE}, J 3, L 6", lambda v: tp.scattering2d(v)[:3], (im,),
+        (im2,))
+    del im, im2
+    kk = np.arange(VMD_SHAPE[1])
+    planted = np.array([0.03, 0.11, 0.2, 0.34])
+
+    def tones():
+        v = sum(np.cos(2 * np.pi * f * kk + rng.uniform(0, 6.28, (VMD_SHAPE[0], 1)))
+                for f in planted)
+        return (v + 0.05 * rng.standard_normal(VMD_SHAPE)).astype(np.float32)
+
+    vx, vx2 = tones(), tones()
+    pinned = planted + np.array([0.005, -0.005, 0.005, -0.005])   # phase 24's
+    for form, init in (("pinned", pinned), ("peaks", "peaks")):
+        row, (modes, om) = run(f"vmd K={VMD_K}, {VMD_ITERS} sweeps {VMD_SHAPE}, {form}",
+                               lambda v, init=init: tp.vmd(v, VMD_K, n_iter=VMD_ITERS,
+                                                           init_omega=init),
+                               (cuda32(vx),), (cuda32(vx2),), loop=True)
+        # the peak pick's frequencies: the same call with no sweep
+        omega0 = pinned if form == "pinned" else tp.vmd(
+            cuda32(vx[:2]), VMD_K, n_iter=0)[1].cpu().numpy()
+        m64, o64 = vmd64(vx[:2], VMD_K, 2000.0, VMD_ITERS, omega0)
+        check64(row, f"vmd {form} modes", modes[:2], m64, VMD_TOL)
+        row["omega_abs_err_vs_float64"] = float(np.max(np.abs(om[:2].cpu().numpy() - o64)))
+        require(row["omega_abs_err_vs_float64"] <= 1e-5, f"compiled vmd {form} frequencies")
+    del vx, vx2, modes, om
+    torch.cuda.empty_cache()
+    log(f"phase 31, the last ops of queue 1: {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------

@@ -12,22 +12,23 @@ a ``torch.Generator`` where the JAX module takes a PRNG key; each public
 function draws and then calls a private helper that takes the draws
 (``_specaugment_masks``, ``_decompose_from``).  ``beat_track``'s dynamic
 programme is a max-plus recursion, not a linear one: a forward loop over
-frames in the order of the JAX module's scan, then a walk back along the
-backpointers.
+frames and a walk back along the backpointers, each the JAX module's
+``lax.scan`` through ``utils.scan.scan`` (one loop node each under
+``torch.compile``, so the graph does not grow with the frame count).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
-from ..utils.numerics import (
-    as_tensor, as_tensors, constant, matmul_precision, on_host, pad_last,
-)
+from ..utils.numerics import as_tensor, as_tensors, host_table, on_host, pad_last, product
+from ..utils.scan import scan
 from .stft import stft as _stft
 
 Tensor = torch.Tensor
@@ -49,11 +50,14 @@ def _magspec(x, S, nperseg, hop, window, power, config) -> Tensor:
     return mag ** power if power != 1.0 else mag
 
 
+def _freqs(nb: int, sr: float) -> np.ndarray:
+    return np.fft.rfftfreq(2 * (nb - 1)) * sr
+
+
 def _bin_freqs(mag: Tensor, sr: float) -> Tensor:
     """The rfft bin frequencies in Hz of a (…, bins) magnitude, on its device."""
-    nb = mag.shape[-1]
-    return constant(lambda: np.fft.rfftfreq(2 * (nb - 1)) * sr, mag, mag.dtype,
-                    key=("feature.freqs", nb, float(sr)))
+    return host_table("feature.freqs", _freqs, mag.shape[-1], float(sr), like=mag,
+                      dtype=mag.dtype)
 
 
 def spectral_centroid(
@@ -374,6 +378,10 @@ def _chroma_filterbank_cached(sr: float, n_fft: int, n_chroma: int,
     return np.roll(wts, -3 * (n_chroma // 12), axis=0)
 
 
+def _chroma_T(sr: float, n_fft: int, n_chroma: int, tuning: float) -> np.ndarray:
+    return chroma_filterbank(sr, n_fft, n_chroma, tuning).T
+
+
 def _max_normalized(c: Tensor) -> Tensor:
     peak = torch.amax(c, dim=-1, keepdim=True)
     return c / torch.clamp(peak, min=1e-30)
@@ -392,11 +400,9 @@ def chroma_stft(
     hop = nperseg // 4 if hop is None else int(hop)
     p = _magspec(x, S, nperseg, hop, window, power, config)
     n_fft = 2 * (p.shape[-1] - 1)
-    fbT = constant(lambda: chroma_filterbank(sr, n_fft, n_chroma, tuning).T, p, p.dtype,
-                   key=("feature.chroma", float(sr), n_fft, int(n_chroma), float(tuning)))
-    with matmul_precision(config.op_precision):
-        c = p @ fbT
-    return _max_normalized(c)
+    fbT = host_table("feature.chroma", _chroma_T, float(sr), n_fft, int(n_chroma), float(tuning),
+                     like=p, dtype=p.dtype)
+    return _max_normalized(product(p, fbT, config.op_precision))
 
 
 def onset_strength(
@@ -423,6 +429,32 @@ def onset_strength(
     return pad_last(env, 1, 0)
 
 
+@functools.lru_cache(maxsize=16)
+def _tempo_grid(n: int, sr: float, hop: int, start_bpm: float, std_bpm: float,
+                min_bpm: float, max_bpm: float):
+    """``tempo``'s host grid: (the first lag, the prior and the BPM of each
+    lag in the window as one (2, lags) table).  The window is one run of
+    lags, since the BPM falls with the lag; a window that holds none raises
+    ValueError."""
+    # lag -> bpm grid (host): bpm = 60 / (lag · hop / sr)
+    lags = np.arange(1, n)
+    bpms = 60.0 * sr / (hop * lags)
+    keep = (bpms >= min_bpm) & (bpms <= max_bpm)
+    lags = lags[keep]
+    bpms = bpms[keep]
+    if lags.size == 0:
+        raise ValueError("BPM window excludes every lag; widen the range")
+    prior = np.exp(-0.5 * ((np.log2(bpms / start_bpm)) / std_bpm) ** 2)
+    return int(lags[0]), np.stack([prior, bpms])
+
+
+def _tempo_part(i: int, *key):
+    """Item ``i`` of :func:`_tempo_grid` of ``key``, for ``on_host`` (0,
+    the first lag) and ``host_table`` (1, the prior and the BPM of each lag
+    in the window, (2, lags))."""
+    return _tempo_grid(*key)[i]
+
+
 def tempo(
     x=None, sr: float = 22050.0, nperseg: int = 2048,
     hop: Optional[int] = None, onset_env=None,
@@ -446,21 +478,13 @@ def tempo(
     nfft = int(2 ** np.ceil(np.log2(2 * n)))
     spec = _rfft(pad_last(env, 0, nfft - n), config=config)
     ac = _irfft(spec * torch.conj(spec), n=nfft, config=config)[..., :n]
-    # lag -> bpm grid (host): bpm = 60 / (lag · hop / sr)
-    lags = np.arange(1, n)
-    bpms = 60.0 * sr / (hop * lags)
-    keep = (bpms >= min_bpm) & (bpms <= max_bpm)
-    lags = lags[keep]
-    bpms = bpms[keep]
-    if lags.size == 0:
-        raise ValueError("BPM window excludes every lag; widen the range")
-    prior = np.exp(-0.5 * ((np.log2(bpms / start_bpm)) / std_bpm) ** 2)
-    key = ("feature.tempo", n, float(sr), hop, float(start_bpm), float(std_bpm),
-           float(min_bpm), float(max_bpm))
-    lags_d = constant(lags, ac, torch.int64, key=key + ("lags",))
-    score = ac[..., lags_d] * constant(prior, ac, ac.dtype, key=key + ("prior",))
+    key = (n, float(sr), hop, float(start_bpm), float(std_bpm), float(min_bpm), float(max_bpm))
+    first = on_host(_tempo_part, 0, *key)
+    table = host_table("feature.tempo", _tempo_part, 1, *key, like=ac, dtype=ac.dtype)
+    prior, bpms = table[0], table[1]
+    score = ac[..., first: first + table.shape[-1]] * prior
     best = torch.argmax(score, dim=-1)
-    return constant(bpms, ac, ac.dtype, key=key + ("bpms",))[best]
+    return torch.index_select(bpms, 0, best.reshape(-1)).reshape(best.shape)
 
 
 def delta(
@@ -496,10 +520,10 @@ def beat_track(
     librosa.beat.beat_track's recipe): (…, T) -> (bpm, beat_mask) with
     ``beat_mask`` boolean per frame (frame m centered on sample m·hop).
 
-    Score C[t] = O[t] + max_Δ [ C[t−Δ] − tightness·log²(Δ/p) ] runs as a
-    forward loop over frames with a Δ-window buffer (the window covers
-    2·p_max, so the tempo may be a tensor); the beat sequence follows the
-    backpointers back from the best-scoring frame."""
+    Score C[t] = O[t] + max_Δ [ C[t−Δ] − tightness·log²(Δ/p) ] runs as one
+    scan over frames with a Δ-window buffer (the window covers 2·p_max, so
+    the tempo may be a tensor); the beat sequence follows the backpointers
+    back from the best-scoring frame in a reverse scan, on the device."""
     hop = nperseg // 4 if hop is None else int(hop)
     env = (onset_strength(x, sr, nperseg, hop, config=config)
            if onset_env is None else as_tensor(onset_env).to(DTYPE))
@@ -515,34 +539,36 @@ def beat_track(
     bpm = as_tensor(bpm, env.device)
     period = 60.0 * sr / (hop * torch.clamp(bpm, min=1e-3))  # frames
     env = env / torch.clamp(torch.std(env, correction=0), min=1e-10)
-    D = int(min(np.ceil(2.0 * 60.0 * sr / (hop * min_bpm)), n - 1))
+    D = int(min(math.ceil(2.0 * 60.0 * sr / (hop * min_bpm)), n - 1))
     deltas = torch.arange(1, D + 1, dtype=env.dtype, device=env.device)
     # transition penalty (a tensor in period, host-fixed in Δ)
     pen = -tightness * torch.log(deltas / period) ** 2  # (D,)
     neg = torch.full((), -1e9, dtype=env.dtype, device=env.device)
     zero = torch.zeros((), dtype=env.dtype, device=env.device)
-    # buf[k] = C[t-1-k], k = 0..D-1; only scores from real frames count
-    buf = torch.full((D,), -1e9, dtype=env.dtype, device=env.device)
     seen = torch.arange(D, device=env.device)
-    scores, bps = [], []
-    for t in range(n):
-        cand = torch.where(seen < t, buf + pen, neg) if t < D else buf + pen
+
+    def step(carry, o_t):
+        buf, t = carry  # buf[k] = C[t-1-k], k = 0..D-1
+        cand = torch.where(seen < t, buf + pen, neg)  # only scores from real frames
         best, arg = torch.max(cand, dim=0)
-        score = env[t] + torch.maximum(best, zero)  # allow fresh starts
-        bps.append(torch.where(best > 0.0, arg + 1, 0))  # Δ, 0 = start
-        buf = torch.cat([score[None], buf[:-1]])
-        scores.append(score)
-    scores = torch.stack(scores)
+        score = o_t + torch.maximum(best, zero)  # allow fresh starts
+        bp = torch.where(best > 0.0, arg + 1, 0)  # Δ, 0 = start
+        return (torch.cat([score[None], buf[:-1]]), t + 1), (score, bp)
+
+    buf0 = torch.full((D,), -1e9, dtype=env.dtype, device=env.device)
+    t0 = torch.zeros((), dtype=torch.int64, device=env.device)
+    _, (scores, bps) = scan(step, (buf0, t0), env)
+
     # walk back from the best frame: each beat's backpointer names the one
     # before it, and a 0 starts the sequence
-    back = torch.stack(bps).cpu().numpy()
-    cur = int(torch.argmax(scores))
-    beats = []
-    while cur >= 0:
-        beats.append(cur)
-        cur = cur - int(back[cur]) if back[cur] > 0 else -1
-    mask = torch.zeros(n, dtype=torch.bool, device=env.device)
-    mask[torch.tensor(beats, device=env.device)] = True
+    def back(cur, frame):
+        t, delta = frame  # delta: frame t's backpointer, read where t is a beat
+        here = t == cur  # cur: the next beat at or before frame t
+        nxt = torch.where(here & (delta > 0), cur - delta, cur)
+        return torch.where(here & (delta == 0), -1, nxt), here
+
+    frames = torch.arange(n, device=env.device)
+    _, mask = scan(back, torch.argmax(scores), (frames, bps), reverse=True)
     # silence gate: with a flat-zero envelope every DP score is 0 and the
     # backtrace would emit a phantom beat at frame 0
     return bpm, mask & (torch.max(scores) > 1e-6)
@@ -552,10 +578,12 @@ def _decompose_from(S: Tensor, A: Tensor, C: Tensor, n_iter: int, eps: float,
                     precision: str = "highest"):
     """Lee-Seung multiplicative updates from the initial factors (A, C),
     products at ``precision``."""
-    with matmul_precision(precision):
-        for _ in range(n_iter):
-            A = A * (S @ C.T) / (A @ (C @ C.T) + eps)
-            C = C * (A.T @ S) / ((A.T @ A) @ C + eps)
+    def mm(a, b):
+        return product(a, b, precision)
+
+    for _ in range(n_iter):
+        A = A * mm(S, C.T) / (mm(A, mm(C, C.T)) + eps)
+        C = C * mm(A.T, S) / (mm(mm(A.T, A), C) + eps)
     return A, C
 
 
@@ -770,6 +798,16 @@ def lpc(y, order: int, axis: int = -1) -> Tensor:
     return ar
 
 
+def _cqt_fold(n_bins: int, n_chroma: int, bins_per_octave: int, fmin: float) -> np.ndarray:
+    """The one-hot fold of CQT bins onto pitch classes, (n_bins, n_chroma)."""
+    cls = (np.arange(n_bins) * n_chroma // bins_per_octave) % n_chroma
+    # librosa cq_to_chroma (base_c): roll so class 0 is always C, whatever
+    # pitch class fmin sits on — midi(f) = 12·log2(f/440) + 69
+    midi_fmin = 12.0 * np.log2(fmin / 440.0) + 69.0
+    cls = (cls + int(round((midi_fmin % 12.0) * n_chroma / 12.0))) % n_chroma
+    return cls[:, None] == np.arange(n_chroma)[None, :]
+
+
 def chroma_cqt(
     x, sr: float = 22050.0, hop: int = 512, n_chroma: int = 12,
     n_octaves: int = 6, fmin: float = 32.703195662574764,
@@ -796,19 +834,21 @@ def chroma_cqt(
                        bins_per_octave=bins_per_octave, hop=hop,
                        config=config))
 
-    def fold() -> np.ndarray:
-        cls = (np.arange(n_bins) * n_chroma // bins_per_octave) % n_chroma
-        # librosa cq_to_chroma (base_c): roll so class 0 is always C, whatever
-        # pitch class fmin sits on — midi(f) = 12·log2(f/440) + 69
-        midi_fmin = 12.0 * np.log2(fmin / 440.0) + 69.0
-        cls = (cls + int(round((midi_fmin % 12.0) * n_chroma / 12.0))) % n_chroma
-        return cls[:, None] == np.arange(n_chroma)[None, :]
+    onehot = host_table("feature.chroma_cqt", _cqt_fold, n_bins, int(n_chroma),
+                        int(bins_per_octave), float(fmin), like=C, dtype=C.dtype)
+    return _max_normalized(product(C, onehot, config.op_precision))
 
-    onehot = constant(fold, C, C.dtype,
-                      key=("feature.chroma_cqt", n_bins, int(n_chroma), int(bins_per_octave), float(fmin)))
-    with matmul_precision(config.op_precision):
-        ch = C @ onehot
-    return _max_normalized(ch)
+
+def _tonnetz_basis() -> np.ndarray:
+    d = np.arange(12)
+    # Harte et al. 2006 radii R = [1, 1, 1, 1, 0.5, 0.5]: fifths and minor
+    # thirds at radius 1, the major-third circle at radius 0.5
+    r = np.array([1.0, 1.0, 0.5])
+    return np.stack([
+        r[0] * np.sin(d * 7 * np.pi / 6), r[0] * np.cos(d * 7 * np.pi / 6),
+        r[1] * np.sin(d * 3 * np.pi / 2), r[1] * np.cos(d * 3 * np.pi / 2),
+        r[2] * np.sin(d * 2 * np.pi / 3), r[2] * np.cos(d * 2 * np.pi / 3),
+    ]).T  # (12, 6)
 
 
 def tonnetz(
@@ -824,21 +864,9 @@ def tonnetz(
     c = as_tensor(chroma).to(DTYPE)
     if c.ndim < 2 or c.shape[-1] != 12:
         raise ValueError("chroma must be (…, frames, 12)")
-
-    def basis() -> np.ndarray:
-        d = np.arange(12)
-        # Harte et al. 2006 radii R = [1, 1, 1, 1, 0.5, 0.5]: fifths and minor
-        # thirds at radius 1, the major-third circle at radius 0.5
-        r = np.array([1.0, 1.0, 0.5])
-        return np.stack([
-            r[0] * np.sin(d * 7 * np.pi / 6), r[0] * np.cos(d * 7 * np.pi / 6),
-            r[1] * np.sin(d * 3 * np.pi / 2), r[1] * np.cos(d * 3 * np.pi / 2),
-            r[2] * np.sin(d * 2 * np.pi / 3), r[2] * np.cos(d * 2 * np.pi / 3),
-        ]).T  # (12, 6)
-
     norm = torch.clamp(torch.sum(torch.abs(c), -1, keepdim=True), min=1e-30)
-    with matmul_precision(config.op_precision):
-        return (c / norm) @ constant(basis, c, c.dtype, key=("feature.tonnetz",))
+    basis = host_table("feature.tonnetz", _tonnetz_basis, like=c, dtype=c.dtype)
+    return product(c / norm, basis, config.op_precision)
 
 
 def gcc_phat(

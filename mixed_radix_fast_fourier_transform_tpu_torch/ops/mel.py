@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.numerics import (
-    as_tensor, constant, host_table, matmul_precision, median, pad_last, working,
+    as_tensor, host_table, median, on_host, pad_last, product, working,
 )
 from ..utils.scan import linear_recurrence
 from .dct import dct as _dct, idct as _idct
@@ -181,18 +181,19 @@ def melspectrogram(
     p = spec.real ** 2 + spec.imag ** 2
     if power != 2.0:
         p = torch.pow(torch.clamp(p, min=0.0), power / 2.0)
-    with matmul_precision(config.op_precision):
-        return p @ _filterbank_on(p, sr, n_fft, n_mels, fmin, fmax, htk, norm).T
+    fb = _filterbank_on(p, sr, n_fft, n_mels, fmin, fmax, htk, norm)
+    return product(p, fb.T, config.op_precision)
+
+
+def _lifter(n_mfcc: int, lifter: float, inverse: bool) -> np.ndarray:
+    lif = 1.0 + (lifter / 2.0) * np.sin(np.pi * np.arange(1, n_mfcc + 1) / lifter)
+    # librosa adds tiny() so an exactly-zero lifter entry (which zeroed
+    # the forward coefficient) inverts to 0 instead of NaN
+    return lif + np.sign(lif + 1e-300) * 1e-30 if inverse else lif
 
 
 def _lifter_on(like: Tensor, n_mfcc: int, lifter: float, inverse: bool) -> Tensor:
-    def table() -> np.ndarray:
-        lif = 1.0 + (lifter / 2.0) * np.sin(np.pi * np.arange(1, n_mfcc + 1) / lifter)
-        # librosa adds tiny() so an exactly-zero lifter entry (which zeroed
-        # the forward coefficient) inverts to 0 instead of NaN
-        return lif + np.sign(lif + 1e-300) * 1e-30 if inverse else lif
-
-    return constant(table, like, key=("mel.lifter", n_mfcc, float(lifter), inverse))
+    return host_table("mel.lifter", _lifter, n_mfcc, float(lifter), inverse, like=like)
 
 
 def mfcc(
@@ -295,6 +296,12 @@ def _nnls_constants(sr, n_fft, n_mels, fmin, fmax, htk, norm):
     return np.linalg.pinv(fb), 1.0 / max(float(np.linalg.norm(fb @ fb.T, 2)), 1e-12)
 
 
+def _nnls_part(i: int, *key):
+    """Item ``i`` of :func:`_nnls_constants` of ``key``, for ``host_table``
+    (0, the pseudo-inverse) and ``on_host`` (1, the step)."""
+    return _nnls_constants(*key)[i]
+
+
 def mel_to_stft(
     M,
     sr: float = 22050.0,
@@ -327,13 +334,14 @@ def mel_to_stft(
     n_mels = M.shape[-1]
     key = (float(sr), int(n_fft), int(n_mels), float(fmin),
            None if fmax is None else float(fmax), bool(htk), norm)
-    pinv, lam = _nnls_constants(*key)
+    lam = on_host(_nnls_part, 1, *key)
+    pinv = host_table("mel.pinv", _nnls_part, 0, *key, like=M)
     fbd = _filterbank_on(M, sr, n_fft, n_mels, fmin, fmax, htk, norm)  # (n_mels, bins)
-    with matmul_precision(config.op_precision):
-        s = torch.clamp(M @ constant(pinv, M, key=("mel.pinv",) + key).T, min=0.0)
-        for _ in range(n_iter):
-            resid = s @ fbd.T - M
-            s = torch.clamp(s - lam * (resid @ fbd), min=0.0)
+    prec = config.op_precision
+    s = torch.clamp(product(M, pinv.T, prec), min=0.0)
+    for _ in range(n_iter):
+        resid = product(s, fbd.T, prec) - M
+        s = torch.clamp(s - lam * product(resid, fbd, prec), min=0.0)
     # mel power -> linear magnitude
     return torch.pow(torch.clamp(s, min=0.0), 1.0 / power)
 
@@ -426,6 +434,15 @@ def hpss(
     return S * mask_h, S * mask_p
 
 
+def _taus(tau_max: int) -> np.ndarray:
+    return np.arange(1, tau_max + 1)
+
+
+def _in_band(n_lag: int, tau_min: int, tau_max: int) -> np.ndarray:
+    lag_idx = np.arange(1, n_lag - 1)
+    return (lag_idx >= tau_min) & (lag_idx <= tau_max - 1)
+
+
 def _yin_cmnd(x, fmin, fmax, sr, frame_length, win_length, hop, center,
               config):
     """Cumulative-mean-normalized difference frames shared by yin/pyin:
@@ -464,7 +481,7 @@ def _yin_cmnd(x, fmin, fmax, sr, frame_length, win_length, hop, center,
     corr = _irfft(spec, n=nfft, config=config)[..., : tau_max + 1]
     d = e0[..., None] + e_tau - 2.0 * corr  # (…, F, tau_max+1)
     # cumulative mean normalized difference
-    tau_f = constant(lambda: np.arange(1, tau_max + 1), d, d.dtype, key=("yin.taus", tau_max))
+    tau_f = host_table("yin.taus", _taus, tau_max, like=d, dtype=d.dtype)
     run = torch.cumsum(d[..., 1:], dim=-1)
     cmnd = torch.cat(
         [torch.ones_like(d[..., :1]),
@@ -478,13 +495,8 @@ def _cmnd_troughs(cmnd: Tensor, tau_min: int, tau_max: int):
     the interior lag axis 1..tau_max-1."""
     lo = cmnd[..., 1:-1]
     is_trough = (lo <= cmnd[..., :-2]) & (lo <= cmnd[..., 2:])
-    n_lag = cmnd.shape[-1]
-
-    def band() -> np.ndarray:
-        lag_idx = np.arange(1, n_lag - 1)
-        return (lag_idx >= tau_min) & (lag_idx <= tau_max - 1)
-
-    in_band = constant(band, cmnd, torch.bool, key=("yin.in_band", n_lag, tau_min, tau_max))
+    in_band = host_table("yin.in_band", _in_band, cmnd.shape[-1], tau_min, tau_max, like=cmnd,
+                         dtype=torch.bool)
     return lo, is_trough & in_band, in_band
 
 
@@ -569,6 +581,12 @@ def _pyin_tables(fmin, fmax, sr, tau_max, resolution, switch_prob, max_semitones
     return n_bins, bin_f, onehot, np.log(T + 1e-30)
 
 
+def _pyin_table(i: int, *key):
+    """Item ``i`` of :func:`_pyin_tables` of ``key``, for ``on_host`` (0,
+    the bin count) and ``host_table`` (1, 2, 3)."""
+    return _pyin_tables(*key)[i]
+
+
 def pyin(
     x,
     fmin: float,
@@ -636,12 +654,10 @@ def pyin(
     cand = w / torch.clamp(total, min=1e-12)[..., None]
     key = (float(fmin), float(fmax), float(sr), int(tau_max), float(resolution),
            float(switch_prob), float(max_semitones_per_frame))
-    n_bins, bin_f, onehot_h, logT_h = _pyin_tables(*key)
-    onehot = constant(onehot_h, cmnd, key=("pyin.onehot",) + key)  # (lags, bins)
-    logT = constant(logT_h, cmnd, key=("pyin.logT",) + key)        # (S, S)
-    with matmul_precision(config.op_precision):
-        obs_v = cand @ onehot
-    obs_v = obs_v * p_voiced[..., None]
+    n_bins = on_host(_pyin_table, 0, *key)
+    onehot = host_table("pyin.onehot", _pyin_table, 2, *key, like=cmnd)  # (lags, bins)
+    logT = host_table("pyin.logT", _pyin_table, 3, *key, like=cmnd)      # (S, S)
+    obs_v = product(cand, onehot, config.op_precision) * p_voiced[..., None]
     obs_u = (1.0 - p_voiced)[..., None]
     obs = torch.log(torch.cat([obs_v, obs_u], -1) + 1e-12)  # (…,F,S)
 
@@ -673,7 +689,7 @@ def pyin(
     pick = torch.argmax(wsel, dim=-1) + 1  # lag units
     tau_hat = _parabolic_lag(cmnd, pick)
     f0_fine = sr / tau_hat
-    f0_bin = constant(bin_f, cmnd, key=("pyin.bin_f",) + key)[bsel]
+    f0_bin = host_table("pyin.bin_f", _pyin_table, 1, *key, like=cmnd)[bsel]
     f0 = torch.where(has_lag, f0_fine, f0_bin)
     f0 = torch.where(voiced, f0, torch.full_like(f0, fill_unvoiced))
     return f0, voiced, p_voiced

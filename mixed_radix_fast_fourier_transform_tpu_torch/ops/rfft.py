@@ -147,10 +147,12 @@ def irfft(
     # numpy.fft.irfft semantics: the imaginary parts of the DC (and, for
     # even n, Nyquist) bins never enter; zero them on a copy, never on the
     # caller's tensor (to_planes may return it as is)
+    # (zero_, not a Python scalar's assignment, whose host copy a CUDA graph
+    # cannot capture)
     xi = xi.clone()
-    xi[..., 0] = 0.0
+    xi[..., 0].zero_()
     if n % 2 == 0 and n >= 2:
-        xi[..., n // 2] = 0.0
+        xi[..., n // 2].zero_()
         out = _irfft_packed(xr, xi, n, config)
     else:
         # odd length: rebuild the full Hermitian spectrum, then invert pairs

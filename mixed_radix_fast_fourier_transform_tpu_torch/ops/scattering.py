@@ -13,9 +13,13 @@ scale 2^J.
 
 Device shape: ONE signal FFT; every filter is a host fp64 spectral window
 applied as a broadcast multiply; each order is a batched engine ifft; the
-invariant averaging is one more spectral multiply and a stride.  The banks
-are host tables built once per (length, J, Q, w) and kept on the device
-(``utils.numerics.constant``), so a call can be captured in a CUDA graph.
+invariant averaging is one more spectral multiply and a stride.  Each
+order's bank, stacked with the lowpass, is one host table built once per
+(length, J, Q, w) and kept on the device (``utils.numerics.host_table``),
+and the second order's index pairs are host tables too, so a call can be
+captured in a CUDA graph and compiles whole: under ``torch.compile`` the
+host work (the centre frequencies, the pairs, the banks) runs on the host
+and the graph holds its results.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import numpy as np
 import torch
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
-from ..utils.numerics import as_tensor, constant
+from ..utils.numerics import as_tensor, host_table, on_host
 from .fft import fft, ifft
 from .tfr import _morlet_hat
 
@@ -52,6 +56,35 @@ def _centers(J: int, Q: int):
     return xi1[xi1 >= fmin * 0.999], xi2[xi2 >= fmin * 0.999], fmin
 
 
+def _layout(J: int, Q: int) -> tuple:
+    """(the first order's filter count, the second order's (j1, j2) pairs:
+    xi2 below half of xi1)."""
+    xi1, xi2, _ = _centers(J, Q)
+    return len(xi1), tuple((j1, j2) for j1 in range(len(xi1)) for j2 in range(len(xi2))
+                           if xi2[j2] < 0.5 * xi1[j1])
+
+
+def _column(pairs: tuple, i: int) -> np.ndarray:
+    """Entry ``i`` of each pair, the index of one side of the second order."""
+    return np.asarray([p[i] for p in pairs], np.int64)
+
+
+def _second_order(U1f: Tensor, psid: Tensor, phid: Tensor, pairs: tuple, stride: int,
+                  inverse, forward, dims: int) -> Tensor:
+    """Order two over the ``pairs`` (channel of U1f, filter of ``psid``):
+    modulus of the band passes of the first-order envelopes, averaged, on
+    the last ``dims`` axes; an empty order when there are no pairs."""
+    if not pairs:
+        shape = U1f.shape[:-dims - 1] + (0,) + tuple(-(-n // stride) for n in U1f.shape[-dims:])
+        return U1f.real.new_zeros(shape)
+    p1 = host_table("scattering.pairs", _column, pairs, 0, like=U1f, dtype=torch.int64)
+    p2 = host_table("scattering.pairs", _column, pairs, 1, like=U1f, dtype=torch.int64)
+    U2 = torch.abs(inverse(torch.index_select(U1f, -dims - 1, p1) * psid[p2]))
+    U2f = forward(U2.to(_CDTYPE))
+    s2 = torch.real(inverse(U2f * phid))
+    return s2[(..., *(slice(None, None, stride),) * dims)]
+
+
 def _scattering_bank(T: int, J: int, Q: int, w):
     """Host filters: (first-order (n1, T), second-order (n2, T), φ (T,),
     center frequencies xi1 (n1,), xi2 (n2,)) — all real spectral windows."""
@@ -71,17 +104,14 @@ def _scattering_bank(T: int, J: int, Q: int, w):
     return psi1, psi2, phi, xi1, xi2
 
 
-def _bank_tables(bank, key: tuple, like: Tensor, n: int):
-    """The first ``n`` arrays of ``bank()`` as device tables under ``key``;
-    the host bank is built once, and only when a table is missing."""
-    built = []
+def _bank_1d(T: int, J: int, Q: int, w) -> np.ndarray:
+    """The first- and second-order banks and φ stacked, (n1 + n2 + 1, T)."""
+    psi1, psi2, phi, _, _ = _scattering_bank(T, J, Q, w)
+    return np.concatenate([psi1, psi2, phi[None]])
 
-    def part(i):
-        if not built:
-            built.append(bank())
-        return built[0][i]
 
-    return tuple(constant(lambda i=i: part(i), like, DTYPE, key=key + (i,)) for i in range(n))
+def _xi(J: int, Q: int, i: int) -> np.ndarray:
+    return _centers(J, Q)[i]
 
 
 def scattering1d(
@@ -116,9 +146,9 @@ def scattering1d(
     if stride < 1 or T % stride:
         raise ValueError(f"stride {stride} must divide T={T}")
     wkey = None if w is None else float(w)
-    bank = lambda: _scattering_bank(T, J, Q, wkey)
-    xi1, xi2, _ = _centers(J, Q)
-    psi1d, psi2d, phid = _bank_tables(bank, ("scattering1d", T, J, Q, wkey), x, 3)
+    n1, pairs = on_host(_layout, J, Q)
+    bank = host_table("scattering1d", _bank_1d, T, J, Q, wkey, like=x, dtype=DTYPE)
+    psi1d, psi2d, phid = bank[:n1], bank[n1:-1], bank[-1]
 
     X = fft(x.to(_CDTYPE), config=config)  # (…, T)
     # zeroth order: invariant average of the signal itself
@@ -128,17 +158,15 @@ def scattering1d(
     U1f = fft(U1.to(_CDTYPE), config=config)
     s1 = torch.real(ifft(U1f * phid, config=config))[..., ::stride]
     # second order: only pairs with xi2 < xi1 (decreasing frequency path)
-    pairs = [(j1, j2) for j1 in range(len(xi1)) for j2 in range(len(xi2))
-             if xi2[j2] < 0.5 * xi1[j1]]
-    if pairs:
-        p1 = [p[0] for p in pairs]
-        p2 = [p[1] for p in pairs]
-        U2 = torch.abs(ifft(U1f[..., p1, :] * psi2d[p2], config=config))
-        U2f = fft(U2.to(_CDTYPE), config=config)
-        s2 = torch.real(ifft(U2f * phid, config=config))[..., ::stride]
+    s2 = _second_order(U1f, psi2d, phid, pairs, stride, lambda v: ifft(v, config=config),
+                       lambda v: fft(v, config=config), 1)
+    if torch.compiler.is_dynamo_compiling():
+        # the kept host copies, which the graph hands back as they are
+        xi1, xi2 = (host_table("scattering1d.xi", _xi, J, Q, i, like=torch.device("cpu"),
+                               dtype=torch.float64).numpy() for i in (0, 1))
     else:
-        s2 = s1.new_zeros(s1.shape[:-2] + (0, s1.shape[-1]))
-    return s0, s1, s2, (xi1, xi2, pairs)
+        xi1, xi2, _ = _centers(J, Q)
+    return s0, s1, s2, (xi1, xi2, list(pairs))
 
 
 def _scattering_bank_2d(H: int, W: int, J: int, L: int):
@@ -179,6 +207,12 @@ def _scattering_bank_2d(H: int, W: int, J: int, L: int):
     return np.stack(psis), phi, tuple(meta)
 
 
+def _bank_2d(H: int, W: int, J: int, L: int) -> np.ndarray:
+    """The oriented bank and φ stacked, (J·L + 1, H, W)."""
+    psis, phi, _ = _scattering_bank_2d(H, W, J, L)
+    return np.concatenate([psis, phi[None]])
+
+
 def scattering2d(
     x,
     J: int = 3,
@@ -213,23 +247,17 @@ def scattering2d(
     stride = 1 << (J - 1) if stride is None else int(stride)
     if stride < 1 or H % stride or W % stride:
         raise ValueError(f"stride {stride} must divide both {H} and {W}")
-    bank = lambda: _scattering_bank_2d(H, W, J, L)
     meta1 = tuple((j, l) for j in range(J) for l in range(L))
-    psid, phid = _bank_tables(bank, ("scattering2d", H, W, J, L), x, 2)
+    pairs = tuple((i1, i2) for i1, (j1, _) in enumerate(meta1)
+                  for i2, (j2, _) in enumerate(meta1) if j2 > j1)
+    bank = host_table("scattering2d", _bank_2d, H, W, J, L, like=x, dtype=DTYPE)
+    psid, phid = bank[:-1], bank[-1]
 
     X = fft2(x.to(_CDTYPE), config=config)
     s0 = torch.real(ifft2(X * phid, config=config))[..., ::stride, ::stride]
     U1 = torch.abs(ifft2(X[..., None, :, :] * psid, config=config))
     U1f = fft2(U1.to(_CDTYPE), config=config)
     s1 = torch.real(ifft2(U1f * phid, config=config))[..., ::stride, ::stride]
-    pairs = [(i1, i2) for i1, (j1, _) in enumerate(meta1)
-             for i2, (j2, _) in enumerate(meta1) if j2 > j1]
-    if pairs:
-        p1 = [p[0] for p in pairs]
-        p2 = [p[1] for p in pairs]
-        U2 = torch.abs(ifft2(U1f[..., p1, :, :] * psid[p2], config=config))
-        U2f = fft2(U2.to(_CDTYPE), config=config)
-        s2 = torch.real(ifft2(U2f * phid, config=config))[..., ::stride, ::stride]
-    else:
-        s2 = s1.new_zeros(s1.shape[:-3] + (0,) + s1.shape[-2:])
-    return s0, s1, s2, (meta1, pairs)
+    s2 = _second_order(U1f, psid, phid, pairs, stride, lambda v: ifft2(v, config=config),
+                       lambda v: fft2(v, config=config), 2)
+    return s0, s1, s2, (meta1, list(pairs))

@@ -6,9 +6,13 @@ min Σ_k ‖∂_t[(δ + j/πt) * u_k]e^{−jω_k t}‖² subject to Σu_k = f.  
 ADMM update is elementwise in the frequency domain — a Wiener filter per
 mode plus a spectral centroid — so the whole decomposition runs on the
 card: one engine FFT in, ``n_iter`` sweeps of vectorized updates, one
-inverse FFT out.  Where the JAX module runs the sweeps in a
-``lax.fori_loop``, here they are a Python loop (:func:`_admm`, a few small
-kernels per mode and sweep, which a caller may capture in a CUDA graph).
+inverse FFT out.  The sweeps run as the JAX module's ``lax.fori_loop``
+does, through ``utils.scan.fori_loop`` (:func:`_admm`: eagerly a few
+small kernels per mode and sweep, which a caller may capture in a CUDA
+graph; under ``torch.compile`` one loop node whose body is one sweep).
+The host tables (the one-sided mask, the |ω| grid, the uniform and a
+caller's initial frequencies) are built on the host, so ``vmd`` compiles
+whole for every ``init_omega`` form.
 
 Mirror extension (standard) removes boundary splits; the iteration count
 is fixed.
@@ -22,7 +26,8 @@ import numpy as np
 import torch
 
 from ..utils.config import DEFAULT_CONFIG, SpectralConfig
-from ..utils.numerics import as_tensor, constant, content_key
+from ..utils.numerics import as_tensor, content_key, host_table, key_array, on_host
+from ..utils.scan import fori_loop
 from .fft import fft, ifft
 
 Tensor = torch.Tensor
@@ -34,12 +39,12 @@ def _admm(f_pos: Tensor, pos: Tensor, w: Tensor, omega: Tensor, alpha: float,
           tau: float, n_iter: int):
     """``n_iter`` Gauss-Seidel sweeps over the K modes (sequential over k,
     as the JAX module's loop body): returns the one-sided mode spectra
-    (..., K, T) and the centre frequencies (..., K)."""
+    (..., K, T) and the centre frequencies (..., K).  One sweep is the body
+    of a ``fori_loop``; the K modes are unrolled inside it."""
     K = omega.shape[-1]
-    u = [torch.zeros_like(f_pos) for _ in range(K)]
-    om = [omega[..., k] for k in range(K)]
-    lam = torch.zeros_like(f_pos)
-    for _ in range(n_iter):
+
+    def sweep(_, state):
+        u, om, lam = list(state[0]), list(state[1]), state[2]
         sum_u = u[0]
         for k in range(1, K):
             sum_u = sum_u + u[k]
@@ -53,7 +58,35 @@ def _admm(f_pos: Tensor, pos: Tensor, w: Tensor, omega: Tensor, alpha: float,
             sum_u = sum_u + u_k
         if tau:
             lam = lam + tau * (f_pos - sum_u)
+        return tuple(u), tuple(om), lam
+
+    u0 = tuple(torch.zeros_like(f_pos) for _ in range(K))
+    om0 = tuple(omega[..., k] for k in range(K))
+    u, om, _ = fori_loop(0, n_iter, sweep, (u0, om0, torch.zeros_like(f_pos)))
     return torch.stack(u, dim=-2), torch.stack(om, dim=-1)
+
+
+def _pos(T: int) -> np.ndarray:
+    # analytic one-sided spectrum: bins 0..T//2 (incl. Nyquist for even T
+    # — fftfreq reports it as −0.5, so a freqs>=0 mask would drop it)
+    return (np.arange(T) <= T // 2).astype(np.float32)
+
+
+def _grid(T: int) -> np.ndarray:
+    return np.abs(np.fft.fftfreq(T)).astype(np.float32)  # |ω|, cycles/sample
+
+
+def _uniform(K: int) -> np.ndarray:
+    return 0.5 * (np.arange(K) + 0.5) / K    # uniform in [0, 0.5)
+
+
+def _omega_key(init_omega, K: int) -> tuple:
+    """Host prologue of a caller's initial frequencies
+    (``utils.numerics.on_host``): checked, as their content key."""
+    omega0 = np.asarray(init_omega, np.float64)
+    if omega0.shape != (K,):
+        raise ValueError(f"init_omega must have shape ({K},)")
+    return content_key("vmd.omega", omega0)
 
 
 def vmd(x, K: int, alpha: float = 2000.0, tau: float = 0.0,
@@ -73,8 +106,10 @@ def vmd(x, K: int, alpha: float = 2000.0, tau: float = 0.0,
     the ``K`` largest mutually-separated spectral peaks (greedy argmax with
     a T/(16K)-bin suppression window, per batch element, on the card);
     ``"uniform"`` is the Dragomiretskiy & Zosso grid; an explicit (K,)
-    array pins the initialization.  The peak pick is an argmax, which may
-    pick another of two near-equal peaks than the JAX function does.
+    array pins the initialization (under ``torch.compile`` a numpy array
+    or a list: its values are read on the host).  The peak pick is an
+    argmax, which may pick another of two near-equal peaks than the JAX
+    function does.
     """
     x = as_tensor(x)
     if x.shape[-1] < 8:
@@ -93,12 +128,8 @@ def vmd(x, K: int, alpha: float = 2000.0, tau: float = 0.0,
                     torch.flip(x[..., T0 - half:], (-1,))], dim=-1)
     T = xm.shape[-1]
     f_hat = fft(xm, config=config)
-    # analytic one-sided spectrum: bins 0..T//2 (incl. Nyquist for even T
-    # — fftfreq reports it as −0.5, so a freqs>=0 mask would drop it)
-    pos = constant(lambda: (np.arange(T) <= T // 2).astype(np.float32), f_hat,
-                   key=("vmd.pos", T))
-    w = constant(lambda: np.abs(np.fft.fftfreq(T)).astype(np.float32), f_hat,
-                 key=("vmd.w", T))  # |ω| grid, cycles/sample
+    pos = host_table("vmd.pos", _pos, T, like=f_hat)
+    w = host_table("vmd.w", _grid, T, like=f_hat)
     f_pos = f_hat * pos
 
     batch = tuple(x.shape[:-1])
@@ -114,21 +145,18 @@ def vmd(x, K: int, alpha: float = 2000.0, tau: float = 0.0,
             oms = []
             for _ in range(K):
                 m = torch.argmax(p, dim=-1)
-                oms.append(w[m])
+                oms.append(torch.index_select(w, 0, m.reshape(-1)).reshape(m.shape))
                 p = p * (torch.abs(bins - m[..., None]) > halfw)
             omega_init = torch.sort(torch.stack(oms, dim=-1), dim=-1).values
         elif init_omega == "uniform":
-            omega0 = 0.5 * (np.arange(K) + 0.5) / K    # uniform in [0, 0.5)
-            omega_init = constant(omega0, f_hat, key=("vmd.uniform", K)).expand(batch + (K,))
+            omega_init = host_table("vmd.uniform", _uniform, K, like=f_hat).expand(batch + (K,))
         else:
             raise ValueError(
                 f"init_omega must be 'peaks', 'uniform', or a (K,) array, "
                 f"got {init_omega!r}")
     else:
-        omega0 = np.asarray(init_omega, np.float64)
-        if omega0.shape != (K,):
-            raise ValueError(f"init_omega must have shape ({K},)")
-        omega_init = constant(omega0, f_hat, key=content_key("vmd.omega", omega0)).expand(batch + (K,))
+        okey = on_host(_omega_key, init_omega, K)
+        omega_init = host_table("vmd.omega", key_array, okey, like=f_hat).expand(batch + (K,))
 
     u, omega = _admm(f_pos, pos, w, omega_init, float(alpha), float(tau), int(n_iter))
 

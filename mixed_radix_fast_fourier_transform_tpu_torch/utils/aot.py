@@ -68,9 +68,13 @@ class _Prepared:
                 f"fwht, cwt_tc, ewt (boundaries=), specaugment (seed= or the default "
                 f"draws), the dense NUFFTs and nufft3, nufft3_2d, nufft3_3d ('auto' "
                 f"without extents takes dense; 'fast' needs static extents), "
+                f"tempo, beat_track, scattering1d, scattering2d, vmd (every "
+                f"init_omega form; their loops are loop operators: "
+                f"utils.scan.fori_loop and scan), "
                 f"and the spectral filter, FNO, S4D, FNet, AFNO, SFNO, PCEN front "
                 f"end and Koopman models so far, the ops other than the engine, "
-                f"the convolutions, fwht, wct's smoothing and the dense NUFFTs at "
+                f"the convolutions, fwht, wct's smoothing, the dense NUFFTs and "
+                f"the products of mel.py and feature.py at "
                 f"precision 'highest' only; a host array made "
                 f"inside the function (np.linspace as theta, a design as sos or h) "
                 f"must be made outside it (ROADMAP.md lists the rest). "

@@ -21,17 +21,27 @@ batch (the JAX module's (n, …, p, p) operand).
 :func:`associative_scan` is ``lax.associative_scan``'s odd/even recursion
 over a tuple of tensors, for combine functions that are not affine maps
 (the Kalman filter's elements).
+
+:func:`fori_loop` and :func:`scan` are ``lax.fori_loop`` and ``lax.scan``
+for loops of a fixed trip count whose steps depend on each other (VMD's
+ADMM sweeps, the beat tracker's dynamic programme and its backtrace).
+Eagerly they run the body in a Python loop.  While ``torch.compile`` or
+``torch.export`` traces, each is one ``torch._higher_order_ops.while_loop``
+node whose body is traced once, so the graph and its compile time do not
+grow with the trip count.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, Sequence, Union
+from typing import Any, Callable, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
+from .metrics import tracing
 from .numerics import host_table, key_array, matmul_precision
 
 Tensor = torch.Tensor
@@ -250,3 +260,95 @@ def associative_scan(fn: Callable, elems: Union[Tensor, Sequence[Tensor]], dim: 
     if reverse:
         out = [torch.flip(e, (dim,)) for e in out]
     return out[0] if single else tuple(out)
+
+
+def _fresh(outs: list, ins: list) -> list:
+    """``outs`` with every tensor that is one of ``ins`` cloned: a loop
+    operator's body may not hand back its input as it is."""
+    return [o.clone() if any(o is i for i in ins) else o for o in outs]
+
+
+def fori_loop(lower: int, upper: int, body: Callable[[Any, Any], Any], init: Any) -> Any:
+    """``lax.fori_loop``: ``carry = body(i, carry)`` for i in
+    range(``lower``, ``upper``), from ``carry = init`` (a tensor or a
+    pytree of tensors, whose shapes and dtypes the body keeps); returns the
+    last carry.  Eagerly a Python loop, ``i`` an int.  Under a tracer one
+    ``while_loop`` node on a 0-d int64 counter beside the carry (on the
+    carry's device), ``i`` that counter: the body is traced once.  A
+    complex tensor of the carry rides the loop as its (re, im) planes and
+    is made whole again around each body call (Inductor cannot carry a
+    complex buffer through a loop: torch 2.11 on CUDA), and every tensor
+    rides it contiguous."""
+    if not tracing():
+        carry = init
+        for i in range(lower, upper):
+            carry = body(i, carry)
+        return carry
+    flat, spec = pytree.tree_flatten(init)
+    cplx = [t.is_complex() for t in flat]
+
+    def split(leaves):
+        out = []
+        for t, c in zip(leaves, cplx):
+            # contiguous: the loop holds its state at one layout
+            out += [t.real.contiguous(), t.imag.contiguous()] if c else [t.contiguous()]
+        return out
+
+    def join(planes):
+        leaves, it = [], iter(planes)
+        for c in cplx:
+            leaves.append(torch.complex(next(it), next(it)) if c else next(it))
+        return leaves
+
+    def cond(i, *state):
+        return i < upper
+
+    def step(i, *state):
+        out = pytree.tree_leaves(body(i, pytree.tree_unflatten(join(state), spec)))
+        return (i + 1, *_fresh(split(out), list(state)))
+
+    counter = torch.full((), lower, dtype=torch.int64, device=flat[0].device)
+    # the loop's inputs may not share memory either (two views of one tensor)
+    init_state = [t.clone() for t in split(flat)]
+    _, *state = torch._higher_order_ops.while_loop(cond, step, (counter, *init_state))
+    return pytree.tree_unflatten(join(state), spec)
+
+
+def scan(step: Callable[[Any, Any], Tuple[Any, Any]], init: Any, xs: Any,
+         reverse: bool = False) -> Tuple[Any, Any]:
+    """``lax.scan``: ``carry, y = step(carry, x)`` over the slices ``x`` of
+    ``xs`` (a tensor or a pytree of tensors) along their first axis, from
+    ``carry = init``; returns (the last carry, the ``y`` stacked along a
+    new first axis).  ``reverse=True`` runs from the last slice to the
+    first, and ``ys[i]`` is still the output of ``xs[i]``'s step, as
+    ``lax.scan``'s is.  Eagerly a Python loop.  Under a tracer a
+    :func:`fori_loop` (one ``while_loop`` node) whose body reads slice t by
+    ``index_select`` and writes ``y`` into preallocated outputs by
+    ``index_copy``: torch 2.11's Inductor lowers a ``scan`` node on CUDA
+    with a host C++ kernel, which a machine without a working host compiler
+    cannot build."""
+    leaves, spec = pytree.tree_flatten(xs)
+    n = leaves[0].shape[0]
+    if not tracing():
+        order = range(n - 1, -1, -1) if reverse else range(n)
+        carry, ys = init, [None] * n
+        for t in order:
+            carry, ys[t] = step(carry, pytree.tree_unflatten([x[t] for x in leaves], spec))
+        columns = zip(*(pytree.tree_leaves(y) for y in ys))
+        return carry, pytree.tree_unflatten([torch.stack(c) for c in columns],
+                                            pytree.tree_structure(ys[0]))
+    # the outputs' layout from one step (its ops are dead code in the graph:
+    # only the shapes, dtypes and devices are read)
+    _, y = step(init, pytree.tree_unflatten([x[0] for x in leaves], spec))
+    y_leaves, y_spec = pytree.tree_flatten(y)
+    outs = [torch.zeros((n,) + tuple(v.shape), dtype=v.dtype, device=v.device) for v in y_leaves]
+
+    def body(i, state):
+        carry, outs = state
+        t = (n - 1 - i if reverse else i).reshape(1)
+        carry, y = step(carry, pytree.tree_unflatten(
+            [torch.index_select(x, 0, t)[0] for x in leaves], spec))
+        return carry, [o.index_copy(0, t, v[None]) for o, v in zip(outs, pytree.tree_leaves(y))]
+
+    carry, outs = fori_loop(0, n, body, (init, outs))
+    return carry, pytree.tree_unflatten(outs, y_spec)

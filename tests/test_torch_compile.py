@@ -255,13 +255,14 @@ def test_aot_compile_compiles_a_jax_jitted_op():
 
 
 def test_aot_compile_names_the_slice_for_an_op_that_does_not_trace():
-    """``vmd`` does not trace whole yet (it indexes by a traced argmax;
-    ``fht``, once the case here, traces since its tables are host builds):
-    ``aot_compile`` raises a ValueError that says what the compiled path
-    covers."""
+    """``emd`` does not trace whole (its sifting runs on the host, as the
+    JAX function's does; ``fht`` and ``vmd``, once the cases here, trace
+    since their tables are host builds and ``vmd``'s sweeps a loop
+    operator): ``aot_compile`` raises a ValueError that says what the
+    compiled path covers."""
     a = torch.from_numpy(np.random.default_rng(4).standard_normal(64).astype(np.float32))
     with pytest.raises(ValueError, match="compiled path covers fft, ifft, rfft"):
-        aot.aot_compile(lambda u: tp.vmd(u, 2, n_iter=3)[0], a)
+        aot.aot_compile(lambda u: tp.emd(u)[0], a)
 
 
 def test_aot_compile_compiles_the_direct_convolution():
@@ -339,23 +340,24 @@ def test_other_precisions_refuse_to_compile(precision):
     assert _rel(got.numpy(), tp.fft(x, config=config).numpy()) <= EAGER_TOL
 
 
-@pytest.mark.parametrize("op", ["sht", "melspectrogram"])
+@pytest.mark.parametrize("op", ["sht", "multitaper"])
 def test_a_site_without_the_operator_still_refuses(op):
     """A product outside the engine, the convolutions and the sites routed
-    through ``utils.numerics.product`` (the SHT's Legendre products, the
-    mel filterbank's) still runs in a plain precision block: under a trace
-    a precision other than "highest" stops it with the port's ValueError
-    naming the field and the site.  (The dense NUFFT's products, once the
-    second case here, carry their precision since they go through
-    ``product``: ``test_torch_compile_ops_transforms.py`` compiles them at
-    "high".)"""
+    through ``utils.numerics.product`` (the SHT's Legendre products,
+    ``multitaper``'s taper product) still runs in a plain precision block:
+    under a trace a precision other than "highest" stops it with the port's
+    ValueError naming the field and the site.  (The dense NUFFT's and the
+    mel filterbank's products, once the second case here, carry their
+    precision since they go through ``product``:
+    ``test_torch_compile_ops_transforms.py`` and
+    ``test_torch_compile_ops_loops.py`` compile them at "high".)"""
     config = tp.SpectralConfig(precision="high")
     g = torch.Generator().manual_seed(7)
     if op == "sht":
         args, fn = (torch.randn(2, 8, 16, generator=g),), (lambda f: tp.sht(f, config=config))
     else:
         args = (torch.randn(2, 1024, generator=g),)
-        fn = lambda x: tp.melspectrogram(x, 16000.0, 256, n_mels=16, config=config)  # noqa: E731
+        fn = lambda x: tp.multitaper(x, fs=10.0, weighting="unity", k=4, config=config)  # noqa: E731
     with pytest.raises(Exception, match=r"ValueError: SpectralConfig\.precision='high' cannot be "
                                         r"compiled at this site"):
         compiled(fn)(*args)
