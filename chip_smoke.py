@@ -208,7 +208,8 @@ Phases, each of which raises on failure:
     ``fft``/``rfft``/``irfft`` at 2048 x 1024, the spectral filter's
     forward and SGD step (``utils.tree.compile_sgd_step``) at n = 4096,
     batch 8 and 1024, and ``fno_train`` at the JAX sizes, each beside the
-    same call eager (phase 27's eager ``fno_train``): zero graph breaks, no
+    same call eager (phase 27's eager ``fno_train``; ``fno_train`` timed in
+    ``python3 chip_smoke.py compile`` only): zero graph breaks, no
     recompile, K1's launches (its
     operator is a node of the graphs), compiled against eager (2e-5) and
     the filter against float64 (1e-5), compile seconds, device µs by graph
@@ -249,13 +250,23 @@ Phases, each of which raises on failure:
     one (TF32 ran), cuDNN's TF32 flag off at each convolution call, the four
     flags unchanged by the phase, K1's launches equal to eager's and K1
     against its plain version on the calls' planes; the ladder's device
-    times by graph replay at 10007 and 32768.
+    times by graph replay at 10007 and 32768;
+33. ``parallel/`` compiled with ``aot_eager`` on a NCCL world of one at
+    phases 25-26's shapes (the four-step family at config 5, the pencils,
+    the distributed filter and FNet-Base with their ``compile_sgd_step``,
+    the batch-sharded calls with a Whisper ``melspectrogram`` and the
+    FourCastNet AFNO's step on ``shard_batch`` DTensors, the API ops on
+    them, the sharded NUFFTs and SHTs), in three processes at once: 0
+    graph breaks, one graph (two for a step), no recompile on new data, K1
+    launches equal to eager's, compiled against eager (2e-5), the filter
+    against float64, K1 against its plain version on the calls' planes, the
+    batch-sharded outputs still sharded.
 
 ``python3 chip_smoke.py precision`` runs phases 1, 2 and 4b alone,
 ``python3 chip_smoke.py audio`` phases 1, 2 and 15-17,
 ``python3 chip_smoke.py recurrence`` phases 1, 2 and 18-20,
 ``python3 chip_smoke.py sphere`` phases 1, 2, 21 and 22 (with the
-recurrence's timing row at L = 2048), and
+recurrence's timing rows at L = 512 and 2048), and
 ``python3 chip_smoke.py frontend`` phases 1, 2, 23 and 24, and
 ``python3 chip_smoke.py parallel`` phases 1, 2, 25 and 26,
 ``python3 chip_smoke.py examples`` phases 1, 2 and 27, and
@@ -264,12 +275,14 @@ recurrence's timing row at L = 2048), and
 published depths, and
 ``python3 chip_smoke.py compile-ops`` phases 1, 2 and 31 with Inductor for every
 op, each timed beside eager, and
-``python3 chip_smoke.py compile-precision`` phases 1, 2 and 32 (for development;
+``python3 chip_smoke.py compile-precision`` phases 1, 2 and 32, and
+``python3 chip_smoke.py compile-parallel`` phases 1, 2 and 33 with Inductor at the
+published depths, each call timed beside eager (for development;
 they print no result line).
 
 The last lines are one JSON line about the kernels (launches of phases 4, 4b, 8,
-9, 12, 13, 15, 16, 18, 19, 21, 22, 23, 24, 25, 26, 27, 29, 30, 31 and 32; error over the plane pairs those launches were handed:
-every pair of phases 4, 9, 12, 13, 15, 16, 19, 21, 22, 23 and 24, the first rows of phase 25's, three of each run of phase 27's, the first rows of three of each op's eager run in phase 31 and of each fp32 call's in phase 32, and in phase 8 the first step's three, every
+9, 12, 13, 15, 16, 18, 19, 21, 22, 23, 24, 25, 26, 27, 29, 30, 31, 32 and 33; error over the plane pairs those launches were handed:
+every pair of phases 4, 9, 12, 13, 15, 16, 19, 21, 22, 23 and 24, the first rows of phase 25's, three of each run of phase 27's, the first rows of three of each op's eager run in phases 31 and 33 and of each fp32 call's in phase 32, and in phase 8 the first step's three, every
 later backward's and the four of the step with an input gradient; times on
 the main path's batch-1024 planes), the card, then ``{"ok": true, "device":
 {...}}``.
@@ -3028,8 +3041,9 @@ def sht_sfno(rng, card: str, full: bool = False):
     the recurrence pair at L = 512 (plain and compensated) against fields
     synthesized in float64 with scipy's spherical harmonics, the recurrence
     finite at L = 2048 and, with ``full`` (``python3 chip_smoke.py sphere``),
-    timed there (the profiler's events of its 65,564 kernels a call do not
-    fit the whole run's time limit); then the SFNO at the shallow-water configuration:
+    the recurrence timed at L = 512 and 2048 (the profiler's events of its
+    16,000-66,000 kernels a call do not fit the whole run's time limit);
+    then the SFNO at the shallow-water configuration:
     forward from numpy input against the stage pipeline, one layer's spectral
     mix against float64, three train steps (the first with the kernel held
     against its plain version on every plane pair, its loss and gradients
@@ -3077,9 +3091,10 @@ def sht_sfno(rng, card: str, full: bool = False):
               ORACLE_TOL if compensated else ISHT_REC_PLAIN_TOL)
     ft = cuda32(f)
     # the recurrence rows time one call each: the profiler's events of these
-    # 16,000-66,000-kernel calls are most of the phase's wall time
+    # 16,000-66,000-kernel calls are most of the phase's wall time, so the
+    # whole run leaves them to ``python3 chip_smoke.py sphere``
     with torch.no_grad():
-        for compensated in (False, True):
+        for compensated in (False, True) if full else ():
             rows.append(timing_row(
                 f"sht_recurrence {'compensated' if compensated else 'plain'} L={L} batch "
                 f"{SHT_REC_BATCH}", lambda: tp.sht_recurrence(ft, compensated=compensated), 1))
@@ -4372,10 +4387,10 @@ FNO_TRAIN_GAIN = 0.1
 # (stage pipeline); five times that
 ADVECTION_255_TOL = 1e-5
 TUNE_BIG = (256, 1 << 20)        # the four-step's K1 shape at config 5 (phase 25)
-# the whole run times every sixth length of the sweep (85.6 s for all 399 in
-# a whole run before phase 32 took the time, 39.7-47.4 s for every third);
-# ``tune`` times them all
-TUNE_STRIDE = 6
+# the whole run times every twelfth length of the sweep (85.6 s for all 399
+# in a whole run before phase 32 took the time, 39.7-47.4 s for every third,
+# 25.1 s for every sixth before phase 33 did); ``tune`` times them all
+TUNE_STRIDE = 12
 
 
 def profiled_device_ms(fn) -> float:
@@ -4402,7 +4417,9 @@ def examples(rng, card: str, full: bool = False):
     first: a step traced under the recorder would compile again once the
     recorder is gone, and its launches are not counted),
     back-to-back wall ms of a second, warm run, the profiler's device ms of a
-    third, and the idle share.  ``fno_train`` runs eagerly here, so that
+    third, and the idle share (the second and third runs, about a minute
+    on an H100's host, are ``python3 chip_smoke.py examples``'s; the whole
+    run runs each example once).  ``fno_train`` runs eagerly here, so that
     its row stays comparable across runs (phase 29 times its compiled
     loop); ``serving_export``
     exports and compiles in every run, as the JAX example lowers and
@@ -4444,6 +4461,15 @@ def examples(rng, card: str, full: bool = False):
         if name == "sphere_advection" and "lmax" in kw:
             require(out["err"] <= ADVECTION_255_TOL,
                     f"advection at lmax {kw['lmax']}: error {out['err']:.3e}")
+        row = {"example": label, "k1_launches": launches, "first_run_s": first_s}
+        rows.append(row)
+        if name == "fno_train":
+            FNO_EAGER.update(out=out, row=row)
+        if not full:
+            log(f"example {label}: {launches} K1 launches, first run {first_s:.1f} s (timed in "
+                f"python3 chip_smoke.py examples)")
+            torch.cuda.empty_cache()
+            continue
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(None):
@@ -4455,12 +4481,8 @@ def examples(rng, card: str, full: bool = False):
             device_ms = profiled_device_ms(lambda: mod.main(device=CARD, **kw))
         profiled_s = time.perf_counter() - t0
         require(device_ms > 0, f"example {label}: the profiler saw no device time")
-        row = {"example": label, "k1_launches": launches, "first_run_s": first_s,
-               "back_to_back_ms": wall_ms, "device_ms_profiler": device_ms,
-               "idle_share": 1.0 - device_ms / wall_ms, "profiled_run_s": profiled_s}
-        rows.append(row)
-        if name == "fno_train":
-            FNO_EAGER.update(out=out, row=row)
+        row.update(back_to_back_ms=wall_ms, device_ms_profiler=device_ms,
+                   idle_share=1.0 - device_ms / wall_ms, profiled_run_s=profiled_s)
         log(f"example {label}: {launches} K1 launches, back to back {wall_ms:.1f} ms, "
             f"device {device_ms:.1f} ms (profiler), idle share {row['idle_share']:.3f}, "
             f"first run {first_s:.1f} s, profiled run {profiled_s:.1f} s")
@@ -4617,13 +4639,15 @@ def host_breakdown(name: str, fn, calls: int = 20, top: int = 8) -> list:
     return [{"event": key, "self_us": us, "count": count} for key, us, count in rows]
 
 
-def compile_path(rng, card: str) -> int:
+def compile_path(rng, card: str, full: bool = False) -> int:
     """Phase 29: the main path under ``torch.compile`` (Inductor,
     ``fullgraph=True, dynamic=False``), as the JAX package runs it under
     ``jax.jit``.  ``fft``/``rfft``/``irfft`` at 2048 x 1024; the spectral
     filter's forward and SGD step (``utils.tree.compile_sgd_step``) at
     n = 4096, batch 8 and 1024; ``fno_train`` at the JAX sizes compiled
-    beside eager (phase 27's eager run where the whole run made one).  Each:
+    beside eager (phase 27's eager run where the whole run made one; with
+    ``full``, ``python3 chip_smoke.py compile``, both timed, where the whole
+    run checks the compiled run's losses and launches only).  Each:
     zero graph breaks (dynamo's counters), no recompile on the second call,
     the fused kernel's launches (the compiled graph holds its operator),
     compiled against eager (2e-5) and the filter against float64 (1e-5),
@@ -4732,12 +4756,8 @@ def compile_path(rng, card: str) -> int:
         if not mode and FNO_EAGER:
             r = FNO_EAGER["row"]
             runs[mode] = FNO_EAGER["out"]
-            rows.append({"call": label + " (phase 27's run)", "k1_launches": r["k1_launches"],
-                         "first_run_s": r["first_run_s"], "back_to_back_ms": r["back_to_back_ms"],
-                         "device_ms_profiler": r["device_ms_profiler"],
-                         "idle_share": r["idle_share"]})
-            log(f"{label}: phase 27's run, back to back {r['back_to_back_ms']:.1f} ms, device "
-                f"{r['device_ms_profiler']:.1f} ms (profiler)")
+            rows.append({**r, "call": label + " (phase 27's run)"})
+            log(f"{label}: phase 27's run, first run {r['first_run_s']:.1f} s")
             continue
         t0 = time.perf_counter()
         before = cuda_fft.LAUNCHES
@@ -4747,6 +4767,14 @@ def compile_path(rng, card: str) -> int:
         launched = cuda_fft.LAUNCHES - before
         counted += launched
         first_s = time.perf_counter() - t0
+        require(out["final_eval_loss"] < FNO_TRAIN_GAIN * out["baseline"],
+                f"{label}: final eval loss {out['final_eval_loss']:.3e}")
+        runs[mode] = out
+        rows.append({"call": label, "k1_launches": launched, "first_run_s": first_s})
+        if not full:
+            log(f"{label}: {launched} K1 launches, first run {first_s:.1f} s (timed in "
+                f"python3 chip_smoke.py compile)")
+            continue
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(None):
             fno_train.main(device=CARD, compile=mode)
@@ -4754,12 +4782,8 @@ def compile_path(rng, card: str) -> int:
         wall_ms = (time.perf_counter() - t0) * 1e3
         with contextlib.redirect_stdout(None):
             device_ms = profiled_device_ms(lambda: fno_train.main(device=CARD, compile=mode))
-        require(out["final_eval_loss"] < FNO_TRAIN_GAIN * out["baseline"],
-                f"{label}: final eval loss {out['final_eval_loss']:.3e}")
-        runs[mode] = out
-        rows.append({"call": label, "k1_launches": launched, "first_run_s": first_s,
-                     "back_to_back_ms": wall_ms, "device_ms_profiler": device_ms,
-                     "idle_share": 1.0 - device_ms / wall_ms})
+        rows[-1].update(back_to_back_ms=wall_ms, device_ms_profiler=device_ms,
+                        idle_share=1.0 - device_ms / wall_ms)
         log(f"{label}: {launched} K1 launches, first run {first_s:.1f} s, back to back "
             f"{wall_ms:.1f} ms, device {device_ms:.1f} ms (profiler), idle share "
             f"{1.0 - device_ms / wall_ms:.3f}")
@@ -5073,13 +5097,26 @@ def compare(got, want, bins=None) -> float:
     def host(t):
         if not isinstance(t, torch.Tensor):
             return np.asarray(t)
-        t = t.detach()
+        t = local(t).detach()   # a DTensor's block: the whole array in a world of one
         # a mask as 0/1: one flipped entry is a relative error of 1
         return (t.float() if t.dtype in (torch.bfloat16, torch.float16, torch.bool)
                 else t).cpu().numpy()
 
+    def on_card(t):
+        return isinstance(t, torch.Tensor) and local(t).is_cuda
+
     errs = []
     for i, (g, w) in enumerate(zip(got, want)):
+        if on_card(g) and on_card(w) and not (i == 0 and bins is not None):
+            # rel_err on the card: a copy of a config-5 output to the host
+            # and numpy's pass over it cost seconds
+            g, w = (local(t).detach() for t in (g, w))
+            if g.dtype in (torch.bfloat16, torch.float16, torch.bool):
+                g, w = g.float(), w.float()
+            require(g.shape == w.shape, f"shape {tuple(g.shape)} != {tuple(w.shape)}")
+            finite = bool(torch.isfinite(g).all())
+            errs.append(float((g - w).abs().max() / w.abs().max()) if finite else float("inf"))
+            continue
         g, w = host(g), host(w)
         require(g.shape == w.shape, f"shape {g.shape} != {w.shape}")
         if i == 0 and bins is not None:
@@ -5732,6 +5769,478 @@ def compiled_precisions(rng, card: str) -> tuple:
     return total, worst
 
 
+# ---------------------------------------------------------------------------
+# Phase 33: parallel/ compiled, on a NCCL world of one (mesh (1, 1)).
+# ---------------------------------------------------------------------------
+
+# the recurrence pair compiled: its degree loop unrolls L steps into the
+# graph, so phase 22's L = 512 is cut to 8 (the quadrature pair keeps
+# L = 256, one product a chunk)
+PAR_COMPILE_REC_L = 8
+# the Kalman tracks compiled in the whole run: the log2(T) levels of the
+# scans unroll into the graph (28 s to compile 4 tracks of 16 steps on an
+# H100's host), so phase 26's 4 tracks of 10,000 steps are cut to 4 of 16
+# (compile-parallel runs 4 of 10,000)
+PAR_COMPILE_KALMAN = (4, 16)
+# the 2-D sharded convolution on a 2,048² image (phase 26's fft2_pencil)
+PAR_CONV2_TAPS = (7, 7)
+# the API ops on a shard_batch DTensor: phase 29's fft, phase 13's
+# convolution shape (4,000 samples, 129 taps, batch 64)
+PAR_API_CONV = (64, 4000, 129)
+# calls a compile-parallel timing row averages
+PAR_COMPILE_CALLS = 3
+# phase 33's groups of calls (see compiled_parallel), one process each in the
+# whole run
+PAR_COMPILE_GROUPS = (0, 1, 2)
+
+
+def parallel_timing_pair(name: str, eager, comp) -> dict:
+    """Eager and compiled forms of one sharded call side by side: the
+    profiler's device µs (a NCCL call is not captured in a CUDA graph),
+    back-to-back µs, idle share, device kernels, K1's µs and share, and the
+    all-to-alls' device µs."""
+    row = {}
+    for label, fn in (("eager", eager), ("compiled", comp)):
+        t = device_and_wall_us(fn, calls=PAR_COMPILE_CALLS, collectives=True)
+        a2a = t["collective_spans"].get("nccl:all_to_all", 0.0)
+        row[label] = {"device_us_profiler": t["device_us"], "back_to_back_us": t["wall_us"],
+                      "idle_share": t["idle_share"], "device_kernels_per_call": t["kernels"],
+                      "k1_us": t["k1_us"],
+                      "k1_share": t["k1_us"] / t["device_us"] if t["device_us"] else None,
+                      "all_to_all_us": a2a}
+        log(f"{name} {label}: device {t['device_us']} us (profiler), back to back "
+            f"{t['wall_us']:.2f} us, idle share {t['idle_share']}, {t['kernels']} kernels a "
+            f"call, K1 {t['k1_us']:.2f} us, all-to-alls {a2a:.2f} us")
+    return row
+
+
+def compiled_parallel(rng, card: str, inductor: bool = False, groups=PAR_COMPILE_GROUPS):
+    """Phase 33: ``parallel/`` compiled on a NCCL world of one, as the JAX
+    package runs it (every ``parallel/distributed.py`` function is a
+    ``shard_map``, which XLA compiles, and the JAX tests jit the
+    distributed models and the batch-sharded calls), at phases 25-26's
+    shapes: the four-step family at config 5 (4,096 x 65,536;
+    ``fft_convolve_sharded`` at 65,408 x 129 "same"), the pencils at 256³
+    and 2,048², the distributed filter's forward and ``compile_sgd_step``
+    at config 5, FNet-Base's distributed mix, forward and step,
+    ``fft_batch_sharded``, a Whisper ``melspectrogram`` of a
+    ``shard_batch`` DTensor (16 x 480,000), the FourCastNet AFNO's step on
+    sharded batches, the PFB, radar chain and Kalman tracks of phases 20
+    and 23, the API ops, ``multitaper``, ``cqt`` and the filter on
+    ``shard_batch`` DTensors, the sharded NUFFTs at 2^20 points and the
+    SHTs at L = 256 (the recurrence pair at PAR_COMPILE_REC_L; the Kalman
+    tracks at PAR_COMPILE_KALMAN in the whole run).  A global
+    array goes in plain and, for the inverse forms, as the DTensor the
+    forward returned.  Each call through :func:`compiled_op` (one graph, 0
+    breaks, no recompile on new data, K1 launches equal to eager's,
+    compiled against eager 2e-5, K1 against its plain version on the eager
+    call's planes), each step through :func:`compiled_parallel_step`; the
+    filter's forward against float64 (1e-5); a batch-sharded output must
+    stay sharded.  ``backend="aot_eager"`` and COMPILED_DEPTH in the whole
+    run; with ``inductor`` (``python3 chip_smoke.py compile-parallel``)
+    Inductor at the published depths and every row timed beside eager
+    (:func:`parallel_timing_pair`).  ``groups`` picks the calls: 0 the
+    config-5 four-step family and filter, the 2-D convolution and pencil;
+    1 the N-D pencils, FNet-Base, ``fft_batch_sharded``,
+    ``melspectrogram``, the AFNO step and the NUFFTs; 2 the PFB, radar,
+    Kalman, the API ops on ``shard_batch`` DTensors and the SHTs (the whole
+    run compiles each group in a process of its own, all three at once:
+    :func:`compiled_parallel_parts`).  Rows in
+    ``chiprun_out/compile_parallel.json`` (one group's in
+    ``compile_parallel_part<k>.json``).  Returns the launches of the
+    counted compiled calls and K1's worst abs error."""
+    from mixed_radix_fast_fourier_transform_tpu_torch.models import spectral_filter as sf
+
+    backend = "inductor" if inductor else "aot_eager"
+    par = parallel
+    mesh = world_of_one()
+    rows, total, worst = [], 0, 0.0
+    os.makedirs("chiprun_out", exist_ok=True)
+    path = os.path.join("chiprun_out", "compile_parallel.json" if len(groups) > 1
+                        else f"compile_parallel_part{groups[0]}.json")
+    gen = torch.Generator(device=CARD).manual_seed(SEED)
+
+    def record():
+        with open(path, "w") as fh:
+            json.dump({"card": card, "torch": torch.__version__, "inductor": inductor,
+                       "rows": rows}, fh, indent=1)
+
+    def finish(row, t0, launched, timing):
+        nonlocal total, worst
+        row["op_s"] = time.perf_counter() - t0
+        total += launched
+        worst = max(worst, row.get("k1_vs_plain_abs_err") or 0.0)
+        if inductor:
+            row.update(parallel_timing_pair(row["call"], *timing))
+        rows.append(row)
+        record()
+
+    failed = []
+
+    def go(name, call):
+        """``call()``; in ``compile-parallel`` a failed check is recorded
+        and the phase goes on to time the rest (it fails at its end)."""
+        if not inductor:
+            return call()
+        try:
+            return call()
+        except Exception as e:   # noqa: BLE001  (recorded, and the phase fails at its end)
+            log(f"compiled {name}: FAILED: {str(e).splitlines()[0]}")
+            failed.append(name)
+            rows.append({"call": name, "backend": backend, "error": str(e).splitlines()[0]})
+            record()
+            return None
+
+    def run(name, fn, args, args2, sharded=False):
+        return go(name, lambda: run_checked(name, fn, args, args2, sharded))
+
+    def run_checked(name, fn, args, args2, sharded):
+        torch._dynamo.reset()
+        t0 = time.perf_counter()
+        row, out, comp, launched = compiled_op(name, fn, args, args2, backend)
+        if sharded:
+            placed = [tuple(o.placements) for o in (out if isinstance(out, tuple) else (out,))
+                      if hasattr(o, "placements")]
+            row["placements"] = [str(p) for p in placed]
+            log(f"compiled {name}: output placements {row['placements']}")
+            # every output that keeps the batch axis (multitaper's frequencies do not)
+            require(any(any(q.is_shard() for q in p) for p in placed),
+                    f"{name}: the batch-sharded output is not sharded: {placed}")
+        finish(row, t0, launched, (lambda: fn(*args), lambda: comp(*args)))
+        return out
+
+    def step(name, loss_fn, eager_step, params, args, args2, lr, **kw):
+        def checked():
+            t0 = time.perf_counter()
+            row, launched, timing = compiled_parallel_step(name, loss_fn, eager_step, params,
+                                                           args, args2, lr, backend, **kw)
+            finish(row, t0, launched, timing)
+
+        go(name, checked)
+
+    def pair(shape, complex_=True):
+        def one():
+            re = torch.randn(*shape, device=CARD, generator=gen)
+            return torch.complex(re, torch.randn(*shape, device=CARD, generator=gen)) \
+                if complex_ else re
+        return one(), one()
+
+    shard = functools.partial(par.shard_batch, mesh=mesh)
+
+    if 0 in groups:
+        # 4. the four-step family at config 5; each inverse on the forward's DTensor
+        x, x2 = pair((PAR_BATCH, PAR_N))
+        spec = run(f"fft_four_step {PAR_BATCH:,} x {PAR_N:,}", lambda v: par.fft_four_step(v, mesh),
+                   (x,), (x2,))
+        run("ifft_four_step (DTensor)", lambda v: par.ifft_four_step(v, mesh), (spec,),
+            (par.fft_four_step(x2, mesh),))
+        del spec
+        scr = run(f"fft_four_step_scrambled {PAR_BATCH:,} x {PAR_N:,}",
+                  lambda v: par.fft_four_step_scrambled(v, mesh), (x,), (x2,))
+        run("ifft_four_step_scrambled (DTensor)", lambda v: par.ifft_four_step_scrambled(v, mesh),
+            (scr,), (par.fft_four_step_scrambled(x2, mesh),))
+        del x, x2, scr
+        torch.cuda.empty_cache()
+        xr, xr2 = pair(PAR_RFFT_SHAPE, False)
+        half = run(f"rfft_four_step {PAR_RFFT_SHAPE}", lambda v: par.rfft_four_step(v, mesh),
+                   (xr,), (xr2,))
+        run("irfft_four_step (DTensor)", lambda v: par.irfft_four_step(v, mesh), (half,),
+            (par.rfft_four_step(xr2, mesh),))
+        del xr, xr2, half
+        taps = rng.standard_normal(PAR_CONV_TAPS)
+        xs, xs2 = pair((PAR_BATCH, PAR_CONV_SIGNAL), False)
+        run(f"fft_convolve_sharded {PAR_BATCH:,} x {PAR_CONV_SIGNAL:,}, {PAR_CONV_TAPS} taps, same",
+            lambda v: par.fft_convolve_sharded(v, taps, mesh, mode="same"), (xs,), (xs2,))
+        del xs, xs2
+    if 0 in groups:
+        taps2 = rng.standard_normal(PAR_CONV2_TAPS)
+        im, im2 = pair((PENCIL2D_N, PENCIL2D_N), False)
+        run(f"fft_convolve2_sharded {PENCIL2D_N}², {PAR_CONV2_TAPS} taps",
+            lambda v: par.fft_convolve2_sharded(v, taps2, mesh), (im,), (im2,))
+        del im, im2
+        torch.cuda.empty_cache()
+
+        # 5. the pencils at 2,048² and 256³; each inverse on the forward's DTensor
+        im, im2 = pair((PENCIL2D_N, PENCIL2D_N))
+        spec = run(f"fft2_pencil {PENCIL2D_N}²", lambda v: par.fft2_pencil(v, mesh), (im,), (im2,))
+        run("ifft2_pencil (DTensor)", lambda v: par.ifft2_pencil(v, mesh), (spec,),
+            (par.fft2_pencil(im2, mesh),))
+        del im, im2, spec
+    if 1 in groups:
+        vol = (PENCIL_N,) * 3
+        vc, vc2 = pair(vol)
+        for fwd, inv in ((par.fftn_pencil, par.ifftn_pencil), (par.fftn_pencil2, par.ifftn_pencil2)):
+            spec = run(f"{fwd.__name__} {PENCIL_N}³", lambda v, f=fwd: f(v, mesh), (vc,), (vc2,))
+            run(f"{inv.__name__} (DTensor)", lambda v, f=inv: f(v, mesh), (spec,), (fwd(vc2, mesh),))
+            del spec
+        del vc, vc2
+        vr, vr2 = pair(vol, False)
+        half = run(f"rfftn_pencil2 {PENCIL_N}³", lambda v: par.rfftn_pencil2(v, mesh), (vr,), (vr2,))
+        run("irfftn_pencil2 (DTensor)", lambda v: par.irfftn_pencil2(v, mesh, n2=PENCIL_N), (half,),
+            (par.rfftn_pencil2(vr2, mesh),))
+        del half
+        run(f"poisson_solve_pencil2 {PENCIL_N}³", lambda v: par.poisson_solve_pencil2(v, mesh),
+            (vr - vr.mean(),), (vr2 - vr2.mean(),))
+        del vr, vr2
+        torch.cuda.empty_cache()
+
+    if 0 in groups:
+        # 6. the distributed models: the filter at config 5, FNet-Base
+        params = sf.init_params_complex(PAR_N, generator=gen, device=CARD)
+        xf, xf2 = (v * PAR_SCALE for v in pair((PAR_BATCH, PAR_N), False))
+        with torch.no_grad():
+            y = run(f"filter apply_distributed {PAR_BATCH:,} x {PAR_N:,}",
+                    lambda p, v: sf.apply_distributed(p, v, mesh), (params, xf), (params, xf2))
+        rows_ = list(PAR_ORACLE_ROWS)
+        if y is not None:   # None: compile-parallel recorded its failure
+            err = rel_err(local(y)[rows_].cpu().numpy(),
+                          filter_oracle64(params, xf[rows_].double().cpu()).numpy())
+            log(f"compiled filter apply_distributed: rel err {err:.3e} vs float64 on rows "
+                f"{rows_}")
+            require(err <= ORACLE_TOL, f"compiled distributed filter forward {err:.3e} vs "
+                    f"float64")
+            rows[-1]["rel_err_vs_float64"] = err
+        del y
+        target, target2 = (0.5 * torch.roll(v, PAR_DELAY, dims=-1) for v in (xf, xf2))
+        step(f"filter train_step_distributed {PAR_BATCH:,} x {PAR_N:,}", sf.loss_distributed,
+             sf.train_step_distributed, params, (xf, target, mesh), (xf2, target2, mesh), PAR_LR)
+        del params, xf, xf2, target, target2
+        torch.cuda.empty_cache()
+    if 1 in groups:
+        layers = FNET["n_layers"] if inductor else COMPILED_DEPTH["fnet"]
+        fp = fnet.init_fnet(**{**FNET, "n_layers": layers}, generator=gen, device=CARD)
+        tokens = (PAR_FNET_BATCH, FNET_SEQ, FNET["hidden"])
+        xt, xt2 = pair(tokens, False)
+        with torch.no_grad():
+            run(f"FNet-Base fourier_mix_distributed {tokens}",
+                lambda v: fnet.fourier_mix_distributed(v, mesh), (xt,), (xt2,))
+            run(f"FNet-Base {layers} layers apply_distributed",
+                lambda p, v: fnet.apply_distributed(p, v, mesh), (fp, xt), (fp, xt2))
+        step(f"FNet-Base {layers} layers train_step_distributed", fnet.loss_distributed,
+             fnet.train_step_distributed, fp, (xt, xt2, mesh), (xt2, xt, mesh), 1e-3)
+        del fp, xt, xt2
+
+        # 7. the batch-sharded calls
+        xc, xc2 = pair(PAR_RFFT_SHAPE)
+        run(f"fft_batch_sharded {PAR_RFFT_SHAPE}", lambda v: par.fft_batch_sharded(v, mesh),
+            (xc,), (xc2,), sharded=True)
+        del xc, xc2
+        w = WHISPER
+        clips, clips2 = (shard(0.1 * v) for v in pair((WHISPER_BATCH, WHISPER_SAMPLES), False))
+        run(f"melspectrogram of a shard_batch DTensor {WHISPER_BATCH} x {WHISPER_SAMPLES:,}",
+            lambda v: tp.melspectrogram(v, w["sr"], n_fft=w["n_fft"], hop=w["hop"],
+                                        n_mels=w["n_mels"]), (clips,), (clips2,), sharded=True)
+        del clips, clips2
+        layers = AFNO["n_layers"] if inductor else COMPILED_DEPTH["afno"]
+        ap = afno.init_afno(**{**AFNO, "n_layers": layers}, generator=torch.Generator().manual_seed(
+            SEED), device=CARD)
+        fields = [shard(cuda32(rng.standard_normal((1, *AFNO_GRID, AFNO[c]))))
+                  for c in ("in_channels", "out_channels", "in_channels", "out_channels")]
+        step(f"afno {AFNO['dim']} x {layers} train_step on shard_batch DTensors", afno.loss_fn,
+             afno.train_step, ap, tuple(fields[:2]), tuple(fields[2:]), 1e-3, err_of=l2_err,
+             tol=AFNO_GRAD_TOL, **AFNO_RUN)
+        del ap, fields
+        torch.cuda.empty_cache()
+    if 2 in groups:
+        xp, xp2 = (0.1 * v for v in pair((PFB_POLS, PFB_SAMPLES), False))
+        run(f"pfb_analysis_sharded {PFB_POLS} x 2^25, {PFB['n_channels']} channels",
+            lambda v: par.pfb_analysis_sharded(v, PFB["n_channels"], mesh,
+                                               taps_per_branch=PFB["taps_per_branch"]),
+            (xp,), (xp2,), sharded=True)
+        del xp, xp2
+        tx = lfm_pulse(RADAR_PULSE)
+        rx, rx2 = (cuda_complex(radar_cpi(rng, tx)) for _ in range(2))
+        run(f"range_doppler_cfar_sharded {tuple(rx.shape)}",
+            lambda v: par.range_doppler_cfar_sharded(v, tx, mesh), (rx,), (rx2,), sharded=True)
+        del rx, rx2
+        model = kalman_model()
+        n_tracks, T = (PAR_KALMAN_TRACKS, KALMAN_PARALLEL_T) if inductor else PAR_COMPILE_KALMAN
+        tracks, tracks2 = (cuda32(np.stack([kalman_track(rng, T) for _ in range(n_tracks)]))
+                           for _ in range(2))
+        run(f"kalman_filter_sharded {n_tracks} tracks, T = {T:,}",
+            lambda v: par.kalman_filter_sharded(*model, v, mesh), (tracks,), (tracks2,),
+            sharded=True)
+        del tracks, tracks2
+        torch.cuda.empty_cache()
+        # the API ops, multitaper, cqt and the filter on shard_batch DTensors
+        a, a2 = (shard(v) for v in pair(COMPILE_FFT_SHAPE))
+        run(f"fft of a shard_batch DTensor {COMPILE_FFT_SHAPE}", tp.fft, (a,), (a2,), sharded=True)
+        a, a2 = (shard(v) for v in pair(COMPILE_FFT_SHAPE, False))
+        run(f"rfft of a shard_batch DTensor {COMPILE_FFT_SHAPE}", tp.rfft, (a,), (a2,), sharded=True)
+        b, n, k = PAR_API_CONV
+        kern = cuda32(rng.standard_normal((1, k)))
+        a, a2 = (shard(v) for v in pair((b, n), False))
+        run(f"fft_convolve of a shard_batch DTensor {b} x {n}, {k} taps, same",
+            lambda v: tp.fft_convolve(v, kern, "same"), (a,), (a2,), sharded=True)
+        a, a2 = (shard(v) for v in pair(MULTITAPER_SHAPE, False))
+        run(f"multitaper of a shard_batch DTensor {MULTITAPER_SHAPE}",
+            lambda v: tp.multitaper(v, 1.0, 4.0), (a,), (a2,), sharded=True)
+        a, a2 = (shard(0.1 * v) for v in pair((CLIP_BATCH, CLIP_SAMPLES), False))
+        run(f"cqt of a shard_batch DTensor {CLIP_BATCH} x 30 s", tp.cqt, (a,), (a2,), sharded=True)
+        fparams = {k: cuda32(v) for k, v in filter_params(rng, FILTER_N).items()}
+        a, a2, t, t2 = (shard(v) for v in (*pair((FILTER_BATCHES[1], FILTER_N), False),
+                                           *pair((FILTER_BATCHES[1], FILTER_N), False)))
+        with torch.no_grad():
+            run(f"spectral filter apply on a shard_batch DTensor {FILTER_BATCHES[1]} x {FILTER_N}",
+                lambda p, v: sf.apply(p, v), (fparams, a), (fparams, a2), sharded=True)
+        step(f"spectral filter train_step on shard_batch DTensors {FILTER_BATCHES[1]} x {FILTER_N}",
+             sf.loss_fn, sf.train_step, fparams, (a, t), (a2, t2), TRAIN_LR)
+        del a, a2, t, t2
+        torch.cuda.empty_cache()
+
+    if 1 in groups:
+        # 8. the sharded NUFFTs at 2^20 points, then the SHTs
+        kw = dict(eps=NUFFT_EPS)
+
+        def points(lo):
+            return cuda32(rng.uniform(lo, lo + 2.0 * np.pi, NUFFT_POINTS).astype(np.float32))
+
+        pts = [(points(0.0), points(-np.pi), cuda_complex(complex64(rng, NUFFT_POINTS)))
+               for _ in range(2)]
+        run(f"nufft1_sharded {NUFFT_MODES:,} modes, 2^20 points",
+            lambda x_, c: par.nufft1_sharded(x_, c, NUFFT_MODES, mesh, **kw),
+            (pts[0][0], pts[0][2]), (pts[1][0], pts[1][2]))
+        modes = [cuda_complex(complex64(rng, NUFFT_MODES)) for _ in range(2)]
+        run(f"nufft2_sharded {NUFFT_MODES:,} modes, 2^20 points",
+            lambda x_, f: par.nufft2_sharded(x_, f, mesh, **kw), (pts[0][0], modes[0]),
+            (pts[1][0], modes[1]))
+        run(f"nufft1_2d_sharded {NUFFT_MODES_2D}, 2^20 points",
+            lambda x_, y_, c: par.nufft1_2d_sharded(x_, y_, c, NUFFT_MODES_2D, mesh, **kw),
+            (pts[0][1], pts[0][0] - np.pi, pts[0][2]), (pts[1][1], pts[1][0] - np.pi, pts[1][2]))
+        modes = [cuda_complex(complex64(rng, *NUFFT_MODES_2D)) for _ in range(2)]
+        run(f"nufft2_2d_sharded {NUFFT_MODES_2D}, 2^20 points",
+            lambda x_, y_, f: par.nufft2_2d_sharded(x_, y_, f, mesh, **kw),
+            (pts[0][1], pts[0][0] - np.pi, modes[0]), (pts[1][1], pts[1][0] - np.pi, modes[1]))
+        del pts, modes
+    if 2 in groups:
+        fs, fs2 = pair((SHT_BATCH, SHT_L, 2 * SHT_L), False)
+        alm = run(f"sht_sharded L = {SHT_L}, batch {SHT_BATCH}", lambda v: par.sht_sharded(v, mesh),
+                  (fs,), (fs2,))
+        run("isht_sharded (DTensor)", lambda v: par.isht_sharded(v, mesh), (alm,),
+            (par.sht_sharded(fs2, mesh),))
+        L = PAR_COMPILE_REC_L
+        fr, fr2 = pair((SHT_REC_BATCH, L, 2 * L), False)
+        alm = run(f"sht_recurrence_sharded compensated L = {L}",
+                  lambda v: par.sht_recurrence_sharded(v, mesh, compensated=True), (fr,), (fr2,))
+        run("isht_recurrence_sharded (DTensor)",
+            lambda v: par.isht_recurrence_sharded(v, mesh, real_output=True), (alm,),
+            (par.sht_recurrence_sharded(fr2, mesh, compensated=True),))
+        del fs, fs2, fr, fr2, alm
+    end_world()
+    torch.cuda.empty_cache()
+    log(f"phase 33: {len(rows)} compiled calls, {total} K1 launches, K1 vs plain worst abs "
+        f"err {worst:.3e}")
+    require(not failed, f"phase 33: {len(failed)} calls failed: {failed}")
+    log(json.dumps({"compiled_parallel": {"card": card, "groups": list(groups), "rows": rows,
+                                          "launches": total, "worst_abs_err": worst}}))
+    return total, worst
+
+
+def compiled_parallel_parts(rng, card: str):
+    """Phase 33 in the whole run: :func:`compiled_parallel`'s groups, each in
+    a process of its own on its own NCCL world of one, all at once (the
+    phase is host-bound by its compiles, and a process compiles on one
+    core), every process required to exit 0.  Returns the summed launches
+    and the worst abs error; the rows go to
+    ``chiprun_out/compile_parallel.json``."""
+    del rng   # each process draws from SEED
+    os.makedirs("chiprun_out", exist_ok=True)
+    logs = [os.path.join("chiprun_out", f"compile_parallel_part{k}.log")
+            for k in PAR_COMPILE_GROUPS]
+    procs = []
+    for k, path in zip(PAR_COMPILE_GROUPS, logs):
+        with open(path, "w") as fh:   # a file, not a pipe: no process waits on a full pipe
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, "compile-parallel-part", str(k)], stdout=fh,
+                stderr=subprocess.STDOUT, text=True))
+    try:
+        for p in procs:
+            p.wait(timeout=900)
+    finally:   # the script stops every process it starts
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    total, worst, rows = 0, 0.0, []
+    for k, p, path in zip(PAR_COMPILE_GROUPS, procs, logs):
+        with open(path) as fh:
+            out = fh.read()
+        sys.stdout.write(out)
+        require(p.returncode == 0, f"phase 33 group {k} failed (rc {p.returncode}): {path}")
+        line = [ln for ln in out.splitlines() if ln.startswith('{"compiled_parallel"')][-1]
+        got = json.loads(line)["compiled_parallel"]
+        total += got["launches"]
+        worst = max(worst, got["worst_abs_err"])
+        rows += got["rows"]
+    with open(os.path.join("chiprun_out", "compile_parallel.json"), "w") as fh:
+        json.dump({"card": card, "torch": torch.__version__, "inductor": False, "rows": rows},
+                  fh, indent=1)
+    log(f"phase 33: {len(rows)} compiled calls in {len(procs)} processes, {total} K1 launches, "
+        f"K1 vs plain worst abs err {worst:.3e}")
+    return total, worst
+
+
+def compiled_parallel_step(name, loss_fn, eager_step, params, args, args2, lr, backend,
+                           err_of=rel_err, tol=COMPILE_TOL, **kw):
+    """``compile_sgd_step(loss_fn)`` beside ``eager_step`` on ``params``
+    with the arguments ``args`` and then ``args2`` (new data, no recompile):
+    the loss with its backward and the update, two graphs, 0 breaks; K1's
+    launches equal to eager's; the loss (ORACLE_TOL) and the new parameters
+    (``tol`` by ``err_of``; a leaf's ``rel_err`` against the larger of its
+    new and old size) against the eager step's, plain tensors;
+    K1 against its plain version on the eager step's planes.  Returns the
+    row, the launches and the (eager, compiled) pair to time."""
+    torch._dynamo.reset()
+    counters = torch._dynamo.utils.counters
+    counters.clear()
+    comp = compile_sgd_step(loss_fn, backend=backend)
+    with recorded_launches(keep=2) as seen:
+        (want, wloss), eager_launches = counted(lambda: eager_step(params, *args, lr=lr, **kw))
+    t0 = time.perf_counter()
+    (new, loss), launched = counted(lambda: comp(params, *args, lr=lr, **kw))
+    secs = time.perf_counter() - t0
+    breaks = sum(counters["graph_break"].values())
+    graphs = counters["stats"]["unique_graphs"]
+    with torch.compiler.set_stance("fail_on_recompile"):
+        new2, loss2 = comp(params, *args2, lr=lr, **kw)
+    want2, wloss2 = eager_step(params, *args2, lr=lr, **kw)
+    loss_err = max(abs(float(a) - float(b)) / abs(float(b))
+                   for a, b in ((loss, wloss), (loss2, wloss2)))
+
+    def leaf_err(a, b, p):
+        # rel_err against the larger of the new and the old leaf's size: a
+        # step can take a leaf near 0 (the filter's bias), where any
+        # reordered sum reads as a large relative error
+        a, b, p = (t.detach().cpu().numpy() for t in (a, b, p))
+        if err_of is not rel_err or not np.all(np.isfinite(a)):
+            return err_of(a, b)
+        return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), np.max(np.abs(p))))
+
+    err = max(leaf_err(a, b, p)
+              for got, ref in ((new, want), (new2, want2))
+              for a, b, p in zip(tree_leaves(got), tree_leaves(ref), tree_leaves(params)))
+    plain = all(type(v) is torch.Tensor for v in tree_leaves(new) + tree_leaves(new2))
+    k1 = kernel_errors(sampled(seen, OPS_KERNEL_ROWS), f"{name}, the eager step's planes") \
+        if eager_launches else None
+    del seen
+    log(f"compiled step {name} ({backend}): compile {secs:.2f} s, {breaks} graph breaks, "
+        f"{graphs} graphs, K1 launches {launched} (eager {eager_launches}), loss rel err "
+        f"{loss_err:.3e}, new parameters {err_of.__name__} {err:.3e} vs eager, second call "
+        f"with no recompile")
+    require(breaks == 0 and graphs == 2, f"{name}: {breaks} graph breaks, {graphs} graphs")
+    require(launched == eager_launches, f"{name}: {launched} K1 launches, eager {eager_launches}")
+    require(loss_err <= ORACLE_TOL and err <= tol,
+            f"{name}: loss {loss_err:.3e}, parameters {err:.3e} vs eager")
+    require(plain, f"{name}: new parameters are not plain tensors")
+    row = {"call": name, "backend": backend, "compile_s": secs, "graph_breaks": breaks,
+           "k1_launches": launched, "k1_launches_eager": eager_launches,
+           "loss_rel_err_vs_eager": loss_err, f"params_{err_of.__name__}_vs_eager": err,
+           "k1_vs_plain_abs_err": k1}
+    timing = (lambda: eager_step(params, *args, lr=lr, **kw),
+              lambda: comp(params, *args, lr=lr, **kw))
+    return row, launched, timing
+
+
 def timed(phase, *args):
     """Runs one phase and logs its wall time (the whole run has a time limit)."""
     t0 = time.perf_counter()
@@ -5778,7 +6287,7 @@ def main(argv) -> int:
         timed(precision_path, rng, card)
         return 0
     if argv == ["compile"]:   # development: phases 29-30 alone, at the published depths
-        timed(compile_path, rng, card)
+        timed(compile_path, rng, card, True)
         timed(compiled_families, rng, card, True)
         return 0
     if argv == ["compile-ops"]:   # development: phase 31 with Inductor for every op, timed
@@ -5786,6 +6295,12 @@ def main(argv) -> int:
         return 0
     if argv == ["compile-precision"]:   # development: phase 32 alone
         timed(compiled_precisions, rng, card)
+        return 0
+    if argv == ["compile-parallel"]:   # development: phase 33 with Inductor, timed
+        timed(compiled_parallel, rng, card, True)
+        return 0
+    if argv[:1] == ["compile-parallel-part"]:   # one group of phase 33, a process of its own
+        timed(compiled_parallel, rng, card, False, (int(argv[1]),))
         return 0
     if argv == ["parallel-timings"]:   # phase 25's device times, a process of their own
         timed(parallel_timings, card)
@@ -5823,6 +6338,7 @@ def main(argv) -> int:
     compile_launches += timed(compiled_families, rng, card)
     ops_compiled_launches, ops_compiled_abs = timed(compiled_ops, rng, card)
     precision_compiled_launches, precision_compiled_abs = timed(compiled_precisions, rng, card)
+    parallel_compiled_launches, parallel_compiled_abs = timed(compiled_parallel_parts, rng, card)
     log(f"kernel launches by path: filter forward {launches}, "
         f"reduced precision {precision_launches}, training {train_launches}, "
         f"fno {fno_launches}, s4d + fnet + afno {family_launches}, ops tail {ops_launches}, "
@@ -5833,15 +6349,17 @@ def main(argv) -> int:
         f"parallel main path {parallel_launches}, parallel rest {rest_launches}, "
         f"examples {example_launches}, compiled {compile_launches}, "
         f"compiled ops {ops_compiled_launches}, "
-        f"compiled precisions {precision_compiled_launches}")
+        f"compiled precisions {precision_compiled_launches}, "
+        f"compiled parallel {parallel_compiled_launches}")
     launches += (precision_launches + train_launches + fno_launches + family_launches + ops_launches
                  + frontend_launches + audio_launches + recurrence_launches + remainder_launches
                  + nufft_launches + sphere_launches + radar_launches + leaves_launches
                  + parallel_launches + rest_launches + example_launches + compile_launches
-                 + ops_compiled_launches + precision_compiled_launches)
+                 + ops_compiled_launches + precision_compiled_launches
+                 + parallel_compiled_launches)
     max_abs = max(max_abs, train_abs, fno_abs, family_abs, ops_abs, frontend_abs, audio_abs,
                   remainder_abs, nufft_abs, sphere_abs, radar_abs, leaves_abs, parallel_abs,
-                  ops_compiled_abs, precision_compiled_abs)
+                  ops_compiled_abs, precision_compiled_abs, parallel_compiled_abs)
     # the kernel line's times are on the same planes as its error: the
     # forward transform of the batch-1024 filter call.  ms, plain_ms and
     # library_ms are medians of single timed calls, dispatch included

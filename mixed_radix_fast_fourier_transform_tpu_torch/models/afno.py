@@ -30,10 +30,12 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..ops.rfft import irfft2, rfft2
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.numerics import matmul_precision
+from ..utils.sharding import batch_sharded, data_parallel_mse
 from ..utils.tree import sgd_step
 from ._common import (
     Draws, TreeModule, as_input, gelu, layer_norm, param_dtype, params_from_jax,
@@ -164,6 +166,12 @@ def afno_block(p: Params, x: Tensor, n_blocks: int, *, sparsity: float = 0.01,
     return x + (h @ p["mlp_w2"] + p["mlp_b2"])
 
 
+def _token_axes(params, x, *args, **kwargs):
+    """Every axis of a (batch, H, W, channels) field but the batch."""
+    return range(1, x.ndim)
+
+
+@batch_sharded(_token_axes, arg=1)
 def apply(params: Dict[str, object], x, *, patch: int = 4, n_blocks: int = 4,
           sparsity: float = 0.01, hard_fraction: float = 1.0,
           config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
@@ -189,12 +197,20 @@ def apply(params: Dict[str, object], x, *, patch: int = 4, n_blocks: int = 4,
 
 
 def loss_fn(params, x, target, **kw) -> Tensor:
+    """MSE between the forward and ``target``; on a batch-sharded DTensor
+    ``x`` the global MSE, data-parallel (see
+    ``utils.sharding.data_parallel_mse``)."""
+    if isinstance(x, DTensor):
+        return data_parallel_mse(lambda p, v: apply(p, v, **kw), params, x, target)
     y = apply(params, x, **kw)
     return torch.mean((y - as_input(target, y.device, y.dtype)) ** 2)
 
 
 def train_step(params, x, target, lr: float = 1e-3, **kw):
-    """One SGD step: (new parameter tree, loss)."""
+    """One SGD step: (new parameter tree, loss).  On batch-sharded
+    DTensors ``x`` and ``target`` the step is data-parallel: the global
+    loss, the gradients summed over the ranks, the new parameters plain
+    tensors equal on every rank."""
     return sgd_step(loss_fn, params, x, target, lr=lr, **kw)
 
 

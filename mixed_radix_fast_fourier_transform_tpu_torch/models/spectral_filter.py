@@ -32,6 +32,7 @@ from ..parallel.distributed import (
 )
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.numerics import as_tensor, resolve_device
+from ..utils.sharding import batch_sharded, data_parallel_mse, last_axis
 from ..utils.tree import sgd_step
 from ._common import params_from_jax
 
@@ -64,6 +65,11 @@ def init_params(
     }
 
 
+def _signal_axis(params, x, *args, **kwargs):
+    return last_axis(x)
+
+
+@batch_sharded(_signal_axis, arg=1)
 def apply(params: Params, x: Tensor, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     """Forward pass: (..., n) real -> (..., n) real."""
     x = as_tensor(x)
@@ -76,7 +82,11 @@ def apply(params: Params, x: Tensor, *, config: SpectralConfig = DEFAULT_CONFIG)
 def loss_fn(
     params: Params, x: Tensor, target: Tensor, *, config: SpectralConfig = DEFAULT_CONFIG
 ) -> Tensor:
-    """MSE between the filtered signal and the target."""
+    """MSE between the filtered signal and the target; on a batch-sharded
+    DTensor ``x`` the global MSE, data-parallel (see
+    ``utils.sharding.data_parallel_mse``)."""
+    if isinstance(x, DTensor):
+        return data_parallel_mse(lambda p, v: apply(p, v, config=config), params, x, target)
     y = apply(params, x, config=config)
     return torch.mean((y - as_tensor(target, y.device)) ** 2)
 
@@ -92,7 +102,10 @@ def train_step(
     """One SGD step, differentiating through the whole FFT engine: returns
     (new parameters, loss).  The parameters given are not changed.  With
     the fused kernel it launches three times: rfft, irfft, and irfft's
-    backward (the input needs no gradient, so rfft's is never computed)."""
+    backward (the input needs no gradient, so rfft's is never computed).
+    On batch-sharded DTensors ``x`` and ``target`` the step is
+    data-parallel: the new parameters are plain tensors equal on every
+    rank."""
     return sgd_step(loss_fn, params, x, target, lr=lr, config=config)
 
 

@@ -29,6 +29,7 @@ from ..utils.numerics import (
     as_tensor, complex_dtype, content_key, host_table, key_array, matmul_precision, on_host,
     pad_last,
 )
+from ..utils.sharding import batch_sharded, last_axis
 from .fft import fft, ifft
 from .stft import _frame, get_window
 
@@ -168,6 +169,7 @@ def _ola_table(nf: int, hop: int, n_frames: int, which: int) -> np.ndarray:
     return 1.0 / np.maximum(cover, 1.0)
 
 
+@batch_sharded(last_axis)
 def cqt(
     x,
     *,

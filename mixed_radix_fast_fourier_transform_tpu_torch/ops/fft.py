@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from ..utils.config import DEFAULT_CONFIG, SpectralConfig
 from ..utils.numerics import as_tensor, from_planes, resolve_device, to_planes
+from ..utils.sharding import batch_sharded
 from .stockham import exec_len
 
 Tensor = torch.Tensor
@@ -78,6 +79,24 @@ def _fft_1d(
     return torch.movedim(from_planes(zr, zi), -1, axis)
 
 
+def _axis_of(x, n=None, axis: int = -1, *args, **kwargs):
+    """The axis a 1-D transform's call transforms (:func:`batch_sharded`)."""
+    return (axis,)
+
+
+def _axes_of(x, s=None, axes=None, *args, **kwargs):
+    """The axes an N-D transform's call transforms, as :func:`_axes_shape`
+    reads them."""
+    if axes is not None:
+        return axes
+    return range(x.ndim) if s is None else range(x.ndim - len(s), x.ndim)
+
+
+def _axes2_of(x, s=None, axes=(-2, -1), *args, **kwargs):
+    return _axes_of(x, s, axes)
+
+
+@batch_sharded(_axis_of)
 def fft(
     x,
     n: Optional[int] = None,
@@ -90,6 +109,7 @@ def fft(
     return _fft_1d(x, n, axis, -1, norm, config)
 
 
+@batch_sharded(_axis_of)
 def ifft(
     x,
     n: Optional[int] = None,
@@ -117,6 +137,7 @@ def _axes_shape(
     return tuple(int(v) for v in s), axes
 
 
+@batch_sharded(_axes_of)
 def fftn(
     x,
     s: Optional[Sequence[int]] = None,
@@ -133,6 +154,7 @@ def fftn(
     return x
 
 
+@batch_sharded(_axes_of)
 def ifftn(
     x,
     s: Optional[Sequence[int]] = None,
@@ -149,11 +171,13 @@ def ifftn(
     return x
 
 
+@batch_sharded(_axes2_of)
 def fft2(x, s=None, axes=(-2, -1), norm="backward", *, config=DEFAULT_CONFIG):
     """2-D FFT over ``axes`` (numpy.fft.fft2 semantics)."""
     return fftn(x, s=s, axes=axes, norm=norm, config=config)
 
 
+@batch_sharded(_axes2_of)
 def ifft2(x, s=None, axes=(-2, -1), norm="backward", *, config=DEFAULT_CONFIG):
     """Inverse 2-D FFT over ``axes`` (numpy.fft.ifft2 semantics)."""
     return ifftn(x, s=s, axes=axes, norm=norm, config=config)

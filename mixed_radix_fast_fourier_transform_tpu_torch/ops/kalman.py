@@ -96,17 +96,9 @@ def _filter_combine(left, right):
     return A, b, C, eta, J
 
 
-def kalman_filter(F, Q, H, R, m0, P0, ys, *, parallel: bool = False,
-                  config: SpectralConfig = DEFAULT_CONFIG
-                  ) -> Tuple[Tensor, Tensor]:
-    """Kalman filter for x_{k+1} = F x_k + w (cov Q), y_k = H x_k + v
-    (cov R), prior N(m0, P0), observations ``ys`` of shape (T, d_obs).
-
-    Returns (means (T, d), covs (T, d, d)) of the filtered densities.
-    ``parallel=True`` runs the log-depth associative scan; ``False``
-    (default) the sequential loop (the same results to fp32 rounding).
-    Numpy input goes to the device of the first tensor among the
-    arguments (default: the card)."""
+def _checked(F, Q, H, R, m0, P0, ys):
+    """The model and the observations (T, d_obs) as fp32 tensors, their
+    shapes checked."""
     F, Q, H, R, m0, P0, ys = _as_f32(F, Q, H, R, m0, P0, ys)
     if ys.ndim != 2 or ys.shape[0] < 1:
         raise ValueError("ys must be (T >= 1, d_obs)")
@@ -118,13 +110,28 @@ def kalman_filter(F, Q, H, R, m0, P0, ys, *, parallel: bool = False,
     if ys.shape[1] != H.shape[0]:
         raise ValueError(f"ys.shape[1]={ys.shape[1]} must equal "
                          f"d_obs={H.shape[0]}")
+    return F, Q, H, R, m0, P0, ys
+
+
+def kalman_filter(F, Q, H, R, m0, P0, ys, *, parallel: bool = False,
+                  config: SpectralConfig = DEFAULT_CONFIG
+                  ) -> Tuple[Tensor, Tensor]:
+    """Kalman filter for x_{k+1} = F x_k + w (cov Q), y_k = H x_k + v
+    (cov R), prior N(m0, P0), observations ``ys`` of shape (T, d_obs).
+
+    Returns (means (T, d), covs (T, d, d)) of the filtered densities.
+    ``parallel=True`` runs the log-depth associative scan; ``False``
+    (default) the sequential loop (the same results to fp32 rounding).
+    Numpy input goes to the device of the first tensor among the
+    arguments (default: the card)."""
+    F, Q, H, R, m0, P0, ys = _checked(F, Q, H, R, m0, P0, ys)
+    d = F.shape[0]
+    if parallel:
+        ms, Ps = _parallel_tracks([(F, Q, H, R, m0, P0, ys)])
+        return ms[0], Ps[0]
     # full fp32 products throughout: reduced-precision passes compound over
     # the log2(T) combine levels and over T serial steps alike
     with matmul_precision():
-        if parallel:
-            elems = _filter_elements(F, Q, H, R, m0, P0, ys)
-            _, b, C, _, _ = associative_scan(_filter_combine, elems)
-            return b, C
         I = torch.eye(d, dtype=F.dtype, device=F.device)
         m, P = m0, P0
         ms, Ps = [], []
@@ -172,14 +179,13 @@ def kalman_smoother(F, Q, H, R, m0, P0, ys, *, parallel: bool = False,
     the smoothing gains with a second log-depth associative scan in
     reverse (or the sequential backward loop).  Returns (means (T, d),
     covs (T, d, d))."""
-    ms, Ps = kalman_filter(F, Q, H, R, m0, P0, ys, parallel=parallel,
-                           config=config)
+    if parallel:
+        gs, Ls = _parallel_tracks([_checked(F, Q, H, R, m0, P0, ys)], smooth=True)
+        return gs[0], Ls[0]
+    ms, Ps = kalman_filter(F, Q, H, R, m0, P0, ys, config=config)
     F32, Q32 = (as_tensor(m, ms.device).to(DTYPE) for m in (F, Q))
     with matmul_precision():
         E, g, L = _smoother_elements(F32, Q32, ms, Ps)
-        if parallel:
-            _, g, L = associative_scan(_smoother_combine, (E, g, L), reverse=True)
-            return g, L
         m, P = g[-1], L[-1]
         gs, Ls = [m], [P]
         for k in range(ms.shape[0] - 2, -1, -1):
@@ -188,3 +194,21 @@ def kalman_smoother(F, Q, H, R, m0, P0, ys, *, parallel: bool = False,
             gs.append(m)
             Ls.append(P)
         return torch.stack(gs[::-1]), torch.stack(Ls[::-1])
+
+
+def _parallel_tracks(tracks, smooth: bool = False) -> Tuple[Tensor, Tensor]:
+    """The parallel filter (with ``smooth`` the RTS smoother) of each of
+    ``tracks`` (the checked (F, Q, H, R, m0, P0, ys) of :func:`_checked`,
+    one model shape): the tracks' associative elements stacked along a
+    leading axis, each scan run once with its combines batched over them
+    (bit-equal to one scan a track), so a traced call's graph does not grow
+    with the tracks.  Returns (means (B, T, d), covs (B, T, d, d))."""
+    with matmul_precision():
+        elems = tuple(torch.stack(e) for e in zip(*(_filter_elements(*t) for t in tracks)))
+        _, ms, Ps, _, _ = associative_scan(_filter_combine, elems, dim=1)
+        if not smooth:
+            return ms, Ps
+        elems = tuple(torch.stack(e) for e in zip(*(
+            _smoother_elements(t[0], t[1], m, P) for t, m, P in zip(tracks, ms, Ps))))
+        _, gs, Ls = associative_scan(_smoother_combine, elems, dim=1, reverse=True)
+        return gs, Ls

@@ -34,6 +34,7 @@ from ..utils.numerics import (
     as_tensor, host_table, median, on_host, pad_last, product, working,
 )
 from ..utils.scan import linear_recurrence
+from ..utils.sharding import batch_sharded, last_axis
 from .dct import dct as _dct, idct as _idct
 from .rfft import irfft as _irfft, rfft as _rfft
 from .stft import _frame, griffinlim as _griffinlim, stft as _stft
@@ -148,6 +149,7 @@ def _filterbank_on(like: Tensor, sr, n_fft, n_mels, fmin, fmax, htk, norm) -> Te
                       float(fmin), fmax_key, bool(htk), norm, like=like)
 
 
+@batch_sharded(last_axis)
 def melspectrogram(
     x,
     sr: float = 22050.0,

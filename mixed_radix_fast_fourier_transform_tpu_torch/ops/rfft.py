@@ -19,7 +19,8 @@ import torch.nn.functional as F
 from ..plan import device_constants, get_plan
 from ..utils.config import DEFAULT_CONFIG, SpectralConfig
 from ..utils.numerics import as_tensor, from_planes, to_planes
-from .fft import _axes_shape, _norm_scale, _resize_last, fft, ifft
+from ..utils.sharding import batch_sharded
+from .fft import _axes_of, _axes_shape, _axis_of, _norm_scale, _resize_last, fft, ifft
 from .stockham import exec_complex, exec_len
 
 Tensor = torch.Tensor
@@ -78,6 +79,7 @@ def _rfft_odd_two_for_one(x: Tensor, n: int, config: SpectralConfig):
     return xr.reshape(*batch, h1), xi.reshape(*batch, h1)
 
 
+@batch_sharded(_axis_of)
 def rfft(
     x,
     n: Optional[int] = None,
@@ -127,6 +129,7 @@ def _irfft_packed(xr: Tensor, xi: Tensor, n: int, config: SpectralConfig) -> Ten
     return torch.stack([gr, gi], dim=-1).reshape(*gr.shape[:-1], n)
 
 
+@batch_sharded(_axis_of)
 def irfft(
     x,
     n: Optional[int] = None,
@@ -189,6 +192,7 @@ def irfft(
     return torch.movedim(out, -1, axis)
 
 
+@batch_sharded(_axes_of)
 def rfftn(x, s=None, axes=None, norm="backward", *, config=DEFAULT_CONFIG):
     """N-D real FFT: rfft over the last requested axis, complex fft over the rest."""
     x = as_tensor(x)
@@ -199,6 +203,7 @@ def rfftn(x, s=None, axes=None, norm="backward", *, config=DEFAULT_CONFIG):
     return out
 
 
+@batch_sharded(_axes_of)
 def irfftn(x, s=None, axes=None, norm="backward", *, config=DEFAULT_CONFIG):
     """Inverse N-D real FFT (numpy.fft.irfftn): complex ifft over the leading
     requested axes, irfft over the last."""

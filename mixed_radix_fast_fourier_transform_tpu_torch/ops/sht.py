@@ -688,27 +688,34 @@ def _recurrence_table(L: int, name: str) -> np.ndarray:
     return dict(zip(("A", "B", "mant", "k0", "mu"), _recurrence_coeffs(L)))[name]
 
 
+def _recurrence_band(L: int, name: str, start: int, stop: int) -> np.ndarray:
+    """:func:`_recurrence_table` with its latitude axis cut to the band
+    ``start:stop`` (the tables without one whole)."""
+    t = _recurrence_table(L, name)
+    if name in ("mu", "mu_lo"):
+        return t[start:stop]
+    if name in ("mant", "k0", "mant_lo"):
+        return t[:, start:stop]
+    return t
+
+
 def _legendre_scan(L: int, accumulate, acc0, xs_extra, lat=None, compensated=False,
                    like: Tensor = None):
     """Loop l = 0..L-1 carrying the rescaled (m, i) Legendre plane; at each
     step ``acc = accumulate(xs_extra[l], p0, acc)`` with p0 the true-scale
     plane (entries whose exponent offset k > 0 are < 2^-60 and passed as 0).
-    ``lat`` optionally replaces the latitude arrays (mu, seed mantissa, seed
-    exponent[, mu_lo, mant_lo]) with a band of them, as host arrays.
+    ``lat`` optionally cuts the latitude arrays (mu, seed mantissa, seed
+    exponent, mu_lo, mant_lo) to the band of latitudes ``(start, stop)``.
     ``compensated`` carries the plane as a double-word (hi, lo) fp32 pair
     with double-word constants: fp32-exact at any L for ~5x the work.
     The tables go to the device of ``like``."""
-    if lat is None:
-        # kept tables, built on the host also while dynamo traces
-        def dev(name, dtype=DTYPE):
+    # kept tables, built on the host also while dynamo traces
+    def dev(name, dtype=DTYPE):
+        if lat is None:
             return host_table("sht_recurrence", _recurrence_table, L, name, like=like,
                               dtype=dtype)
-    else:
-        band = dict(zip(("mu", "mant", "k0", "mu_lo", "mant_lo"), lat))
-
-        def dev(name, dtype=DTYPE):
-            values = band[name] if name in band else _recurrence_table(L, name)
-            return constant(values, like, dtype)
+        return host_table("sht_recurrence_band", _recurrence_band, L, name, *lat, like=like,
+                          dtype=dtype)
 
     Aj, Bj, mantj, muj = dev("A"), dev("B"), dev("mant"), dev("mu")[None, :]
     k0j = dev("k0", torch.int32)
@@ -836,7 +843,7 @@ def _rec_synth_core(srcs: Tensor, L: int, config=DEFAULT_CONFIG, lat=None,
     over m: g[m] += p0[m, :, None] @ a_l[m, None, ·]."""
     lead = srcs.shape[:-2]
     X = _as_planes_last(srcs.reshape(-1, L, L).permute(2, 1, 0))   # (l, m, 2B)
-    ni = L if lat is None else len(lat[0])
+    ni = L if lat is None else lat[1] - lat[0]
     acc0 = torch.zeros((L, ni, X.shape[-1]), dtype=DTYPE, device=srcs.device)
 
     def accumulate(a_l, p0, acc):

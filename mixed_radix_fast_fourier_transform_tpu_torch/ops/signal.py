@@ -30,6 +30,7 @@ from ..utils.numerics import (
     as_tensor, as_tensors, complex_dtype, constant, content_key, host_table, on_host,
     matmul_precision, median, pad_last, resolve_device, working,
 )
+from ..utils.sharding import batch_sharded
 from .fft import fft, fft2, fftshift, ifft, ifft2, rfftfreq
 from .rfft import irfft, rfft
 from .stft import _frame, _window_on, dpss, get_window
@@ -483,6 +484,12 @@ def _taper_weights(weighting: str, n: int, nw: float, k: int) -> np.ndarray:
     return ratios / ratios.sum()
 
 
+def _multitaper_axis(x, fs=1.0, nw=4.0, k=None, nfft=None, detrend="constant",
+                     scaling="density", weighting="eigen", axis: int = -1, **kwargs):
+    return (axis,)
+
+
+@batch_sharded(_multitaper_axis, carries=(False, True))
 def multitaper(
     x,
     fs: float = 1.0,

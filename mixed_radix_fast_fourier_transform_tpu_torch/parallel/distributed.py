@@ -38,22 +38,30 @@ from __future__ import annotations
 
 import functools
 import math
-import warnings
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.distributed.nn.functional as dist_nn
+import torch.distributed._functional_collectives as funcol
 from torch.nn.functional import pad as _pad
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..ops.stockham import exec_len
 from ..plan import device_constants, get_plan
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.factorize import is_smooth, next_splittable_len
-from ..utils.numerics import as_tensor, constant, content_key, to_host
+from ..utils.numerics import content_key, host_table, key_array, on_host, to_host
+from ..utils.sharding import (
+    Sum as _Sum,
+    dtensor as _dtensor,
+    global_input as _input,
+    local_placed as _local_placed,
+    mean_squared_error as _mean_squared_error,
+    redistribute as _redistribute,
+    replicated as _replicated,
+)
 from .mesh import DATA_AXIS, SEQ_AXIS, batch_sharding
 
 Tensor = torch.Tensor
@@ -93,12 +101,6 @@ def _placements(mesh: DeviceMesh, spec: Spec):
     return out
 
 
-def _dtensor(local: Tensor, mesh: DeviceMesh, placements, shape) -> DTensor:
-    shape = torch.Size(shape)
-    stride = torch.empty(shape, device="meta").stride()
-    return DTensor.from_local(local, mesh, placements, shape=shape, stride=stride)
-
-
 def _wrap(local: Tensor, mesh: DeviceMesh, spec: Spec, shape) -> DTensor:
     """This rank's block under ``spec`` as the DTensor of the global ``shape``."""
     return _dtensor(local, mesh, _placements(mesh, spec), shape)
@@ -107,48 +109,6 @@ def _wrap(local: Tensor, mesh: DeviceMesh, spec: Spec, shape) -> DTensor:
 def _like(dt: DTensor, local: Tensor) -> DTensor:
     """``local`` as a DTensor laid out as ``dt`` (same mesh, placements, shape)."""
     return _dtensor(local, dt.device_mesh, dt.placements, dt.shape)
-
-
-def _redistribute(x: DTensor, placements) -> DTensor:
-    """``x`` in ``placements``; a complex DTensor moves through its real view."""
-    placements = tuple(placements)
-    if tuple(x.placements) == placements:
-        return x
-    mesh = x.device_mesh
-    if not x.is_complex():
-        return x.redistribute(mesh, placements)
-    re = _dtensor(torch.view_as_real(x.to_local()), mesh, x.placements, x.shape + (2,))
-    local = re.redistribute(mesh, placements).to_local()
-    return _dtensor(torch.view_as_complex(local.contiguous()), mesh, placements, x.shape)
-
-
-def _input(x, mesh: DeviceMesh):
-    """A DTensor as it is; anything else as the global tensor on the mesh's
-    device type (a tensor elsewhere is moved: NCCL exchanges card memory,
-    gloo host memory)."""
-    if isinstance(x, DTensor):
-        return x
-    x = as_tensor(x, mesh.device_type)
-    return x if x.device.type == mesh.device_type else x.to(mesh.device_type)
-
-
-def _local_placed(x, mesh: DeviceMesh, placements) -> Tensor:
-    """This rank's block of ``x`` in ``placements``: a DTensor is
-    redistributed (a no-op where it has them already); a plain tensor is the
-    global array and is sliced."""
-    x = _input(x, mesh)
-    if isinstance(x, DTensor):
-        return _redistribute(x, placements).to_local()
-    for i, p in enumerate(placements):
-        if isinstance(p, Shard):
-            parts = mesh.shape[i]
-            if x.shape[p.dim] % parts:
-                raise ValueError(
-                    f"axis {p.dim} of shape {tuple(x.shape)} must divide by mesh axis "
-                    f"{mesh.mesh_dim_names[i]!r} ({parts})")
-            size = x.shape[p.dim] // parts
-            x = x.narrow(p.dim, mesh.get_local_rank(i) * size, size)
-    return x
 
 
 def _local(x, mesh: DeviceMesh, spec: Spec) -> Tensor:
@@ -180,8 +140,9 @@ def _all_to_all(x: Tensor, group, split_axis: int, concat_axis: int) -> Tensor:
     ``split_axis``, block j goes to rank j, and the blocks received are
     joined along ``concat_axis`` in the order of the ranks that sent them.
     Only the block index moves to the front (each block stays whole), so on
-    a world of one the exchange is the collective's copy alone.
-    Differentiable: the backward is the reverse exchange."""
+    a world of one the exchange is the collective's copy alone.  One
+    functional collective (``all_to_all_single_autograd``), eagerly and
+    under a tracer alike: its backward is the reverse exchange."""
     p = dist.get_world_size(group)
     split_axis %= x.ndim
     concat_axis %= x.ndim
@@ -190,79 +151,13 @@ def _all_to_all(x: Tensor, group, split_axis: int, concat_axis: int) -> Tensor:
             f"axis {split_axis} of shape {tuple(x.shape)} does not split over {p} ranks")
     blocks = x.unflatten(split_axis, (p, x.shape[split_axis] // p))
     blocks = blocks.movedim(split_axis, 0).contiguous()     # (P, ..., s/P, ...)
-    with warnings.catch_warnings():
-        # deprecated in favour of a private module; the same exchange
-        warnings.simplefilter("ignore", FutureWarning)
-        out = dist_nn.all_to_all_single(torch.empty_like(blocks), blocks, group=group)
+    out = funcol.wait_tensor(funcol.all_to_all_single_autograd(blocks, None, None, group))
     # out[i] is rank i's block: join them along concat_axis, rank i's first
     return out.movedim(0, concat_axis).flatten(concat_axis, concat_axis + 1)
 
 
-class _Sum(torch.autograd.Function):
-    """Sum over the ranks of ``groups`` (every rank of a mesh when given all
-    its dimensions' groups) whose result every rank holds, as ``psum``
-    under ``shard_map``: the backward passes the cotangent through, since
-    each rank's cotangent of the replicated result is that of the one
-    global value."""
-
-    @staticmethod
-    def forward(ctx, x: Tensor, groups):
-        y = x.detach().clone().contiguous()
-        view = torch.view_as_real(y) if y.is_complex() else y
-        for group in groups:
-            dist.all_reduce(view, group=group)
-        return y
-
-    @staticmethod
-    def backward(ctx, g: Tensor):
-        return g, None
-
-
 def _psum(x: Tensor, mesh: DeviceMesh, *names: str) -> Tensor:
     return _Sum.apply(x, [_group(mesh, n) for n in names])
-
-
-def _mean_squared_error(y: DTensor, target) -> Tensor:
-    """mean((y − target)²) over the global array, held by every rank.
-
-    Each rank sums its block; a block that several ranks hold (a mesh axis
-    the layout replicates) is weighted by one over their number, so that the
-    sum over the mesh counts every element once, and so does the sum of the
-    ranks' gradients of a replicated parameter."""
-    mesh = y.device_mesh
-    d = y.to_local() - _local_placed(target, mesh, y.placements).to(y.dtype)
-    copies = math.prod(mesh.shape[i] for i, p in enumerate(y.placements)
-                       if p.is_replicate())
-    groups = [mesh.get_group(i) for i in range(mesh.ndim)]
-    return _Sum.apply(torch.sum(d * d) / (y.numel() * copies), groups)
-
-
-class _Replicated(torch.autograd.Function):
-    """A parameter every rank holds, used by a sharded computation: the
-    forward is the identity; the backward sums the ranks' gradients over
-    ``groups`` with an all-reduce, so every rank gets the gradient of the
-    global loss (what jit's partitioner does for a replicated parameter)."""
-
-    @staticmethod
-    def forward(ctx, p: Tensor, groups):
-        ctx.groups = groups
-        return p.view_as(p)
-
-    @staticmethod
-    def backward(ctx, g: Tensor):
-        g = g.contiguous().clone()
-        for group in ctx.groups:
-            dist.all_reduce(g, group=group)
-        return g, None
-
-
-def _replicated(params, mesh: DeviceMesh):
-    """A parameter tree of plain tensors, each marked as held by every rank
-    of ``mesh`` (see :class:`_Replicated`)."""
-    from ..utils.tree import tree_map
-
-    groups = [mesh.get_group(i) for i in range(mesh.ndim)]
-    return tree_map(lambda p: _Replicated.apply(p, groups), params)
 
 
 # ---------------------------------------------------------------------------
@@ -310,19 +205,19 @@ def _split_twiddle_matrix(n1: int, n2: int, sign: int) -> Tuple[np.ndarray, np.n
     return np.cos(ang), np.sin(ang)
 
 
+def _twiddle_part(n1: int, n2: int, sign: int, r: int, p: int, part: int) -> np.ndarray:
+    """Rank ``r``'s column block (of ``p``) of the split twiddle's real
+    (``part`` 0) or imaginary (1) part."""
+    w = n2 // p
+    return _split_twiddle_matrix(n1, n2, sign)[part][:, r * w:(r + 1) * w]
+
+
 def _twiddle_block(n1: int, n2: int, sign: int, mesh: DeviceMesh, seq_axis: str,
                    like: Tensor) -> Tuple[Tensor, Tensor]:
     """This rank's column block of the split twiddle, kept on the device."""
-    p = _axis_size(mesh, seq_axis)
-    r = _axis_index(mesh, seq_axis)
-    w = n2 // p
-    key = ("four_step_twiddle", n1, n2, sign, r, p)
-
-    def part(i):
-        return lambda: _split_twiddle_matrix(n1, n2, sign)[i][:, r * w:(r + 1) * w]
-
-    return (constant(part(0), like, like.dtype, key=key + ("re",)),
-            constant(part(1), like, like.dtype, key=key + ("im",)))
+    key = (n1, n2, sign, _axis_index(mesh, seq_axis), _axis_size(mesh, seq_axis))
+    return tuple(host_table("four_step_twiddle", _twiddle_part, *key, i, like=like,
+                            dtype=like.dtype) for i in (0, 1))
 
 
 def _local_fft_last(config, n: int, sign: int, xr: Tensor, xi: Tensor):
@@ -551,6 +446,37 @@ def ifft_four_step_scrambled(
     return _wrap(torch.complex(zr, zi), mesh, bspec + (seq_axis,), shape[:-2] + (n,))
 
 
+def _taps_key(kernel, ndim: int) -> tuple:
+    """Host prologue of the sharded convolutions: the content key of the
+    filter taps, checked (made on the host also while dynamo traces,
+    ``utils.numerics.on_host``)."""
+    kernel = to_host(kernel)
+    if kernel.ndim != ndim:
+        raise ValueError("kernel must be 1-D filter taps" if ndim == 1 else "kernel must be 2-D")
+    return content_key("sharded_conv_kernel", kernel)
+
+
+def _conv_gain(kkey: tuple, m: int, n1: int, r: int, p: int, part: str) -> np.ndarray:
+    """Rank ``r``'s row block of the taps' length-``m`` spectrum in the
+    scrambled Y[k1, k2] layout (k = k2·n1 + k1), float64 on the host."""
+    kernel = key_array(kkey)
+    kpad = np.zeros(m, dtype=np.float64)
+    kpad[: len(kernel)] = kernel
+    kmat = np.fft.fft(kpad).reshape(m // n1, n1).T
+    rows = n1 // p
+    return getattr(kmat, part)[r * rows:(r + 1) * rows]
+
+
+def _conv2_gain(kkey: tuple, hh: int, ww: int, r: int, p: int, part: str) -> np.ndarray:
+    """Rank ``r``'s row block of the 2-D taps' (hh, ww) spectrum."""
+    kernel = key_array(kkey)
+    kh, kw = kernel.shape
+    kpad = np.zeros((hh, ww), dtype=np.float64)
+    kpad[:kh, :kw] = kernel
+    rows = hh // p
+    return getattr(np.fft.fft2(kpad), part)[r * rows:(r + 1) * rows]
+
+
 def fft_convolve_sharded(
     x,
     kernel,
@@ -576,45 +502,34 @@ def fft_convolve_sharded(
     scrambled Y[k1, k2] layout, and kept on the device: 4 all-to-alls.
     """
     x = _input(x, mesh)
-    kernel = to_host(kernel)
-    if kernel.ndim != 1:
-        raise ValueError("kernel must be 1-D filter taps")
+    kkey = on_host(_taps_key, kernel, 1)
+    taps = kkey[2][0]
     n = x.shape[-1]
     p = _axis_size(mesh, seq_axis)
     if mode == "same":
-        m = next_splittable_len(n + len(kernel) - 1, p, config.max_stage)
+        m = next_splittable_len(n + taps - 1, p, config.max_stage)
         x = _pad(_full(x, mesh), (0, m - n))
     elif mode != "circular":
         raise ValueError(f"mode must be 'circular' or 'same', got {mode!r}")
     m = x.shape[-1]
-    n1, n2 = choose_split(m, p, config.max_stage)
-    if len(kernel) > m:
+    n1, _ = choose_split(m, p, config.max_stage)
+    if taps > m:
         raise ValueError("kernel longer than transform length")
-    rows = n1 // p
-    r = _axis_index(mesh, seq_axis)
-
-    def spectrum(part):
-        def build():
-            kpad = np.zeros(m, dtype=np.float64)
-            kpad[: len(kernel)] = kernel
-            kmat = np.fft.fft(kpad).reshape(n2, n1).T  # Y[k1, k2], k = k2·n1 + k1
-            return getattr(kmat, part)[r * rows:(r + 1) * rows]
-        return build
-
     spec = fft_four_step_scrambled(
         x, mesh, seq_axis=seq_axis, data_axis=data_axis, n1=n1,
         overlap_chunks=overlap_chunks, config=config,
     )
     local = spec.to_local()
-    key = content_key("four_step_conv_kernel", kernel) + (m, n1, r, p)
-    gain = torch.complex(constant(spectrum("real"), local.real, config.dtype, key=key + ("re",)),
-                         constant(spectrum("imag"), local.real, config.dtype, key=key + ("im",)))
+    key = (kkey, m, n1, _axis_index(mesh, seq_axis), p)
+    gain = torch.complex(*(host_table("four_step_conv_gain", _conv_gain, *key, part,
+                                      like=local.real, dtype=config.dtype)
+                           for part in ("real", "imag")))
     out = ifft_four_step_scrambled(
         _like(spec, local * gain), mesh, seq_axis=seq_axis, data_axis=data_axis,
         overlap_chunks=overlap_chunks, config=config,
     )
     if mode == "same":
-        start = (len(kernel) - 1) // 2
+        start = (taps - 1) // 2
         bspec = _batch_spec(x.ndim - 1, data_axis)
         whole = _local(out, mesh, bspec + (None,))
         out = _wrap(whole[..., start: start + n], mesh, bspec + (None,), x.shape[:-1] + (n,))
@@ -776,12 +691,10 @@ def fft_convolve2_sharded(
     gathered over ``seq_axis`` and returned replicated on it.
     """
     x = _input(x, mesh)
-    kernel = to_host(kernel)
-    if kernel.ndim != 2:
-        raise ValueError("kernel must be 2-D")
+    kkey = on_host(_taps_key, kernel, 2)
     h, w = x.shape[-2], x.shape[-1]
     p = _axis_size(mesh, seq_axis)
-    kh, kw = kernel.shape
+    kh, kw = kkey[2]
     if mode == "same":
         th = -(-(h + kh - 1) // p) * p
         tw = -(-(w + kw - 1) // p) * p
@@ -793,21 +706,12 @@ def fft_convolve2_sharded(
         raise ValueError(f"image {hh}x{ww} must divide by mesh size {p}")
     if kh > hh or kw > ww:
         raise ValueError("kernel larger than (padded) image")
-    rows = hh // p
-    r = _axis_index(mesh, seq_axis)
-
-    def spectrum(part):
-        def build():
-            kpad = np.zeros((hh, ww), dtype=np.float64)
-            kpad[:kh, :kw] = kernel
-            return getattr(np.fft.fft2(kpad), part)[r * rows:(r + 1) * rows]
-        return build
-
     spec = fft2_pencil(x, mesh, seq_axis=seq_axis, data_axis=data_axis, config=config)
     local = spec.to_local()
-    key = content_key("pencil_conv_kernel", kernel) + (hh, ww, r, p)
-    gain = torch.complex(constant(spectrum("real"), local.real, config.dtype, key=key + ("re",)),
-                         constant(spectrum("imag"), local.real, config.dtype, key=key + ("im",)))
+    key = (kkey, hh, ww, _axis_index(mesh, seq_axis), p)
+    gain = torch.complex(*(host_table("pencil_conv_gain", _conv2_gain, *key, part,
+                                      like=local.real, dtype=config.dtype)
+                           for part in ("real", "imag")))
     out = ifft2_pencil(_like(spec, local * gain), mesh, seq_axis=seq_axis,
                        data_axis=data_axis, config=config)
     if mode == "same":
@@ -1031,6 +935,24 @@ def irfftn_pencil2(
     return _wrap(out, mesh, spec, (n0, n1, n2))
 
 
+def _periods(period) -> Tuple[float, ...]:
+    """Host prologue: the domain's period along each of the three axes."""
+    return tuple(float(v) for v in np.broadcast_to(np.asarray(period, np.float64), (3,)))
+
+
+def _poisson_multiplier(n0: int, n1: int, n2: int, periods, r0: int, b0: int, r1: int,
+                        b1: int) -> np.ndarray:
+    """−1/|k|² (0 at k = 0) on the rank's (b0, b1, n2//2+1) block of the
+    rfftn bins, the block at (r0·b0, r1·b1)."""
+    k0 = 2.0 * np.pi * np.fft.fftfreq(n0, 1.0 / n0) / periods[0]
+    k1 = 2.0 * np.pi * np.fft.fftfreq(n1, 1.0 / n1) / periods[1]
+    k2 = 2.0 * np.pi * np.arange(n2 // 2 + 1, dtype=np.float64) / periods[2]
+    ksq = ((k0 ** 2)[r0 * b0:(r0 + 1) * b0, None, None]
+           + (k1 ** 2)[None, r1 * b1:(r1 + 1) * b1, None]
+           + (k2 ** 2)[None, None, :])
+    return np.where(ksq > 0, -1.0 / np.where(ksq > 0, ksq, 1.0), 0.0)
+
+
 def poisson_solve_pencil2(
     f,
     mesh: DeviceMesh,
@@ -1049,23 +971,13 @@ def poisson_solve_pencil2(
     if f.ndim != 3:
         raise ValueError(f"poisson_solve_pencil2 expects a 3-D field, got {f.ndim}-D")
     n0, n1, n2 = f.shape
-    periods = tuple(float(v) for v in np.broadcast_to(np.asarray(period, np.float64), (3,)))
+    periods = on_host(_periods, period)
     spec = rfftn_pencil2(f, mesh, data_axis=data_axis, seq_axis=seq_axis, config=config)
     local = spec.to_local()
     b0, b1 = local.shape[0], local.shape[1]
     r0, r1 = _axis_index(mesh, data_axis), _axis_index(mesh, seq_axis)
-
-    def multiplier():
-        k0 = 2.0 * np.pi * np.fft.fftfreq(n0, 1.0 / n0) / periods[0]
-        k1 = 2.0 * np.pi * np.fft.fftfreq(n1, 1.0 / n1) / periods[1]
-        k2 = 2.0 * np.pi * np.arange(n2 // 2 + 1, dtype=np.float64) / periods[2]
-        ksq = ((k0 ** 2)[r0 * b0:(r0 + 1) * b0, None, None]
-               + (k1 ** 2)[None, r1 * b1:(r1 + 1) * b1, None]
-               + (k2 ** 2)[None, None, :])
-        return np.where(ksq > 0, -1.0 / np.where(ksq > 0, ksq, 1.0), 0.0)
-
-    inv = constant(multiplier, local.real, local.real.dtype,
-                   key=("poisson_pencil2", n0, n1, n2, periods, r0, b0, r1, b1))
+    inv = host_table("poisson_pencil2", _poisson_multiplier, n0, n1, n2, periods, r0, b0,
+                     r1, b1, like=local.real, dtype=local.real.dtype)
     return irfftn_pencil2(_like(spec, local * inv), mesh, n2=n2, data_axis=data_axis,
                           seq_axis=seq_axis, config=config)
 
@@ -1077,13 +989,14 @@ def poisson_solve_pencil2(
 
 def shard_batch(x, mesh: DeviceMesh, axis_name: str = DATA_AXIS) -> DTensor:
     """``x`` with its leading axis sharded over ``axis_name`` (replicated over
-    the other mesh axes): ``distribute_tensor`` of the global tensor, each
-    rank keeping its own block (no collective), or a DTensor redistributed."""
+    the other mesh axes): each rank keeps its own block of the global tensor
+    (no collective), or a DTensor is redistributed.  The leading axis must
+    divide by the mesh axis, as ``jax.device_put`` requires."""
     x = _input(x, mesh)
     placements = batch_sharding(mesh, axis_name, x.ndim)
     if isinstance(x, DTensor):
         return _redistribute(x, placements)
-    return distribute_tensor(x, mesh, placements, src_data_rank=None)
+    return _dtensor(_local_placed(x, mesh, placements), mesh, placements, x.shape)
 
 
 def _batch_local(x, mesh: DeviceMesh, axis_name: str, ndim: int, what: str) -> Tensor:
@@ -1134,16 +1047,14 @@ def kalman_filter_sharded(
     smoother with ``smooth=True``) over a batch of independent observation
     sequences ``ys`` (B, T, d_obs), the batch sharded over the mesh.  No
     collectives: each rank runs the log-depth associative scans on its
-    tracks, one track after another; the model (F, Q, H, R, m0, P0) is
-    shared.  Returns (means (B, T, d), covs (B, T, d, d)) with the batch
-    sharding kept."""
-    from ..ops.kalman import kalman_filter, kalman_smoother
+    tracks, batched (``ops.kalman._parallel_tracks``: one scan for every
+    local track, bit-equal to one filter per track); the model (F, Q, H, R,
+    m0, P0) is shared.  Returns (means (B, T, d), covs (B, T, d, d)) with
+    the batch sharding kept."""
+    from ..ops.kalman import _checked, _parallel_tracks
 
     local = _batch_local(ys, mesh, axis_name, 3, "ys must be (batch, T, d_obs)")
-    fn = kalman_smoother if smooth else kalman_filter
-    outs = [fn(F, Q, H, R, m0, P0, seq, parallel=True, config=config) for seq in local]
-    ms = torch.stack([o[0] for o in outs])
-    Ps = torch.stack([o[1] for o in outs])
+    ms, Ps = _parallel_tracks([_checked(F, Q, H, R, m0, P0, y) for y in local], smooth=smooth)
     batch = local.shape[0] * _axis_size(mesh, axis_name)
     return (_wrap(ms, mesh, (axis_name, None, None), (batch,) + ms.shape[1:]),
             _wrap(Ps, mesh, (axis_name, None, None, None), (batch,) + Ps.shape[1:]))
@@ -1482,17 +1393,13 @@ def isht_sharded(
                  alm.shape[:-2] + (nlat, 2 * L))
 
 
-def _band_lat(L: int, band: slice, compensated: bool):
-    """The recurrence's latitude arrays (mu, seed mantissa, seed exponent[,
-    mu_lo, mant_lo]) cut to one band, on the host."""
-    from ..ops.sht import _recurrence_coeffs, _recurrence_coeffs_dw
+def _rec_weights_band(L: int, r: int, parts: int) -> np.ndarray:
+    """The recurrence's analysis quadrature (Gauss weights times the
+    longitude step, fp32) on latitude band ``r`` of ``parts``."""
+    from ..ops.sht import _rec_weights
 
-    _, _, mant, k0, mu = _recurrence_coeffs(L)
-    lat = (mu[band], mant[:, band], k0[:, band])
-    if compensated:
-        _, _, mant_lo, mu_lo = _recurrence_coeffs_dw(L)
-        lat += (mu_lo[band], mant_lo[:, band])
-    return lat
+    b = L // parts
+    return _rec_weights(L)[r * b:(r + 1) * b]
 
 
 def sht_recurrence_sharded(
@@ -1510,9 +1417,7 @@ def sht_recurrence_sharded(
     degree and stays O(L²) on each rank."""
     from ..ops.fft import fft
     from ..ops.rfft import rfft
-    from ..ops.sht import (
-        _fold_neg_last, _gauss_grid, _rec_analyze_core, _rec_pack, _select_packed_m,
-    )
+    from ..ops.sht import _fold_neg_last, _rec_analyze_core, _rec_pack, _select_packed_m
 
     f = _input(f, mesh)
     shape = tuple(f.shape)
@@ -1523,17 +1428,15 @@ def sht_recurrence_sharded(
     if L % parts != 0:
         raise ValueError(f"mesh axis size {parts} must divide the latitude count L={L}")
     band, r, parts = _band(mesh, axis_name, L)
-    _, w, _ = _gauss_grid(L)
     fl = _local(f, mesh, (None,) * (len(shape) - 2) + (axis_name, None))
-    wl = constant(lambda: (w * (2.0 * math.pi / (2 * L))).astype(np.float32)[band], fl.real,
-                  key=("sht_rec_weights_band", L, r, parts))
+    wl = host_table("sht_rec_weights_band", _rec_weights_band, L, r, parts, like=fl.real)
     hermitian = not fl.is_complex()
     if hermitian:
         srcs = (rfft(fl.to(DTYPE), config=config)[..., :L] * wl[:, None])[None]
     else:
         fw = _select_packed_m(fft(fl, config=config), L) * wl[:, None]
         srcs = torch.stack([fw[..., :L], _fold_neg_last(fw, L)])
-    acc = _rec_analyze_core(srcs, L, config, lat=_band_lat(L, band, compensated),
+    acc = _rec_analyze_core(srcs, L, config, lat=(band.start, band.stop),
                             compensated=compensated)
     out = _rec_pack(_psum(acc, mesh, axis_name), L, hermitian)
     return _wrap(out, mesh, (None,) * out.ndim, out.shape)
@@ -1570,9 +1473,9 @@ def isht_recurrence_sharded(
     else:
         half = torch.flip(alm[..., L:, :], (-2,))
         z = alm.new_zeros(alm.shape[:-2] + (1, L))
-        sign = constant(_neg_signs(L), alm.real, key=("sht_neg_signs", L))
+        sign = host_table("sht_neg_signs", _neg_signs, L, like=alm.real)
         srcs = torch.stack([apos, torch.cat([z, half], dim=-2) * sign[:, None]])
-    g = _rec_synth_core(srcs, L, config, lat=_band_lat(L, band, compensated),
+    g = _rec_synth_core(srcs, L, config, lat=(band.start, band.stop),
                         compensated=compensated)
     nlon = 2 * L
     gpos = g[0]

@@ -71,8 +71,14 @@ class _Prepared:
                 f"tempo, beat_track, scattering1d, scattering2d, vmd (every "
                 f"init_omega form; their loops are loop operators: "
                 f"utils.scan.fori_loop and scan), "
+                f"every function of parallel/ on a plain tensor or a DTensor (the "
+                f"four-step family, the pencils, the batch-sharded calls, the "
+                f"sharded NUFFTs and SHTs; the API ops, the spectral filter, "
+                f"melspectrogram, cqt, multitaper and the AFNO on a batch-sharded "
+                f"DTensor), "
                 f"and the spectral filter, FNO, S4D, FNet, AFNO, SFNO, PCEN front "
-                f"end and Koopman models so far, the ops other than the engine, "
+                f"end and Koopman models so far (their distributed forms too), "
+                f"the ops other than the engine, "
                 f"the convolutions, fwht, wct's smoothing, the dense NUFFTs and "
                 f"the products of mel.py and feature.py at "
                 f"precision 'highest' only; a host array made "
