@@ -276,7 +276,8 @@ published depths, and
 ``python3 chip_smoke.py compile-ops`` phases 1, 2 and 31 with Inductor for every
 op, each timed beside eager, and
 ``python3 chip_smoke.py compile-precision`` phases 1, 2 and 32, and
-``python3 chip_smoke.py compile-parallel`` phases 1, 2 and 33 with Inductor at the
+``python3 chip_smoke.py compile-parallel [k ...]`` phases 1, 2 and 33 (its groups
+k, else all three) with Inductor at the
 published depths, each call timed beside eager (for development;
 they print no result line).
 
@@ -4808,7 +4809,7 @@ def compile_path(rng, card: str, full: bool = False) -> int:
 # S4D 116 s, FNet 113 s, AFNO 483 s, SFNO 156 s of it), so the depth is cut
 # to fit the run's time limit; the width never is (PERF.md §4).
 # ``python3 chip_smoke.py compile`` runs the published depths
-COMPILED_DEPTH = {"s4d": 1, "fnet": 1, "afno": 1, "sfno": 1}
+COMPILED_DEPTH = {"fno": 1, "s4d": 1, "fnet": 1, "afno": 1, "sfno": 1}
 # calls a timing row averages (device and back-to-back time)
 COMPILED_CALLS = 3
 
@@ -5840,7 +5841,9 @@ def compiled_parallel(rng, card: str, inductor: bool = False, groups=PAR_COMPILE
     run; with ``inductor`` (``python3 chip_smoke.py compile-parallel``)
     Inductor at the published depths and every row timed beside eager
     (:func:`parallel_timing_pair`).  ``groups`` picks the calls: 0 the
-    config-5 four-step family and filter, the 2-D convolution and pencil;
+    config-5 four-step family and filter, the 2-D convolution and pencil,
+    then every family's step and the framed ops on ``shard_batch``
+    DTensors (:func:`families_on_shard_batch`);
     1 the N-D pencils, FNet-Base, ``fft_batch_sharded``,
     ``melspectrogram``, the AFNO step and the NUFFTs; 2 the PFB, radar,
     Kalman, the API ops on ``shard_batch`` DTensors and the SHTs (the whole
@@ -6006,6 +6009,8 @@ def compiled_parallel(rng, card: str, inductor: bool = False, groups=PAR_COMPILE
              sf.train_step_distributed, params, (xf, target, mesh), (xf2, target2, mesh), PAR_LR)
         del params, xf, xf2, target, target2
         torch.cuda.empty_cache()
+        # 6b. every family's step and the framed ops on shard_batch DTensors
+        families_on_shard_batch(run, step, shard, pair, rng, inductor)
     if 1 in groups:
         layers = FNET["n_layers"] if inductor else COMPILED_DEPTH["fnet"]
         fp = fnet.init_fnet(**{**FNET, "n_layers": layers}, generator=gen, device=CARD)
@@ -6134,6 +6139,83 @@ def compiled_parallel(rng, card: str, inductor: bool = False, groups=PAR_COMPILE
     log(json.dumps({"compiled_parallel": {"card": card, "groups": list(groups), "rows": rows,
                                           "launches": total, "worst_abs_err": worst}}))
     return total, worst
+
+
+def families_on_shard_batch(run, step, shard, pair, rng, inductor: bool) -> None:
+    """Phase 33's calls on ``shard_batch`` DTensors of every model family
+    and the framed ops: the FNO (Burgers), S4D, FNet-Base, SFNO (lmax 255),
+    PCEN front end (its labels sharded alike) and Koopman steps at their
+    eager phases' widths (COMPILED_DEPTH, the published depths with
+    ``inductor``), then ``stft``, ``welch``, ``resample_poly`` and
+    ``hilbert`` on Whisper's 16 x 480,000, each through phase 33's
+    ``run(..., sharded=True)`` / ``step`` checks."""
+    pgen = torch.Generator().manual_seed(SEED)
+
+    def depth(name, layers):
+        return layers if inductor else COMPILED_DEPTH[name]
+
+    def fields(*shapes):
+        return [shard(cuda32(rng.standard_normal(s))) for s in shapes + shapes]
+
+    n = depth("fno", FNO["n_layers"])
+    x, t, x2, t2 = fields((FNO_BATCH, FNO["in_channels"], FNO_GRID),
+                          (FNO_BATCH, FNO["out_channels"], FNO_GRID))
+    step(f"fno {FNO['hidden']} x {n}, grid {FNO_GRID:,}, b={FNO_BATCH} train_step on shard_batch "
+         f"DTensors", fno.loss_fn, fno.train_step,
+         fno.init_fno(**{**FNO, "n_layers": n}, generator=pgen, device=CARD), (x, t), (x2, t2),
+         1e-3)
+    n = depth("s4d", S4D["n_layers"])
+    x, t, x2, t2 = fields((S4D_BATCH, S4D_LENGTH, S4D["in_dim"]), (S4D_BATCH, S4D["out_dim"]))
+    step(f"s4d {S4D['hidden']} x {n}, L={S4D_LENGTH}, b={S4D_BATCH} train_step on shard_batch "
+         f"DTensors", s4d.loss_fn, s4d.train_step,
+         s4d.init_s4d_model(**{**S4D, "n_layers": n}, generator=pgen, device=CARD), (x, t),
+         (x2, t2), 1e-3)
+    n = depth("fnet", FNET["n_layers"])
+    x, t, x2, t2 = fields(*(((FNET_BATCH, FNET_SEQ, FNET["hidden"]),) * 2))
+    step(f"FNet-Base {n} layers train_step on shard_batch DTensors", fnet.loss_fn,
+         fnet.train_step, fnet.init_fnet(**{**FNET, "n_layers": n}, generator=pgen, device=CARD),
+         (x, t), (x2, t2), 1e-3)
+    n = depth("sfno", SFNO["n_layers"])
+    L = SFNO["lmax"] + 1
+    x, t, x2, t2 = fields((SFNO_BATCH, SFNO["in_channels"], L, 2 * L),
+                          (SFNO_BATCH, SFNO["out_channels"], L, 2 * L))
+    step(f"sfno L={L} hidden {SFNO['hidden']} x {n}, batch {SFNO_BATCH} train_step on "
+         f"shard_batch DTensors", sfno.loss_fn, sfno.train_step,
+         sfno.init_sfno(**{**SFNO, "n_layers": n}, generator=pgen, device=CARD), (x, t), (x2, t2),
+         SFNO_LR)
+    del x, t, x2, t2
+    clips = [shard(cuda32(0.1 * rng.standard_normal((AUDIO_BATCH, AUDIO_SAMPLES))))
+             for _ in range(2)]
+    labels = [shard(torch.tensor(rng.integers(0, AUDIO["n_classes"], AUDIO_BATCH), device=CARD))
+              for _ in range(2)]
+    step(f"pcen front end {AUDIO['n_mels']} bands, {AUDIO_BATCH} x {AUDIO_SAMPLES} train_step on "
+         f"shard_batch DTensors (labels too)", audio_frontend.loss_fn, audio_frontend.train_step,
+         audio_frontend.init_params(AUDIO["n_mels"], AUDIO["n_classes"], generator=pgen,
+                                    device=CARD),
+         (clips[0], labels[0]), (clips[1], labels[1]), 0.05, sr=AUDIO["sr"],
+         n_fft=AUDIO["n_fft"])
+    del clips, labels
+    trajs = fields((256, 64, 8))
+    step("koopman 8 -> 16, hidden 64, 256 x 64 steps: an SGD step on koopman_loss of "
+         "shard_batch DTensors", koopman.koopman_loss, functools.partial(sgd_step,
+                                                                       koopman.koopman_loss),
+         koopman.init_koopman(8, latent_dim=16, hidden=64, depth=2, generator=pgen, device=CARD),
+         (trajs[0],), (trajs[1],), 1e-3)
+    del trajs
+    torch.cuda.empty_cache()
+
+    w = WHISPER
+    a, a2 = (shard(0.1 * v) for v in pair((WHISPER_BATCH, WHISPER_SAMPLES), False))
+    shape = f"{WHISPER_BATCH} x {WHISPER_SAMPLES:,}"
+    run(f"stft of a shard_batch DTensor {shape}, n_fft {w['n_fft']}, hop {w['hop']}",
+        lambda v: tp.stft(v, w["n_fft"], w["n_fft"] - w["hop"]), (a,), (a2,), sharded=True)
+    run(f"welch of a shard_batch DTensor {shape}, 1024", lambda v: tp.welch(v, w["sr"], "hann", 1024),
+        (a,), (a2,), sharded=True)
+    run(f"resample_poly of a shard_batch DTensor {shape} by 1/3",
+        lambda v: tp.resample_poly(v, 1, 3), (a,), (a2,), sharded=True)
+    run(f"hilbert of a shard_batch DTensor {shape}", tp.hilbert, (a,), (a2,), sharded=True)
+    del a, a2
+    torch.cuda.empty_cache()
 
 
 def compiled_parallel_parts(rng, card: str):
@@ -6296,8 +6378,10 @@ def main(argv) -> int:
     if argv == ["compile-precision"]:   # development: phase 32 alone
         timed(compiled_precisions, rng, card)
         return 0
-    if argv == ["compile-parallel"]:   # development: phase 33 with Inductor, timed
-        timed(compiled_parallel, rng, card, True)
+    if argv[:1] == ["compile-parallel"]:   # development: phase 33 with Inductor, timed
+        # (the groups named after it, else all three)
+        timed(compiled_parallel, rng, card, True,
+              tuple(int(k) for k in argv[1:]) or PAR_COMPILE_GROUPS)
         return 0
     if argv[:1] == ["compile-parallel-part"]:   # one group of phase 33, a process of its own
         timed(compiled_parallel, rng, card, False, (int(argv[1]),))

@@ -35,7 +35,7 @@ from torch.distributed.tensor import DTensor
 from ..ops.rfft import irfft2, rfft2
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.numerics import matmul_precision
-from ..utils.sharding import batch_sharded, data_parallel_mse
+from ..utils.sharding import batch_sharded, data_parallel_mse, non_batch
 from ..utils.tree import sgd_step
 from ._common import (
     Draws, TreeModule, as_input, gelu, layer_norm, param_dtype, params_from_jax,
@@ -166,12 +166,7 @@ def afno_block(p: Params, x: Tensor, n_blocks: int, *, sparsity: float = 0.01,
     return x + (h @ p["mlp_w2"] + p["mlp_b2"])
 
 
-def _token_axes(params, x, *args, **kwargs):
-    """Every axis of a (batch, H, W, channels) field but the batch."""
-    return range(1, x.ndim)
-
-
-@batch_sharded(_token_axes, arg=1)
+@batch_sharded(non_batch, arg=1)
 def apply(params: Dict[str, object], x, *, patch: int = 4, n_blocks: int = 4,
           sparsity: float = 0.01, hard_fraction: float = 1.0,
           config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:

@@ -22,10 +22,12 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..ops.mel import melspectrogram, pcen
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.numerics import as_tensor
+from ..utils.sharding import batch_sharded, data_parallel_loss, non_batch
 from ..utils.tree import sgd_step
 from ._common import Draws, TreeModule, as_input, params_from_jax
 
@@ -76,6 +78,7 @@ def init_params(n_mels: int = 40, n_classes: int = 2, generator=None,
     }
 
 
+@batch_sharded(non_batch, arg=1)
 def apply_frontend(
     params: Params,
     x,
@@ -87,7 +90,9 @@ def apply_frontend(
     config: SpectralConfig = DEFAULT_CONFIG,
 ) -> Tensor:
     """(…, T) waveforms -> (…, frames, n_mels) PCEN features with the
-    TRAINED per-band coefficients."""
+    TRAINED per-band coefficients.  Here and in :func:`apply` a
+    batch-sharded DTensor ``x`` runs on each rank's block
+    (``utils.sharding.batch_sharded``)."""
     n_mels = params["log_gain"].shape[0]
     hop = n_fft // 4 if hop is None else int(hop)
     x = as_input(x, params["log_gain"].device, params["log_gain"].dtype)
@@ -104,6 +109,7 @@ def apply_frontend(
     )
 
 
+@batch_sharded(non_batch, arg=1)
 def apply(params: Dict[str, Params], x, sr: float = 16000.0,
           n_fft: int = 512, hop: Optional[int] = None,
           *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
@@ -117,12 +123,24 @@ def apply(params: Dict[str, Params], x, sr: float = 16000.0,
 
 def loss_fn(params, x, labels, sr: float = 16000.0, n_fft: int = 512,
             *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
-    """Mean softmax cross-entropy over integer ``labels``."""
+    """Mean softmax cross-entropy over integer ``labels``.  On a
+    batch-sharded DTensor ``x`` the global mean over the whole batch,
+    data-parallel (``utils.sharding.data_parallel_loss``), with ``labels``
+    a DTensor laid out as ``x`` (``shard_batch``) or the global tensor."""
+    if isinstance(x, DTensor):
+        return data_parallel_loss(_cross_entropy,
+                                  lambda p, v: apply(p, v, sr, n_fft, config=config),
+                                  params, x, labels)
     logits = apply(params, x, sr, n_fft, config=config)
-    labels = as_tensor(labels, logits.device).to(torch.long)
+    return torch.mean(_cross_entropy(logits, as_tensor(labels, logits.device)))
+
+
+def _cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:
+    """Each example's softmax cross-entropy: logsumexp(logits) − the
+    logit of its label."""
+    labels = labels.to(torch.long)
     logz = torch.logsumexp(logits, dim=-1)
-    picked = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
-    return torch.mean(logz - picked)
+    return logz - torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
 
 
 def train_step(params, x, labels, lr: float = 0.05,

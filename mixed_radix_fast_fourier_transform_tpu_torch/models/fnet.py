@@ -35,6 +35,7 @@ from ..parallel.distributed import (
     _input, _local, _mean_squared_error, _replicated, _wrap, fft_four_step,
 )
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
+from ..utils.sharding import batch_sharded, data_parallel_mse, non_batch
 from ..utils.tree import sgd_step
 from ._common import (
     Draws, TreeModule, as_input, gelu, layer_norm, param_dtype, params_from_jax,
@@ -88,8 +89,10 @@ def _encoder_layer(p: Params, x: Tensor, mix: Tensor) -> Tensor:
     return layer_norm(h + ff, p["ln2_scale"], p["ln2_bias"])
 
 
+@batch_sharded(non_batch, arg=1)
 def apply(params, x, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
-    """(batch, seq, hidden) real -> same shape."""
+    """(batch, seq, hidden) real -> same shape; a batch-sharded DTensor
+    ``x`` runs on each rank's block (``utils.sharding.batch_sharded``)."""
     x = as_input(x, dtype=param_dtype(params))
     for p in params["layers"]:
         x = _encoder_layer(p, x, fourier_mix(x, config=config))
@@ -97,6 +100,10 @@ def apply(params, x, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
 
 
 def loss_fn(params, x, target, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
+    """MSE against ``target``; on a batch-sharded DTensor ``x`` the global
+    MSE, data-parallel (``utils.sharding.data_parallel_mse``)."""
+    if isinstance(x, DTensor):
+        return data_parallel_mse(lambda p, v: apply(p, v, config=config), params, x, target)
     y = apply(params, x, config=config)
     return torch.mean((y - as_input(target, y.device, y.dtype)) ** 2)
 

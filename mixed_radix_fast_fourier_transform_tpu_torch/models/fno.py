@@ -28,11 +28,13 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..ops.fft import fft, ifft
 from ..ops.rfft import irfft, rfft
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.numerics import as_tensor
+from ..utils.sharding import batch_sharded, data_parallel_mse, non_batch
 from ..utils.tree import sgd_step, tree_map
 from ._common import Draws, params_from_jax
 
@@ -184,6 +186,7 @@ def _layer(layer: Params, x: Tensor, nd: int, config: SpectralConfig) -> Tensor:
                   approximate="tanh")
 
 
+@batch_sharded(non_batch, arg=1)
 def _apply(params, x: Tensor, nd: int, config: SpectralConfig) -> Tensor:
     h = _pointwise(params["lift"], as_tensor(x), nd)
     for layer in params["layers"]:
@@ -204,7 +207,11 @@ def fno3d_layer(layer: Params, x: Tensor, *, config: SpectralConfig) -> Tensor:
 
 
 def apply(params, x: Tensor, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
-    """(batch, in_channels, n) -> (batch, out_channels, n)."""
+    """(batch, in_channels, n) -> (batch, out_channels, n).  Each of the
+    three forwards takes a batch-sharded DTensor ``x`` (see
+    ``utils.sharding.batch_sharded``): every axis but the batch is
+    gathered, the layers run on each rank's block, and the output is
+    sharded as ``x`` along the batch."""
     return _apply(params, x, 1, config)
 
 
@@ -219,6 +226,12 @@ def apply3d(params, x: Tensor, *, config: SpectralConfig = DEFAULT_CONFIG) -> Te
 
 
 def _loss(params, x, target, nd: int, config: SpectralConfig) -> Tensor:
+    """MSE against ``target``; on a batch-sharded DTensor ``x`` the global
+    MSE, data-parallel (``utils.sharding.data_parallel_mse``), so each
+    ``train_step*`` on sharded batches leaves the same plain parameters on
+    every rank."""
+    if isinstance(x, DTensor):
+        return data_parallel_mse(lambda p, v: _apply(p, v, nd, config), params, x, target)
     y = _apply(params, x, nd, config)
     return torch.mean((y - as_tensor(target, y.device)) ** 2)
 

@@ -20,8 +20,10 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..utils.config import DTYPE
+from ..utils.sharding import batch_sharded, global_mean, non_batch, replicated
 from ._common import Draws, TreeModule, as_input, gelu, param_dtype, params_from_jax
 
 Tensor = torch.Tensor
@@ -58,20 +60,26 @@ def init_koopman(state_dim: int, latent_dim: int = 16, hidden: int = 64, depth: 
     return {"enc": enc, "dec": dec, "K": K}
 
 
+@batch_sharded(non_batch, arg=1)
 def koopman_encode(params: Params, x) -> Tensor:
     """States (..., state_dim) → latents (..., latent_dim)."""
     return _mlp(params["enc"], as_input(x, dtype=param_dtype(params)))
 
 
+@batch_sharded(non_batch, arg=1)
 def koopman_decode(params: Params, z) -> Tensor:
     """Latents (..., latent_dim) → states (..., state_dim)."""
     return _mlp(params["dec"], as_input(z, dtype=param_dtype(params)))
 
 
+@batch_sharded(non_batch, arg=1, lead=1)
 def koopman_rollout(params: Params, x0, n_steps: int) -> Tensor:
     """Forecast: encode once, advance ``n_steps`` in the linear latent space
     (one product with K a step), decode every step.  Returns
-    (n_steps + 1, ..., state_dim) including the reconstruction of x0."""
+    (n_steps + 1, ..., state_dim) including the reconstruction of x0: the
+    batch axis of a batch-sharded DTensor ``x0`` (as of
+    :func:`koopman_encode` and :func:`koopman_decode`) comes out one axis
+    later, sharded as in ``x0``."""
     if n_steps < 0:
         raise ValueError("n_steps must be >= 0")
     zs = [koopman_encode(params, x0)]
@@ -84,26 +92,49 @@ def koopman_loss(params: Params, trajs, horizon: int = 8, w_recon: float = 1.0,
                  w_pred: float = 1.0, w_lin: float = 0.3) -> Tensor:
     """Lusch-style objective on (batch, T, state_dim) trajectories:
     reconstruction ‖x − ψφx‖², multi-step prediction ‖x_{t+s} − ψ(K^sφx_t)‖²,
-    and latent linearity ‖φx_{t+s} − K^sφx_t‖² over s = 1..horizon."""
+    and latent linearity ‖φx_{t+s} − K^sφx_t‖² over s = 1..horizon.  On a
+    batch-sharded DTensor ``trajs`` every mean is the global one
+    (``utils.sharding.global_mean``), data-parallel: the loss is held by
+    every rank and the parameters' gradients are summed over the ranks."""
     trajs = as_input(trajs, dtype=param_dtype(params))
     if trajs.ndim != 3:
         raise ValueError("trajs must be (batch, T, state_dim)")
     T = trajs.shape[1]
     if T <= horizon:
         raise ValueError(f"need T > horizon, got T={T}, horizon={horizon}")
+    if isinstance(trajs, DTensor):
+        terms = _sharded_terms(replicated(params, trajs.device_mesh), trajs, horizon)
+        mean = lambda t: global_mean(t.to_local(), t)  # noqa: E731
+    else:
+        terms, mean = _terms(params, trajs, horizon), torch.mean
+    loss = w_recon * mean(terms[0])
+    for pred, lin in zip(terms[1::2], terms[2::2]):
+        loss = loss + (w_pred / horizon) * mean(pred)
+        loss = loss + (w_lin / horizon) * mean(lin)
+    return loss
+
+
+def _terms(params: Params, trajs: Tensor, horizon: int) -> Tuple[Tensor, ...]:
+    """The squared errors :func:`koopman_loss` averages: the
+    reconstruction's, then for s = 1..horizon the prediction's and the
+    latent linearity's."""
+    T = trajs.shape[1]
     z = koopman_encode(params, trajs)            # (B, T, L)
     x_rec = koopman_decode(params, z)
-    loss = w_recon * torch.mean((x_rec - trajs) ** 2)
+    terms = [(x_rec - trajs) ** 2]
     K = params["K"]
     z_s = z[:, : T - horizon]                    # rollout sources
     for s in range(1, horizon + 1):
         z_s = z_s @ K                            # K^s φ(x_t)
         target_x = trajs[:, s: T - horizon + s]
         target_z = z[:, s: T - horizon + s]
-        loss = loss + (w_pred / horizon) * torch.mean(
-            (koopman_decode(params, z_s) - target_x) ** 2)
-        loss = loss + (w_lin / horizon) * torch.mean((z_s - target_z) ** 2)
-    return loss
+        terms.append((koopman_decode(params, z_s) - target_x) ** 2)
+        terms.append((z_s - target_z) ** 2)
+    return tuple(terms)
+
+
+# on a batch-sharded DTensor: each term sharded as ``trajs`` along the batch
+_sharded_terms = batch_sharded(non_batch, arg=1)(_terms)
 
 
 def koopman_spectrum(params: Params) -> Tuple[np.ndarray, np.ndarray]:

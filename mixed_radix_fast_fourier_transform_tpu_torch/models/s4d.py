@@ -30,10 +30,12 @@ import math
 from typing import Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..ops.rfft import irfft, rfft
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.factorize import is_smooth
+from ..utils.sharding import batch_sharded, data_parallel_mse, global_input, non_batch
 from ..utils.tree import sgd_step
 from ._common import (
     Draws, TreeModule, as_input, gelu, layer_norm, param_dtype, params_from_jax,
@@ -181,6 +183,7 @@ def init_s4d_model(hidden: int, n_layers: int = 2, state: int = 64, in_dim: int 
     }
 
 
+@batch_sharded(non_batch, arg=1)
 def apply_s4d(params, u, *, pool: bool = True,
               config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     """(B, L, in_dim) → (B, out_dim) when ``pool`` else (B, L, out_dim)."""
@@ -193,7 +196,14 @@ def apply_s4d(params, u, *, pool: bool = True,
 
 
 def loss_fn(params, u, target, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
-    """MSE against a (B, out_dim) target (pooled) or a (B, L, out_dim) one."""
+    """MSE against a (B, out_dim) target (pooled) or a (B, L, out_dim) one;
+    on a batch-sharded DTensor ``u`` the global MSE, data-parallel
+    (``utils.sharding.data_parallel_mse``)."""
+    if isinstance(u, DTensor):
+        target = global_input(target, u.device_mesh)
+        pool = target.ndim == 2
+        return data_parallel_mse(lambda p, v: apply_s4d(p, v, pool=pool, config=config),
+                                 params, u, target)
     u = as_input(u, dtype=param_dtype(params))
     target = as_input(target, u.device, u.dtype)
     pred = apply_s4d(params, u, pool=(target.ndim == 2), config=config)

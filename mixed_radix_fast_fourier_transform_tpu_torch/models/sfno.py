@@ -25,10 +25,12 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..ops.sht import isht, sht
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.numerics import matmul_precision
+from ..utils.sharding import batch_sharded, data_parallel_mse, non_batch
 from ..utils.tree import sgd_step
 from ._common import Draws, TreeModule, as_input, gelu, param_dtype, params_from_jax
 
@@ -85,8 +87,11 @@ def sfno_layer(layer: Params, x: Tensor, *, config: SpectralConfig = DEFAULT_CON
     return gelu(local + spectral_mix(layer, x, config=config))
 
 
+@batch_sharded(non_batch, arg=1)
 def apply(params: Dict[str, object], x, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
-    """(batch, in_channels, L, 2L) -> (batch, out_channels, L, 2L)."""
+    """(batch, in_channels, L, 2L) -> (batch, out_channels, L, 2L); a
+    batch-sharded DTensor ``x`` runs on each rank's block
+    (``utils.sharding.batch_sharded``)."""
     with matmul_precision():
         h = _pointwise(params["lift"], as_input(x, dtype=param_dtype(params)))
     for layer in params["layers"]:
@@ -96,6 +101,10 @@ def apply(params: Dict[str, object], x, *, config: SpectralConfig = DEFAULT_CONF
 
 
 def loss_fn(params, x, target, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
+    """MSE against ``target``; on a batch-sharded DTensor ``x`` the global
+    MSE, data-parallel (``utils.sharding.data_parallel_mse``)."""
+    if isinstance(x, DTensor):
+        return data_parallel_mse(lambda p, v: apply(p, v, config=config), params, x, target)
     y = apply(params, x, config=config)
     return torch.mean((y - as_input(target, y.device, y.dtype)) ** 2)
 

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.factorize import next_fast_len, next_pow2
 from ..utils.numerics import as_tensors, convolution
-from ..utils.sharding import axis_arg, batch_sharded
+from ..utils.sharding import batch_sharded
 from .fft import fft, ifft
 from .rfft import irfft, rfft
 
@@ -70,7 +70,7 @@ def _check_valid(mode: str, shape1, shape2, axes) -> None:
         )
 
 
-@batch_sharded(axis_arg)
+@batch_sharded("axis")
 def fft_convolve(
     in1,
     in2,

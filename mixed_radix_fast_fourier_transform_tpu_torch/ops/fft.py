@@ -79,11 +79,6 @@ def _fft_1d(
     return torch.movedim(from_planes(zr, zi), -1, axis)
 
 
-def _axis_of(x, n=None, axis: int = -1, *args, **kwargs):
-    """The axis a 1-D transform's call transforms (:func:`batch_sharded`)."""
-    return (axis,)
-
-
 def _axes_of(x, s=None, axes=None, *args, **kwargs):
     """The axes an N-D transform's call transforms, as :func:`_axes_shape`
     reads them."""
@@ -96,7 +91,7 @@ def _axes2_of(x, s=None, axes=(-2, -1), *args, **kwargs):
     return _axes_of(x, s, axes)
 
 
-@batch_sharded(_axis_of)
+@batch_sharded("axis")
 def fft(
     x,
     n: Optional[int] = None,
@@ -109,7 +104,7 @@ def fft(
     return _fft_1d(x, n, axis, -1, norm, config)
 
 
-@batch_sharded(_axis_of)
+@batch_sharded("axis")
 def ifft(
     x,
     n: Optional[int] = None,

@@ -20,7 +20,7 @@ from ..plan import device_constants, get_plan
 from ..utils.config import DEFAULT_CONFIG, SpectralConfig
 from ..utils.numerics import as_tensor, from_planes, to_planes
 from ..utils.sharding import batch_sharded
-from .fft import _axes_of, _axes_shape, _axis_of, _norm_scale, _resize_last, fft, ifft
+from .fft import _axes_of, _axes_shape, _norm_scale, _resize_last, fft, ifft
 from .stockham import exec_complex, exec_len
 
 Tensor = torch.Tensor
@@ -79,7 +79,7 @@ def _rfft_odd_two_for_one(x: Tensor, n: int, config: SpectralConfig):
     return xr.reshape(*batch, h1), xi.reshape(*batch, h1)
 
 
-@batch_sharded(_axis_of)
+@batch_sharded("axis")
 def rfft(
     x,
     n: Optional[int] = None,
@@ -129,7 +129,7 @@ def _irfft_packed(xr: Tensor, xi: Tensor, n: int, config: SpectralConfig) -> Ten
     return torch.stack([gr, gi], dim=-1).reshape(*gr.shape[:-1], n)
 
 
-@batch_sharded(_axis_of)
+@batch_sharded("axis")
 def irfft(
     x,
     n: Optional[int] = None,

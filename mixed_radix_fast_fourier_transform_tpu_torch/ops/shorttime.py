@@ -27,6 +27,7 @@ import torch
 
 from ..utils.config import DEFAULT_CONFIG, SpectralConfig
 from ..utils.numerics import as_tensor, constant, content_key, pad_last
+from ..utils.sharding import batch_sharded
 from .fft import fft, fftshift, ifft, ifftshift
 from .rfft import irfft, rfft
 from .stft import get_window
@@ -159,6 +160,13 @@ def closest_STFT_dual_window(win, hop: int, desired_dual=None, *,
 
 
 # ------------------------------------------------------------------- the class
+
+def _istft_axes(self, S, *args, f_axis: int = -2, t_axis: int = -1, **kwargs):
+    """:meth:`ShortTimeFFT.istft`'s ``axes`` for :func:`batch_sharded`: from
+    the first of ``f_axis``/``t_axis`` on (its output drops both), so the
+    batch axes kept sharded are those before them."""
+    return range(min(f_axis % S.ndim, t_axis % S.ndim), S.ndim)
+
 
 class ShortTimeFFT:
     """scipy.signal.ShortTimeFFT-compatible STFT/ISTFT operator.
@@ -629,13 +637,18 @@ class ShortTimeFFT:
         p_s = (self._phase_shift + self.m_num_mid) % self.m_num
         return torch.roll(xs, p_s, dims=-1)[..., : self.m_num]
 
+    @batch_sharded("axis", arg=1)
     def stft(self, x, p0: Optional[int] = None, p1: Optional[int] = None, *,
              k_offset: int = 0, padding: str = "zeros",
              axis: int = -1) -> Tensor:
-        """STFT of ``x`` along ``axis`` → (..., f_pts, slices)."""
+        """STFT of ``x`` along ``axis`` → (..., f_pts, slices).  This
+        method, :meth:`stft_detrend`, :meth:`spectrogram` (with a second
+        signal ``y`` laid out alike) and :meth:`istft` take a batch-sharded
+        DTensor (``utils.sharding.batch_sharded``)."""
         return self.stft_detrend(x, None, p0, p1, k_offset=k_offset,
                                  padding=padding, axis=axis)
 
+    @batch_sharded("axis", arg=1)
     def stft_detrend(self, x, detr, p0: Optional[int] = None,
                      p1: Optional[int] = None, *, k_offset: int = 0,
                      padding: str = "zeros", axis: int = -1) -> Tensor:
@@ -681,6 +694,7 @@ class ShortTimeFFT:
             S = torch.movedim(S, -2, axis if axis >= 0 else axis - 1)
         return S
 
+    @batch_sharded("axis", arg=1)
     def spectrogram(self, x, y=None, detr=None, *, p0: Optional[int] = None,
                     p1: Optional[int] = None, k_offset: int = 0,
                     padding: str = "zeros", axis: int = -1) -> Tensor:
@@ -693,6 +707,7 @@ class ShortTimeFFT:
                                padding=padding, axis=axis)
         return Sx * torch.conj(Sy)
 
+    @batch_sharded(_istft_axes, arg=1)
     def istft(self, S, k0: int = 0, k1: Optional[int] = None, *,
               f_axis: int = -2, t_axis: int = -1) -> Tensor:
         """Inverse STFT over samples [k0, k1) via dual-window overlap-add:

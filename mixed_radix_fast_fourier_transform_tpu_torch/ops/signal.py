@@ -24,13 +24,14 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..utils.config import DEFAULT_CONFIG, DTYPE, SpectralConfig
 from ..utils.numerics import (
     as_tensor, as_tensors, complex_dtype, constant, content_key, host_table, on_host,
     matmul_precision, median, pad_last, resolve_device, working,
 )
-from ..utils.sharding import batch_sharded
+from ..utils.sharding import batch_sharded, last_axis, last_two
 from .fft import fft, fft2, fftshift, ifft, ifft2, rfftfreq
 from .rfft import irfft, rfft
 from .stft import _frame, _window_on, dpss, get_window
@@ -58,6 +59,7 @@ def _diff_multiplier(n: int, order: int, period: float) -> np.ndarray:
     return m
 
 
+@batch_sharded("axis")
 def spectral_diff(
     x,
     order: int = 1,
@@ -92,6 +94,7 @@ def _analytic_step(m: int, nyquist: bool) -> np.ndarray:
     return h
 
 
+@batch_sharded("axis")
 def hilbert(x, n: Optional[int] = None, axis: int = -1,
             *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     """Analytic signal via the Hilbert transform: real (..., N) -> complex
@@ -105,6 +108,7 @@ def hilbert(x, n: Optional[int] = None, axis: int = -1,
     return torch.movedim(out, -1, axis)
 
 
+@batch_sharded(last_two)
 def hilbert2(x, n=None, *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     """2-D analytic signal over the LAST TWO axes
     (scipy.signal.hilbert2 semantics, batched): real (…, H, W) -> complex,
@@ -144,6 +148,7 @@ def _onesided_doubling(nfft: int, like: Tensor) -> Tensor:
     return host_table("onesided2", _doubling, nfft, like=like, dtype=like.dtype)
 
 
+@batch_sharded("axis", carries=(False, True))
 def periodogram(
     x,
     fs: float = 1.0,
@@ -265,6 +270,7 @@ def _onesided_scale(nperseg: int, fs: float, window, scaling: str) -> np.ndarray
     return mult
 
 
+@batch_sharded(last_axis, carries=(False, True))
 def csd(
     x,
     y,
@@ -291,6 +297,7 @@ def csd(
     return freqs, pxy * mult
 
 
+@batch_sharded(last_axis, carries=(False, True))
 def coherence(
     x,
     y,
@@ -311,6 +318,7 @@ def coherence(
     return f, mag2 / denom
 
 
+@batch_sharded(last_axis, carries=(False, True))
 def tfestimate(
     x,
     y,
@@ -332,6 +340,7 @@ def tfestimate(
     return f, pxy / torch.clamp(pxx, min=1e-30)
 
 
+@batch_sharded("axis", carries=(False, True))
 def welch(
     x,
     fs: float = 1.0,
@@ -391,6 +400,7 @@ def _resample_window(window, n_x: int) -> np.ndarray:
     return np.fft.fftshift(np.asarray(get_window(window, n_x, np.float64)))
 
 
+@batch_sharded("axis")
 def resample(
     x,
     num: int,
@@ -484,12 +494,7 @@ def _taper_weights(weighting: str, n: int, nw: float, k: int) -> np.ndarray:
     return ratios / ratios.sum()
 
 
-def _multitaper_axis(x, fs=1.0, nw=4.0, k=None, nfft=None, detrend="constant",
-                     scaling="density", weighting="eigen", axis: int = -1, **kwargs):
-    return (axis,)
-
-
-@batch_sharded(_multitaper_axis, carries=(False, True))
+@batch_sharded("axis", carries=(False, True))
 def multitaper(
     x,
     fs: float = 1.0,
@@ -988,6 +993,7 @@ def _freqz_dense(b: Tensor, a: Tensor, omega: np.ndarray, precision: str) -> Ten
     return resp(b) / resp(a)
 
 
+@batch_sharded("axis", arg=1)
 def upfirdn(
     h,
     x,
@@ -1022,6 +1028,33 @@ def upfirdn(
         raise ValueError(
             f"only mode='constant' edge extension is supported, got {mode!r}"
         )
+    return _upfirdn(x, _kept_taps(h, up, down), h.size, up, down, axis, cval, config)
+
+
+def _kept_taps(h: np.ndarray, up: int, down: int):
+    """``taps(like)`` for :func:`_upfirdn` from a caller's filter ``h``: its
+    polyphase taps are small, kept on the card under their own contents."""
+    key = content_key(f"upfirdn.taps/{up}/{down}", h) if h.size <= 65536 else None
+    return lambda like: constant(lambda: _polyphase_taps(h, up, down), like, like.dtype, key=key)
+
+
+def _polyphase_taps(h: np.ndarray, up: int, down: int) -> np.ndarray:
+    """The fixed taps of each of :func:`upfirdn`'s q polyphase classes,
+    C[s, t] = h[(s·down) mod up + (T-1-t)·up]: (q, T), host float64."""
+    F = h.size
+    q = up // math.gcd(up, down)
+    T = (F - 1) // up + 1
+    h_pad = np.zeros(up * T, np.float64)
+    h_pad[:F] = h
+    srange = (np.arange(q) * down) % up
+    return h_pad[srange[:, None] + (T - 1 - np.arange(T))[None, :] * up]
+
+
+def _upfirdn(x: Tensor, taps, F: int, up: int, down: int, axis: int, cval,
+             config: SpectralConfig) -> Tensor:
+    """:func:`upfirdn` with an F-tap filter whose polyphase taps
+    ``taps(like)`` gives beside ``like`` (its device and dtype); the rest is
+    integer arithmetic on the host, so a traced call holds no host array."""
     if x.ndim < 1:
         raise ValueError("x must have at least one dimension")
     axis = axis % x.ndim
@@ -1030,39 +1063,44 @@ def upfirdn(
     if n < 1:
         raise ValueError("upfirdn needs a non-empty signal")
     if xm.is_complex():
-        re = upfirdn(h, xm.real, up, down, axis=-1,
-                     cval=float(np.real(cval)), config=config)
-        im = upfirdn(h, xm.imag, up, down, axis=-1,
-                     cval=float(np.imag(cval)), config=config)
+        re = _upfirdn(xm.real, taps, F, up, down, -1, float(np.real(cval)), config)
+        im = _upfirdn(xm.imag, taps, F, up, down, -1, float(np.imag(cval)), config)
         return torch.movedim(torch.complex(re, im), -1, axis)
-    F = h.size
     g = math.gcd(up, down)
     q = up // g
     stride = down // g
     M = _upfirdn_len(F, n, up, down)
     T = (F - 1) // up + 1
     nblocks = -(-M // q)
-    # fixed per-phase taps: C[s, t] = h[(s·down) mod up + (T-1-t)·up]
-    h_pad = np.zeros(up * T, np.float64)
-    h_pad[:F] = h
-    srange = (np.arange(q) * down) % up
-    C = h_pad[srange[:, None] + (T - 1 - np.arange(T))[None, :] * up]  # (q, T)
     # window start per (block, phase): j0(s) = floor(s·down/up) - (T-1)
-    j0 = (np.arange(q) * down) // up - (T - 1)
+    j0 = [(s * down) // up - (T - 1) for s in range(q)]
     P = T - 1  # left zero-pad makes every index non-negative
-    last = (nblocks - 1) * stride + int(j0.max()) + T - 1 + P  # largest index read
+    last = (nblocks - 1) * stride + max(j0) + T - 1 + P  # largest index read
     xp_ = pad_last(xm, P, max(last - (n - 1 + P), 0), "constant", float(cval))
-    # the taps are small: kept on the card under their own contents
-    Cd = constant(C, xp_, xp_.dtype,
-                  key=content_key(f"upfirdn.taps/{up}/{down}", h) if F <= 65536 else None)
+    Cd = taps(xp_)
     with matmul_precision(config.op_precision):
         y = torch.stack(
-            [xp_[..., int(j0[s]) + P:].unfold(-1, T, stride)[..., :nblocks, :] @ Cd[s]
+            [xp_[..., j0[s] + P:].unfold(-1, T, stride)[..., :nblocks, :] @ Cd[s]
              for s in range(q)], dim=-1)  # (…, nblocks, q)
     y = y.reshape(*xm.shape[:-1], nblocks * q)[..., :M]
     return torch.movedim(y, -1, axis)
 
 
+def _padded_filter(h: np.ndarray, n_pre: int, n_post: int) -> np.ndarray:
+    """``h`` with ``n_pre`` zeros before it and ``n_post`` after it."""
+    return np.concatenate([np.zeros(n_pre), h, np.zeros(n_post)])
+
+
+def _resample_poly_taps(up: int, down: int, window, n_pre: int, n_post: int) -> np.ndarray:
+    """:func:`resample_poly`'s polyphase taps for a designed filter: the
+    Kaiser (or ``window``) low-pass of half-length 10·max(up, down) at
+    1/max(up, down) of Nyquist, times ``up``, zero-padded."""
+    max_rate = max(up, down)
+    h = _firwin_lowpass(20 * max_rate + 1, 1.0 / max_rate, window) * up
+    return _polyphase_taps(_padded_filter(h, n_pre, n_post), up, down)
+
+
+@batch_sharded("axis")
 def resample_poly(
     x,
     up: int,
@@ -1104,24 +1142,28 @@ def resample_poly(
         h = np.asarray(window, np.float64)
         if h.ndim != 1:
             raise ValueError("window array must be 1-D")
-        half_len = (h.size - 1) // 2
+        n_h = h.size
     else:
-        max_rate = max(up, down)
-        f_c = 1.0 / max_rate  # cutoff relative to Nyquist
-        half_len = 10 * max_rate
-        h = _firwin_lowpass(2 * half_len + 1, f_c, window)
-    h = h * up
+        n_h = 20 * max(up, down) + 1
+    half_len = (n_h - 1) // 2
 
     # zero-pad the filter so the kept samples land at window centers
     n_pre_pad = down - half_len % down
     n_post_pad = 0
     n_pre_remove = (half_len + n_pre_pad) // down
     while (
-        _upfirdn_len(h.size + n_pre_pad + n_post_pad, n_in, up, down)
+        _upfirdn_len(n_h + n_pre_pad + n_post_pad, n_in, up, down)
         < n_out + n_pre_remove
     ):
         n_post_pad += 1
-    h = np.concatenate([np.zeros(n_pre_pad), h, np.zeros(n_post_pad)])
+    pads = (n_pre_pad, n_post_pad)
+    if isinstance(window, (list, np.ndarray)):
+        taps = _kept_taps(_padded_filter(h * up, *pads), up, down)
+    else:
+        def taps(like: Tensor) -> Tensor:
+            # the designed filter's taps, built on the host also while dynamo traces
+            return host_table("resample_poly.taps", _resample_poly_taps, up, down, window,
+                              *pads, like=like, dtype=like.dtype)
 
     stats = {
         "mean": lambda v: torch.mean(v, dim=axis, keepdim=True),
@@ -1143,7 +1185,7 @@ def resample_poly(
             f"'minimum', 'maximum'; got {padtype!r}"
         )
 
-    y = upfirdn(h, x, up, down, axis=axis, cval=ufd_cval, config=config)
+    y = _upfirdn(x, taps, n_h + n_pre_pad + n_post_pad, up, down, axis, ufd_cval, config)
     y = y.narrow(axis, n_pre_remove, n_out)
     if background is not None:
         y = y + background
@@ -1201,6 +1243,7 @@ def _log_floor(mag: Tensor) -> Tensor:
     return torch.log(torch.clamp(mag, min=1e-30))
 
 
+@batch_sharded("axis")
 def rceps(x, n: Optional[int] = None, axis: int = -1,
           *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     """Real cepstrum: ifft(log |fft(x)|).real, for echo/pitch detection and
@@ -1228,6 +1271,13 @@ def _cepstral_ramp(nn: int, like: Tensor) -> Tensor:
                     key=("cceps.ramp", nn))
 
 
+def _from_axis(x, n=None, axis: int = -1, **kwargs):
+    """:func:`cceps`'s ``axes`` for :func:`batch_sharded`: its delays drop
+    ``axis``, so the batch axes kept sharded are those before it."""
+    return range(axis % x.ndim, x.ndim)
+
+
+@batch_sharded(_from_axis)
 def cceps(x, n: Optional[int] = None, axis: int = -1,
           *, config: SpectralConfig = DEFAULT_CONFIG):
     """Complex cepstrum (matlab cceps conventions): ifft(log fft(x)) with
@@ -1248,6 +1298,7 @@ def cceps(x, n: Optional[int] = None, axis: int = -1,
     return torch.movedim(out, -1, axis), nd
 
 
+@batch_sharded("axis")
 def icceps(xhat, ndelay=0, axis: int = -1,
            *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     """Inverse complex cepstrum: exp in the spectral domain, re-applying the
@@ -1268,6 +1319,7 @@ def icceps(xhat, ndelay=0, axis: int = -1,
     return torch.movedim(out, -1, axis)
 
 
+@batch_sharded(last_axis)
 def minimum_phase(
     h, n_fft: Optional[int] = None, half: bool = True,
     *, config: SpectralConfig = DEFAULT_CONFIG,
@@ -1316,6 +1368,7 @@ def minimum_phase(
     return h_min[:n_out]
 
 
+@batch_sharded("axis")
 def detrend(data, axis: int = -1, type: str = "linear", bp=0,
             *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     """Remove a constant or piecewise-linear trend along ``axis``
@@ -1343,6 +1396,7 @@ def detrend(data, axis: int = -1, type: str = "linear", bp=0,
     return torch.movedim(torch.cat(pieces, -1), -1, axis)
 
 
+@batch_sharded("axis")
 def decimate(x, q: int, n: Optional[int] = None, ftype: str = "fir",
              axis: int = -1, zero_phase: bool = True,
              *, config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
@@ -1413,6 +1467,7 @@ def savgol_coeffs(window_length: int, polyorder: int, deriv: int = 0,
     return coeffs
 
 
+@batch_sharded("axis")
 def savgol_filter(x, window_length: int, polyorder: int, deriv: int = 0,
                   delta: float = 1.0, axis: int = -1, mode: str = "interp",
                   cval: float = 0.0,
@@ -1495,12 +1550,19 @@ def group_delay(system, w: int = 512, whole: bool = False,
     return wg, tau
 
 
+def _host(a):
+    """A caller's array on the host: a DTensor gathered (the whole array, as
+    ``np.asarray`` reads a sharded ``jax.Array``), a tensor copied."""
+    if isinstance(a, DTensor):
+        a = a.full_tensor()
+    return a.detach().cpu() if isinstance(a, Tensor) else a
+
+
 def deconvolve(signal, divisor):
     """Polynomial deconvolution (scipy.signal.deconvolve): quotient and
     remainder of ``signal = conv(divisor, quotient) + remainder`` — host
     fp64 long division (deconvolution is plan-time small-vector work)."""
-    num = np.atleast_1d(np.asarray(signal, np.float64))
-    den = np.atleast_1d(np.asarray(divisor, np.float64))
+    num, den = (np.atleast_1d(np.asarray(_host(a), np.float64)) for a in (signal, divisor))
     if den.ndim != 1 or num.ndim != 1:
         raise ValueError("signal and divisor must be 1-D")
     if den.size == 0 or den[0] == 0:
@@ -1783,6 +1845,12 @@ def vectorstrength(events, period):
     return strength, angle
 
 
+def _envelope_lead(z, *args, residual: Optional[str] = "lowpass", **kwargs) -> int:
+    """The axis :func:`envelope` stacks its residual on, in front."""
+    return 0 if residual is None else 1
+
+
+@batch_sharded("axis", lead=_envelope_lead)
 def envelope(z, bp_in: Tuple[Optional[int], Optional[int]] = (1, None), *,
              n_out: Optional[int] = None, squared: bool = False,
              residual: Optional[str] = "lowpass", axis: int = -1,
@@ -1912,6 +1980,13 @@ def firwin_2d(hsize, window, *, fc=None, fs: float = 2.0,
     return np.outer(row, col)
 
 
+def _goertzel_axes(x, *args, axis: int = -1, **kwargs):
+    """:func:`goertzel` moves ``axis`` last: the batch axes kept sharded
+    are those before it."""
+    return range(axis % x.ndim, x.ndim)
+
+
+@batch_sharded(_goertzel_axes)
 def goertzel(x, freqs, *, fs: float = 1.0, axis: int = -1,
              config: SpectralConfig = DEFAULT_CONFIG) -> Tensor:
     """DFT evaluated at arbitrary (non-bin) frequencies: the Goertzel-class

@@ -21,9 +21,11 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..utils.config import DEFAULT_CONFIG, SpectralConfig
 from ..utils.numerics import as_tensor, constant, host_table, on_host, pad_last
+from ..utils.sharding import batch_sharded, dtensor, last_axis, last_two, local_placed
 from .rfft import irfft, rfft
 
 Tensor = torch.Tensor
@@ -241,6 +243,7 @@ def _frame(x: Tensor, nperseg: int, hop: int) -> Tensor:
     return x.unfold(-1, nperseg, hop)
 
 
+@batch_sharded(last_axis)
 def stft(
     x,
     nperseg: int = 256,
@@ -253,7 +256,9 @@ def stft(
     """STFT of a real signal: (..., T) -> (..., frames, nperseg//2 + 1).
 
     ``center=True`` reflect-pads by nperseg//2 so frame f is centered on
-    sample f·hop (librosa/scipy convention).
+    sample f·hop (librosa/scipy convention).  This and every op of the
+    module take a batch-sharded DTensor (``utils.sharding.batch_sharded``):
+    the time (or frame and bin) axes are gathered, the batch stays sharded.
     """
     x = _as_real(x, "stft", config.dtype)
     if noverlap is None:
@@ -291,6 +296,7 @@ def _nola(window, nperseg: int, hop: int, n_frames: int) -> np.ndarray:
     return np.where(wsq > 1e-10, 1.0 / safe, 0.0)
 
 
+@batch_sharded(last_two)
 def istft(
     spec,
     nperseg: int = 256,
@@ -331,6 +337,7 @@ def istft(
     return out
 
 
+@batch_sharded(last_axis)
 def spectrogram(
     x,
     nperseg: int = 256,
@@ -478,7 +485,9 @@ def griffinlim(
     ``torch.compile`` the ``seed`` form compiles (its draws are made on the
     host and kept on the device per seed, shape and dtype, the values an
     eager call draws); ``generator=`` raises ValueError there, since a
-    generator's state cannot enter a graph, and stays an eager form.  Returns
+    generator's state cannot enter a graph, and stays an eager form.  On a
+    batch-sharded DTensor the draws are those of the whole batch, each rank
+    taking its block's, so the result is the single-device call's.  Returns
     the time signal (length inferred from the frame count, or ``length``)."""
     mag = as_tensor(mag)
     if mag.is_complex():
@@ -539,11 +548,22 @@ def griffinlim(
             on_host(_refuse_generator)
         draws = torch.rand(mag.shape, generator=generator, dtype=mag.dtype,
                            device=generator.device).to(mag.device)
+    if isinstance(mag, DTensor):   # each rank's block of the whole batch's draws
+        mesh, placements = mag.device_mesh, mag.placements
+        draws = dtensor(local_placed(draws, mesh, placements), mesh, placements, mag.shape)
+    return _griffinlim_from(mag, draws, n_iter, momentum, invert, project)
+
+
+@batch_sharded(last_two)
+def _griffinlim_from(mag: Tensor, draws: Tensor, n_iter: int, momentum: float, invert,
+                     project) -> Tensor:
+    """Griffin-Lim from the initial phases ``2π·draws``."""
     ph = (2.0 * math.pi) * draws
     spec0 = torch.complex(mag * torch.cos(ph), mag * torch.sin(ph))
     return invert(_griffinlim_loop(mag, spec0, n_iter, momentum, project))
 
 
+@batch_sharded(last_two)
 def phase_vocoder(
     S,
     rate: float,
@@ -592,6 +612,7 @@ def phase_vocoder(
     return mag * torch.complex(torch.cos(phase), torch.sin(phase))
 
 
+@batch_sharded(last_axis)
 def time_stretch(
     x,
     rate: float,
@@ -613,6 +634,7 @@ def time_stretch(
                  config=config)
 
 
+@batch_sharded(last_axis)
 def pitch_shift(
     x,
     sr: float,
